@@ -1,0 +1,20 @@
+"""AECF in PyTorch + CUDA: the port of ``aecf_tpu`` to an NVIDIA H100.
+
+The JAX package ``aecf_tpu`` is the reference; this package imports
+``torch`` and never ``jax``.  Ported so far — the serving path of the
+vision-language model:
+
+    aecf_tpu_torch.core          — pure functions (the CPU oracle)
+    aecf_tpu_torch.kernels       — hand-written CUDA kernels for Hopper,
+                                   each with its plain PyTorch version
+    aecf_tpu_torch.ops           — fusion_pool, dispatching kernel/oracle
+    aecf_tpu_torch.models        — VisionLanguageModel
+    aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher
+    aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
+    aecf_tpu_torch.convert       — params_from_numpy (JAX params → port)
+
+Importing the package touches no CUDA and builds nothing; a kernel is
+compiled at its first launch.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,21 @@
+"""Pure-functional core: the correctness oracle for every other layer."""
+
+from .attention import (
+    AttentionPoolParams,
+    attention_pool_core,
+    scaled_dot_product_attention,
+)
+from .init import init_attention_pool_params, init_fusion_query
+from .masking import EPS, compute_entropy, curriculum_mask, entropy_loss
+
+__all__ = [
+    "AttentionPoolParams",
+    "attention_pool_core",
+    "scaled_dot_product_attention",
+    "init_attention_pool_params",
+    "init_fusion_query",
+    "EPS",
+    "compute_entropy",
+    "curriculum_mask",
+    "entropy_loss",
+]

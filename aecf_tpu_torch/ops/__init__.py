@@ -1,0 +1,138 @@
+"""Op-level API: device-dispatched building blocks.
+
+``fusion_pool`` is the one-call fusion op used by the models — it picks the
+CUDA kernel when the config qualifies and takes the torch oracle path
+otherwise, so model code stays device-agnostic.  The lower layers remain
+importable: :mod:`aecf_tpu_torch.core` (pure math) and
+:mod:`aecf_tpu_torch.kernels` (CUDA kernels).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..core.attention import AttentionPoolParams, attention_pool_core
+from ..core.masking import curriculum_mask
+from ..kernels import fused_fusion_pool_shared, prefers_fused, supports_fused
+from ..kernels.shared_query import _MAX_M, _RESIDENT_E_CAP
+
+__all__ = ["fusion_pool"]
+
+
+def _wants_kernel(params, query, kv, *, num_heads, training, precision):
+    """Static gate of ``implementation='auto'``: the kernel runs only where
+    it is ported and cannot change the call's meaning."""
+    E = query.shape[-1]
+    return (
+        kv.is_cuda
+        and query.shape[0] == 1  # shared (1, 1, E) query
+        and supports_fused(
+            tgt_len=query.shape[1], num_heads=num_heads, embed_dim=E,
+            shared_query=True,
+        )
+        and prefers_fused(num_heads=num_heads)
+        # the streamed split (E > 1024) is not ported
+        and E <= _RESIDENT_E_CAP
+        and query.dtype == torch.float32
+        and kv.dtype in (torch.float32, torch.bfloat16)
+        # the kernel implements "highest"/"default" only
+        and precision != "high"
+        # M <= 1 masking is a no-op that the oracle handles; M above the
+        # kernel's register arrays goes there too
+        and 1 < kv.shape[1] <= _MAX_M
+        # in-kernel training masking is not ported
+        and not training
+        # no backward kernel yet: never cut an autograd graph
+        and not (
+            torch.is_grad_enabled()
+            and (
+                kv.requires_grad
+                or query.requires_grad
+                or any(p.requires_grad for p in params.parameters())
+            )
+        )
+    )
+
+
+def fusion_pool(
+    params: AttentionPoolParams,
+    query: torch.Tensor,  # (1, 1, E) shared or (B, 1, E) per-row
+    kv: torch.Tensor,  # (B, M, E)
+    *,
+    num_heads: int = 1,
+    generator: Optional[torch.Generator] = None,
+    training: bool = False,
+    base_mask_prob: float = 0.15,
+    entropy_target: float = 0.7,
+    min_active: int = 1,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    implementation: str = "auto",
+    precision: str = "highest",
+    kv_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Attention pool + curriculum masking with device dispatch.
+
+    Returns ``(out (B,1,E), weights (B,1,M), masked (B,1,M), info)``.
+    ``implementation='auto'`` runs the shared-query CUDA kernel where
+    :func:`_wants_kernel` allows it; ``'torch'`` forces the oracle path;
+    ``'kernel'`` forces the kernel (its plain version for CPU tensors).
+    ``generator`` draws the training mask.  ``kv_grad=False`` detaches the
+    features.  The torch path runs matmuls at PyTorch's global float32
+    precision setting; ``precision`` selects the path only.
+    """
+    if implementation not in ("auto", "torch", "kernel"):
+        raise ValueError(
+            f"unknown implementation {implementation!r} "
+            "(expected 'auto', 'torch', or 'kernel')"
+        )
+    if not kv_grad:
+        kv = kv.detach()
+    impl = implementation
+    if impl == "auto":
+        impl = (
+            "kernel"
+            if _wants_kernel(
+                params, query, kv, num_heads=num_heads, training=training,
+                precision=precision,
+            )
+            else "torch"
+        )
+
+    if impl == "kernel":
+        if query.shape[0] != 1:
+            raise NotImplementedError(
+                "the per-row-query kernel is not ported yet (ROADMAP.md, "
+                "queue 2: fused_pool.py _fusion_kernel)"
+            )
+        return fused_fusion_pool_shared(
+            params,
+            query,
+            kv,
+            num_heads=num_heads,
+            training=training,
+            key_padding_mask=key_padding_mask,
+            precision=precision,
+        )
+
+    B = kv.shape[0]
+    q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
+    out, weights = attention_pool_core(
+        params,
+        q_full,
+        kv,
+        kv,
+        num_heads=num_heads,
+        key_padding_mask=key_padding_mask,
+        need_weights=True,
+    )
+    masked, info = curriculum_mask(
+        weights,
+        generator=generator,
+        training=training,
+        base_mask_prob=base_mask_prob,
+        entropy_target=entropy_target,
+        min_active=min_active,
+    )
+    return out, weights, masked.detach(), info
