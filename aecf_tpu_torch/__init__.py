@@ -2,7 +2,7 @@
 
 The JAX package ``aecf_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Ported so far — the serving path of the
-vision-language model:
+vision-language model and the pool-protocol training step:
 
     aecf_tpu_torch.core          — pure functions (the CPU oracle)
     aecf_tpu_torch.kernels       — hand-written CUDA kernels for Hopper,
@@ -11,7 +11,11 @@ vision-language model:
     aecf_tpu_torch.models        — VisionLanguageModel
     aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher
     aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
-    aecf_tpu_torch.convert       — params_from_numpy (JAX params → port)
+    aecf_tpu_torch.train         — TrainState, make_pool_train_step,
+                                   init_pool_classifier_params
+    aecf_tpu_torch.convert       — params_from_numpy and the pool
+                                   classifier's converters (JAX params
+                                   → port)
 
 Importing the package touches no CUDA and builds nothing; a kernel is
 compiled at its first launch.

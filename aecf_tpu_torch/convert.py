@@ -9,17 +9,30 @@ The caller flattens a JAX parameter pytree to numpy, for example::
     params_from_numpy(model, flat)
 
 and this module only ever sees numpy arrays: the port imports no JAX.
+The pool classifier of the training slice is a parameter dict rather than
+a module: :func:`pool_classifier_params_from_numpy` builds it from the same
+flat form of JAX's ``init_pool_classifier_params`` pytree, and
+:func:`pool_classifier_params_to_numpy` gives that form back.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy"]
+from .core.attention import AttentionPoolParams
+
+__all__ = [
+    "params_from_numpy",
+    "pool_classifier_params_from_numpy",
+    "pool_classifier_params_to_numpy",
+]
+
+_POOL = ("in_proj_weight", "out_proj_weight", "in_proj_bias", "out_proj_bias")
 
 
 def params_from_numpy(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
@@ -36,3 +49,50 @@ def params_from_numpy(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Modul
     }
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _dotted(key: str) -> str:
+    """``['pool'].in_proj_weight`` / ``['head']['w']`` (keystr) or
+    ``pool.in_proj_weight`` → ``pool.in_proj_weight`` / ``head.w``."""
+    return re.sub(r"\['([^']*)'\]", r".\1", key).lstrip(".")
+
+
+def pool_classifier_params_from_numpy(
+    flat: Dict[str, np.ndarray], device: Optional[torch.device] = None
+) -> Dict[str, Any]:
+    """The port's ``{'pool', 'query'[, 'head']}`` parameters from the flat
+    numpy form of JAX's ``init_pool_classifier_params`` pytree (keystr or
+    dotted paths).  The head weight keeps JAX's ``(E, C)`` layout, which
+    the step kernel takes as it is.  Biases absent from ``flat`` stay
+    absent; every other key must be known."""
+    arrays = {_dotted(k): v for k, v in flat.items()}
+
+    def param(key):
+        value = torch.from_numpy(np.array(arrays.pop(key), dtype=np.float32))
+        return nn.Parameter(value.to(device))
+
+    pool = {n: param(f"pool.{n}") for n in _POOL if f"pool.{n}" in arrays}
+    params: Dict[str, Any] = {
+        "pool": AttentionPoolParams(**pool),
+        "query": param("query"),
+    }
+    head = {k: param(f"head.{k}") for k in ("w", "b") if f"head.{k}" in arrays}
+    if head:
+        params["head"] = head
+    if arrays:
+        raise KeyError(f"unknown parameter paths: {sorted(arrays)}")
+    return params
+
+
+def pool_classifier_params_to_numpy(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`pool_classifier_params_from_numpy`: keystr paths
+    (``['pool'].in_proj_weight``, ``['query']``, ``['head']['w']``) to
+    numpy arrays."""
+    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    flat = {
+        f"['pool'].{n}": to_np(t) for n, t in params["pool"].named_parameters()
+    }
+    flat["['query']"] = to_np(params["query"])
+    for k, t in (params.get("head") or {}).items():
+        flat[f"['head']['{k}']"] = to_np(t)
+    return flat

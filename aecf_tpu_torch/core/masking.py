@@ -7,8 +7,9 @@ renormalisation with the ``<= 1e-8`` fallback).  Randomness comes from an
 explicit ``torch.Generator``; ``mask_override`` injects a pre-drawn mask,
 which is how tests hold this module to the JAX package and to the goldens.
 
-This is the CPU oracle of the port, and the path training takes until the
-training kernels are ported.
+This is the CPU oracle of the port, and the mask of the torch training
+path (``implementation='torch'``); the kernels draw theirs with Philox
+(``aecf_tpu_torch.kernels.draws``).
 """
 
 from __future__ import annotations

@@ -6,14 +6,32 @@ Kernels are compiled and loaded at first launch, never at import.
 from .fused_pool import prefers_fused, supports_fused
 from .shared_query import (
     fused_fusion_pool_shared,
+    shared_query_bwd,
+    shared_query_bwd_plain,
     shared_query_fwd,
     shared_query_fwd_plain,
+)
+from .train_step import (
+    fused_pool_head_train_step,
+    fused_pool_train_step,
+    step_tile,
+    supports_fused_step,
+    train_step,
+    train_step_plain,
 )
 
 __all__ = [
     "fused_fusion_pool_shared",
+    "fused_pool_head_train_step",
+    "fused_pool_train_step",
+    "prefers_fused",
+    "shared_query_bwd",
+    "shared_query_bwd_plain",
     "shared_query_fwd",
     "shared_query_fwd_plain",
+    "step_tile",
     "supports_fused",
-    "prefers_fused",
+    "supports_fused_step",
+    "train_step",
+    "train_step_plain",
 ]

@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` source has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into a shared library at first use, then loaded with
 ``ctypes``.  The library goes to ``build/aecf_tpu_torch/<hash>/`` beside the
 package (the checkout's ``build/``, which git ignores), keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  Nothing is compiled or loaded when this module is imported.
+the source, every ``csrc/*.cuh`` header the sources share, and the flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+Nothing is compiled or loaded when this module is imported.
+:func:`build_all` compiles several sources at once, one ``nvcc`` each.
 
 The flags carry no ``--use_fast_math`` and no ``-ftz=true``: the entropy
 epilogue floors weights at the subnormal 1e-38.
@@ -19,9 +21,11 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Iterable
 
-__all__ = ["load_library", "library_path"]
+__all__ = ["build_all", "load_library", "library_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "aecf_tpu_torch"
@@ -31,8 +35,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
-_loaded: dict = {}
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -47,15 +52,19 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: ``.../<source+flags hash>/``."""
+    """Where ``csrc/<name>.cu`` is built: ``.../<hash>/``, the hash over
+    the source, every shared ``csrc/*.cuh`` header and the flags."""
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
 
 
 def _compile(name: str, lib: Path) -> None:
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -71,10 +80,20 @@ def _compile(name: str, lib: Path) -> None:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library
     (one handle per process)."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _loaded:
             lib = library_path(name)
             if not lib.exists():
                 _compile(name, lib)
             _loaded[name] = ctypes.CDLL(str(lib))
         return _loaded[name]
+
+
+def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Compile and load every named source, all ``nvcc`` runs at once."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = list(pool.map(load_library, names))
+    return dict(zip(names, libs))

@@ -1,6 +1,7 @@
-"""Shared-query fused fusion pool — eval forward, with a CUDA kernel.
+"""Shared-query fused fusion pool — forward (eval and training) and the
+H == 1 backward, with CUDA kernels.
 
-Port of the eval path of :mod:`aecf_tpu.kernels.shared_query`.  Every
+Port of :mod:`aecf_tpu.kernels.shared_query` (resident E only).  Every
 reference flow expands one learnable ``(1, 1, E)`` fusion query across the
 batch, which lets the attention pool be restructured algebraically:
 
@@ -13,18 +14,28 @@ batch, which lets the attention pool be restructured algebraically:
      projections fuse into one precomputed ``W_vo = Wo @ Wv``.
 
 :func:`_prep` (the per-call GEMVs and the ``W_vo`` product) is plain
-PyTorch, as the JAX package leaves it to XLA.  The rest — scores, softmax,
-head mean, entropy, mix and the context GEMM(s) — is one kernel,
-``csrc/shared_query_fwd.cu``, behind :func:`shared_query_fwd`, whose plain
-PyTorch version :func:`shared_query_fwd_plain` runs for CPU tensors.
+PyTorch, as the JAX package leaves it to XLA.  Two kernels:
+
+* ``csrc/shared_query_fwd.cu`` behind :func:`shared_query_fwd` — scores,
+  softmax, head mean, entropy, the training mask chain (Philox draw,
+  ``min_active``, renormalisation; :mod:`.draws`), mix and the context
+  GEMM(s); plain version :func:`shared_query_fwd_plain`;
+* ``csrc/shared_query_bwd.cu`` behind :func:`shared_query_bwd` — the H == 1
+  backward (softmax recompute, ``d_mix = d_out·W_vo``, softmax backward
+  with a weights cotangent, G / du / Σd_out / Σd_s, optional ``d_kv``);
+  plain version :func:`shared_query_bwd_plain`.
+
+:class:`_SharedPool` ties them into one ``torch.autograd.Function``.  H > 1
+runs its backward as plain torch einsums, as the JAX package runs that
+case in XLA.  Each wrapper runs its plain version for CPU tensors and, for
+CUDA tensors, launches its kernel or raises.
 
 Reassociating ``(kv·Wkᵀ)·qp → kv·(Wkᵀ·qp)`` changes the f32 summation
 order, so weights match the naive oracle to ~1e-6, not bitwise.  Padded
 slots get a ``-1e30`` score bias (a fully padded row comes out uniform),
 where the oracle's ``-inf`` gives NaN.
 
-Not ported yet (see ROADMAP.md): the training branch (in-kernel Bernoulli
-masking), the backward kernels, the streamed split for E > 1024 and the
+Not ported yet (see ROADMAP.md): the streamed split for E > 1024 and the
 int8 path.
 """
 
@@ -39,9 +50,12 @@ import torch
 
 from ..core.attention import AttentionPoolParams
 from ._build import load_library
+from .draws import draw_seed_words, mask_and_renorm, mask_uniforms
 
 __all__ = [
     "fused_fusion_pool_shared",
+    "shared_query_bwd",
+    "shared_query_bwd_plain",
     "shared_query_fwd",
     "shared_query_fwd_plain",
 ]
@@ -61,15 +75,16 @@ _MAX_H = 2
 _NOT_PORTED = "not ported yet (ROADMAP.md, queue 2: {})"
 
 
-def _split_params(params: AttentionPoolParams, E: int):
-    """Per-projection weight rows, the bias triple (zeros when the pool has
-    no bias — the kernel always adds biases) and ``W_o``."""
-    wq, wk, wv = params.in_proj_weight.chunk(3, dim=0)
-    if params.in_proj_bias is not None:
-        bq, bk, bv = params.in_proj_bias.chunk(3, dim=0)
+def _split_params(in_w, in_b, out_w):
+    """Per-projection weight rows and the bias triple (zeros when the pool
+    has no bias — the kernels always add biases)."""
+    E = out_w.shape[0]
+    wq, wk, wv = in_w.chunk(3, dim=0)
+    if in_b is not None:
+        bq, bk, bv = in_b.chunk(3, dim=0)
     else:
-        bq = bk = bv = params.in_proj_weight.new_zeros(E)
-    return wq, wk, wv, bq, bk, bv, params.out_proj_weight
+        bq = bk = bv = in_w.new_zeros(E)
+    return wq, wk, wv, bq, bk, bv
 
 
 def _pad_bias_rows(key_padding_mask: Optional[torch.Tensor]):
@@ -80,27 +95,56 @@ def _pad_bias_rows(key_padding_mask: Optional[torch.Tensor]):
     return torch.where(key_padding_mask, -1e30, 0.0).to(torch.float32)
 
 
-def _prep(params: AttentionPoolParams, qrow: torch.Tensor, num_heads: int):
-    """Per-call precompute (tiny GEMVs): score vectors ``u (H, E)``, offsets
-    ``c (H,)`` and the context weights — ``W_vo``/``b_ctx`` for H == 1
-    (``wo``/``bo`` then None), ``Wv``/``bv`` plus ``Wo``/``bo`` for H > 1."""
+def _prep_tensors(in_w, in_b, out_w, out_b, qrow, num_heads: int):
+    """:func:`_prep` on the parameter tensors; also returns ``qp`` and the
+    score scale, which the backwards need."""
     E = qrow.shape[-1]
     H = num_heads
     Dh = E // H
-    wq, wk, wv, bq, bk, bv, wo = _split_params(params, E)
-    bo = (
-        params.out_proj_bias
-        if params.out_proj_bias is not None
-        else qrow.new_zeros(E)
-    )
+    wq, wk, wv, bq, bk, bv = _split_params(in_w, in_b, out_w)
+    bo = out_b if out_b is not None else qrow.new_zeros(E)
     scale = Dh ** -0.5
     qp = qrow @ wq.T + bq  # (E,)
     qph = qp.reshape(H, Dh)
     u = scale * torch.einsum("hd,hde->he", qph, wk.reshape(H, Dh, E))
     c = scale * (qph * bk.reshape(H, Dh)).sum(-1)  # (H,)
     if H == 1:
-        return u.contiguous(), c, wo @ wv, wo @ bv + bo, None, None
-    return u.contiguous(), c, wv.contiguous(), bv.contiguous(), wo, bo
+        ctxw = (u.contiguous(), c, out_w @ wv, out_w @ bv + bo, None, None)
+    else:
+        ctxw = (u.contiguous(), c, wv.contiguous(), bv.contiguous(), out_w, bo)
+    return ctxw, qp, scale
+
+
+def _prep(params: AttentionPoolParams, qrow: torch.Tensor, num_heads: int):
+    """Per-call precompute (tiny GEMVs): score vectors ``u (H, E)``, offsets
+    ``c (H,)`` and the context weights — ``W_vo``/``b_ctx`` for H == 1
+    (``wo``/``bo`` then None), ``Wv``/``bv`` plus ``Wo``/``bo`` for H > 1."""
+    return _prep_tensors(
+        params.in_proj_weight, params.in_proj_bias, params.out_proj_weight,
+        params.out_proj_bias, qrow, num_heads,
+    )[0]
+
+
+def _entropy(w: torch.Tensor) -> torch.Tensor:
+    """The kernels' epilogue entropy: ``clip(-Σ w log(max(w, 1e-38)),
+    0, ln M)`` over the last axis, zero-weight slots contributing 0."""
+    M = w.shape[-1]
+    max_entropy = math.log(M) if M > 1 else 0.0
+    plogp = torch.where(w > 0, w * torch.log(w.clamp_min(1e-38)), 0.0)
+    return (-plogp.sum(dim=-1)).clamp(0.0, max_entropy)
+
+
+def _side_outputs(w, ent, *, training, seed, mask_prob, min_active):
+    """``(mw, rate)``: eval passes ``w`` through with rate 0; training runs
+    the Philox mask chain (M > 1)."""
+    B, M = w.shape
+    if not training or M <= 1:
+        return w.clone(), torch.zeros_like(ent)  # its own tensor, as the kernel's
+    mw, rate, _ = mask_and_renorm(
+        w, ent, mask_uniforms(seed, B, M, w.device), mask_prob=mask_prob,
+        min_active=min_active,
+    )
+    return mw, rate
 
 
 def shared_query_fwd_plain(
@@ -112,9 +156,16 @@ def shared_query_fwd_plain(
     bctx: torch.Tensor,  # (E,)
     wo: Optional[torch.Tensor],  # (E, E), H > 1 only
     bo: Optional[torch.Tensor],  # (E,), H > 1 only
+    *,
+    training: bool = False,
+    seed: Tuple[int, int] = (0, 0),
+    mask_prob: float = 0.15,
+    min_active: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's function in plain PyTorch: ``(out (B,E), w (B,M),
-    mw (B,M), ent (B,), rate (B,))`` with ``mw = w`` and ``rate = 0``."""
+    mw (B,M), ent (B,), rate (B,))``.  Eval: ``mw = w``, ``rate = 0``.
+    Training (M > 1) masks with the uniforms of
+    :func:`.draws.mask_uniforms` for ``seed``."""
     B, M, E = kv.shape
     H = u.shape[0]
     Dh = E // H
@@ -126,9 +177,7 @@ def shared_query_fwd_plain(
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     a = e / e.sum(dim=-1, keepdim=True)  # (B, H, M)
     w = a.sum(dim=1) * (1.0 / H)
-    max_entropy = math.log(M) if M > 1 else 0.0
-    plogp = torch.where(w > 0, w * torch.log(w.clamp_min(1e-38)), 0.0)
-    ent = (-plogp.sum(dim=-1)).clamp(0.0, max_entropy)
+    ent = _entropy(w)
     mix = torch.einsum("bhm,bme->bhe", a, x)
     if H == 1:
         out = mix[:, 0] @ wctx.T + bctx
@@ -138,7 +187,11 @@ def shared_query_fwd_plain(
             dim=-1,
         )
         out = (ctx + bctx) @ wo.T + bo
-    return out, w, w, ent, torch.zeros_like(ent)
+    mw, rate = _side_outputs(
+        w, ent, training=training, seed=seed, mask_prob=mask_prob,
+        min_active=min_active,
+    )
+    return out, w, mw, ent, rate
 
 
 def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
@@ -159,7 +212,7 @@ def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
         raise ValueError(f"kernel takes E <= {_RESIDENT_E_CAP}, got E={E}")
     if kv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kv must be float32 or bfloat16, got {kv.dtype}")
-    want = {
+    _check_f32(kv, {
         "u": (u, (H, E)),
         "c": (c, (H,)),
         "pad_bias": (pad_bias, (B, M)),
@@ -167,16 +220,21 @@ def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
         "bctx": (bctx, (E,)),
         "wo": (wo, (E, E) if H > 1 else None),
         "bo": (bo, (E,) if H > 1 else None),
-    }
+    }, optional=("pad_bias",), why=f"H == {H}")
+
+
+def _check_f32(kv, want, *, optional=(), why=""):
+    """Each named operand is f32 of its shape on kv's device; ``None``
+    shapes must be absent, names in ``optional`` may be."""
     for name, (t, shape) in want.items():
         if shape is None:
             if t is not None:
-                raise ValueError(f"{name} must be None for H == 1")
+                raise ValueError(f"{name} must be None for {why}")
             continue
         if t is None:
-            if name == "pad_bias":
+            if name in optional:
                 continue
-            raise ValueError(f"{name} is required for H={H}")
+            raise ValueError(f"{name} is required for {why}")
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(
                 f"{name} must be float32 {shape}, got {t.dtype} "
@@ -184,6 +242,26 @@ def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
             )
         if t.device != kv.device:
             raise ValueError(f"{name} is on {t.device}, kv on {kv.device}")
+
+
+def _require_cuda(kv, operands: Dict[str, Optional[torch.Tensor]]) -> None:
+    if kv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {kv.device}")
+    for name, t in operands.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.aecf_cuda_error_string(err).decode()} ({err})"
+        )
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def shared_query_fwd(
@@ -195,33 +273,29 @@ def shared_query_fwd(
     bctx: torch.Tensor,
     wo: Optional[torch.Tensor] = None,
     bo: Optional[torch.Tensor] = None,
+    *,
+    training: bool = False,
+    seed: Tuple[int, int] = (0, 0),
+    mask_prob: float = 0.15,
+    min_active: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/shared_query_fwd.cu``; operands as in
     :func:`shared_query_fwd_plain`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel or
     raise — there is no fallback.  ``shared_query_fwd.launches`` counts
-    kernel launches (the plain version does not count).
+    kernel launches (the plain version does not count).  The outputs
+    carry no autograd graph: :func:`fused_fusion_pool_shared` is the
+    differentiable entry.
     """
     _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo)
+    kw = dict(training=training, seed=seed, mask_prob=mask_prob,
+              min_active=min_active)
     if kv.device.type == "cpu":
-        return shared_query_fwd_plain(kv, u, c, pad_bias, wctx, bctx, wo, bo)
-    if kv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {kv.device}")
-    operands = [kv, u, c, pad_bias, wctx, bctx, wo, bo]
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in operands
-    ):
-        raise RuntimeError(
-            "the shared-query kernel has no backward yet "
-            + _NOT_PORTED.format("_bwd_kernel")
-            + "; run it under torch.no_grad()/inference_mode(), or use "
-            "implementation='torch'"
-        )
-    for name, t in zip("kv u c pad_bias wctx bctx wo bo".split(), operands):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
+        return shared_query_fwd_plain(kv, u, c, pad_bias, wctx, bctx, wo, bo,
+                                      **kw)
+    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias, wctx=wctx,
+                           bctx=bctx, wo=wo, bo=bo))
     B, M, E = kv.shape
     H = u.shape[0]
     out = torch.empty((B, E), dtype=torch.float32, device=kv.device)
@@ -229,21 +303,18 @@ def shared_query_fwd(
     mw = torch.empty_like(w)
     ent = torch.empty((B,), dtype=torch.float32, device=kv.device)
     rate = torch.empty_like(ent)
-    lib = _library()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _fwd_library()
     with torch.cuda.device(kv.device):
         err = lib.aecf_shared_query_fwd(
-            ptr(kv), int(kv.dtype == torch.bfloat16),
-            ptr(u), ptr(c), ptr(pad_bias), ptr(wctx), ptr(wo), ptr(bctx),
-            ptr(bo), ptr(out), ptr(w), ptr(mw), ptr(ent), ptr(rate),
-            B, M, E, H, math.log(M) if M > 1 else 0.0,
+            _ptr(kv), int(kv.dtype == torch.bfloat16),
+            _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(wctx), _ptr(wo),
+            _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
+            _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
+            int(bool(training)), seed[0], seed[1], float(mask_prob),
+            int(min_active),
             torch.cuda.current_stream(kv.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"shared_query_fwd launch failed: "
-            f"{lib.aecf_cuda_error_string(err).decode()} ({err})"
-        )
+    _raise_on_error(lib, err, "shared_query_fwd")
     shared_query_fwd.launches += 1
     return out, w, mw, ent, rate
 
@@ -251,30 +322,373 @@ def shared_query_fwd(
 shared_query_fwd.launches = 0
 
 
+def philox_on_device(rows: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 of each ``(c0, c1, c2, c3, k0, k1)`` row of ``rows``
+    (int64 words) computed by the CUDA kernels' device code; returns the
+    ``(n, 4)`` words as int64.  The known-answer check of the generator
+    the kernels draw with."""
+    if rows.device.type != "cuda":
+        raise ValueError("the device generator runs on a CUDA tensor")
+    words = rows.to(torch.int32).contiguous()  # two's-complement uint32
+    out = torch.empty((rows.shape[0], 4), dtype=torch.int32,
+                      device=rows.device)
+    lib = _fwd_library()
+    with torch.cuda.device(rows.device):
+        err = lib.aecf_philox4x32_10(
+            words.data_ptr(), out.data_ptr(), rows.shape[0],
+            torch.cuda.current_stream(rows.device).cuda_stream,
+        )
+    _raise_on_error(lib, err, "philox4x32_10")
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _fwd_library() -> ctypes.CDLL:
     lib = load_library("shared_query_fwd")
     p = ctypes.c_void_p
     i = ctypes.c_int
+    u32 = ctypes.c_uint32
+    f = ctypes.c_float
     lib.aecf_shared_query_fwd.argtypes = (
-        [p, i] + [p] * 12 + [i, i, i, i, ctypes.c_float, p]
+        [p, i] + [p] * 12 + [i, i, i, i, f, i, u32, u32, f, i, p]
     )
     lib.aecf_shared_query_fwd.restype = i
+    lib.aecf_philox4x32_10.argtypes = [p, p, i, p]
+    lib.aecf_philox4x32_10.restype = i
     lib.aecf_cuda_error_string.argtypes = [i]
     lib.aecf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _forward(params, qrow, kv, key_padding_mask, *, num_heads):
-    u, c, wctx, bctx, wo, bo = _prep(params, qrow, num_heads)
-    pad_bias = _pad_bias_rows(key_padding_mask)
-    return shared_query_fwd(kv, u, c, pad_bias, wctx, bctx, wo, bo)
+# ---- the H == 1 backward ---------------------------------------------------
 
 
-def _package_outputs(out, w, mw, ent, rate):
-    """Eval packaging: ``(out (B,1,E), weights (B,1,M), masked (B,1,M),
-    {entropy, mask_rate})``."""
-    info = {"entropy": ent[:, None], "mask_rate": rate[:, None].detach()}
+def shared_query_bwd_plain(
+    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    u: torch.Tensor,  # (E,)
+    c: torch.Tensor,  # (1,)
+    pad_bias: Optional[torch.Tensor],  # (B, M) or None
+    d_out: torch.Tensor,  # (B, E)
+    d_w: Optional[torch.Tensor],  # (B, M) or None
+    wvo: torch.Tensor,  # (E, E)
+    *,
+    want_dkv: bool,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward kernel's function in plain PyTorch.  Returns ``(d_kv
+    (B,M,E) in kv's dtype or None, G (E,E) = Σ_b d_outᵀ mix, du (E,),
+    Σ_b d_out (E,), dc = Σ d_s (0-d))``."""
+    B, M, E = kv.shape
+    x = kv.float()
+    s = torch.einsum("bme,e->bm", x, u) + c
+    if pad_bias is not None:
+        s = s + pad_bias
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    a = e / e.sum(dim=-1, keepdim=True)  # (B, M)
+    mix = torch.einsum("bm,bme->be", a, x)
+    d_mix = d_out @ wvo
+    d_a = torch.einsum("be,bme->bm", d_mix, x)
+    if d_w is not None:
+        d_a = d_a + d_w
+    d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
+    d_kv = None
+    if want_dkv:
+        d_kv = (a[..., None] * d_mix[:, None, :] + d_s[..., None] * u).to(
+            kv.dtype
+        )
+    G = d_out.T @ mix
+    du = torch.einsum("bm,bme->e", d_s, x)
+    return d_kv, G, du, d_out.sum(dim=0), d_s.sum()
+
+
+def shared_query_bwd(
+    kv: torch.Tensor,
+    u: torch.Tensor,
+    c: torch.Tensor,
+    pad_bias: Optional[torch.Tensor],
+    d_out: torch.Tensor,
+    d_w: Optional[torch.Tensor],
+    wvo: torch.Tensor,
+    *,
+    want_dkv: bool,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Wrapper of ``csrc/shared_query_bwd.cu``; operands and results as in
+    :func:`shared_query_bwd_plain`.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise.  ``shared_query_bwd.launches``
+    counts kernel launches."""
+    if kv.ndim != 3 or kv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"kv must be float32/bfloat16 (B, M, E), got {kv.dtype} "
+            f"{tuple(kv.shape)}"
+        )
+    B, M, E = kv.shape
+    if not 1 <= M <= _MAX_M or E > _RESIDENT_E_CAP:
+        raise ValueError(
+            f"kernel takes 1 <= M <= {_MAX_M} and E <= {_RESIDENT_E_CAP}, "
+            f"got M={M}, E={E}"
+        )
+    _check_f32(kv, {
+        "u": (u, (E,)), "c": (c, (1,)), "pad_bias": (pad_bias, (B, M)),
+        "d_out": (d_out, (B, E)), "d_w": (d_w, (B, M)),
+        "wvo": (wvo, (E, E)),
+    }, optional=("pad_bias", "d_w"), why="the backward")
+    if kv.device.type == "cpu":
+        return shared_query_bwd_plain(kv, u, c, pad_bias, d_out, d_w, wvo,
+                                      want_dkv=want_dkv)
+    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias, d_out=d_out,
+                           d_w=d_w, wvo=wvo))
+    if E % 4:
+        raise ValueError(f"the backward kernel takes E divisible by 4, got E={E}")
+    lib = _bwd_library()
+    dev = kv.device
+    d_kv = torch.empty_like(kv) if want_dkv else None
+    G = torch.empty((E, E), dtype=torch.float32, device=dev)
+    sums = torch.empty((2 * E + 1,), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.aecf_shared_query_bwd_workspace(B, E),),
+                     dtype=torch.float32, device=dev)
+    params = _BwdParams(
+        _ptr(kv), _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(d_out), _ptr(d_w),
+        _ptr(wvo), _ptr(d_kv), _ptr(G), _ptr(sums), _ptr(ws), B, M, E,
+        int(kv.dtype == torch.bfloat16),
+    )
+    with torch.cuda.device(dev):
+        err = lib.aecf_shared_query_bwd(
+            ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream
+        )
+    _raise_on_error(lib, err, "shared_query_bwd")
+    shared_query_bwd.launches += 1
+    return d_kv, G, sums[:E], sums[E : 2 * E], sums[2 * E]
+
+
+shared_query_bwd.launches = 0
+
+
+class _BwdParams(ctypes.Structure):
+    """``BwdParams`` of ``csrc/shared_query_bwd.cu``, field for field."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "kv", "u", "c", "pad", "dout", "dw", "wvo", "dkv", "g", "sums",
+            "ws",
+        )
+    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_bf16")]
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library("shared_query_bwd")
+    lib.aecf_shared_query_bwd_workspace.argtypes = [ctypes.c_int] * 2
+    lib.aecf_shared_query_bwd_workspace.restype = ctypes.c_size_t
+    lib.aecf_shared_query_bwd.argtypes = [
+        ctypes.POINTER(_BwdParams), ctypes.c_void_p,
+    ]
+    lib.aecf_shared_query_bwd.restype = ctypes.c_int
+    lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.aecf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _g_epilogue(G, dsum_out, wv, wo, bv, has_out_bias):
+    """``(dWo, dWv, d_bv, dbo)`` from ``G = Σ_b d_out ⊗ mix`` — two E×E
+    GEMMs once per call (plain torch, as the JAX package leaves them to
+    XLA)."""
+    dWo = G @ wv.T + torch.outer(dsum_out, bv)
+    dWv = wo.T @ G
+    d_bv = dsum_out @ wo
+    return dWo, dWv, d_bv, (dsum_out if has_out_bias else None)
+
+
+def _query_path_grads(scale, qph, wkh, bk, du, dc, wq, qrow, has_bias):
+    """Query/key-projection backward: ``u_h = scale·(qp_h @ Wk_h)``,
+    ``c_h = scale·(qp_h · bk_h)`` ⇒ grads for qp, Wk, bk, Wq and the query
+    row.  ``qph`` (H, Dh), ``wkh`` (H, Dh, E), ``du`` (H, E), ``dc`` (H,)."""
+    H, Dh = qph.shape
+    E = wkh.shape[2]
+    bkh = bk.reshape(H, Dh)
+    d_qph = scale * (
+        torch.einsum("he,hde->hd", du, wkh) + dc[:, None] * bkh
+    )
+    dWk = (scale * torch.einsum("hd,he->hde", qph, du)).reshape(H * Dh, E)
+    d_bk = (scale * dc[:, None] * qph).reshape(H * Dh) if has_bias else None
+    d_qp = d_qph.reshape(H * Dh)
+    return d_qp, dWk, d_bk, torch.outer(d_qp, qrow), d_qp @ wq
+
+
+def _assemble_d_params(dWq, dWk, dWv, dWo, d_qp, d_bk, d_bv, dbo, has_bias):
+    """Gradients keyed like the pool's parameters (packed in-projection)."""
+    return {
+        "in_proj_weight": torch.cat([dWq, dWk, dWv], dim=0),
+        "out_proj_weight": dWo,
+        "in_proj_bias": (
+            torch.cat([d_qp, d_bk, d_bv]) if has_bias else None
+        ),
+        "out_proj_bias": dbo,
+    }
+
+
+def _fold_entropy_cotangent(d_w, d_ent, w):
+    """Route an entropy cotangent into the weights cotangent with the
+    analytic jacobian ``∂ent/∂w_m = -(log w_m + 1)`` (w > 0), gated by the
+    clip interval — never autograd of ``log(max(w, 1e-38))``, whose
+    reciprocal of the subnormal floor is infinite."""
+    if d_ent is None:
+        return d_w
+    M = w.shape[-1]
+    max_entropy = math.log(M) if M > 1 else 0.0
+    safe_w = w.clamp_min(1e-30)  # normal f32: the reciprocal stays finite
+    dplogp = torch.where(w > 0, torch.log(safe_w) + 1.0, 0.0)
+    ent_raw = -torch.where(w > 0, w * torch.log(safe_w), 0.0).sum(
+        dim=-1, keepdim=True
+    )
+    inside = (ent_raw >= 0.0) & (ent_raw <= max_entropy)
+    extra = torch.where(inside, -d_ent[:, None], 0.0) * dplogp
+    return extra if d_w is None else d_w + extra
+
+
+def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv):
+    """H == 1 backward through the backward kernel (``_bwd_pallas``)."""
+    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    E = kv.shape[-1]
+    wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
+    (u, c, wvo, _, _, _), qp, scale = _prep_tensors(
+        in_w, in_b, out_w, out_b, qrow, 1
+    )
+    d_kv, G, du, dsum_out, dc = shared_query_bwd(
+        kv, u[0], c, _pad_bias_rows(kpm), d_out.contiguous(),
+        None if d_w is None else d_w.contiguous(), wvo, want_dkv=want_dkv,
+    )
+    dWo, dWv, d_bv, dbo = _g_epilogue(
+        G, dsum_out, wv, out_w, bv, out_b is not None
+    )
+    d_qp, dWk, d_bk, dWq, d_qrow = _query_path_grads(
+        scale, qp.reshape(1, E), wk.reshape(1, E, E), bk, du.reshape(1, E),
+        dc.reshape(1), wq, qrow, in_b is not None,
+    )
+    d_params = _assemble_d_params(
+        dWq, dWk, dWv, dWo, d_qp, d_bk, d_bv, dbo, in_b is not None
+    )
+    return d_params, d_qrow, d_kv
+
+
+def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads):
+    """H > 1 backward in plain torch (``_shared_bwd_impl``): the JAX
+    package runs this case as XLA einsums, so it has no kernel."""
+    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    B, M, E = kv.shape
+    H = num_heads
+    Dh = E // H
+    wq, wk, wv, bq, bk, bv = _split_params(in_w, in_b, out_w)
+    scale = Dh ** -0.5
+    x = kv.float()
+    qp = qrow @ wq.T + bq
+    qph = qp.reshape(H, Dh)
+    wkh = wk.reshape(H, Dh, E)
+    u = scale * torch.einsum("hd,hde->he", qph, wkh)
+    c = scale * (qph * bk.reshape(H, Dh)).sum(-1)
+    s = torch.einsum("bme,he->bhm", x, u) + c[None, :, None]
+    if kpm is not None:
+        s = torch.where(kpm[:, None, :], -1e30, s)
+    a = torch.softmax(s, dim=-1)  # (B, H, M)
+    mix = torch.einsum("bhm,bme->bhe", a, x)
+    wvh = wv.reshape(H, Dh, E)
+    # out/V-projection backward (_out_vproj_bwd)
+    ctx = torch.einsum("bhe,hde->bhd", mix, wvh).reshape(B, E) + bv
+    d_ctx = d_out @ out_w
+    dWo = d_out.T @ ctx
+    dbo = d_out.sum(0) if out_b is not None else None
+    d_ctx_h = d_ctx.reshape(B, H, Dh)
+    d_mix = torch.einsum("bhd,hde->bhe", d_ctx_h, wvh)
+    dWv = torch.einsum("bhd,bhe->hde", d_ctx_h, mix).reshape(E, E)
+    d_bv = d_ctx.sum(0)
+
+    d_a = torch.einsum("bhe,bme->bhm", d_mix, x)
+    if d_w is not None:
+        d_a = d_a + d_w[:, None, :] / H
+    d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
+    d_kv = None
+    if want_dkv:
+        d_kv = (
+            torch.einsum("bhm,bhe->bme", a, d_mix)
+            + torch.einsum("bhm,he->bme", d_s, u)
+        ).to(kv.dtype)
+    d_u = torch.einsum("bhm,bme->he", d_s, x)
+    d_c = d_s.sum((0, 2))
+    d_qp, dWk, d_bk, dWq, d_qrow = _query_path_grads(
+        scale, qph, wkh, bk, d_u, d_c, wq, qrow, in_b is not None
+    )
+    d_params = _assemble_d_params(
+        dWq, dWk, dWv, dWo, d_qp, d_bk, d_bv, dbo, in_b is not None
+    )
+    return d_params, d_qrow, d_kv
+
+
+def _forward(tensors, kpm, num_heads, mask_kw):
+    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    u, c, wctx, bctx, wo, bo = _prep_tensors(
+        in_w, in_b, out_w, out_b, qrow, num_heads
+    )[0]
+    return shared_query_fwd(
+        kv, u, c, _pad_bias_rows(kpm), wctx, bctx, wo, bo, **mask_kw
+    )
+
+
+class _SharedPool(torch.autograd.Function):
+    """Forward kernel + backward (kernel for H == 1), the port of
+    ``_shared_core``'s custom VJP.  Returns ``(out, w, mw, ent, rate)``;
+    ``mw`` and ``rate`` carry no gradient, and the backward folds an
+    entropy cotangent into the weights' (``_fold_entropy_cotangent``).
+    The backward needs no mask and no draw: the output flows through the
+    unmasked weights (quirk Q1)."""
+
+    @staticmethod
+    def forward(ctx, in_w, in_b, out_w, out_b, qrow, kv, kpm, num_heads,
+                mask_kw):
+        tensors = (in_w, in_b, out_w, out_b, qrow, kv)
+        out, w, mw, ent, rate = _forward(tensors, kpm, num_heads, mask_kw)
+        ctx.save_for_backward(*tensors, kpm, w)
+        ctx.num_heads = num_heads
+        ctx.mark_non_differentiable(mw, rate)
+        return out, w, mw, ent, rate
+
+    @staticmethod
+    def backward(ctx, d_out, d_w, _d_mw, d_ent, _d_rate):
+        *tensors, kpm, w = ctx.saved_tensors
+        d_w = _fold_entropy_cotangent(d_w, d_ent, w)
+        want_dkv = ctx.needs_input_grad[5]
+        if ctx.num_heads == 1:
+            d_params, d_qrow, d_kv = _bwd_h1(tensors, kpm, d_out, d_w,
+                                             want_dkv)
+        else:
+            d_params, d_qrow, d_kv = _bwd_heads(
+                tensors, kpm, d_out, d_w, want_dkv, ctx.num_heads
+            )
+        return (
+            d_params["in_proj_weight"], d_params["in_proj_bias"],
+            d_params["out_proj_weight"], d_params["out_proj_bias"],
+            d_qrow, d_kv, None, None, None,
+        )
+
+
+def _package_outputs(out, w, mw, ent, rate, *, training, M, entropy_target):
+    """``(out (B,1,E), weights (B,1,M), masked (B,1,M), info)`` with the
+    JAX package's info contract: eval ``{entropy, mask_rate}`` (entropy
+    differentiable); training ``{entropy, mask_rate, target_entropy}``,
+    all detached (quirk Q2), zeros when M == 1."""
+    entropy = ent[:, None].detach()
+    mask_rate = rate[:, None].detach()
+    if training and M > 1:
+        info = {
+            "entropy": entropy,
+            "mask_rate": mask_rate,
+            "target_entropy": torch.full_like(
+                entropy, math.log(M) * float(entropy_target)
+            ),
+        }
+    elif training:
+        zeros = torch.zeros_like(entropy)
+        info = {"entropy": zeros, "mask_rate": zeros, "target_entropy": zeros}
+    else:
+        info = {"entropy": ent[:, None], "mask_rate": mask_rate}
     return out[:, None, :], w[:, None, :], mw[:, None, :].detach(), info
 
 
@@ -284,16 +698,26 @@ def fused_fusion_pool_shared(
     kv: torch.Tensor,  # (B, M, E)
     *,
     num_heads: int = 1,
+    generator: Optional[torch.Generator] = None,
     training: bool = False,
+    base_mask_prob: float = 0.15,
+    entropy_target: float = 0.7,
+    min_active: int = 1,
     key_padding_mask: Optional[torch.Tensor] = None,
     precision: str = "default",
+    kv_grad: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """Fused fusion pool for a batch-shared query (eval).
+    """Fused fusion pool for a batch-shared query, differentiable.
 
     Returns ``(out (B,1,E), weights (B,1,M), masked (B,1,M), info)`` with
-    ``info = {entropy, mask_rate}``, as the JAX function does in eval.
-    ``precision`` is ``"default"`` or ``"highest"``; both run full f32 FMAs
-    in this kernel (tighter than the JAX package's bf16 ``"default"``).
+    the JAX function's info contract.  ``training=True`` draws the
+    curriculum mask in the kernel from two seed words taken from
+    ``generator`` (a CPU ``torch.Generator``, in place of JAX's ``rng=``).
+    Gradients flow to the pool's parameters, ``query`` (its ``(1, 1, E)``
+    shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
+    ``precision`` is ``"default"`` or ``"highest"``; both run full f32
+    FMAs in these kernels (tighter than the JAX package's bf16
+    ``"default"``).
     """
     if query.shape[:2] != (1, 1):
         raise ValueError(
@@ -305,11 +729,7 @@ def fused_fusion_pool_shared(
             f"fused kernels support precision 'default' or 'highest', got "
             f"{precision!r} — use implementation='torch' for other modes"
         )
-    if training:
-        raise NotImplementedError(
-            "training=True: in-kernel curriculum masking is "
-            + _NOT_PORTED.format("_shared_kernel training branch")
-        )
+    M = kv.shape[1]
     E = kv.shape[-1]
     if E > _STREAMED_E_CAP:
         raise ValueError(
@@ -321,7 +741,26 @@ def fused_fusion_pool_shared(
             f"E={E} needs the streamed split, "
             + _NOT_PORTED.format("_mix_kernel")
         )
+    if training and generator is None and M > 1:
+        raise ValueError(
+            "fused_fusion_pool_shared(training=True) needs a `generator=`"
+        )
+    mask_kw = dict(
+        training=training, seed=draw_seed_words(generator),
+        mask_prob=float(base_mask_prob), min_active=int(min_active),
+    )
+    if not kv_grad:
+        kv = kv.detach()
+    tensors = (params.in_proj_weight, params.in_proj_bias,
+               params.out_proj_weight, params.out_proj_bias, query[0, 0, :],
+               kv)
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        outs = _SharedPool.apply(*tensors, key_padding_mask, num_heads,
+                                 mask_kw)
+    else:
+        outs = _forward(tensors, key_padding_mask, num_heads, mask_kw)
     return _package_outputs(
-        *_forward(params, query[0, 0, :], kv, key_padding_mask,
-                  num_heads=num_heads)
+        *outs, training=training, M=M, entropy_target=entropy_target
     )

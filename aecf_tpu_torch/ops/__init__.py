@@ -21,9 +21,11 @@ from ..kernels.shared_query import _MAX_M, _RESIDENT_E_CAP
 __all__ = ["fusion_pool"]
 
 
-def _wants_kernel(params, query, kv, *, num_heads, training, precision):
-    """Static gate of ``implementation='auto'``: the kernel runs only where
-    it is ported and cannot change the call's meaning."""
+def _wants_kernel(params, query, kv, *, num_heads, precision):
+    """Static gate of ``implementation='auto'``: the kernels run only where
+    they are ported and cannot change the call's meaning.  Training and
+    gradients take them too (forward kernel with in-kernel masking, H == 1
+    backward kernel)."""
     E = query.shape[-1]
     return (
         kv.is_cuda
@@ -42,17 +44,6 @@ def _wants_kernel(params, query, kv, *, num_heads, training, precision):
         # M <= 1 masking is a no-op that the oracle handles; M above the
         # kernel's register arrays goes there too
         and 1 < kv.shape[1] <= _MAX_M
-        # in-kernel training masking is not ported
-        and not training
-        # no backward kernel yet: never cut an autograd graph
-        and not (
-            torch.is_grad_enabled()
-            and (
-                kv.requires_grad
-                or query.requires_grad
-                or any(p.requires_grad for p in params.parameters())
-            )
-        )
     )
 
 
@@ -78,7 +69,9 @@ def fusion_pool(
     ``implementation='auto'`` runs the shared-query CUDA kernel where
     :func:`_wants_kernel` allows it; ``'torch'`` forces the oracle path;
     ``'kernel'`` forces the kernel (its plain version for CPU tensors).
-    ``generator`` draws the training mask.  ``kv_grad=False`` detaches the
+    ``generator`` draws the training mask: the kernel takes two seed words
+    from a CPU generator, the torch path draws ``torch.bernoulli`` from a
+    generator on ``kv``'s device.  ``kv_grad=False`` detaches the
     features.  The torch path runs matmuls at PyTorch's global float32
     precision setting; ``precision`` selects the path only.
     """
@@ -94,8 +87,7 @@ def fusion_pool(
         impl = (
             "kernel"
             if _wants_kernel(
-                params, query, kv, num_heads=num_heads, training=training,
-                precision=precision,
+                params, query, kv, num_heads=num_heads, precision=precision
             )
             else "torch"
         )
@@ -111,7 +103,11 @@ def fusion_pool(
             query,
             kv,
             num_heads=num_heads,
+            generator=generator,
             training=training,
+            base_mask_prob=base_mask_prob,
+            entropy_target=entropy_target,
+            min_active=min_active,
             key_padding_mask=key_padding_mask,
             precision=precision,
         )

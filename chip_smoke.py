@@ -9,9 +9,12 @@ Phases (any failure raises and the exit code is not 0):
 
 1. no CUDA device: stop before printing any result;
 2. the card (name, power limit) and the build of every CUDA kernel from
-   the sources in this checkout, with the build time;
+   the sources in this checkout, all ``nvcc`` runs at once, with the build
+   time and each kernel's registers, spills and shared memory;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its callers give it, with the tolerances stated below;
+   shapes its callers give it, with the tolerances stated below: the eval
+   forward, the Philox generator's known answers, the training forward
+   (mask chain), the H=1 backward and the one-pass train step;
 4. the serving slice at full width: ``VisionLanguageModel`` (img 2048 +
    txt 768 → 512 → 1000 classes) with seeded random parameters, behind
    ``FusionPredictor(buckets=(32, 256))`` → ``MicroBatcher`` →
@@ -19,9 +22,16 @@ Phases (any failure raises and the exit code is not 0):
    ragged and concurrent one-row requests; every answer is held against the
    same parameters run on the CPU through the plain path, and the kernel's
    launch count over the run must cover every bucket call;
-5. times (CUDA events) of each kernel and its plain version at the slice
-   shapes, and of one predictor call per bucket;
-6. a JSON line of the kernels, then the last line
+5. the training slice at the north-star width (B=4096, M=3, E=512, H=1,
+   C=14, training on) through ``make_pool_train_step``: a 10-step SGD
+   lockstep of the one-pass step and of the two-pass kernels against the
+   torch path, 30 AdamW steps of the X3 protocol whose loss must fall, and
+   5 head-less quadratic steps with the entropy regularizer; each kernel's
+   launches must equal the steps that run it;
+6. times (CUDA events) of each kernel and its plain version at the slice
+   shapes, of one predictor call per bucket, and samples/s of one training
+   step;
+7. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 float32 matmuls run without TF32 (``allow_tf32 = False`` for both cuBLAS
@@ -50,6 +60,20 @@ TOL_OUT_REL = 2e-5
 TOL_OUT_ABS = 1e-5
 # Served probabilities vs the CPU plain path.
 TOL_PROBS = 1e-5
+# bf16 d_kv: kernel and plain round f32 values that differ in the last f32
+# bits, so a value may land one bf16 step (2^-8 relative) apart.
+TOL_BF16_REL = 2.0 ** -7
+# Batch-summed gradients (G, du, dc, sum d_out, dW_head, db_head) and the
+# summed loss: relative to the largest entry of the reference (dc is a sum
+# that cancels to ~0, so it is held to 1e-4 * max|du|).
+TOL_SUM_REL = 1e-4
+# Masks: where |uniform - keep| < 1e-6 the two versions may fall on either
+# side (their entropies differ in the last bits); nowhere else.
+TOL_KEEP = 1e-6
+TOL_MW = 1e-5
+# The training slice: loss at every step, parameters after the last.
+TOL_LOSS_REL = 1e-4
+TOL_PARAM = 1e-4
 
 KERNEL_SHAPES = {
     "B": (1, 32, 256, 300),
@@ -58,6 +82,14 @@ KERNEL_SHAPES = {
     "H": (1, 2),
 }
 BUCKETS = (32, 256)
+TRAIN_SHAPES = {
+    "B": (1, 32, 300, 4096),
+    "M": (2, 3, 4),
+    "E": (512, 1024),
+}
+# The north-star training step.
+NS_B, NS_M, NS_E, NS_C = 4096, 3, 512, 14
+SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,18 +130,26 @@ def device_report(torch) -> str:
 
 
 def build_kernels() -> None:
-    """Phase 2b: compile every CUDA source of the port."""
-    from aecf_tpu_torch.kernels._build import library_path, load_library
+    """Phase 2b: compile every CUDA source of the port, one nvcc each, all
+    at once."""
+    from aecf_tpu_torch.kernels._build import build_all, library_path
 
     t0 = time.perf_counter()
-    load_library("shared_query_fwd")
-    print(f"build: shared_query_fwd.cu in {time.perf_counter() - t0:.2f} s "
-          f"-> {library_path('shared_query_fwd').relative_to(ROOT)}")
-    log = library_path("shared_query_fwd").parent / "shared_query_fwd.build.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "ptxas info" in line and ("registers" in line or "spill" in line):
-                print(f"  {line.strip()}")
+    build_all(SOURCES)
+    print(f"build: {', '.join(s + '.cu' for s in SOURCES)} in "
+          f"{time.perf_counter() - t0:.2f} s (parallel)")
+    for name in SOURCES:
+        lib = library_path(name)
+        print(f"  {name}: {lib.relative_to(ROOT)}")
+        log = lib.parent / f"{name}.build.log"
+        lines = log.read_text().splitlines() if log.exists() else []
+        for line in lines:
+            if "ptxas info" in line and (
+                "registers" in line or "spill" in line or "smem" in line
+            ):
+                print(f"    {line.strip()}")
+            elif "bytes spill" in line:
+                print(f"    {line.strip()}")
 
 
 def _pool_params(torch, rng, E, device):
@@ -210,6 +250,324 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
     print(f"kernel vs plain: {cases} cases within tolerance "
           f"(w/mw/ent {TOL_W:g} abs, out {TOL_OUT_REL:g}*max|out|"
           f"+{TOL_OUT_ABS:g}, rate exactly 0); max abs err {worst:.3e}")
+    return worst
+
+
+def _hold(name, got, want, tol, where) -> float:
+    """``got`` finite, of ``want``'s shape, within ``tol`` everywhere
+    (``tol`` a number or a tensor of per-element bounds); returns the
+    largest absolute error."""
+    check(
+        tuple(got.shape) == tuple(want.shape)
+        and bool(got.float().isfinite().all()),
+        f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or not "
+        f"finite at {where}",
+    )
+    diff = (got.float() - want.float()).abs()
+    check(
+        bool((diff <= tol).all()),
+        f"{name}: error {diff.max().item():.3e} over its tolerance at {where}",
+    )
+    return diff.max().item() if diff.numel() else 0.0
+
+
+def _sum_tol(want, scale=None) -> float:
+    ref = want if scale is None else scale
+    return TOL_SUM_REL * max(ref.abs().max().item(), 1e-30)
+
+
+def _out_tol(want) -> float:
+    return TOL_OUT_REL * want.abs().max().item() + TOL_OUT_ABS
+
+
+def _dkv_tol(torch, want):
+    if want.dtype == torch.bfloat16:
+        return TOL_BF16_REL * want.float().abs() + _out_tol(want.float())
+    return _out_tol(want)
+
+
+def check_philox(torch) -> None:
+    """Phase 3b: the device Philox4x32-10 against Random123's known
+    answers, and against the plain version on 4096 random rows."""
+    from aecf_tpu_torch.kernels.draws import philox4x32_10
+    from aecf_tpu_torch.kernels.shared_query import philox_on_device
+
+    ones = 0xFFFFFFFF
+    kat = torch.tensor([[0] * 6, [ones] * 6], dtype=torch.int64, device="cuda")
+    want = [
+        [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+        [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD],
+    ]
+    got = philox_on_device(kat).cpu().tolist()
+    check(got == want, f"device Philox known answers: {got}")
+    rows = torch.randint(0, 2**32, (4096, 6), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(5))
+    plain = torch.stack(
+        philox4x32_10(tuple(rows.T[:4]), tuple(rows.T[4:])), dim=1
+    )
+    dev = philox_on_device(rows.cuda()).cpu()
+    check(torch.equal(dev, plain), "device Philox != plain Philox")
+    print("philox: device known answers (Random123) and 4096 random rows "
+          "equal the plain version bit for bit")
+
+
+def _mask_rows(kv, ent_plain, seed, mask_prob):
+    """Rows where some slot's uniform lies within TOL_KEEP of its keep
+    probability (the only rows where kernel and plain may disagree)."""
+    from aecf_tpu_torch.kernels.draws import mask_uniforms
+
+    B, M, _ = kv.shape
+    uni = mask_uniforms(seed, B, M, kv.device)
+    norm = (ent_plain / math.log(M)).clamp(0.0, 1.0)
+    keep = (1.0 - mask_prob * norm).clamp(0.0, 1.0)
+    return ((uni - keep[:, None]).abs() < TOL_KEEP).any(dim=-1)
+
+
+def _hold_masks(name, mw, rate, mw_p, rate_p, near, where) -> int:
+    """Mask agreement: rows away from the keep boundary must agree (rate
+    exactly, mw within TOL_MW); returns how many rows were near it."""
+    far = ~near
+    bad_rate = (rate != rate_p) & far
+    bad_mw = ((mw - mw_p).abs() > TOL_MW).any(dim=-1) & far
+    bad = int((bad_rate | bad_mw).sum())
+    check(bad == 0, f"{name}: {bad} mask rows disagree away from the keep "
+                    f"boundary at {where}")
+    return int(near.sum())
+
+
+def check_training_forward(torch, shapes=TRAIN_SHAPES) -> float:
+    """Phase 3c: the forward kernel's training branch (Philox draw,
+    min_active, renorm) against the plain version on the same CUDA
+    tensors, H = 1 and 2, f32 and bf16, with and without padding."""
+    from aecf_tpu_torch.kernels import shared_query_fwd, shared_query_fwd_plain
+    from aecf_tpu_torch.kernels.draws import draw_seed_words
+    from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
+
+    rng = np.random.default_rng(11)
+    worst, cases, near_rows = 0.0, 0, 0
+    for E in shapes["E"]:
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.tensor(
+            math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+            dtype=torch.float32, device="cuda",
+        )
+        for H in (1, 2):
+            with torch.inference_mode():
+                pre = _prep(params, query[0, 0], H)
+            for dtype in (torch.float32, torch.bfloat16):
+                for padded in (False, True):
+                    for B in shapes["B"]:
+                        for M in shapes["M"]:
+                            kv = torch.tensor(
+                                rng.standard_normal((B, M, E)),
+                                dtype=torch.float32, device="cuda",
+                            ).to(dtype)
+                            pad = None
+                            if padded:
+                                mask = rng.random((B, M)) < 0.3
+                                mask[0, :] = True
+                                pad = _pad_bias_rows(
+                                    torch.tensor(mask, device="cuda"))
+                            seed = draw_seed_words(
+                                torch.Generator().manual_seed(cases))
+                            # min_active = 2 makes the replacement common
+                            kw = dict(training=True, seed=seed,
+                                      mask_prob=0.6, min_active=1 + cases % 2)
+                            with torch.inference_mode():
+                                got = shared_query_fwd(kv, *pre[:2], pad,
+                                                       *pre[2:], **kw)
+                                want = shared_query_fwd_plain(
+                                    kv, *pre[:2], pad, *pre[2:], **kw)
+                            torch.cuda.synchronize()
+                            where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                     f"padded={padded}")
+                            worst = max(
+                                worst,
+                                _hold("out", got[0], want[0],
+                                      _out_tol(want[0]), where),
+                                _hold("w", got[1], want[1], TOL_W, where),
+                                _hold("ent", got[3], want[3], TOL_W, where),
+                            )
+                            near = _mask_rows(kv, want[3], seed, 0.6)
+                            near_rows += _hold_masks(
+                                "training forward", got[2], got[4],
+                                want[2], want[4], near, where)
+                            cases += 1
+    print(f"training forward vs plain: {cases} cases within tolerance (out "
+          f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; masks: "
+          f"rate exact and mw within {TOL_MW:g} on every row whose uniforms "
+          f"are >= {TOL_KEEP:g} from keep; {near_rows} rows within it); "
+          f"max abs err {worst:.3e}")
+    return worst
+
+
+def check_backward(torch, shapes=TRAIN_SHAPES) -> float:
+    """Phase 3d: the H=1 backward kernel against its plain version on the
+    same CUDA tensors, with a weights cotangent, d_kv on and off."""
+    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_bwd_plain
+    from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
+
+    rng = np.random.default_rng(12)
+    worst, cases = 0.0, 0
+    for E in shapes["E"]:
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.tensor(
+            math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+            dtype=torch.float32, device="cuda",
+        )
+        with torch.inference_mode():
+            u, c, wvo, _, _, _ = _prep(params, query[0, 0], 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            for padded in (False, True):
+                for B in shapes["B"]:
+                    for M in shapes["M"]:
+                        t = lambda a: torch.tensor(  # noqa: E731
+                            a, dtype=torch.float32, device="cuda")
+                        kv = t(rng.standard_normal((B, M, E))).to(dtype)
+                        d_out = t(rng.standard_normal((B, E)) / (B * E))
+                        d_w = t(rng.standard_normal((B, M)) / B)
+                        pad = None
+                        if padded:
+                            mask = rng.random((B, M)) < 0.3
+                            mask[:, 0] = False
+                            pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
+                        for want_dkv in (False, True):
+                            args = (kv, u[0], c, pad, d_out, d_w, wvo)
+                            with torch.inference_mode():
+                                got = shared_query_bwd(*args, want_dkv=want_dkv)
+                                want = shared_query_bwd_plain(
+                                    *args, want_dkv=want_dkv)
+                            torch.cuda.synchronize()
+                            where = (f"B={B} M={M} E={E} {dtype} "
+                                     f"padded={padded} d_kv={want_dkv}")
+                            errs = [
+                                _hold("G", got[1], want[1],
+                                      _sum_tol(want[1]), where),
+                                _hold("du", got[2], want[2],
+                                      _sum_tol(want[2]), where),
+                                _hold("sum d_out", got[3], want[3],
+                                      _sum_tol(want[3]), where),
+                                _hold("dc", got[4], want[4],
+                                      _sum_tol(want[4], want[2]), where),
+                            ]
+                            if want_dkv:
+                                check(got[0].dtype == kv.dtype,
+                                      f"d_kv dtype {got[0].dtype}")
+                                errs.append(_hold("d_kv", got[0], want[0],
+                                                  _dkv_tol(torch, want[0]),
+                                                  where))
+                            else:
+                                check(got[0] is None, "d_kv without kv_grad")
+                            worst = max(worst, *errs)
+                            cases += 1
+    print(f"backward vs plain: {cases} cases within tolerance (G/du/sum "
+          f"d_out {TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv "
+          f"as out, bf16 d_kv +{TOL_BF16_REL:g}*|ref|); max abs err "
+          f"{worst:.3e}")
+    return worst
+
+
+def check_step(torch, shapes=TRAIN_SHAPES) -> float:
+    """Phase 3e: the one-pass train-step kernel against its plain version
+    on the same CUDA tensors — quadratic loss and the C=14 head, d_kv on
+    and off — and, for one seed, its mask against the forward kernel's."""
+    from aecf_tpu_torch.kernels import (
+        shared_query_fwd,
+        train_step,
+        train_step_plain,
+    )
+    from aecf_tpu_torch.kernels.draws import draw_seed_words
+    from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
+
+    rng = np.random.default_rng(13)
+    worst, cases, near_rows, same_mask = 0.0, 0, 0, 0
+    C = NS_C
+    for E in shapes["E"]:
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.tensor(
+            math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+            dtype=torch.float32, device="cuda",
+        )
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+        head_w = t(rng.uniform(-E ** -0.5, E ** -0.5, (E, C)))
+        head_b = t(rng.uniform(-E ** -0.5, E ** -0.5, C))
+        with torch.inference_mode():
+            u, c, wvo, bctx, _, _ = _prep(params, query[0, 0], 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            for padded in (False, True):
+                for B in shapes["B"]:
+                    for M in shapes["M"]:
+                        kv = t(rng.standard_normal((B, M, E))).to(dtype)
+                        labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
+                        pad = None
+                        if padded:
+                            mask = rng.random((B, M)) < 0.3
+                            mask[0, :] = True
+                            pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
+                        seed = draw_seed_words(torch.Generator().manual_seed(cases))
+                        for head in (False, True):
+                            for want_dkv in (False, True):
+                                kw = dict(
+                                    inv=1.0 / (B * (C if head else E)),
+                                    want_dkv=want_dkv, training=True,
+                                    seed=seed, mask_prob=0.6, min_active=1,
+                                )
+                                if head:
+                                    kw.update(head_w=head_w, head_b=head_b,
+                                              labels=labels)
+                                args = (kv, u[0], c, pad, wvo, bctx)
+                                with torch.inference_mode():
+                                    got = train_step(*args, **kw)
+                                    want = train_step_plain(*args, **kw)
+                                torch.cuda.synchronize()
+                                where = (f"B={B} M={M} E={E} {dtype} "
+                                         f"padded={padded} head={head} "
+                                         f"d_kv={want_dkv}")
+                                errs = [
+                                    _hold("w", got["w"], want["w"], TOL_W, where),
+                                    _hold("ent", got["ent"], want["ent"], TOL_W,
+                                          where),
+                                    _hold("loss", got["loss"], want["loss"],
+                                          _sum_tol(want["loss"]), where),
+                                ]
+                                for k in ("G", "du", "dsum_out") + (
+                                    ("dW_head", "db_head") if head else ()
+                                ):
+                                    errs.append(_hold(k, got[k], want[k],
+                                                      _sum_tol(want[k]), where))
+                                errs.append(_hold("dc", got["dc"], want["dc"],
+                                                  _sum_tol(want["dc"], want["du"]),
+                                                  where))
+                                if want_dkv:
+                                    check(got["d_kv"].dtype == kv.dtype,
+                                          "d_kv dtype")
+                                    errs.append(_hold(
+                                        "d_kv", got["d_kv"], want["d_kv"],
+                                        _dkv_tol(torch, want["d_kv"]), where))
+                                worst = max(worst, *errs)
+                                near = _mask_rows(kv, want["ent"], seed,
+                                                  0.6)
+                                near_rows += _hold_masks(
+                                    "step", got["mw"], got["rate"],
+                                    want["mw"], want["rate"], near, where)
+                                cases += 1
+                        # the one-pass step and the training forward draw
+                        # the same mask for the same seed
+                        with torch.inference_mode():
+                            fwd = shared_query_fwd(
+                                kv, u, c, pad, wvo, bctx, training=True,
+                                seed=seed, mask_prob=0.6, min_active=1)
+                        torch.cuda.synchronize()
+                        check(torch.equal(fwd[4], got["rate"])
+                              and torch.equal(fwd[2], got["mw"]),
+                              f"step mask != forward mask at B={B} M={M} E={E}")
+                        same_mask += 1
+    print(f"train step vs plain: {cases} cases within tolerance (w/ent "
+          f"{TOL_W:g}, loss/G/du/sum d_out/dW_head/db_head "
+          f"{TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv as "
+          f"the backward's; masks as the forward's, {near_rows} rows near "
+          f"keep); max abs err {worst:.3e}; step mask == forward mask "
+          f"bit for bit in {same_mask} of {same_mask} seeds")
     return worst
 
 
@@ -315,6 +673,243 @@ def serve_slice(torch) -> dict:
     return {"launches": launches, "calls": calls, "gpu_pred": gpu_pred}
 
 
+def _classifier_flat(rng, E, C=None):
+    """Seeded numpy parameters of the pool classifier, under the keystr
+    paths of the JAX ``init_pool_classifier_params`` pytree; biases are
+    nonzero so that every gradient is exercised."""
+    bound = math.sqrt(6.0 / (4 * E))
+    f = lambda a: np.asarray(a, dtype=np.float32)  # noqa: E731
+    flat = {
+        "['pool'].in_proj_weight": f(rng.uniform(-bound, bound, (3 * E, E))),
+        "['pool'].out_proj_weight": f(rng.uniform(-E ** -0.5, E ** -0.5, (E, E))),
+        "['pool'].in_proj_bias": f(0.1 * rng.standard_normal(3 * E)),
+        "['pool'].out_proj_bias": f(0.1 * rng.standard_normal(E)),
+        "['query']": f(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E))),
+    }
+    if C:
+        flat["['head']['w']"] = f(rng.uniform(-E ** -0.5, E ** -0.5, (E, C)))
+        flat["['head']['b']"] = f(rng.uniform(-E ** -0.5, E ** -0.5, C))
+    return flat
+
+
+def _state(torch, flat, opt):
+    from aecf_tpu_torch.convert import pool_classifier_params_from_numpy
+    from aecf_tpu_torch.train import TrainState, param_leaves
+
+    params = pool_classifier_params_from_numpy(flat, device="cuda")
+    return TrainState(params, opt(param_leaves(params)))
+
+
+def _reset_counts():
+    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_fwd, train_step
+
+    for k in (shared_query_fwd, shared_query_bwd, train_step):
+        k.launches = 0
+
+
+def _counts():
+    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_fwd, train_step
+
+    return {
+        "shared_query_fwd": shared_query_fwd.launches,
+        "shared_query_bwd": shared_query_bwd.launches,
+        "train_step": train_step.launches,
+    }
+
+
+def _lockstep(torch, flat, kv, labels, impls, steps, opt, **builder):
+    """Run ``steps`` steps of each impl from the same parameters, holding
+    every impl's loss to the first's at each step and the parameters after
+    the last; returns the launch counts and the worst deviations."""
+    from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    from aecf_tpu_torch.train import make_pool_train_step
+
+    states = {i: _state(torch, flat, opt) for i in impls}
+    fns = {i: make_pool_train_step(impl=i, **builder) for i in impls}
+    gens = {i: torch.Generator().manual_seed(7) for i in impls}
+    ref = impls[0]
+    worst_loss, worst_ent = 0.0, 0.0
+    _reset_counts()
+    for n in range(steps):
+        losses, ents = {}, {}
+        for i in impls:
+            states[i], loss, info = fns[i](states[i], kv, labels, gens[i])
+            losses[i] = float(loss)
+            ents[i] = info["entropy"]
+            check(math.isfinite(losses[i]), f"{i}: loss not finite at step {n}")
+        for i in impls[1:]:
+            rel = abs(losses[i] - losses[ref]) / abs(losses[ref])
+            check(rel <= TOL_LOSS_REL,
+                  f"{i} loss {losses[i]!r} vs {ref} {losses[ref]!r} at step {n}")
+            worst_loss = max(worst_loss, rel)
+            worst_ent = max(worst_ent, _hold("entropy", ents[i], ents[ref],
+                                             TOL_W, f"{i} step {n}"))
+    torch.cuda.synchronize()
+    counts = _counts()
+    flats = {i: pool_classifier_params_to_numpy(states[i].params) for i in impls}
+    worst_param = 0.0
+    for i in impls[1:]:
+        for k, v in flats[ref].items():
+            err = float(np.abs(flats[i][k] - v).max())
+            check(err <= TOL_PARAM, f"{i} param {k} off by {err:.3e} after "
+                                    f"{steps} steps")
+            worst_param = max(worst_param, err)
+    return counts, worst_loss, worst_param, worst_ent, losses
+
+
+def train_slice(torch) -> dict:
+    """Phase 5: the training slice at the north-star width through the
+    entry point a user calls, ``make_pool_train_step``."""
+    B, M, E, C = NS_B, NS_M, NS_E, NS_C
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device="cuda")  # noqa: E731
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    launches = {"shared_query_fwd": 0, "shared_query_bwd": 0, "train_step": 0}
+
+    # (a) X3 protocol, SGD lockstep: one-pass step and two-pass kernels
+    # against the torch path
+    kv = t(rng.standard_normal((B, M, E)))
+    labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
+    counts, wl, wp, we, _ = _lockstep(
+        torch, _classifier_flat(rng, E, C), kv, labels,
+        ("torch", "fused-step", "kernel"), 10, sgd,
+    )
+    check(counts == {"shared_query_fwd": 10, "shared_query_bwd": 10,
+                     "train_step": 10},
+          f"launches {counts} != 10 steps of each kernel path")
+    print(f"slice (a) B={B} M={M} E={E} H=1 C={C} training, 10 SGD(1e-2) "
+          f"steps: fused-step and kernel vs torch — loss rel err max "
+          f"{wl:.3e} (tol {TOL_LOSS_REL:g}), params max abs err {wp:.3e} "
+          f"(tol {TOL_PARAM:g}), entropy {we:.3e}; launches {counts}")
+    for k in launches:
+        launches[k] += counts[k]
+
+    # (b) X3 protocol on learnable synthetic data, AdamW(1e-4, wd 0.01)
+    rs = np.random.default_rng(0)
+    latent = rs.normal(size=(B, 8))
+    feats = [latent @ rs.normal(size=(8, E)) * 0.3
+             + rs.normal(size=(B, E)) * 0.1 for _ in range(M)]
+    kv_x3 = t(np.stack(feats, axis=1))
+    lab_x3 = t((latent @ rs.normal(size=(8, C)) > 0.5).astype(np.float32))
+    from aecf_tpu_torch.train import make_pool_train_step
+
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01)  # noqa: E731
+    state = _state(torch, _classifier_flat(rng, E, C), adamw)
+    step = make_pool_train_step(impl="auto")
+    gen = torch.Generator().manual_seed(1)
+    _reset_counts()
+    losses, rates = [], []
+    for _ in range(30):
+        state, loss, info = step(state, kv_x3, lab_x3, gen)
+        losses.append(float(loss))
+        rates.append(float(info["mask_rate"].mean()))
+    counts = _counts()
+    check(all(math.isfinite(x) for x in losses), "X3 loss not finite")
+    check(losses[-1] < losses[0], f"X3 loss did not fall: {losses}")
+    check(counts["train_step"] == 30 and counts["shared_query_fwd"] == 0,
+          f"impl='auto' launches {counts} != 30 one-pass steps")
+    print(f"slice (b) X3 AdamW(1e-4, wd 0.01), impl='auto', 30 steps: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; mean mask_rate "
+          f"{np.mean(rates):.4f}; launches {counts}")
+    for k in launches:
+        launches[k] += counts[k]
+
+    # (c) head-less quadratic protocol with the entropy regularizer
+    kv_q = t(rng.standard_normal((B, M, E)))
+    counts, wl, wp, we, last = _lockstep(
+        torch, _classifier_flat(rng, E), kv_q, None, ("torch", "fused-step"),
+        5, sgd, entropy_coeff=1.0,
+    )
+    check(counts["train_step"] == 5, f"quadratic launches {counts}")
+    print(f"slice (c) quadratic + entropy_coeff=1.0, 5 SGD steps: fused-step "
+          f"vs torch loss rel err {wl:.3e}, params {wp:.3e}; last loss "
+          f"{last['fused-step']:.6f}; launches {counts}")
+    for k in launches:
+        launches[k] += counts[k]
+    return {"launches": launches, "kv": kv, "labels": labels,
+            "flat": _classifier_flat(np.random.default_rng(22), E, C)}
+
+
+def time_training(torch, smi: str, trained: dict) -> dict:
+    """Phase 6b: each training kernel and its plain version at the
+    north-star shape (turns: plain, kernel, kernel, plain), then samples/s
+    of one ``make_pool_train_step`` call per impl (host clock over 20
+    synchronised steps)."""
+    from aecf_tpu_torch.kernels import (
+        shared_query_bwd,
+        shared_query_bwd_plain,
+        shared_query_fwd,
+        shared_query_fwd_plain,
+        train_step,
+        train_step_plain,
+    )
+    from aecf_tpu_torch.kernels.shared_query import _prep
+    from aecf_tpu_torch.train import make_pool_train_step
+
+    B, M, E, C = NS_B, NS_M, NS_E, NS_C
+    rng = np.random.default_rng(23)
+    kv, labels = trained["kv"], trained["labels"]
+    params = _pool_params(torch, rng, E, "cuda")
+    query = torch.tensor(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+                         dtype=torch.float32, device="cuda")
+    head_w = torch.tensor(rng.uniform(-0.04, 0.04, (E, C)),
+                          dtype=torch.float32, device="cuda")
+    head_b = torch.zeros(C, device="cuda")
+    d_out = torch.tensor(rng.standard_normal((B, E)) / (B * E),
+                         dtype=torch.float32, device="cuda")
+    seed = (12345, 678)
+    with torch.inference_mode():
+        u, c, wvo, bctx, _, _ = _prep(params, query[0, 0], 1)
+    fwd_kw = dict(training=True, seed=seed, mask_prob=0.15, min_active=1)
+    step_kw = dict(inv=1.0 / (B * C), want_dkv=False, training=True, seed=seed,
+                   head_w=head_w, head_b=head_b, labels=labels)
+    pairs = {
+        "shared_query_fwd": (
+            lambda: shared_query_fwd(kv, u, c, None, wvo, bctx, **fwd_kw),
+            lambda: shared_query_fwd_plain(kv, u, c, None, wvo, bctx, None,
+                                           None, **fwd_kw),
+            "training forward"),
+        "shared_query_bwd": (
+            lambda: shared_query_bwd(kv, u[0], c, None, d_out, None, wvo,
+                                     want_dkv=False),
+            lambda: shared_query_bwd_plain(kv, u[0], c, None, d_out, None,
+                                           wvo, want_dkv=False),
+            "backward, no d_kv"),
+        "train_step": (
+            lambda: train_step(kv, u[0], c, None, wvo, bctx, **step_kw),
+            lambda: train_step_plain(kv, u[0], c, None, wvo, bctx, **step_kw),
+            f"one-pass step, BCE head C={C}, no d_kv"),
+    }
+    times = {}
+    with torch.inference_mode():
+        for name, (kernel, plain, what) in pairs.items():
+            p1, k1, k2, p2 = (cuda_ms(torch, f, iters=50, warmup=5)
+                              for f in (plain, kernel, kernel, plain))
+            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            print(f"time {name} ({what}) B={B} M={M} E={E} H=1 f32: kernel "
+                  f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms (mean "
+                  f"{times[name][0]:.5f} vs {times[name][1]:.5f}; {smi})")
+
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    for impl in ("fused-step", "kernel", "torch"):
+        state = _state(torch, trained["flat"], sgd)
+        step = make_pool_train_step(impl=impl)
+        gen = torch.Generator().manual_seed(3)
+        for _ in range(3):
+            state, loss, _ = step(state, kv, labels, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            state, loss, _ = step(state, kv, labels, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"time make_pool_train_step impl={impl} X3 B={B} M={M} E={E} "
+              f"C={C} training: {20 * B / dt:.1f} samples/s, "
+              f"{dt / 20 * 1e3:.4f} ms/step (host clock over 20 synchronised "
+              f"steps; {smi})")
+    return times
+
+
 def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
@@ -331,8 +926,9 @@ def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
 
 
 def time_kernels(torch, smi: str, gpu_pred) -> dict:
-    """Phase 5: kernel vs plain version at the slice shapes (turns: plain,
-    kernel, kernel, plain), then one predictor call per bucket."""
+    """Phase 6a: the eval forward kernel vs its plain version at the
+    serving shapes (turns: plain, kernel, kernel, plain), then one
+    predictor call per bucket."""
     from aecf_tpu_torch.kernels import shared_query_fwd, shared_query_fwd_plain
     from aecf_tpu_torch.kernels.shared_query import _prep
 
@@ -382,20 +978,37 @@ def main() -> None:
     torch = require_cuda()
     smi = device_report(torch)
     build_kernels()
-    max_err = check_kernel_vs_plain(torch)
+    errs = {"shared_query_fwd": check_kernel_vs_plain(torch)}
+    check_philox(torch)
+    errs["shared_query_fwd"] = max(errs["shared_query_fwd"],
+                                   check_training_forward(torch))
+    errs["shared_query_bwd"] = check_backward(torch)
+    errs["train_step"] = check_step(torch)
     served = serve_slice(torch)
-    times = time_kernels(torch, smi, served["gpu_pred"])
-    k_ms, p_ms = times[BUCKETS[-1]]
-    print(json.dumps({"kernels": [{
-        "name": "shared_query_fwd",
-        "route": "cuda",
-        "source": "aecf_tpu_torch/kernels/csrc/shared_query_fwd.cu",
-        "replaces": "aecf_tpu/kernels/shared_query.py:508",
-        "launches": served["launches"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    trained = train_slice(torch)
+    time_kernels(torch, smi, served["gpu_pred"])
+    times = time_training(torch, smi, trained)
+    launches = dict(trained["launches"])
+    launches["shared_query_fwd"] += served["launches"]
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the main path")
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"aecf_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": times[name][0],
+            "plain_ms": times[name][1],
+        }
+        for name, replaces in (
+            ("shared_query_fwd", "aecf_tpu/kernels/shared_query.py:508"),
+            ("shared_query_bwd", "aecf_tpu/kernels/shared_query.py:1148"),
+            ("train_step", "aecf_tpu/kernels/train_step.py:122"),
+        )
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -121,18 +121,25 @@ def test_plain_version_keeps_autograd_on_cpu():
 
 
 def test_training_raises_not_ported():
+    """Training needs a generator for its draw, and E > 1024 needs the
+    streamed split, which is not ported (the error names ROADMAP.md)."""
     _, tp, q, kv, _ = _inputs(6, 4, 2, 1, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="generator"):
         fused_fusion_pool_shared(tp, torch.from_numpy(q), torch.from_numpy(kv),
                                  training=True)
+    e = 2048
+    big = AttentionPoolParams(torch.zeros(3 * e, e), torch.zeros(e, e))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_fusion_pool_shared(big, torch.zeros(1, 1, e), torch.zeros(2, 2, e),
+                                 training=True,
+                                 generator=torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("training", [False, True])
 def test_auto_dispatch_picks_torch_for_cpu_tensors(training):
     _, tp, q, kv, _ = _inputs(7, 4, 2, 1, False)
     q, kv = torch.from_numpy(q), torch.from_numpy(kv)
-    assert not _wants_kernel(tp, q, kv, num_heads=1, training=training,
-                             precision="highest")
+    assert not _wants_kernel(tp, q, kv, num_heads=1, precision="highest")
     before = shared_query_fwd.launches
     with torch.no_grad():
         fusion_pool(tp, q, kv, training=training,
@@ -190,9 +197,13 @@ def test_cuda_source_ships_and_builds_outside_git():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "pyproject.toml"), "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
-    assert set(data["aecf_tpu_torch"]) == {"py.typed", "kernels/csrc/*.cu"}
+    assert set(data["aecf_tpu_torch"]) == {
+        "py.typed", "kernels/csrc/*.cu", "kernels/csrc/*.cuh"
+    }
     pkg = os.path.join(root, "aecf_tpu_torch")
-    assert os.path.exists(os.path.join(pkg, "kernels", "csrc", "shared_query_fwd.cu"))
+    for src in ("shared_query_fwd.cu", "shared_query_bwd.cu", "train_step.cu",
+                "pool_common.cuh"):
+        assert os.path.exists(os.path.join(pkg, "kernels", "csrc", src)), src
     for dirpath, dirnames, filenames in os.walk(pkg):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         if any(f.endswith(".py") for f in filenames):
