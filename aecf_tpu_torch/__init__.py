@@ -1,9 +1,13 @@
 """AECF in PyTorch + CUDA: the port of ``aecf_tpu`` to an NVIDIA H100.
 
 The JAX package ``aecf_tpu`` is the reference; this package imports
-``torch`` and never ``jax``.  Ported so far — the serving path of the
-vision-language model and the pool-protocol training step:
+``torch`` and never ``jax``.  Public API (the reference's
+``aecf/__init__.py``): ``CurriculumMasking``, ``MultimodalAttentionPool``,
+``multimodal_attention_pool``, ``create_fusion_pool``.  Ported so far —
+the module API, the serving path of the vision-language model and the
+pool-protocol training step:
 
+    aecf_tpu_torch.nn            — the four public symbols (nn.Modules)
     aecf_tpu_torch.core          — pure functions (the CPU oracle)
     aecf_tpu_torch.kernels       — hand-written CUDA kernels for Hopper,
                                    each with its plain PyTorch version
@@ -13,12 +17,24 @@ vision-language model and the pool-protocol training step:
     aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
     aecf_tpu_torch.train         — TrainState, make_pool_train_step,
                                    init_pool_classifier_params
-    aecf_tpu_torch.convert       — params_from_numpy and the pool
-                                   classifier's converters (JAX params
-                                   → port)
+    aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
+                                   into the port's modules
 
 Importing the package touches no CUDA and builds nothing; a kernel is
 compiled at its first launch.
 """
 
+from .nn import (
+    CurriculumMasking,
+    MultimodalAttentionPool,
+    create_fusion_pool,
+    multimodal_attention_pool,
+)
+
 __version__ = "0.1.0"
+__all__ = [
+    "CurriculumMasking",
+    "MultimodalAttentionPool",
+    "multimodal_attention_pool",
+    "create_fusion_pool",
+]

@@ -27,12 +27,21 @@ from torch import nn
 from .core.attention import AttentionPoolParams
 
 __all__ = [
+    "attention_pool_from_numpy",
     "params_from_numpy",
     "pool_classifier_params_from_numpy",
     "pool_classifier_params_to_numpy",
 ]
 
 _POOL = ("in_proj_weight", "out_proj_weight", "in_proj_bias", "out_proj_bias")
+# AttentionPoolParams field -> MultimodalAttentionPool.attention state key
+# (nn.MultiheadAttention's names)
+_MHA_KEYS = {
+    "in_proj_weight": "in_proj_weight",
+    "in_proj_bias": "in_proj_bias",
+    "out_proj_weight": "out_proj.weight",
+    "out_proj_bias": "out_proj.bias",
+}
 
 
 def params_from_numpy(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
@@ -49,6 +58,23 @@ def params_from_numpy(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Modul
     }
     model.load_state_dict(state, strict=True)
     return model
+
+
+def attention_pool_from_numpy(pool: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
+    """Load JAX ``AttentionPoolParams``, flattened with ``keystr``
+    (``.in_proj_weight``, ``.out_proj_bias``, …), into a
+    :class:`~aecf_tpu_torch.MultimodalAttentionPool` and return it.  The
+    arrays must name exactly the pool's parameters (a ``bias=False`` pool
+    has no biases), with equal shapes."""
+    unknown = sorted(k for k in flat if k.lstrip(".") not in _MHA_KEYS)
+    if unknown:
+        raise KeyError(f"unknown parameter paths: {unknown}")
+    state = {
+        _MHA_KEYS[k.lstrip(".")]: torch.from_numpy(np.array(v))
+        for k, v in flat.items()
+    }
+    pool.attention.load_state_dict(state, strict=True)
+    return pool
 
 
 def _dotted(key: str) -> str:

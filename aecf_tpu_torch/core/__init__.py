@@ -1,20 +1,31 @@
 """Pure-functional core: the correctness oracle for every other layer."""
 
 from .attention import (
+    AttentionPoolConfig,
     AttentionPoolParams,
+    apply_pooled_weights,
     attention_pool_core,
     scaled_dot_product_attention,
 )
 from .init import init_attention_pool_params, init_fusion_query
-from .masking import EPS, compute_entropy, curriculum_mask, entropy_loss
+from .masking import (
+    EPS,
+    CurriculumMaskingConfig,
+    compute_entropy,
+    curriculum_mask,
+    entropy_loss,
+)
 
 __all__ = [
+    "AttentionPoolConfig",
     "AttentionPoolParams",
+    "apply_pooled_weights",
     "attention_pool_core",
     "scaled_dot_product_attention",
     "init_attention_pool_params",
     "init_fusion_query",
     "EPS",
+    "CurriculumMaskingConfig",
     "compute_entropy",
     "curriculum_mask",
     "entropy_loss",

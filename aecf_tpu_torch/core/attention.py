@@ -11,16 +11,48 @@ returned attention weights are head-averaged ``(B, T, S)``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 __all__ = [
+    "AttentionPoolConfig",
     "AttentionPoolParams",
+    "apply_pooled_weights",
     "attention_pool_core",
     "scaled_dot_product_attention",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPoolConfig:
+    """Static attention-pool configuration, validated as the JAX one
+    (reference AECFLayer.py:371-391)."""
+
+    embed_dim: int
+    num_heads: int = 1
+    dropout: float = 0.0
+    bias: bool = True
+    batch_first: bool = True
+
+    def __post_init__(self):
+        if self.embed_dim <= 0:
+            raise ValueError(f"embed_dim must be positive, got {self.embed_dim}")
+        if self.num_heads <= 0:
+            raise ValueError(f"num_heads must be positive, got {self.num_heads}")
+        if self.embed_dim % self.num_heads != 0:
+            raise ValueError(
+                f"embed_dim ({self.embed_dim}) must be divisible by "
+                f"num_heads ({self.num_heads})"
+            )
+        if not 0.0 <= self.dropout <= 1.0:
+            raise ValueError(f"dropout must be in [0, 1], got {self.dropout}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
 
 
 class AttentionPoolParams(nn.Module):
@@ -143,6 +175,33 @@ def attention_pool_core(
     if need_weights:
         return out, attn.mean(dim=1)  # (B, T, S), average_attn_weights=True
     return out, None
+
+
+def apply_pooled_weights(
+    params: AttentionPoolParams,
+    weights: torch.Tensor,  # (B, T, S) — e.g. masked head-averaged weights
+    value: torch.Tensor,  # (B, S, E)
+    *,
+    num_heads: int,
+) -> torch.Tensor:
+    """The pool output from externally supplied attention weights,
+    ``(weights · V_proj) @ out_proj``: the opt-in
+    ``apply_masking_to_output`` extension (the reference never applies
+    masked weights, quirk Q1).  Exact for one head; for several heads the
+    head-averaged weights apply to every head."""
+    B, T, E = weights.shape[0], weights.shape[1], value.shape[2]
+    H = num_heads
+    Dh = E // H
+    w_v = params.in_proj_weight[2 * E :]
+    v = torch.einsum("bse,fe->bsf", value, w_v)
+    if params.in_proj_bias is not None:
+        v = v + params.in_proj_bias[2 * E :]
+    v = v.reshape(B, -1, H, Dh)
+    context = torch.einsum("bts,bshd->bthd", weights, v).reshape(B, T, E)
+    out = torch.einsum("bte,fe->btf", context, params.out_proj_weight)
+    if params.out_proj_bias is not None:
+        out = out + params.out_proj_bias
+    return out
 
 
 def scaled_dot_product_attention(

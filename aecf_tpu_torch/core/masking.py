@@ -14,12 +14,14 @@ path (``implementation='torch'``); the kernels draw theirs with Philox
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 __all__ = [
+    "CurriculumMaskingConfig",
     "compute_entropy",
     "curriculum_mask",
     "entropy_loss",
@@ -28,6 +30,28 @@ __all__ = [
 
 # Matches the reference's registered `_eps` buffer (AECFLayer.py:96).
 EPS = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class CurriculumMaskingConfig:
+    """Static curriculum-masking configuration with the reference's
+    constructor validation (AECFLayer.py:84-89)."""
+
+    base_mask_prob: float = 0.15
+    entropy_target: float = 0.7
+    min_active: int = 1
+
+    def __post_init__(self):
+        if not 0.0 < self.base_mask_prob <= 1.0:
+            raise ValueError(
+                f"base_mask_prob must be in (0, 1], got {self.base_mask_prob}"
+            )
+        if not 0.0 < self.entropy_target <= 1.0:
+            raise ValueError(
+                f"entropy_target must be in (0, 1], got {self.entropy_target}"
+            )
+        if self.min_active < 1:
+            raise ValueError(f"min_active must be >= 1, got {self.min_active}")
 
 
 class _NegSumXlogy(torch.autograd.Function):

@@ -3,7 +3,13 @@
 Kernels are compiled and loaded at first launch, never at import.
 """
 
-from .fused_pool import prefers_fused, supports_fused
+from .fused_pool import (
+    fused_fusion_pool,
+    fused_pool_fwd,
+    fused_pool_fwd_plain,
+    prefers_fused,
+    supports_fused,
+)
 from .shared_query import (
     fused_fusion_pool_shared,
     shared_query_bwd,
@@ -21,7 +27,10 @@ from .train_step import (
 )
 
 __all__ = [
+    "fused_fusion_pool",
     "fused_fusion_pool_shared",
+    "fused_pool_fwd",
+    "fused_pool_fwd_plain",
     "fused_pool_head_train_step",
     "fused_pool_train_step",
     "prefers_fused",

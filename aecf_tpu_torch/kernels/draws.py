@@ -27,7 +27,9 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
+    "device_generator",
     "draw_seed_words",
+    "generator_on",
     "mask_and_renorm",
     "mask_uniforms",
     "philox4x32_10",
@@ -53,6 +55,25 @@ def draw_seed_words(generator: Optional[torch.Generator]) -> Tuple[int, int]:
         )
     words = torch.randint(0, 2**32, (2,), generator=generator)
     return int(words[0]), int(words[1])
+
+
+def device_generator(seed: Tuple[int, int], device) -> torch.Generator:
+    """A generator on ``device`` seeded from two seed words — the torch
+    paths' ``torch.bernoulli`` draws from it, so a caller hands over one
+    CPU generator whatever the path and device."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed[0] << 32) | seed[1])
+    return g
+
+
+def generator_on(
+    generator: Optional[torch.Generator], device
+) -> Optional[torch.Generator]:
+    """``generator`` itself when it lives on ``device``'s kind, else a
+    generator on ``device`` seeded from two words drawn from it."""
+    if generator is None or generator.device.type == torch.device(device).type:
+        return generator
+    return device_generator(draw_seed_words(generator), device)
 
 
 def philox4x32_10(counter, key):

@@ -15,7 +15,13 @@ import torch
 
 from ..core.attention import AttentionPoolParams, attention_pool_core
 from ..core.masking import curriculum_mask
-from ..kernels import fused_fusion_pool_shared, prefers_fused, supports_fused
+from ..kernels import (
+    fused_fusion_pool,
+    fused_fusion_pool_shared,
+    prefers_fused,
+    supports_fused,
+)
+from ..kernels.fused_pool import _kernel_takes
 from ..kernels.shared_query import _MAX_M, _RESIDENT_E_CAP
 
 __all__ = ["fusion_pool"]
@@ -24,19 +30,21 @@ __all__ = ["fusion_pool"]
 def _wants_kernel(params, query, kv, *, num_heads, precision):
     """Static gate of ``implementation='auto'``: the kernels run only where
     they are ported and cannot change the call's meaning.  Training and
-    gradients take them too (forward kernel with in-kernel masking, H == 1
-    backward kernel)."""
+    gradients take them too — for a shared ``(1, 1, E)`` query the forward
+    kernel with in-kernel masking and the H == 1 backward kernel, for a
+    per-row ``(B, 1, E)`` query the per-row forward kernel."""
     E = query.shape[-1]
+    shared = query.shape[0] == 1
     return (
         kv.is_cuda
-        and query.shape[0] == 1  # shared (1, 1, E) query
         and supports_fused(
             tgt_len=query.shape[1], num_heads=num_heads, embed_dim=E,
-            shared_query=True,
+            shared_query=shared,
         )
         and prefers_fused(num_heads=num_heads)
         # the streamed split (E > 1024) is not ported
         and E <= _RESIDENT_E_CAP
+        and (shared or _kernel_takes(kv.shape[1], E, num_heads))
         and query.dtype == torch.float32
         and kv.dtype in (torch.float32, torch.bfloat16)
         # the kernel implements "highest"/"default" only
@@ -66,9 +74,11 @@ def fusion_pool(
     """Attention pool + curriculum masking with device dispatch.
 
     Returns ``(out (B,1,E), weights (B,1,M), masked (B,1,M), info)``.
-    ``implementation='auto'`` runs the shared-query CUDA kernel where
-    :func:`_wants_kernel` allows it; ``'torch'`` forces the oracle path;
-    ``'kernel'`` forces the kernel (its plain version for CPU tensors).
+    ``implementation='auto'`` runs a CUDA kernel where
+    :func:`_wants_kernel` allows it — the shared-query kernels for a
+    ``(1, 1, E)`` query, the per-row kernel for a ``(B, 1, E)`` one;
+    ``'torch'`` forces the oracle path; ``'kernel'`` forces the kernel
+    (its plain version for CPU tensors).
     ``generator`` draws the training mask: the kernel takes two seed words
     from a CPU generator, the torch path draws ``torch.bernoulli`` from a
     generator on ``kv``'s device.  ``kv_grad=False`` detaches the
@@ -93,15 +103,7 @@ def fusion_pool(
         )
 
     if impl == "kernel":
-        if query.shape[0] != 1:
-            raise NotImplementedError(
-                "the per-row-query kernel is not ported yet (ROADMAP.md, "
-                "queue 2: fused_pool.py _fusion_kernel)"
-            )
-        return fused_fusion_pool_shared(
-            params,
-            query,
-            kv,
+        kwargs = dict(
             num_heads=num_heads,
             generator=generator,
             training=training,
@@ -109,8 +111,12 @@ def fusion_pool(
             entropy_target=entropy_target,
             min_active=min_active,
             key_padding_mask=key_padding_mask,
-            precision=precision,
         )
+        if query.shape[0] == 1:
+            return fused_fusion_pool_shared(
+                params, query, kv, precision=precision, **kwargs
+            )
+        return fused_fusion_pool(params, query, kv, **kwargs)
 
     B = kv.shape[0]
     q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query

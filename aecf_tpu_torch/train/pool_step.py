@@ -15,7 +15,7 @@ parameter trajectory to f32 tolerance.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +28,7 @@ from ..kernels import (
     fused_pool_train_step,
     supports_fused_step,
 )
-from ..kernels.draws import draw_seed_words
+from ..kernels.draws import device_generator, draw_seed_words
 from .trainer import TrainState, param_leaves
 
 __all__ = [
@@ -73,15 +73,6 @@ def init_pool_classifier_params(
             head["b"] = uniform((num_classes,))
         params["head"] = head
     return params
-
-
-def _device_generator(seed: Tuple[int, int], device) -> torch.Generator:
-    """A generator on ``device`` seeded from the step's two seed words —
-    the torch path's ``torch.bernoulli`` draws from it, so the caller
-    hands over one CPU generator whatever the path."""
-    g = torch.Generator(device=device)
-    g.manual_seed((seed[0] << 32) | seed[1])
-    return g
 
 
 def _resolve_impl(impl, num_heads, params, kv, precision):
@@ -164,7 +155,7 @@ def _make_local_step(
         from ..ops import fusion_pool
 
         if use == "torch" and training and generator is not None:
-            generator = _device_generator(
+            generator = device_generator(
                 draw_seed_words(generator), kv.device
             )
         out, w, mw, info = fusion_pool(

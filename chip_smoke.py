@@ -14,7 +14,9 @@ Phases (any failure raises and the exit code is not 0):
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its callers give it, with the tolerances stated below: the eval
    forward, the Philox generator's known answers, the training forward
-   (mask chain), the H=1 backward and the one-pass train step;
+   (mask chain), the H=1 backward, the one-pass train step and the
+   per-row-query forward (eval and training, then gradients through its
+   autograd function with the kernel forward against the plain forward);
 4. the serving slice at full width: ``VisionLanguageModel`` (img 2048 +
    txt 768 → 512 → 1000 classes) with seeded random parameters, behind
    ``FusionPredictor(buckets=(32, 256))`` → ``MicroBatcher`` →
@@ -28,9 +30,16 @@ Phases (any failure raises and the exit code is not 0):
    torch path, 30 AdamW steps of the X3 protocol whose loss must fall, and
    5 head-less quadratic steps with the entropy regularizer; each kernel's
    launches must equal the steps that run it;
+   then the module API at the README Quick start's width (B=4096, M=3,
+   E=512, H=1): ``create_fusion_pool`` with the fusion query expanded per
+   row, 30 AdamW steps under a warmup-then-ramp mask schedule, the first 10
+   in lockstep with the same pool forced to ``implementation='torch'``;
+   and the repo's large configuration (B=8192, M=4, E=1024, H=2): one eval
+   call and one gradient step against the torch path;
 6. times (CUDA events) of each kernel and its plain version at the slice
-   shapes, of one predictor call per bucket, and samples/s of one training
-   step;
+   shapes, of one predictor call per bucket, samples/s of one training
+   step, and ms per Quick start module step, ``'auto'`` against
+   ``'torch'``;
 7. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -89,7 +98,18 @@ TRAIN_SHAPES = {
 }
 # The north-star training step.
 NS_B, NS_M, NS_E, NS_C = 4096, 3, 512, 14
-SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step")
+# The per-row-query kernel's grid; the README Quick start at full width
+# (H=1); the repo's large configuration.
+FUSED_SHAPES = {
+    "B": (1, 32, 300, 4096),
+    "M": (2, 3, 4, 8),
+    "E": (512, 1024),
+    "H": (1, 2),
+}
+QS_B, QS_M, QS_E = 4096, 3, 512
+LARGE_B, LARGE_M, LARGE_E, LARGE_H = 8192, 4, 1024, 2
+SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
+           "fused_pool_fwd")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -571,6 +591,127 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
     return worst
 
 
+def check_fused_pool(torch, shapes=FUSED_SHAPES) -> float:
+    """Phase 3f: the per-row-query kernel (``fused_pool_fwd``) against its
+    plain version on the same CUDA tensors: eval and training, f32 and
+    bf16 query and features, with and without padding (a fully padded row
+    included); every other feature batch comes with an expanded (stride 0)
+    query, the Quick start's idiom."""
+    from aecf_tpu_torch.kernels import fused_pool_fwd, fused_pool_fwd_plain
+    from aecf_tpu_torch.kernels.draws import draw_seed_words
+    from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows
+
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst, cases, near_rows, batches = 0.0, 0, 0, 0
+    for E in shapes["E"]:
+        p = _pool_params(torch, rng, E, "cuda")
+        weights = (p.in_proj_weight, p.in_proj_bias, p.out_proj_weight,
+                   p.out_proj_bias)
+        for H in shapes["H"]:
+            errs = {"out": 0.0, "w": 0.0, "ent": 0.0}
+            for dtype in (torch.float32, torch.bfloat16):
+                for padded in (False, True):
+                    for B in shapes["B"]:
+                        for M in shapes["M"]:
+                            q = torch.randn((B, E), generator=gen,
+                                            device="cuda").to(dtype)
+                            if batches % 2:
+                                q = q[:1].expand(B, E)
+                            batches += 1
+                            kv = torch.randn((B, M, E), generator=gen,
+                                             device="cuda").to(dtype)
+                            pad = None
+                            if padded:
+                                mask = torch.rand((B, M), generator=gen,
+                                                  device="cuda") < 0.3
+                                mask[0] = True
+                                pad = _pad_bias_rows(mask)
+                            for training in (False, True):
+                                seed = draw_seed_words(
+                                    torch.Generator().manual_seed(cases))
+                                kw = dict(num_heads=H, training=training,
+                                          seed=seed, mask_prob=0.6,
+                                          min_active=1 + cases % 2)
+                                with torch.inference_mode():
+                                    got = fused_pool_fwd(q, kv, pad, *weights,
+                                                         **kw)
+                                    want = fused_pool_fwd_plain(
+                                        q, kv, pad, *weights, **kw)
+                                torch.cuda.synchronize()
+                                where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                         f"padded={padded} training="
+                                         f"{training} q stride {q.stride(0)}")
+                                errs["out"] = max(errs["out"], _hold(
+                                    "out", got[0], want[0], _out_tol(want[0]),
+                                    where))
+                                errs["w"] = max(errs["w"], _hold(
+                                    "w", got[1], want[1], TOL_W, where))
+                                errs["ent"] = max(errs["ent"], _hold(
+                                    "ent", got[3], want[3], TOL_W, where))
+                                if training:
+                                    near = _mask_rows(kv, want[3], seed, 0.6)
+                                    near_rows += _hold_masks(
+                                        "per-row forward", got[2], got[4],
+                                        want[2], want[4], near, where)
+                                else:
+                                    check(torch.equal(got[2], got[1])
+                                          and bool((got[4] == 0).all()),
+                                          f"eval passthrough at {where}")
+                                cases += 1
+            worst = max(worst, *errs.values())
+            print(f"per-row kernel vs plain E={E} H={H} f32+bf16 padded+not "
+                  f"eval+training B={shapes['B']} M={shapes['M']}: "
+                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    print(f"per-row kernel vs plain: {cases} cases within tolerance (out "
+          f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; eval "
+          f"mw == w, rate 0; training masks as the shared forward's, "
+          f"{near_rows} rows near keep); max abs err {worst:.3e}")
+    return worst
+
+
+def check_fused_pool_grads(torch) -> None:
+    """Phase 3g: gradients through ``_FusedPool`` (``fused_fusion_pool``)
+    with the kernel forward against the plain forward, eval, for the loss
+    ``(out²).mean() + (entropy²).mean()`` (the entropy cotangent folds into
+    the weights'), padded slots included, at the Quick start, the large
+    configuration and a ragged H=2, M=8 batch."""
+    from aecf_tpu_torch.kernels import fused_fusion_pool
+
+    rng = np.random.default_rng(32)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    worst = 0.0
+    for B, M, E, H in ((QS_B, QS_M, QS_E, 1), (300, 8, 512, 2),
+                       (LARGE_B, LARGE_M, LARGE_E, LARGE_H)):
+        params = _pool_params(torch, rng, E, "cuda")
+        q = torch.randn((B, 1, E), generator=gen, device="cuda")
+        kv = torch.randn((B, M, E), generator=gen, device="cuda")
+        kpm = torch.rand((B, M), generator=gen, device="cuda") < 0.3
+        kpm[:, 0] = False
+        grads = {}
+        for impl in ("kernel", "plain"):
+            for t in params.parameters():
+                t.grad = None
+            tq = q.clone().requires_grad_()
+            tkv = kv.clone().requires_grad_()
+            out, _, _, info = fused_fusion_pool(
+                params, tq, tkv, num_heads=H, key_padding_mask=kpm,
+                implementation=impl,
+            )
+            loss = (out ** 2).mean() + (info["entropy"] ** 2).mean()
+            loss.backward()
+            grads[impl] = {n: t.grad.clone() for n, t in params.named_parameters()}
+            grads[impl].update(query=tq.grad, kv=tkv.grad, loss=loss.detach())
+        torch.cuda.synchronize()
+        where = f"B={B} M={M} E={E} H={H} padded"
+        errs = [_hold(k, grads["kernel"][k], v, _sum_tol(v), where)
+                for k, v in grads["plain"].items()]
+        worst = max(worst, *errs)
+    print(f"per-row gradients, kernel forward vs plain forward: 3 shapes "
+          f"within {TOL_SUM_REL:g}*max|ref| for the loss, every parameter, "
+          f"the query and kv; max abs err {worst:.3e}")
+
+
 def _model_params(model, rng):
     """Seeded numpy parameters for every entry of ``model.state_dict()``:
     the fusion query from N(0, √(2/E)), the rest uniform ±1/√n with n the
@@ -700,21 +841,29 @@ def _state(torch, flat, opt):
     return TrainState(params, opt(param_leaves(params)))
 
 
-def _reset_counts():
-    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_fwd, train_step
+def _kernel_wrappers():
+    from aecf_tpu_torch.kernels import (
+        fused_pool_fwd,
+        shared_query_bwd,
+        shared_query_fwd,
+        train_step,
+    )
 
-    for k in (shared_query_fwd, shared_query_bwd, train_step):
+    return {
+        "shared_query_fwd": shared_query_fwd,
+        "shared_query_bwd": shared_query_bwd,
+        "train_step": train_step,
+        "fused_pool_fwd": fused_pool_fwd,
+    }
+
+
+def _reset_counts():
+    for k in _kernel_wrappers().values():
         k.launches = 0
 
 
 def _counts():
-    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_fwd, train_step
-
-    return {
-        "shared_query_fwd": shared_query_fwd.launches,
-        "shared_query_bwd": shared_query_bwd.launches,
-        "train_step": train_step.launches,
-    }
+    return {name: k.launches for name, k in _kernel_wrappers().items()}
 
 
 def _lockstep(torch, flat, kv, labels, impls, steps, opt, **builder):
@@ -775,7 +924,7 @@ def train_slice(torch) -> dict:
         ("torch", "fused-step", "kernel"), 10, sgd,
     )
     check(counts == {"shared_query_fwd": 10, "shared_query_bwd": 10,
-                     "train_step": 10},
+                     "train_step": 10, "fused_pool_fwd": 0},
           f"launches {counts} != 10 steps of each kernel path")
     print(f"slice (a) B={B} M={M} E={E} H=1 C={C} training, 10 SGD(1e-2) "
           f"steps: fused-step and kernel vs torch — loss rel err max "
@@ -828,6 +977,213 @@ def train_slice(torch) -> dict:
         launches[k] += counts[k]
     return {"launches": launches, "kv": kv, "labels": labels,
             "flat": _classifier_flat(np.random.default_rng(22), E, C)}
+
+
+def _quick_start_schedule(step, warmup=10, steps=30):
+    """Mask prob 1e-3 for ``warmup`` steps, then a linear ramp to 0.5 by
+    the last step (``examples/mask_prob_schedule.py``'s curriculum)."""
+    if step < warmup:
+        return 1e-3
+    return 1e-3 + (0.5 - 1e-3) * min(1.0, (step - warmup) / (steps - warmup - 1))
+
+
+def _quick_start(torch, impl, seed=41):
+    """The README Quick start at full width on the card: the fusion query,
+    the pool (``impl``) with the ramp schedule, features, a target and an
+    AdamW(1e-3) optimizer."""
+    from aecf_tpu_torch import create_fusion_pool
+
+    query, pool = create_fusion_pool(
+        QS_E, QS_M, generator=torch.Generator().manual_seed(seed),
+        implementation=impl, device="cuda",
+    )
+    pool.curriculum_masking.schedule = _quick_start_schedule
+    data = torch.Generator(device="cuda").manual_seed(seed + 1)
+    kv = torch.randn((QS_B, QS_M, QS_E), generator=data, device="cuda")
+    target = torch.randn((QS_B, 1, QS_E), generator=data, device="cuda")
+    opt = torch.optim.AdamW([query, *pool.parameters()], lr=1e-3)
+    return query, pool.train(), kv, target, opt
+
+
+def _quick_start_step(query, pool, kv, target, opt, generator, step):
+    """One step as the README writes it: the query expanded per row, a
+    training call, the task loss plus 0.01 of the entropy regularizer."""
+    q = query.expand(kv.shape[0], 1, kv.shape[2])
+    out, info = pool(q, kv, return_info=True, generator=generator, step=step)
+    loss = ((out - target) ** 2).mean() + 0.01 * (
+        pool.curriculum_masking.entropy_loss(info["entropy"])
+    )
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach(), info
+
+
+def _module_state(query, pool):
+    flat = {k: v.detach().cpu().numpy() for k, v in pool.state_dict().items()}
+    flat["query"] = query.detach().cpu().numpy()
+    return flat
+
+
+def module_slice(torch) -> dict:
+    """Phase 5d: the module API at the Quick start's full width through the
+    entry points a user calls (``create_fusion_pool``, the pool, the
+    masking's ``entropy_loss``): 30 AdamW(1e-3) steps under the ramp
+    schedule with ``implementation='auto'`` (the per-row kernel on the
+    card), the first 10 in lockstep with the same pool forced to
+    ``'torch'``, then one eval call.  The loss does not depend on the draws
+    (quirk Q1; the training entropy is detached, quirk Q2), so the two
+    paths agree although they draw differently."""
+    steps, lock = 30, 10
+    runs = {impl: _quick_start(torch, impl) for impl in ("auto", "torch")}
+    gens = {impl: torch.Generator().manual_seed(43) for impl in runs}
+    losses, rates, worst_loss, worst_param = [], [], 0.0, 0.0
+    _reset_counts()
+    for n in range(steps):
+        loss, info = _quick_start_step(*runs["auto"], gens["auto"], n)
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"Quick start loss not finite at {n}")
+        rates.append(float(info["mask_rate"].mean()))
+        if n < lock:
+            ref, _ = _quick_start_step(*runs["torch"], gens["torch"], n)
+            rel = abs(losses[-1] - float(ref)) / abs(float(ref))
+            check(rel <= TOL_LOSS_REL,
+                  f"Quick start loss {losses[-1]!r} vs torch {float(ref)!r} "
+                  f"at step {n}")
+            worst_loss = max(worst_loss, rel)
+        if n == lock - 1:
+            a = _module_state(*runs["auto"][:2])
+            b = _module_state(*runs["torch"][:2])
+            for k, v in b.items():
+                err = float(np.abs(a[k] - v).max())
+                check(err <= TOL_PARAM, f"Quick start {k} off by {err:.3e} "
+                                        f"after {lock} steps")
+                worst_param = max(worst_param, err)
+    query, pool, kv = runs["auto"][:3]
+    with torch.no_grad():
+        _, info = pool.eval()(query.expand(QS_B, 1, QS_E), kv,
+                              return_info=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    eval_rate = float(info["mask_rate"].abs().max())
+    check(losses[-1] < losses[0], f"Quick start loss did not fall: {losses}")
+    check(np.mean(rates[lock:]) > 0 and eval_rate == 0.0,
+          f"mask_rate after the ramp {np.mean(rates[lock:])}, eval {eval_rate}")
+    check(counts == {"shared_query_fwd": 0, "shared_query_bwd": 0,
+                     "train_step": 0, "fused_pool_fwd": steps + 1},
+          f"launches {counts} != {steps + 1} per-row forward calls")
+    print(f"slice (d) Quick start B={QS_B} M={QS_M} E={QS_E} H=1, module "
+          f"API, AdamW(1e-3), warmup then ramp to 0.5: loss {losses[0]:.6f} "
+          f"-> {losses[-1]:.6f} in {steps} steps; lockstep with "
+          f"implementation='torch' over {lock} steps: loss rel err "
+          f"{worst_loss:.3e} (tol {TOL_LOSS_REL:g}), params {worst_param:.3e} "
+          f"(tol {TOL_PARAM:g}); mean mask_rate warmup "
+          f"{np.mean(rates[:lock]):.4f}, ramp {np.mean(rates[lock:]):.4f}, "
+          f"eval {eval_rate}; launches {counts}")
+    return {"launches": counts["fused_pool_fwd"]}
+
+
+def large_config(torch) -> dict:
+    """Phase 5e: the repo's large configuration (B=8192, M=4, E=1024, H=2)
+    through the module: one eval call and one SGD(1e-2) gradient step,
+    each held to the same pool forced to ``implementation='torch'``."""
+    from aecf_tpu_torch import CurriculumMasking, MultimodalAttentionPool
+
+    B, M, E, H = LARGE_B, LARGE_M, LARGE_E, LARGE_H
+    pools = {}
+    for impl in ("auto", "torch"):
+        pools[impl] = MultimodalAttentionPool(
+            E, num_heads=H, curriculum_masking=CurriculumMasking(),
+            generator=torch.Generator().manual_seed(51), implementation=impl,
+            device="cuda",
+        )
+    data = torch.Generator(device="cuda").manual_seed(52)
+    q = torch.randn((B, 1, E), generator=data, device="cuda") * math.sqrt(2.0 / E)
+    kv = torch.randn((B, M, E), generator=data, device="cuda")
+    where = f"B={B} M={M} E={E} H={H}"
+    _reset_counts()
+    got = {}
+    for impl, pool in pools.items():
+        with torch.no_grad():
+            got[impl] = pool.eval()(q, kv, return_info=True)
+        opt = torch.optim.SGD(pool.parameters(), lr=1e-2)
+        out, info = pool.train()(q, kv, return_info=True,
+                                 generator=torch.Generator().manual_seed(53))
+        ((out ** 2).mean() + (info["attention_weights"] ** 2).mean()).backward()
+        got[impl] += ({n: t.grad.clone() for n, t in pool.named_parameters()},)
+        opt.step()
+    torch.cuda.synchronize()
+    counts = _counts()
+    (out_k, info_k, g_k), (out_t, info_t, g_t) = got["auto"], got["torch"]
+    errs = [
+        _hold("eval out", out_k, out_t, _out_tol(out_t), where),
+        _hold("eval weights", info_k["attention_weights"],
+              info_t["attention_weights"], TOL_W, where),
+        _hold("eval entropy", info_k["entropy"], info_t["entropy"], TOL_W,
+              where),
+    ]
+    errs += [_hold(f"grad {k}", g_k[k], v, _sum_tol(v), where)
+             for k, v in g_t.items()]
+    params = {impl: dict(p.named_parameters()) for impl, p in pools.items()}
+    errs += [_hold(f"param {k}", params["auto"][k], v, TOL_PARAM, where)
+             for k, v in params["torch"].items()]
+    check(counts["fused_pool_fwd"] == 2,
+          f"large configuration launches {counts} != 2 per-row calls")
+    print(f"slice (e) large configuration {where}: eval and one SGD step "
+          f"through the module, 'auto' vs 'torch' within tolerance (out "
+          f"{TOL_OUT_REL:g}*max|out|, w/ent {TOL_W:g}, grads {TOL_SUM_REL:g}"
+          f"*max|ref|, params {TOL_PARAM:g}); max abs err {max(errs):.3e}; "
+          f"launches {counts}")
+    return {"launches": counts["fused_pool_fwd"]}
+
+
+def time_module(torch, smi: str) -> tuple:
+    """Phase 6c: the per-row kernel and its plain version (CUDA events,
+    turns plain, kernel, kernel, plain) at the Quick start (training) and
+    the large configuration (eval), then ms per Quick start module step
+    (forward, backward, AdamW; host clock over 20 synchronised steps),
+    ``'auto'`` against ``'torch'``.  Returns the Quick start pair."""
+    from aecf_tpu_torch.kernels import fused_pool_fwd, fused_pool_fwd_plain
+
+    rng = np.random.default_rng(61)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    times = {}
+    for B, M, E, H, training in ((QS_B, QS_M, QS_E, 1, True),
+                                 (LARGE_B, LARGE_M, LARGE_E, LARGE_H, False)):
+        p = _pool_params(torch, rng, E, "cuda")
+        q = torch.randn((1, E), generator=gen, device="cuda").expand(B, E)
+        kv = torch.randn((B, M, E), generator=gen, device="cuda")
+        args = (q, kv, None, p.in_proj_weight, p.in_proj_bias,
+                p.out_proj_weight, p.out_proj_bias)
+        kw = dict(num_heads=H, training=training, seed=(12345, 678))
+        with torch.inference_mode():
+            pair = (lambda: fused_pool_fwd_plain(*args, **kw),
+                    lambda: fused_pool_fwd(*args, **kw))
+            p1, k1, k2, p2 = (cuda_ms(torch, pair[i], iters=50, warmup=5)
+                              for i in (0, 1, 1, 0))
+        times[(B, M, E, H)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"time fused_pool_fwd B={B} M={M} E={E} H={H} f32 "
+              f"{'training' if training else 'eval'}: kernel {k1:.5f}/"
+              f"{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms (mean "
+              f"{times[(B, M, E, H)][0]:.5f} vs {times[(B, M, E, H)][1]:.5f}; "
+              f"{smi})")
+
+    for impl in ("auto", "torch"):
+        run = _quick_start(torch, impl, seed=71)
+        gen_mask = torch.Generator().manual_seed(72)
+        for n in range(3):
+            _quick_start_step(*run, gen_mask, 20 + n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for n in range(20):
+            _quick_start_step(*run, gen_mask, 20 + n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"time Quick start module step implementation={impl} B={QS_B} "
+              f"M={QS_M} E={QS_E} H=1 training: {dt / 20 * 1e3:.4f} ms/step, "
+              f"{20 * QS_B / dt:.1f} samples/s (host clock over 20 "
+              f"synchronised steps: forward, backward, AdamW; {smi})")
+    return times[(QS_B, QS_M, QS_E, 1)]
 
 
 def time_training(torch, smi: str, trained: dict) -> dict:
@@ -984,12 +1340,18 @@ def main() -> None:
                                    check_training_forward(torch))
     errs["shared_query_bwd"] = check_backward(torch)
     errs["train_step"] = check_step(torch)
+    errs["fused_pool_fwd"] = check_fused_pool(torch)
+    check_fused_pool_grads(torch)
     served = serve_slice(torch)
     trained = train_slice(torch)
+    module = module_slice(torch)
+    large = large_config(torch)
     time_kernels(torch, smi, served["gpu_pred"])
     times = time_training(torch, smi, trained)
+    times["fused_pool_fwd"] = time_module(torch, smi)
     launches = dict(trained["launches"])
     launches["shared_query_fwd"] += served["launches"]
+    launches["fused_pool_fwd"] = module["launches"] + large["launches"]
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     print(json.dumps({"kernels": [
@@ -1007,6 +1369,7 @@ def main() -> None:
             ("shared_query_fwd", "aecf_tpu/kernels/shared_query.py:508"),
             ("shared_query_bwd", "aecf_tpu/kernels/shared_query.py:1148"),
             ("train_step", "aecf_tpu/kernels/train_step.py:122"),
+            ("fused_pool_fwd", "aecf_tpu/kernels/fused_pool.py:115"),
         )
     ]}))
     print(json.dumps({"ok": True, "device": {

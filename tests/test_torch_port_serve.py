@@ -210,7 +210,8 @@ def test_importing_the_port_never_imports_jax():
         "import aecf_tpu_torch, aecf_tpu_torch.core, aecf_tpu_torch.kernels\n"
         "import aecf_tpu_torch.ops, aecf_tpu_torch.models, aecf_tpu_torch.serve\n"
         "import aecf_tpu_torch.serving_http, aecf_tpu_torch.convert\n"
-        "import aecf_tpu_torch.train\n"
+        "import aecf_tpu_torch.train, aecf_tpu_torch.nn\n"
+        "from aecf_tpu_torch import create_fusion_pool\n"
         "import torch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
