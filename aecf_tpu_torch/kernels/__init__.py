@@ -16,6 +16,11 @@ from .shared_query import (
     shared_query_bwd_plain,
     shared_query_fwd,
     shared_query_fwd_plain,
+    stream_bwd,
+    stream_bwd_mh,
+    stream_bwd_plain,
+    stream_mix,
+    stream_mix_plain,
 )
 from .train_step import (
     fused_pool_head_train_step,
@@ -39,6 +44,11 @@ __all__ = [
     "shared_query_fwd",
     "shared_query_fwd_plain",
     "step_tile",
+    "stream_bwd",
+    "stream_bwd_mh",
+    "stream_bwd_plain",
+    "stream_mix",
+    "stream_mix_plain",
     "supports_fused",
     "supports_fused_step",
     "train_step",

@@ -1,7 +1,7 @@
 // Device code shared by the port's shared-query kernels for Hopper (sm_90a):
-// shared_query_fwd.cu, shared_query_bwd.cu and train_step.cu include it.
-// The build hashes this header with each source (kernels/_build.py), so an
-// edit here rebuilds all three libraries.
+// shared_query_fwd.cu, shared_query_bwd.cu, train_step.cu, fused_pool_fwd.cu,
+// stream_mix.cu and stream_bwd.cu include it.  The build hashes this header
+// with each source (kernels/_build.py), so an edit here rebuilds them all.
 //
 // What lives here:
 //   * the per-row chain every shared-query kernel runs first — scores
@@ -78,6 +78,35 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch and XLA
+}
+
+// Four consecutive features as one 16-byte (f32) or 8-byte (bf16) access;
+// p must be aligned to that size.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(q[0]);
+  const float2 hi = __bfloat1622float2(q[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);  // round to nearest even
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+// acc + x . y, summed x, y, z, w in that order
+__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
+  return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
+}
+// acc + s x, per component
+__device__ __forceinline__ float4 axpy4(float s, float4 x, float4 acc) {
+  return make_float4(fmaf(s, x.x, acc.x), fmaf(s, x.y, acc.y),
+                     fmaf(s, x.z, acc.z), fmaf(s, x.w, acc.w));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,7 +1,8 @@
-"""Shared-query fused fusion pool — forward (eval and training) and the
-H == 1 backward, with CUDA kernels.
+"""Shared-query fused fusion pool — the resident kernels (E ≤ 1024) and the
+streamed split (H ≤ 2 up to E = 8192, and H == 2 training from E = 512),
+with CUDA kernels.
 
-Port of :mod:`aecf_tpu.kernels.shared_query` (resident E only).  Every
+Port of :mod:`aecf_tpu.kernels.shared_query` (f32/bf16 features).  Every
 reference flow expands one learnable ``(1, 1, E)`` fusion query across the
 batch, which lets the attention pool be restructured algebraically:
 
@@ -14,29 +15,38 @@ batch, which lets the attention pool be restructured algebraically:
      projections fuse into one precomputed ``W_vo = Wo @ Wv``.
 
 :func:`_prep` (the per-call GEMVs and the ``W_vo`` product) is plain
-PyTorch, as the JAX package leaves it to XLA.  Two kernels:
+PyTorch, as the JAX package leaves it to XLA.  Four kernels:
 
 * ``csrc/shared_query_fwd.cu`` behind :func:`shared_query_fwd` — scores,
   softmax, head mean, entropy, the training mask chain (Philox draw,
   ``min_active``, renormalisation; :mod:`.draws`), mix and the context
-  GEMM(s); plain version :func:`shared_query_fwd_plain`;
+  GEMM(s), with the ``(E, E)`` weights read by every block (E ≤ 1024);
 * ``csrc/shared_query_bwd.cu`` behind :func:`shared_query_bwd` — the H == 1
-  backward (softmax recompute, ``d_mix = d_out·W_vo``, softmax backward
-  with a weights cotangent, G / du / Σd_out / Σd_s, optional ``d_kv``);
-  plain version :func:`shared_query_bwd_plain`.
+  backward of that forward (softmax recompute, ``d_mix = d_out·W_vo``,
+  softmax backward with a weights cotangent, G / du / Σd_out / Σd_s,
+  optional ``d_kv``);
+* ``csrc/stream_mix.cu`` behind :func:`stream_mix` — the streamed forward:
+  the same chain, writing the per-head mixes ``(B, H·E)``; the context
+  GEMMs run in cuBLAS (:func:`_context`), so no ``(E, E)`` matrix is in a
+  kernel;
+* ``csrc/stream_bwd.cu`` behind :func:`stream_bwd` (H == 1) and
+  :func:`stream_bwd_mh` (H == 2) — the streamed backward: softmax
+  recompute and backward, optional ``d_kv`` summed over heads, du/dc; its
+  E×E GEMMs run in cuBLAS first.
 
-:class:`_SharedPool` ties them into one ``torch.autograd.Function``.  H > 1
-runs its backward as plain torch einsums, as the JAX package runs that
-case in XLA.  Each wrapper runs its plain version for CPU tensors and, for
-CUDA tensors, launches its kernel or raises.
+Each has a plain version beside it (``*_plain``).  :class:`_SharedPool`
+ties them into one ``torch.autograd.Function``; :func:`_vjp_wants_streamed`
+chooses the route as the JAX package does.  The resident H > 1 backward is
+plain torch, as the JAX package runs that case in XLA.  Each wrapper runs
+its plain version for CPU tensors and, for CUDA tensors, launches its
+kernel or raises.
 
 Reassociating ``(kv·Wkᵀ)·qp → kv·(Wkᵀ·qp)`` changes the f32 summation
 order, so weights match the naive oracle to ~1e-6, not bitwise.  Padded
 slots get a ``-1e30`` score bias (a fully padded row comes out uniform),
 where the oracle's ``-inf`` gives NaN.
 
-Not ported yet (see ROADMAP.md): the streamed split for E > 1024 and the
-int8 path.
+Not ported yet (see ROADMAP.md): the int8 path.
 """
 
 from __future__ import annotations
@@ -58,21 +68,46 @@ __all__ = [
     "shared_query_bwd_plain",
     "shared_query_fwd",
     "shared_query_fwd_plain",
+    "stream_bwd",
+    "stream_bwd_mh",
+    "stream_bwd_plain",
+    "stream_mix",
+    "stream_mix_plain",
 ]
 
-# E cap of the resident kernel: its (kRows, E) mix tile — two of them for
-# H > 1 — lives in shared memory (140 KB at H=2, E=1024 of the 227 KB a
-# block may use).  The JAX package streams E > 1024; that split is not
-# ported, so the port's cap stops here.
+# E cap of the resident kernels: their (kRows, E) mix tile — two of them
+# for H > 1 — lives in shared memory (140 KB at H=2, E=1024 of the 227 KB
+# a block may use).  Above it, H ≤ 2 takes the streamed split.
 _RESIDENT_E_CAP = 1024
-# The JAX streamed split's cap — kept so the capability gate reads like
-# the JAX one.
+# The streamed split's cap, the JAX package's (its kv tile floors at the
+# TPU's (8, 128) tile there); the CUDA kernels hold no E-sized tile.
 _STREAMED_E_CAP = 8192
-# Static bounds of the kernel's per-row register arrays (kMaxM, kMaxH).
+# Below the resident cap, H == 2 training streams from this E up.
+_STREAMED_H2_MIN_E = 512
+# Static bounds of the kernels' per-row register arrays (kMaxM, kMaxH).
 _MAX_M = 8
 _MAX_H = 2
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 2: {})"
+
+def _vjp_wants_streamed(num_heads: int, E: int) -> bool:
+    """Whether the differentiable forward (and every training forward)
+    takes the streamed split — JAX's ``_vjp_wants_streamed``.  Above the
+    resident cap it is the only kernel route (H ≤ 2); below it, H == 2
+    from E = 512, where the one-pass multi-head backward kernel replaces
+    the torch einsum backward.  Gradient-free eval keeps the resident
+    kernel below the cap."""
+    if num_heads > 2:
+        return False
+    if E > _RESIDENT_E_CAP:
+        return True
+    return num_heads == 2 and E >= _STREAMED_H2_MIN_E
+
+
+def _shared_takes(num_heads: int, E: int) -> bool:
+    """Whether the shared-query kernels take this (H, E): a call that may
+    stream needs E divisible by 4 (the streamed kernels' 16-byte
+    accesses)."""
+    return E % 4 == 0 or not _vjp_wants_streamed(num_heads, E)
 
 
 def _split_params(in_w, in_b, out_w):
@@ -147,6 +182,60 @@ def _side_outputs(w, ent, *, training, seed, mask_prob, min_active):
     return mw, rate
 
 
+def _softmax_heads(kv, u, c, pad_bias) -> torch.Tensor:
+    """Per-head softmax weights ``a (B, H, M)`` of the scores
+    ``kv·u_h + c_h + pad``."""
+    s = torch.einsum("bme,he->bhm", kv.float(), u) + c[None, :, None]
+    if pad_bias is not None:
+        s = s + pad_bias[:, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _context(mix, wctx, bctx, wo, bo):
+    """The context GEMMs on the per-head mixes ``(B, H·E)``: ``out = mix
+    W_voᵀ + b_ctx`` (H == 1); the per-head V projection, then ``out = ctx
+    Woᵀ + bo`` (H > 1)."""
+    E = wctx.shape[0]
+    B = mix.shape[0]
+    H = mix.shape[1] // E
+    if H == 1:
+        return mix @ wctx.T + bctx
+    ctx = torch.einsum(
+        "bhe,hde->bhd", mix.reshape(B, H, E), wctx.reshape(H, E // H, E)
+    ).reshape(B, E) + bctx
+    return ctx @ wo.T + bo
+
+
+def stream_mix_plain(
+    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    u: torch.Tensor,  # (H, E)
+    c: torch.Tensor,  # (H,)
+    pad_bias: Optional[torch.Tensor],  # (B, M) or None
+    *,
+    training: bool = False,
+    seed: Tuple[int, int] = (0, 0),
+    mask_prob: float = 0.15,
+    min_active: int = 1,
+) -> Tuple[torch.Tensor, ...]:
+    """The streamed forward kernel's function in plain PyTorch: ``(mix
+    (B, H·E) f32, w (B,M), mw (B,M), ent (B,), rate (B,))``, ``mix`` the
+    per-head ``Σ_m a_hm kv_m`` side by side.  Eval: ``mw = w``, ``rate =
+    0``.  Training (M > 1) masks with the uniforms of
+    :func:`.draws.mask_uniforms` for ``seed``."""
+    B, M, E = kv.shape
+    H = u.shape[0]
+    a = _softmax_heads(kv, u, c, pad_bias)  # (B, H, M)
+    w = a.sum(dim=1) * (1.0 / H)
+    ent = _entropy(w)
+    mix = torch.einsum("bhm,bme->bhe", a, kv.float()).reshape(B, H * E)
+    mw, rate = _side_outputs(
+        w, ent, training=training, seed=seed, mask_prob=mask_prob,
+        min_active=min_active,
+    )
+    return mix, w, mw, ent, rate
+
+
 def shared_query_fwd_plain(
     kv: torch.Tensor,  # (B, M, E) f32 or bf16
     u: torch.Tensor,  # (H, E)
@@ -156,42 +245,14 @@ def shared_query_fwd_plain(
     bctx: torch.Tensor,  # (E,)
     wo: Optional[torch.Tensor],  # (E, E), H > 1 only
     bo: Optional[torch.Tensor],  # (E,), H > 1 only
-    *,
-    training: bool = False,
-    seed: Tuple[int, int] = (0, 0),
-    mask_prob: float = 0.15,
-    min_active: int = 1,
+    **mask_kw,
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's function in plain PyTorch: ``(out (B,E), w (B,M),
-    mw (B,M), ent (B,), rate (B,))``.  Eval: ``mw = w``, ``rate = 0``.
-    Training (M > 1) masks with the uniforms of
-    :func:`.draws.mask_uniforms` for ``seed``."""
-    B, M, E = kv.shape
-    H = u.shape[0]
-    Dh = E // H
-    x = kv.float()
-    if pad_bias is None:
-        pad_bias = x.new_zeros((B, M))
-    s = torch.einsum("bme,he->bhm", x, u)
-    s = s + c[None, :, None] + pad_bias[:, None, :]
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    a = e / e.sum(dim=-1, keepdim=True)  # (B, H, M)
-    w = a.sum(dim=1) * (1.0 / H)
-    ent = _entropy(w)
-    mix = torch.einsum("bhm,bme->bhe", a, x)
-    if H == 1:
-        out = mix[:, 0] @ wctx.T + bctx
-    else:
-        ctx = torch.cat(
-            [mix[:, h] @ wctx[h * Dh : (h + 1) * Dh].T for h in range(H)],
-            dim=-1,
-        )
-        out = (ctx + bctx) @ wo.T + bo
-    mw, rate = _side_outputs(
-        w, ent, training=training, seed=seed, mask_prob=mask_prob,
-        min_active=min_active,
-    )
-    return out, w, mw, ent, rate
+    mw (B,M), ent (B,), rate (B,))`` — :func:`stream_mix_plain` (whose
+    ``training``, ``seed``, ``mask_prob`` and ``min_active`` it takes),
+    then the context GEMMs."""
+    mix, w, mw, ent, rate = stream_mix_plain(kv, u, c, pad_bias, **mask_kw)
+    return _context(mix, wctx, bctx, wo, bo), w, mw, ent, rate
 
 
 def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
@@ -250,6 +311,16 @@ def _require_cuda(kv, operands: Dict[str, Optional[torch.Tensor]]) -> None:
     for name, t in operands.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _require_aligned(operands: Dict[str, Optional[torch.Tensor]]) -> None:
+    """The streamed kernels access these four elements at a time: 16 bytes
+    of f32, 8 of bf16."""
+    for name, t in operands.items():
+        if t is not None and t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(
+                f"{name} must be aligned to {4 * t.element_size()} bytes"
+            )
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
@@ -342,25 +413,247 @@ def philox_on_device(rows: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
-@functools.cache
-def _fwd_library() -> ctypes.CDLL:
-    lib = load_library("shared_query_fwd")
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    u32 = ctypes.c_uint32
-    f = ctypes.c_float
-    lib.aecf_shared_query_fwd.argtypes = (
-        [p, i] + [p] * 12 + [i, i, i, i, f, i, u32, u32, f, i, p]
-    )
-    lib.aecf_shared_query_fwd.restype = i
-    lib.aecf_philox4x32_10.argtypes = [p, p, i, p]
-    lib.aecf_philox4x32_10.restype = i
-    lib.aecf_cuda_error_string.argtypes = [i]
+def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aecf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-# ---- the H == 1 backward ---------------------------------------------------
+# (kv, kv_bf16, *pointers, B, M, E, H, max_entropy, training, seed0, seed1,
+# mask_prob, min_active, stream) of the two forward kernels' C entries
+def _fwd_argtypes(pointers: int):
+    p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    return [p, i] + [p] * pointers + [i, i, i, i, f, i, u32, u32, f, i, p]
+
+
+@functools.cache
+def _fwd_library() -> ctypes.CDLL:
+    lib = load_library("shared_query_fwd")
+    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(12)
+    lib.aecf_shared_query_fwd.restype = ctypes.c_int
+    lib.aecf_philox4x32_10.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.aecf_philox4x32_10.restype = ctypes.c_int
+    return _bind_error_string(lib)
+
+
+# ---- the streamed forward ----------------------------------------------------
+
+
+def _check_stream(kv: torch.Tensor, H: int) -> Tuple[int, int, int]:
+    """Widths every streamed kernel takes; returns ``(B, M, E)``."""
+    if kv.ndim != 3 or kv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"kv must be float32/bfloat16 (B, M, E), got {kv.dtype} "
+            f"{tuple(kv.shape)}"
+        )
+    B, M, E = kv.shape
+    if B < 1 or not 1 <= M <= _MAX_M or not 1 <= H <= _MAX_H or E % 4:
+        raise ValueError(
+            f"the streamed kernels take B >= 1, 1 <= M <= {_MAX_M}, "
+            f"1 <= H <= {_MAX_H} and E divisible by 4, got B={B}, M={M}, "
+            f"H={H}, E={E}"
+        )
+    return B, M, E
+
+
+def stream_mix(
+    kv: torch.Tensor,
+    u: torch.Tensor,
+    c: torch.Tensor,
+    pad_bias: Optional[torch.Tensor],
+    *,
+    training: bool = False,
+    seed: Tuple[int, int] = (0, 0),
+    mask_prob: float = 0.15,
+    min_active: int = 1,
+) -> Tuple[torch.Tensor, ...]:
+    """Wrapper of ``csrc/stream_mix.cu``; operands and results as in
+    :func:`stream_mix_plain`.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise.  ``stream_mix.launches`` counts
+    kernel launches."""
+    H = u.shape[0] if u.ndim == 2 else -1
+    B, M, E = _check_stream(kv, H)
+    _check_f32(kv, {"u": (u, (H, E)), "c": (c, (H,)),
+                    "pad_bias": (pad_bias, (B, M))},
+               optional=("pad_bias",), why="the streamed forward")
+    kw = dict(training=training, seed=seed, mask_prob=mask_prob,
+              min_active=min_active)
+    if kv.device.type == "cpu":
+        return stream_mix_plain(kv, u, c, pad_bias, **kw)
+    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias))
+    _require_aligned(dict(kv=kv, u=u))
+    dev = kv.device
+    mix = torch.empty((B, H * E), dtype=torch.float32, device=dev)
+    w = torch.empty((B, M), dtype=torch.float32, device=dev)
+    mw = torch.empty_like(w)
+    ent = torch.empty((B,), dtype=torch.float32, device=dev)
+    rate = torch.empty_like(ent)
+    lib = _mix_library()
+    with torch.cuda.device(dev):
+        err = lib.aecf_stream_mix(
+            _ptr(kv), int(kv.dtype == torch.bfloat16), _ptr(u), _ptr(c),
+            _ptr(pad_bias), _ptr(mix), _ptr(w), _ptr(mw), _ptr(ent),
+            _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
+            int(bool(training)), seed[0], seed[1], float(mask_prob),
+            int(min_active), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(lib, err, "stream_mix")
+    stream_mix.launches += 1
+    return mix, w, mw, ent, rate
+
+
+stream_mix.launches = 0
+
+
+@functools.cache
+def _mix_library() -> ctypes.CDLL:
+    lib = load_library("stream_mix")
+    lib.aecf_stream_mix.argtypes = _fwd_argtypes(8)
+    lib.aecf_stream_mix.restype = ctypes.c_int
+    return _bind_error_string(lib)
+
+
+# ---- the backwards -----------------------------------------------------------
+
+
+def stream_bwd_plain(
+    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    d_mix: torch.Tensor,  # (B, H·E)
+    d_w: Optional[torch.Tensor],  # (B, M) or None
+    pad_bias: Optional[torch.Tensor],  # (B, M) or None
+    u: torch.Tensor,  # (H, E)
+    c: torch.Tensor,  # (H,)
+    *,
+    want_dkv: bool,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The streamed backward kernels' function in plain PyTorch: from the
+    mix cotangent ``d_mix`` and the head-mean weights cotangent ``d_w``
+    (``d_w / H`` on each head), ``(d_kv (B,M,E) in kv's dtype or None,
+    du (H,E) = Σ_b Σ_m d_s·kv, dc (H,) = Σ d_s)``, ``d_kv`` summed over
+    heads."""
+    B, M, E = kv.shape
+    H = u.shape[0]
+    x = kv.float()
+    a = _softmax_heads(kv, u, c, pad_bias)  # (B, H, M)
+    dm = d_mix.reshape(B, H, E)
+    d_a = torch.einsum("bhe,bme->bhm", dm, x)
+    if d_w is not None:
+        d_a = d_a + d_w[:, None, :] / H
+    d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
+    d_kv = None
+    if want_dkv:
+        d_kv = (
+            torch.einsum("bhm,bhe->bme", a, dm)
+            + torch.einsum("bhm,he->bme", d_s, u)
+        ).to(kv.dtype)
+    return d_kv, torch.einsum("bhm,bme->he", d_s, x), d_s.sum(dim=(0, 2))
+
+
+class _StreamBwdParams(ctypes.Structure):
+    """``StreamBwdParams`` of ``csrc/stream_bwd.cu``, field for field."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("kv", "dmix", "dw", "pad", "u", "c", "dkv", "acc", "ws")
+    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_bf16")]
+
+
+def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv):
+    """Checks and the launch behind :func:`stream_bwd` (``H == 1``) and
+    :func:`stream_bwd_mh` (``H == 2``); None for CPU tensors."""
+    if u.ndim != 2 or u.shape[0] != H:
+        raise ValueError(f"{entry} takes u (H, E) with H == {H}, got "
+                         f"{tuple(u.shape)}")
+    B, M, E = _check_stream(kv, H)
+    _check_f32(kv, {
+        "d_mix": (d_mix, (B, H * E)), "d_w": (d_w, (B, M)),
+        "pad_bias": (pad_bias, (B, M)), "u": (u, (H, E)), "c": (c, (H,)),
+    }, optional=("d_w", "pad_bias"), why="the streamed backward")
+    if kv.device.type == "cpu":
+        return None
+    _require_cuda(kv, dict(kv=kv, d_mix=d_mix, d_w=d_w, pad_bias=pad_bias,
+                           u=u, c=c))
+    _require_aligned(dict(kv=kv, d_mix=d_mix, u=u))
+    lib = _stream_bwd_library()
+    dev = kv.device
+    d_kv = torch.empty_like(kv) if want_dkv else None
+    acc = torch.empty((H * E + H,), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.aecf_stream_bwd_workspace(B, E, H),),
+                     dtype=torch.float32, device=dev)
+    params = _StreamBwdParams(
+        _ptr(kv), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias), _ptr(u), _ptr(c),
+        _ptr(d_kv), _ptr(acc), _ptr(ws), B, M, E,
+        int(kv.dtype == torch.bfloat16),
+    )
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"aecf_{entry}")(
+            ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream
+        )
+    _raise_on_error(lib, err, entry)
+    return d_kv, acc[: H * E].view(H, E), acc[H * E :]
+
+
+def stream_bwd(
+    kv: torch.Tensor,
+    d_mix: torch.Tensor,
+    d_w: Optional[torch.Tensor],
+    pad_bias: Optional[torch.Tensor],
+    u: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    want_dkv: bool,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Wrapper of ``csrc/stream_bwd.cu`` at H == 1 (the port of
+    ``_bwd_kernel_streamed``); operands and results as in
+    :func:`stream_bwd_plain`.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise.  ``stream_bwd.launches`` counts
+    kernel launches."""
+    got = _stream_bwd("stream_bwd", 1, kv, d_mix, d_w, pad_bias, u, c,
+                      want_dkv)
+    if got is None:
+        return stream_bwd_plain(kv, d_mix, d_w, pad_bias, u, c,
+                                want_dkv=want_dkv)
+    stream_bwd.launches += 1
+    return got
+
+
+def stream_bwd_mh(
+    kv: torch.Tensor,
+    d_mix: torch.Tensor,
+    d_w: Optional[torch.Tensor],
+    pad_bias: Optional[torch.Tensor],
+    u: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    want_dkv: bool,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Wrapper of ``csrc/stream_bwd.cu`` at H == 2 (the port of
+    ``_bwd_kernel_streamed_mh``); as :func:`stream_bwd`, counting in
+    ``stream_bwd_mh.launches``."""
+    got = _stream_bwd("stream_bwd_mh", 2, kv, d_mix, d_w, pad_bias, u, c,
+                      want_dkv)
+    if got is None:
+        return stream_bwd_plain(kv, d_mix, d_w, pad_bias, u, c,
+                                want_dkv=want_dkv)
+    stream_bwd_mh.launches += 1
+    return got
+
+
+stream_bwd.launches = 0
+stream_bwd_mh.launches = 0
+
+
+@functools.cache
+def _stream_bwd_library() -> ctypes.CDLL:
+    lib = load_library("stream_bwd")
+    lib.aecf_stream_bwd_workspace.argtypes = [ctypes.c_int] * 3
+    lib.aecf_stream_bwd_workspace.restype = ctypes.c_size_t
+    for entry in (lib.aecf_stream_bwd, lib.aecf_stream_bwd_mh):
+        entry.argtypes = [ctypes.POINTER(_StreamBwdParams), ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    return _bind_error_string(lib)
 
 
 def shared_query_bwd_plain(
@@ -377,27 +670,10 @@ def shared_query_bwd_plain(
     """The backward kernel's function in plain PyTorch.  Returns ``(d_kv
     (B,M,E) in kv's dtype or None, G (E,E) = Σ_b d_outᵀ mix, du (E,),
     Σ_b d_out (E,), dc = Σ d_s (0-d))``."""
-    B, M, E = kv.shape
-    x = kv.float()
-    s = torch.einsum("bme,e->bm", x, u) + c
-    if pad_bias is not None:
-        s = s + pad_bias
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    a = e / e.sum(dim=-1, keepdim=True)  # (B, M)
-    mix = torch.einsum("bm,bme->be", a, x)
-    d_mix = d_out @ wvo
-    d_a = torch.einsum("be,bme->bm", d_mix, x)
-    if d_w is not None:
-        d_a = d_a + d_w
-    d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
-    d_kv = None
-    if want_dkv:
-        d_kv = (a[..., None] * d_mix[:, None, :] + d_s[..., None] * u).to(
-            kv.dtype
-        )
-    G = d_out.T @ mix
-    du = torch.einsum("bm,bme->e", d_s, x)
-    return d_kv, G, du, d_out.sum(dim=0), d_s.sum()
+    mix = stream_mix_plain(kv, u[None], c, pad_bias)[0]
+    d_kv, du, dc = stream_bwd_plain(kv, d_out @ wvo, d_w, pad_bias, u[None],
+                                    c, want_dkv=want_dkv)
+    return d_kv, d_out.T @ mix, du[0], d_out.sum(dim=0), dc[0]
 
 
 def shared_query_bwd(
@@ -483,9 +759,7 @@ def _bwd_library() -> ctypes.CDLL:
         ctypes.POINTER(_BwdParams), ctypes.c_void_p,
     ]
     lib.aecf_shared_query_bwd.restype = ctypes.c_int
-    lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.aecf_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind_error_string(lib)
 
 
 def _g_epilogue(G, dsum_out, wv, wo, bv, has_out_bias):
@@ -496,6 +770,22 @@ def _g_epilogue(G, dsum_out, wv, wo, bv, has_out_bias):
     dWv = wo.T @ G
     d_bv = dsum_out @ wo
     return dWo, dWv, d_bv, (dsum_out if has_out_bias else None)
+
+
+def _out_vproj_bwd(d_out, mixh, wvh, wo, bv, has_out_bias):
+    """Backward through ``ctx = Σ_h mix_h·Wv_hᵀ + bv; out = ctx Woᵀ + bo``
+    (torch GEMMs, as JAX's ``_out_vproj_bwd`` is XLA).  ``mixh`` (B, H, E),
+    ``wvh`` (H, Dh, E).  Returns ``(d_mix (B, H, E), dWo, dbo, dWv,
+    d_bv)``."""
+    B = d_out.shape[0]
+    H, Dh, E = wvh.shape
+    ctx = torch.einsum("bhe,hde->bhd", mixh, wvh).reshape(B, E) + bv
+    d_ctx = d_out @ wo
+    d_ctx_h = d_ctx.reshape(B, H, Dh)
+    d_mix = torch.einsum("bhd,hde->bhe", d_ctx_h, wvh)
+    dWv = torch.einsum("bhd,bhe->hde", d_ctx_h, mixh).reshape(E, E)
+    dbo = d_out.sum(0) if has_out_bias else None
+    return d_mix, d_out.T @ ctx, dbo, dWv, d_ctx.sum(0)
 
 
 def _query_path_grads(scale, qph, wkh, bk, du, dc, wq, qrow, has_bias):
@@ -545,24 +835,34 @@ def _fold_entropy_cotangent(d_w, d_ent, w):
     return extra if d_w is None else d_w + extra
 
 
-def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv):
-    """H == 1 backward through the backward kernel (``_bwd_pallas``)."""
+def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
+    """H == 1 backward: the resident backward kernel (``_bwd_pallas``), or,
+    after a streamed forward (``mix`` saved), the ``d_mix``/G GEMMs in
+    torch and the streamed kernel (``_bwd_streamed``)."""
     in_w, in_b, out_w, out_b, qrow, kv = tensors
     E = kv.shape[-1]
     wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
     (u, c, wvo, _, _, _), qp, scale = _prep_tensors(
         in_w, in_b, out_w, out_b, qrow, 1
     )
-    d_kv, G, du, dsum_out, dc = shared_query_bwd(
-        kv, u[0], c, _pad_bias_rows(kpm), d_out.contiguous(),
-        None if d_w is None else d_w.contiguous(), wvo, want_dkv=want_dkv,
-    )
+    pad = _pad_bias_rows(kpm)
+    d_out = d_out.contiguous()
+    d_w = None if d_w is None else d_w.contiguous()
+    if mix is None:
+        d_kv, G, du, dsum_out, dc = shared_query_bwd(
+            kv, u[0], c, pad, d_out, d_w, wvo, want_dkv=want_dkv,
+        )
+        du, dc = du.reshape(1, E), dc.reshape(1)
+    else:
+        d_kv, du, dc = stream_bwd(kv, d_out @ wvo, d_w, pad, u, c,
+                                  want_dkv=want_dkv)
+        G, dsum_out = d_out.T @ mix, d_out.sum(dim=0)
     dWo, dWv, d_bv, dbo = _g_epilogue(
         G, dsum_out, wv, out_w, bv, out_b is not None
     )
     d_qp, dWk, d_bk, dWq, d_qrow = _query_path_grads(
-        scale, qp.reshape(1, E), wk.reshape(1, E, E), bk, du.reshape(1, E),
-        dc.reshape(1), wq, qrow, in_b is not None,
+        scale, qp.reshape(1, E), wk.reshape(1, E, E), bk, du, dc, wq, qrow,
+        in_b is not None,
     )
     d_params = _assemble_d_params(
         dWq, dWk, dWv, dWo, d_qp, d_bk, d_bv, dbo, in_b is not None
@@ -570,51 +870,36 @@ def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv):
     return d_params, d_qrow, d_kv
 
 
-def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads):
-    """H > 1 backward in plain torch (``_shared_bwd_impl``): the JAX
-    package runs this case as XLA einsums, so it has no kernel."""
+def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
+    """H > 1 backward: the out/V-projection backward in torch, then the
+    softmax backward — after a resident forward in plain torch, as the
+    JAX package runs it in XLA (``_shared_bwd_impl``: ``mix`` recomputed),
+    after a streamed one in the multi-head kernel (``_bwd_streamed_mh``)."""
     in_w, in_b, out_w, out_b, qrow, kv = tensors
     B, M, E = kv.shape
     H = num_heads
     Dh = E // H
-    wq, wk, wv, bq, bk, bv = _split_params(in_w, in_b, out_w)
-    scale = Dh ** -0.5
-    x = kv.float()
-    qp = qrow @ wq.T + bq
-    qph = qp.reshape(H, Dh)
-    wkh = wk.reshape(H, Dh, E)
-    u = scale * torch.einsum("hd,hde->he", qph, wkh)
-    c = scale * (qph * bk.reshape(H, Dh)).sum(-1)
-    s = torch.einsum("bme,he->bhm", x, u) + c[None, :, None]
-    if kpm is not None:
-        s = torch.where(kpm[:, None, :], -1e30, s)
-    a = torch.softmax(s, dim=-1)  # (B, H, M)
-    mix = torch.einsum("bhm,bme->bhe", a, x)
-    wvh = wv.reshape(H, Dh, E)
-    # out/V-projection backward (_out_vproj_bwd)
-    ctx = torch.einsum("bhe,hde->bhd", mix, wvh).reshape(B, E) + bv
-    d_ctx = d_out @ out_w
-    dWo = d_out.T @ ctx
-    dbo = d_out.sum(0) if out_b is not None else None
-    d_ctx_h = d_ctx.reshape(B, H, Dh)
-    d_mix = torch.einsum("bhd,hde->bhe", d_ctx_h, wvh)
-    dWv = torch.einsum("bhd,bhe->hde", d_ctx_h, mix).reshape(E, E)
-    d_bv = d_ctx.sum(0)
-
-    d_a = torch.einsum("bhe,bme->bhm", d_mix, x)
-    if d_w is not None:
-        d_a = d_a + d_w[:, None, :] / H
-    d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
-    d_kv = None
-    if want_dkv:
-        d_kv = (
-            torch.einsum("bhm,bhe->bme", a, d_mix)
-            + torch.einsum("bhm,he->bme", d_s, u)
-        ).to(kv.dtype)
-    d_u = torch.einsum("bhm,bme->he", d_s, x)
-    d_c = d_s.sum((0, 2))
+    wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
+    (u, c, _, _, _, _), qp, scale = _prep_tensors(
+        in_w, in_b, out_w, out_b, qrow, H
+    )
+    pad = _pad_bias_rows(kpm)
+    softmax_bwd = stream_bwd_mh
+    if mix is None:
+        mix = stream_mix_plain(kv, u, c, pad)[0]
+        softmax_bwd = stream_bwd_plain
+    d_mix, dWo, dbo, dWv, d_bv = _out_vproj_bwd(
+        d_out, mix.reshape(B, H, E), wv.reshape(H, Dh, E), out_w, bv,
+        out_b is not None,
+    )
+    d_kv, d_u, d_c = softmax_bwd(
+        kv, d_mix.reshape(B, H * E).contiguous(),
+        None if d_w is None else d_w.contiguous(),
+        pad, u, c, want_dkv=want_dkv,
+    )
     d_qp, dWk, d_bk, dWq, d_qrow = _query_path_grads(
-        scale, qph, wkh, bk, d_u, d_c, wq, qrow, in_b is not None
+        scale, qp.reshape(H, Dh), wk.reshape(H, Dh, E), bk, d_u, d_c, wq,
+        qrow, in_b is not None,
     )
     d_params = _assemble_d_params(
         dWq, dWk, dWv, dWo, d_qp, d_bk, d_bv, dbo, in_b is not None
@@ -622,45 +907,55 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads):
     return d_params, d_qrow, d_kv
 
 
-def _forward(tensors, kpm, num_heads, mask_kw):
+def _forward(tensors, kpm, num_heads, mask_kw, *, streamed):
+    """``((out, w, mw, ent, rate), mix)``: the resident forward kernel
+    (``mix`` None), or the streamed one and the context GEMMs in torch
+    (``_forward_streamed``; ``mix`` kept for the backward)."""
     in_w, in_b, out_w, out_b, qrow, kv = tensors
     u, c, wctx, bctx, wo, bo = _prep_tensors(
         in_w, in_b, out_w, out_b, qrow, num_heads
     )[0]
-    return shared_query_fwd(
-        kv, u, c, _pad_bias_rows(kpm), wctx, bctx, wo, bo, **mask_kw
-    )
+    pad = _pad_bias_rows(kpm)
+    if not streamed:
+        outs = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo, **mask_kw)
+        return outs, None
+    mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, **mask_kw)
+    return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
 
 
 class _SharedPool(torch.autograd.Function):
-    """Forward kernel + backward (kernel for H == 1), the port of
-    ``_shared_core``'s custom VJP.  Returns ``(out, w, mw, ent, rate)``;
-    ``mw`` and ``rate`` carry no gradient, and the backward folds an
-    entropy cotangent into the weights' (``_fold_entropy_cotangent``).
-    The backward needs no mask and no draw: the output flows through the
-    unmasked weights (quirk Q1)."""
+    """Forward kernel + backward, the port of ``_shared_core``'s custom
+    VJP: the streamed route where :func:`_vjp_wants_streamed` says so
+    (``mix`` saved for the backward), else the resident one.  Returns
+    ``(out, w, mw, ent, rate)``; ``mw`` and ``rate`` carry no gradient,
+    and the backward folds an entropy cotangent into the weights'
+    (``_fold_entropy_cotangent``).  The backward needs no mask and no
+    draw: the output flows through the unmasked weights (quirk Q1)."""
 
     @staticmethod
     def forward(ctx, in_w, in_b, out_w, out_b, qrow, kv, kpm, num_heads,
                 mask_kw):
         tensors = (in_w, in_b, out_w, out_b, qrow, kv)
-        out, w, mw, ent, rate = _forward(tensors, kpm, num_heads, mask_kw)
-        ctx.save_for_backward(*tensors, kpm, w)
+        outs, mix = _forward(
+            tensors, kpm, num_heads, mask_kw,
+            streamed=_vjp_wants_streamed(num_heads, kv.shape[-1]),
+        )
+        ctx.save_for_backward(*tensors, kpm, outs[1], mix)
         ctx.num_heads = num_heads
-        ctx.mark_non_differentiable(mw, rate)
-        return out, w, mw, ent, rate
+        ctx.mark_non_differentiable(outs[2], outs[4])
+        return outs
 
     @staticmethod
     def backward(ctx, d_out, d_w, _d_mw, d_ent, _d_rate):
-        *tensors, kpm, w = ctx.saved_tensors
+        *tensors, kpm, w, mix = ctx.saved_tensors
         d_w = _fold_entropy_cotangent(d_w, d_ent, w)
         want_dkv = ctx.needs_input_grad[5]
         if ctx.num_heads == 1:
             d_params, d_qrow, d_kv = _bwd_h1(tensors, kpm, d_out, d_w,
-                                             want_dkv)
+                                             want_dkv, mix)
         else:
             d_params, d_qrow, d_kv = _bwd_heads(
-                tensors, kpm, d_out, d_w, want_dkv, ctx.num_heads
+                tensors, kpm, d_out, d_w, want_dkv, ctx.num_heads, mix
             )
         return (
             d_params["in_proj_weight"], d_params["in_proj_bias"],
@@ -717,7 +1012,9 @@ def fused_fusion_pool_shared(
     shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
     ``precision`` is ``"default"`` or ``"highest"``; both run full f32
     FMAs in these kernels (tighter than the JAX package's bf16
-    ``"default"``).
+    ``"default"``).  Up to E = 1024 the resident kernels run; above it (to
+    E = 8192, H ≤ 2), and for H == 2 training or gradients from E = 512,
+    the streamed split (:func:`_vjp_wants_streamed`).
     """
     if query.shape[:2] != (1, 1):
         raise ValueError(
@@ -736,10 +1033,11 @@ def fused_fusion_pool_shared(
             f"embed_dim {E} exceeds the streamed-split cap E="
             f"{_STREAMED_E_CAP}; use implementation='torch'"
         )
-    if E > _RESIDENT_E_CAP:
-        raise NotImplementedError(
-            f"E={E} needs the streamed split, "
-            + _NOT_PORTED.format("_mix_kernel")
+    if E > _RESIDENT_E_CAP and num_heads > 2:
+        raise ValueError(
+            f"E={E} above the resident cap E={_RESIDENT_E_CAP} needs "
+            "num_heads<=2 (the streamed split); use implementation='torch' "
+            "for H > 2"
         )
     if training and generator is None and M > 1:
         raise ValueError(
@@ -760,7 +1058,14 @@ def fused_fusion_pool_shared(
         outs = _SharedPool.apply(*tensors, key_padding_mask, num_heads,
                                  mask_kw)
     else:
-        outs = _forward(tensors, key_padding_mask, num_heads, mask_kw)
+        # as JAX's _shared_core: training draws as the differentiable
+        # forward would; gradient-free eval keeps the resident kernel
+        # below the cap
+        streamed = E > _RESIDENT_E_CAP or (
+            training and _vjp_wants_streamed(num_heads, E)
+        )
+        outs, _ = _forward(tensors, key_padding_mask, num_heads, mask_kw,
+                           streamed=streamed)
     return _package_outputs(
         *outs, training=training, M=M, entropy_target=entropy_target
     )

@@ -22,7 +22,7 @@ from ..kernels import (
     supports_fused,
 )
 from ..kernels.fused_pool import _kernel_takes
-from ..kernels.shared_query import _MAX_M, _RESIDENT_E_CAP
+from ..kernels.shared_query import _MAX_M, _shared_takes
 
 __all__ = ["fusion_pool"]
 
@@ -30,9 +30,10 @@ __all__ = ["fusion_pool"]
 def _wants_kernel(params, query, kv, *, num_heads, precision):
     """Static gate of ``implementation='auto'``: the kernels run only where
     they are ported and cannot change the call's meaning.  Training and
-    gradients take them too — for a shared ``(1, 1, E)`` query the forward
-    kernel with in-kernel masking and the H == 1 backward kernel, for a
-    per-row ``(B, 1, E)`` query the per-row forward kernel."""
+    gradients take them too — for a shared ``(1, 1, E)`` query (H ≤ 2, E
+    up to the streamed-split cap) the resident or streamed forward kernel
+    with in-kernel masking and their backward kernels, for a per-row
+    ``(B, 1, E)`` query the per-row forward kernel."""
     E = query.shape[-1]
     shared = query.shape[0] == 1
     return (
@@ -42,9 +43,11 @@ def _wants_kernel(params, query, kv, *, num_heads, precision):
             shared_query=shared,
         )
         and prefers_fused(num_heads=num_heads)
-        # the streamed split (E > 1024) is not ported
-        and E <= _RESIDENT_E_CAP
-        and (shared or _kernel_takes(kv.shape[1], E, num_heads))
+        and (
+            _shared_takes(num_heads, E)
+            if shared
+            else _kernel_takes(kv.shape[1], E, num_heads)
+        )
         and query.dtype == torch.float32
         and kv.dtype in (torch.float32, torch.bfloat16)
         # the kernel implements "highest"/"default" only

@@ -49,7 +49,8 @@ class FusionPredictor:
       buckets: padded batch sizes; requests larger than the biggest
         bucket are chunked.
       apply_sigmoid: return probabilities instead of logits.
-      device: where the inputs are placed for ``apply_fn``.
+      device: where the inputs are placed for ``apply_fn`` (the card
+        unless the caller asks for another).
     """
 
     def __init__(
@@ -59,7 +60,7 @@ class FusionPredictor:
         modality_names: Sequence[str],
         buckets: Sequence[int] = (32, 256, 1024),
         apply_sigmoid: bool = True,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.apply_fn = apply_fn
         self.modality_names = tuple(modality_names)

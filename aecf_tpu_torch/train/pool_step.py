@@ -15,7 +15,7 @@ parameter trajectory to f32 tolerance.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +47,7 @@ def init_pool_classifier_params(
     *,
     bias: bool = True,
     head_bias: bool = True,
+    device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, Any]:
     """``{'pool', 'query'[, 'head']}`` parameters for the pool protocol —
     the shape :func:`make_pool_train_step` trains.
@@ -54,19 +55,26 @@ def init_pool_classifier_params(
     The head keeps the JAX layout: ``w`` is ``(E, C)`` (logits =
     pooled @ w + b), not ``nn.Linear``'s ``(C, E)``; it follows torch's
     ``nn.Linear`` default init (uniform ``±1/√E``).  ``num_classes=None``
-    omits it (pool-only training, the benchmark protocol).  Tensors land
-    on the generator's device."""
+    omits it (pool-only training, the benchmark protocol).  The draws are
+    made on the generator's device, so a seed gives the same numbers
+    wherever the tensors go; they land on ``device`` (the card unless the
+    caller asks for another)."""
     params: Dict[str, Any] = {
-        "pool": init_attention_pool_params(generator, embed_dim, bias=bias),
-        "query": nn.Parameter(init_fusion_query(generator, embed_dim)),
+        "pool": init_attention_pool_params(
+            generator, embed_dim, bias=bias
+        ).to(device),
+        "query": nn.Parameter(
+            init_fusion_query(generator, embed_dim).to(device)
+        ),
     }
     if num_classes is not None:
         bound = 1.0 / math.sqrt(embed_dim)
-        device = generator.device if generator is not None else None
+        draw_on = generator.device if generator is not None else None
 
         def uniform(shape):
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            return nn.Parameter(t.uniform_(-bound, bound, generator=generator))
+            t = torch.empty(shape, dtype=torch.float32, device=draw_on)
+            t.uniform_(-bound, bound, generator=generator)
+            return nn.Parameter(t.to(device))
 
         head = {"w": uniform((embed_dim, num_classes))}
         if head_bias:

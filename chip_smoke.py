@@ -3,9 +3,10 @@
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Phases (any failure raises and the exit code is not 0):
+(``--profile`` adds a ``torch.profiler`` window of slice (f)'s step to
+phase 7.)  Phases (any failure raises and the exit code is not 0):
 
 1. no CUDA device: stop before printing any result;
 2. the card (name, power limit) and the build of every CUDA kernel from
@@ -36,11 +37,25 @@ Phases (any failure raises and the exit code is not 0):
    in lockstep with the same pool forced to ``implementation='torch'``;
    and the repo's large configuration (B=8192, M=4, E=1024, H=2): one eval
    call and one gradient step against the torch path;
-6. times (CUDA events) of each kernel and its plain version at the slice
+6. the streamed split (the suite's streamed configurations): its kernels
+   against their plain versions on the card (``stream_mix`` eval and
+   training, ``stream_bwd`` at H=1 and H=2 with ``d_kv`` on and off, f32
+   and bf16, with and without padding, at B in {1, 32, 300, 4096}, M in
+   {2, 3, 4, 8}, E in {1536, 2048, 4096, 8192}, and at slice (h)'s
+   B=8192, M=4, E=1024, H=2), its masks against the
+   resident forward's for the same seed words (bit for bit), and four
+   slices, each held to the torch path: (f) ``make_pool_train_step`` at
+   B=4096, M=4, E=2048, H=1, 10 SGD steps of the quadratic loss with the
+   entropy regularizer; (g) the same at H=2, 3 steps; (h) H=2 below the
+   resident cap, B=8192, M=4, E=1024, 3 steps; (i) one eval call of
+   ``ops.fusion_pool`` at B=4096, M=4, E=2048, H=1;
+7. times (CUDA events) of each kernel and its plain version at the slice
    shapes, of one predictor call per bucket, samples/s of one training
-   step, and ms per Quick start module step, ``'auto'`` against
-   ``'torch'``;
-7. a JSON line of the kernels, then the last line
+   step, ms per Quick start module step, ``'auto'`` against ``'torch'``,
+   and samples/s of slice (f), ``'auto'`` against ``'torch'``;
+8. a JSON line of the kernels (with each one's bound: the larger of its
+   bytes over the card's memory rate and its f32 operations over the
+   SIMT rate, from this run's shapes), then the last line
    ``{"ok": true, "device": {...}}``.
 
 float32 matmuls run without TF32 (``allow_tf32 = False`` for both cuBLAS
@@ -49,6 +64,7 @@ and cuDNN), so the plain versions are full float32 references.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -108,8 +124,25 @@ FUSED_SHAPES = {
 }
 QS_B, QS_M, QS_E = 4096, 3, 512
 LARGE_B, LARGE_M, LARGE_E, LARGE_H = 8192, 4, 1024, 2
+# The streamed split: its kernels' grid, the repo suite's streamed configs
+# (benchmarks/suite.py: streamed_e2048_ab, streamed_h2_e2048_ab and
+# eval_fwd_ab_e2048 at B=4096, M=4, E=2048; h2_belowcap_stream_ab at
+# B=8192, M=4, E=1024, H=2) and the resident widths its masks are held to.
+STREAM_SHAPES = {
+    "B": (1, 32, 300, 4096),
+    "M": (2, 3, 4, 8),
+    "E": (1536, 2048, 4096, 8192),
+    "H": (1, 2),
+}
+ST_B, ST_M, ST_E = 4096, 4, 2048
+H2_B, H2_M, H2_E = 8192, 4, 1024
 SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
-           "fused_pool_fwd")
+           "fused_pool_fwd", "stream_mix", "stream_bwd")
+# The H100 SXM's published peaks (NVIDIA H100 datasheet): device
+# memory, and f32 outside the tensor cores — every kernel here runs SIMT
+# f32 FMAs.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -846,6 +879,9 @@ def _kernel_wrappers():
         fused_pool_fwd,
         shared_query_bwd,
         shared_query_fwd,
+        stream_bwd,
+        stream_bwd_mh,
+        stream_mix,
         train_step,
     )
 
@@ -854,6 +890,9 @@ def _kernel_wrappers():
         "shared_query_bwd": shared_query_bwd,
         "train_step": train_step,
         "fused_pool_fwd": fused_pool_fwd,
+        "stream_mix": stream_mix,
+        "stream_bwd": stream_bwd,
+        "stream_bwd_mh": stream_bwd_mh,
     }
 
 
@@ -864,6 +903,11 @@ def _reset_counts():
 
 def _counts():
     return {name: k.launches for name, k in _kernel_wrappers().items()}
+
+
+def _only(**launches):
+    """Every kernel's expected count: those named, and 0 for the rest."""
+    return {name: launches.get(name, 0) for name in _kernel_wrappers()}
 
 
 def _lockstep(torch, flat, kv, labels, impls, steps, opt, **builder):
@@ -923,8 +967,8 @@ def train_slice(torch) -> dict:
         torch, _classifier_flat(rng, E, C), kv, labels,
         ("torch", "fused-step", "kernel"), 10, sgd,
     )
-    check(counts == {"shared_query_fwd": 10, "shared_query_bwd": 10,
-                     "train_step": 10, "fused_pool_fwd": 0},
+    check(counts == _only(shared_query_fwd=10, shared_query_bwd=10,
+                          train_step=10),
           f"launches {counts} != 10 steps of each kernel path")
     print(f"slice (a) B={B} M={M} E={E} H=1 C={C} training, 10 SGD(1e-2) "
           f"steps: fused-step and kernel vs torch — loss rel err max "
@@ -1069,8 +1113,7 @@ def module_slice(torch) -> dict:
     check(losses[-1] < losses[0], f"Quick start loss did not fall: {losses}")
     check(np.mean(rates[lock:]) > 0 and eval_rate == 0.0,
           f"mask_rate after the ramp {np.mean(rates[lock:])}, eval {eval_rate}")
-    check(counts == {"shared_query_fwd": 0, "shared_query_bwd": 0,
-                     "train_step": 0, "fused_pool_fwd": steps + 1},
+    check(counts == _only(fused_pool_fwd=steps + 1),
           f"launches {counts} != {steps + 1} per-row forward calls")
     print(f"slice (d) Quick start B={QS_B} M={QS_M} E={QS_E} H=1, module "
           f"API, AdamW(1e-3), warmup then ramp to 0.5: loss {losses[0]:.6f} "
@@ -1127,7 +1170,7 @@ def large_config(torch) -> dict:
     params = {impl: dict(p.named_parameters()) for impl, p in pools.items()}
     errs += [_hold(f"param {k}", params["auto"][k], v, TOL_PARAM, where)
              for k, v in params["torch"].items()]
-    check(counts["fused_pool_fwd"] == 2,
+    check(counts == _only(fused_pool_fwd=2),
           f"large configuration launches {counts} != 2 per-row calls")
     print(f"slice (e) large configuration {where}: eval and one SGD step "
           f"through the module, 'auto' vs 'torch' within tolerance (out "
@@ -1137,8 +1180,267 @@ def large_config(torch) -> dict:
     return {"launches": counts["fused_pool_fwd"]}
 
 
+def _score_vectors(torch, gen, H, E):
+    """Score vectors and offsets at the scale a unit query gives (scores
+    spread over a few units), drawn on the card."""
+    u = torch.randn((H, E), generator=gen, device="cuda") * (2.0 / math.sqrt(E))
+    c = torch.randn((H,), generator=gen, device="cuda")
+    return u, c
+
+
+def _pad_of(torch, gen, B, M, full_row):
+    """A (B, M) padding bias: ~30% of the slots padded, slot 0 never, and
+    row 0 wholly when ``full_row``."""
+    from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows
+
+    mask = torch.rand((B, M), generator=gen, device="cuda") < 0.3
+    mask[:, 0] = False
+    if full_row:
+        mask[0] = True
+    return _pad_bias_rows(mask)
+
+
+def _stream_grid(shapes):
+    """``(E, H, [(B, M), ...])`` of the streamed kernels' checks: the grid
+    of ``shapes``, then slice (h)'s shape (B=8192, M=4, E=1024, H=2), which
+    the grid does not hold — (f), (g) and (i) (B=4096, M=4, E=2048) are in
+    it."""
+    bms = [(B, M) for B in shapes["B"] for M in shapes["M"]]
+    return ([(E, H, bms) for E in shapes["E"] for H in shapes["H"]]
+            + [(H2_E, 2, [(H2_B, H2_M)])])
+
+
+def _grid_label(bms) -> str:
+    return (f"B={tuple(sorted({b for b, _ in bms}))} "
+            f"M={tuple(sorted({m for _, m in bms}))}")
+
+
+def check_stream_mix(torch, shapes=STREAM_SHAPES) -> float:
+    """Phase 6a: the streamed forward kernel (``stream_mix``) against its
+    plain version on the same CUDA tensors: eval and training, H = 1 and
+    2, f32 and bf16, with and without padding (a fully padded row
+    included), over ``_stream_grid``."""
+    from aecf_tpu_torch.kernels import stream_mix, stream_mix_plain
+    from aecf_tpu_torch.kernels.draws import draw_seed_words
+
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    worst, cases, near_rows = 0.0, 0, 0
+    for E, H, bms in _stream_grid(shapes):
+        u, c = _score_vectors(torch, gen, H, E)
+        errs = {"mix": 0.0, "w": 0.0, "ent": 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            for padded in (False, True):
+                for B, M in bms:
+                    kv = torch.randn((B, M, E), generator=gen,
+                                     device="cuda").to(dtype)
+                    pad = _pad_of(torch, gen, B, M, True) if padded else None
+                    for training in (False, True):
+                        seed = draw_seed_words(
+                            torch.Generator().manual_seed(cases))
+                        kw = dict(training=training, seed=seed, mask_prob=0.6,
+                                  min_active=1 + cases % 2)
+                        with torch.inference_mode():
+                            got = stream_mix(kv, u, c, pad, **kw)
+                            want = stream_mix_plain(kv, u, c, pad, **kw)
+                        torch.cuda.synchronize()
+                        where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                 f"padded={padded} training={training}")
+                        for k, i, tol in (("mix", 0, _out_tol(want[0])),
+                                          ("w", 1, TOL_W), ("ent", 3, TOL_W)):
+                            errs[k] = max(errs[k], _hold(
+                                k, got[i], want[i], tol, where))
+                        if training:
+                            near = _mask_rows(kv, want[3], seed, 0.6)
+                            near_rows += _hold_masks(
+                                "streamed forward", got[2], got[4], want[2],
+                                want[4], near, where)
+                        else:
+                            check(torch.equal(got[2], got[1])
+                                  and bool((got[4] == 0).all()),
+                                  f"eval passthrough at {where}")
+                        cases += 1
+        worst = max(worst, *errs.values())
+        print(f"stream_mix vs plain E={E} H={H} f32+bf16 padded+not "
+              f"eval+training {_grid_label(bms)}: "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    print(f"stream_mix vs plain: {cases} cases within tolerance (mix "
+          f"{TOL_OUT_REL:g}*max|mix|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; eval "
+          f"mw == w, rate 0; training masks as the resident forward's, "
+          f"{near_rows} rows near keep); max abs err {worst:.3e}")
+    return worst
+
+
+def check_stream_bwd(torch, shapes=STREAM_SHAPES) -> dict:
+    """Phase 6b: the streamed backward kernel (``stream_bwd`` at H = 1,
+    ``stream_bwd_mh`` at H = 2) against its plain version on the same CUDA
+    tensors, with a weights cotangent, d_kv on and off, f32 and bf16, with
+    and without padding, over ``_stream_grid``.  Returns the largest
+    absolute error per wrapper."""
+    from aecf_tpu_torch.kernels import stream_bwd, stream_bwd_mh, stream_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    worst = {"stream_bwd": 0.0, "stream_bwd_mh": 0.0}
+    cases = 0
+    for E, H, bms in _stream_grid(shapes):
+        name, kernel = (("stream_bwd", stream_bwd) if H == 1
+                        else ("stream_bwd_mh", stream_bwd_mh))
+        u, c = _score_vectors(torch, gen, H, E)
+        group = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for padded in (False, True):
+                for B, M in bms:
+                    kv = torch.randn((B, M, E), generator=gen,
+                                     device="cuda").to(dtype)
+                    d_mix = torch.randn((B, H * E), generator=gen,
+                                        device="cuda")
+                    d_w = torch.randn((B, M), generator=gen, device="cuda")
+                    pad = _pad_of(torch, gen, B, M, False) if padded else None
+                    for want_dkv in (False, True):
+                        args = (kv, d_mix, d_w, pad, u, c)
+                        with torch.inference_mode():
+                            got = kernel(*args, want_dkv=want_dkv)
+                            want = stream_bwd_plain(*args, want_dkv=want_dkv)
+                        torch.cuda.synchronize()
+                        where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                 f"padded={padded} d_kv={want_dkv}")
+                        errs = [
+                            _hold("du", got[1], want[1], _sum_tol(want[1]),
+                                  where),
+                            _hold("dc", got[2], want[2],
+                                  _sum_tol(want[2], want[1]), where),
+                        ]
+                        if want_dkv:
+                            check(got[0].dtype == kv.dtype,
+                                  f"d_kv dtype {got[0].dtype}")
+                            errs.append(_hold("d_kv", got[0], want[0],
+                                              _dkv_tol(torch, want[0]), where))
+                        else:
+                            check(got[0] is None, "d_kv without kv_grad")
+                        group = max(group, *errs)
+                        cases += 1
+        worst[name] = max(worst[name], group)
+        print(f"{name} vs plain E={E} H={H} f32+bf16 padded+not d_kv+not "
+              f"{_grid_label(bms)}: max abs err {group:.3e}")
+    print(f"stream_bwd/stream_bwd_mh vs plain: {cases} cases within "
+          f"tolerance (du {TOL_SUM_REL:g}*max|du|, dc {TOL_SUM_REL:g}*"
+          f"max|du|, d_kv {TOL_OUT_REL:g}*max|d_kv|+{TOL_OUT_ABS:g}, bf16 "
+          f"d_kv +{TOL_BF16_REL:g}*|ref|); max abs err H=1 "
+          f"{worst['stream_bwd']:.3e}, H=2 {worst['stream_bwd_mh']:.3e}")
+    return worst
+
+
+def check_stream_masks(torch) -> None:
+    """Phase 6c: the streamed and the resident forward kernels on the same
+    inputs and seed words give the same weights, entropy, masked weights
+    and mask rate, bit for bit (the draws are keyed by row and modality,
+    and both run one chain), at E = 512 and 1024, H = 1 and 2."""
+    from aecf_tpu_torch.kernels import shared_query_fwd, stream_mix
+    from aecf_tpu_torch.kernels.draws import draw_seed_words
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    rng = np.random.default_rng(83)
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    cases = 0
+    for E in (512, 1024):
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.randn((1, 1, E), generator=gen, device="cuda")
+        for H in (1, 2):
+            with torch.inference_mode():
+                u, c, wctx, bctx, wo, bo = _prep(params, query[0, 0], H)
+            for dtype in (torch.float32, torch.bfloat16):
+                kv = torch.randn((ST_B, ST_M, E), generator=gen,
+                                 device="cuda").to(dtype)
+                pad = _pad_of(torch, gen, ST_B, ST_M, True)
+                seed = draw_seed_words(torch.Generator().manual_seed(cases))
+                kw = dict(training=True, seed=seed, mask_prob=0.6, min_active=2)
+                with torch.inference_mode():
+                    res = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo,
+                                           **kw)
+                    st = stream_mix(kv, u, c, pad, **kw)
+                torch.cuda.synchronize()
+                for i, k in ((1, "w"), (2, "mw"), (3, "ent"), (4, "rate")):
+                    check(torch.equal(res[i], st[i]),
+                          f"streamed {k} != resident {k} at E={E} H={H} "
+                          f"{dtype}")
+                check(float(st[4].mean()) > 0.05, "no slot was masked")
+                cases += 1
+    print(f"stream_mix vs shared_query_fwd, training, same seed words: w, "
+          f"ent, mw and rate equal bit for bit in {cases} cases (B={ST_B}, "
+          f"M={ST_M}, E 512/1024, H 1/2, f32+bf16, padded)")
+
+
+def stream_slices(torch) -> dict:
+    """Phase 6d: the streamed split through the entry points a user calls,
+    each held to the torch path: (f) ``make_pool_train_step(impl='auto')``
+    at B=4096, M=4, E=2048, H=1, frozen f32 features, training, the
+    quadratic loss with ``entropy_coeff=1.0``, 10 SGD(1e-2) steps in
+    lockstep with ``impl='torch'``; (g) the same at H=2, 3 steps; (h) H=2
+    below the resident cap, B=8192, M=4, E=1024, 3 steps; (i) one eval
+    call of ``ops.fusion_pool`` at B=4096, M=4, E=2048, H=1 with the
+    ``(1, 1, E)`` fusion query against ``implementation='torch'``.  Each
+    streamed kernel's launches must equal the steps (calls) that run it."""
+    from aecf_tpu_torch.ops import fusion_pool
+
+    rng = np.random.default_rng(84)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    launches = {"stream_mix": 0, "stream_bwd": 0, "stream_bwd_mh": 0}
+    out = {}
+    for tag, B, M, E, H, steps in (("f", ST_B, ST_M, ST_E, 1, 10),
+                                   ("g", ST_B, ST_M, ST_E, 2, 3),
+                                   ("h", H2_B, H2_M, H2_E, 2, 3)):
+        kv = torch.tensor(rng.standard_normal((B, M, E)), dtype=torch.float32,
+                          device="cuda")
+        flat = _classifier_flat(rng, E)
+        counts, wl, wp, we, last = _lockstep(
+            torch, flat, kv, None, ("torch", "auto"), steps, sgd,
+            num_heads=H, entropy_coeff=1.0,
+        )
+        bwd = "stream_bwd" if H == 1 else "stream_bwd_mh"
+        check(counts == _only(stream_mix=steps, **{bwd: steps}),
+              f"slice ({tag}) launches {counts} != {steps} streamed steps")
+        print(f"slice ({tag}) make_pool_train_step(impl='auto') B={B} M={M} "
+              f"E={E} H={H} training, quadratic + entropy_coeff=1.0, {steps} "
+              f"SGD(1e-2) steps vs impl='torch': loss rel err max {wl:.3e} "
+              f"(tol {TOL_LOSS_REL:g}), params max abs err {wp:.3e} (tol "
+              f"{TOL_PARAM:g}), entropy {we:.3e}; last loss "
+              f"{last['auto']:.6f}; launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        if tag == "f":
+            out.update(kv=kv, flat=flat)
+
+    params = _pool_params(torch, rng, ST_E, "cuda")
+    query = torch.tensor(math.sqrt(2.0 / ST_E) * rng.standard_normal((1, 1, ST_E)),
+                         dtype=torch.float32, device="cuda")
+    kv = torch.tensor(rng.standard_normal((ST_B, ST_M, ST_E)),
+                      dtype=torch.float32, device="cuda")
+    _reset_counts()
+    got = {}
+    with torch.no_grad():
+        for impl in ("auto", "torch"):
+            got[impl] = fusion_pool(params, query, kv, implementation=impl)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts == _only(stream_mix=1), f"slice (i) launches {counts} != 1")
+    (o_k, w_k, m_k, i_k), (o_t, w_t, _, i_t) = got["auto"], got["torch"]
+    where = f"slice (i) B={ST_B} M={ST_M} E={ST_E} H=1 eval"
+    errs = [
+        _hold("out", o_k, o_t, _out_tol(o_t), where),
+        _hold("weights", w_k, w_t, TOL_W, where),
+        _hold("entropy", i_k["entropy"], i_t["entropy"], TOL_W, where),
+    ]
+    check(torch.equal(m_k, w_k) and bool((i_k["mask_rate"] == 0).all()),
+          f"eval passthrough at {where}")
+    launches["stream_mix"] += counts["stream_mix"]
+    print(f"{where}: ops.fusion_pool 'auto' vs 'torch' within tolerance (out "
+          f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}); max "
+          f"abs err {max(errs):.3e}; launches {counts}")
+    out["launches"] = launches
+    return out
+
+
 def time_module(torch, smi: str) -> tuple:
-    """Phase 6c: the per-row kernel and its plain version (CUDA events,
+    """Phase 7c: the per-row kernel and its plain version (CUDA events,
     turns plain, kernel, kernel, plain) at the Quick start (training) and
     the large configuration (eval), then ms per Quick start module step
     (forward, backward, AdamW; host clock over 20 synchronised steps),
@@ -1156,38 +1458,34 @@ def time_module(torch, smi: str) -> tuple:
         args = (q, kv, None, p.in_proj_weight, p.in_proj_bias,
                 p.out_proj_weight, p.out_proj_bias)
         kw = dict(num_heads=H, training=training, seed=(12345, 678))
+        # q, kv, in/out weights and biases in; out, w, mw, ent, rate out;
+        # per row 8 E^2 FLOPs of projections (qp, u, ctx, out) and 4 M E
+        # of scores and mix per head
+        work = (4 * (E + B * M * E + 4 * E * E + 4 * E + B * E + 2 * B * M
+                     + 2 * B),
+                8 * B * E * E + 4 * B * M * E * H)
         with torch.inference_mode():
-            pair = (lambda: fused_pool_fwd_plain(*args, **kw),
-                    lambda: fused_pool_fwd(*args, **kw))
-            p1, k1, k2, p2 = (cuda_ms(torch, pair[i], iters=50, warmup=5)
-                              for i in (0, 1, 1, 0))
-        times[(B, M, E, H)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"time fused_pool_fwd B={B} M={M} E={E} H={H} f32 "
-              f"{'training' if training else 'eval'}: kernel {k1:.5f}/"
-              f"{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms (mean "
-              f"{times[(B, M, E, H)][0]:.5f} vs {times[(B, M, E, H)][1]:.5f}; "
-              f"{smi})")
+            times[(B, M, E, H)] = _time_pair(
+                torch, f"fused_pool_fwd B={B} M={M} E={E} H={H} "
+                f"{'training' if training else 'eval'}",
+                lambda: fused_pool_fwd(*args, **kw),
+                lambda: fused_pool_fwd_plain(*args, **kw), work, smi)
 
     for impl in ("auto", "torch"):
         run = _quick_start(torch, impl, seed=71)
         gen_mask = torch.Generator().manual_seed(72)
-        for n in range(3):
-            _quick_start_step(*run, gen_mask, 20 + n)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for n in range(20):
-            _quick_start_step(*run, gen_mask, 20 + n)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        step = itertools.count(20)
+        dt = _step_s(torch, lambda: _quick_start_step(*run, gen_mask,
+                                                      next(step)))
         print(f"time Quick start module step implementation={impl} B={QS_B} "
-              f"M={QS_M} E={QS_E} H=1 training: {dt / 20 * 1e3:.4f} ms/step, "
-              f"{20 * QS_B / dt:.1f} samples/s (host clock over 20 "
+              f"M={QS_M} E={QS_E} H=1 training: {dt * 1e3:.4f} ms/step, "
+              f"{QS_B / dt:.1f} samples/s (host clock over 20 "
               f"synchronised steps: forward, backward, AdamW; {smi})")
     return times[(QS_B, QS_M, QS_E, 1)]
 
 
 def time_training(torch, smi: str, trained: dict) -> dict:
-    """Phase 6b: each training kernel and its plain version at the
+    """Phase 7b: each training kernel and its plain version at the
     north-star shape (turns: plain, kernel, kernel, plain), then samples/s
     of one ``make_pool_train_step`` call per impl (host clock over 20
     synchronised steps)."""
@@ -1236,34 +1534,171 @@ def time_training(torch, smi: str, trained: dict) -> dict:
             lambda: train_step_plain(kv, u[0], c, None, wvo, bctx, **step_kw),
             f"one-pass step, BCE head C={C}, no d_kv"),
     }
+    # (bytes each input read and output written once, f32 FLOPs) of each
+    # call above: kv, u, c, W_vo and the rest of its operands and results;
+    # context / d_mix / G GEMMs 2 B E^2 each, the kv chain 2 B M E a pass
+    kv_b, ee = 4 * B * M * E, E * E
+    work = {
+        "shared_query_fwd": (kv_b + 4 * (ee + 3 * E + 1 + B * E + 2 * B * M
+                                         + 2 * B),
+                             2 * B * ee + 4 * B * M * E),
+        "shared_query_bwd": (kv_b + 4 * (2 * ee + 3 * E + 2 + B * E),
+                             4 * B * ee + 8 * B * M * E),
+        "train_step": (kv_b + 4 * (2 * ee + 4 * E + 2 * E * C + 2 * C + B * C
+                                   + 2 * B * M + 2 * B + 3),
+                       6 * B * ee + 6 * B * E * C + 8 * B * M * E),
+    }
     times = {}
     with torch.inference_mode():
         for name, (kernel, plain, what) in pairs.items():
-            p1, k1, k2, p2 = (cuda_ms(torch, f, iters=50, warmup=5)
-                              for f in (plain, kernel, kernel, plain))
-            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"time {name} ({what}) B={B} M={M} E={E} H=1 f32: kernel "
-                  f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms (mean "
-                  f"{times[name][0]:.5f} vs {times[name][1]:.5f}; {smi})")
+            times[name] = _time_pair(
+                torch, f"{name} ({what}) B={B} M={M} E={E} H=1", kernel,
+                plain, work[name], smi)
 
     sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
     for impl in ("fused-step", "kernel", "torch"):
         state = _state(torch, trained["flat"], sgd)
         step = make_pool_train_step(impl=impl)
         gen = torch.Generator().manual_seed(3)
-        for _ in range(3):
-            state, loss, _ = step(state, kv, labels, gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            state, loss, _ = step(state, kv, labels, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = _step_s(torch, lambda: step(state, kv, labels, gen))
         print(f"time make_pool_train_step impl={impl} X3 B={B} M={M} E={E} "
-              f"C={C} training: {20 * B / dt:.1f} samples/s, "
-              f"{dt / 20 * 1e3:.4f} ms/step (host clock over 20 synchronised "
-              f"steps; {smi})")
+              f"C={C} training: {B / dt:.1f} samples/s, {dt * 1e3:.4f} "
+              f"ms/step (host clock over 20 synchronised steps; {smi})")
     return times
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    """``(ms, "bytes" | "operations")``: the least time the H100 could take
+    for ``nbytes`` of device memory traffic and ``flops`` f32 operations,
+    the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_streamed(torch, smi: str, sliced: dict, profiled: bool) -> dict:
+    """Phase 7d: the streamed kernels and their plain versions (CUDA
+    events, turns plain, kernel, kernel, plain) at the slices' widths —
+    ``stream_mix`` at (f) training and (i) eval, ``stream_bwd`` at (f)
+    without and with ``d_kv``, ``stream_bwd_mh`` at (h) without — each
+    beside its bound; then samples/s of slice (f), ``'auto'`` against
+    ``'torch'`` (host clock over 20 synchronised steps, turns auto, torch,
+    torch, auto), the first turn of each also profiled when
+    ``profiled``."""
+    from aecf_tpu_torch.convert import pool_classifier_params_from_numpy
+    from aecf_tpu_torch.kernels import (
+        stream_bwd,
+        stream_bwd_mh,
+        stream_bwd_plain,
+        stream_mix,
+        stream_mix_plain,
+    )
+    from aecf_tpu_torch.kernels.shared_query import _prep
+    from aecf_tpu_torch.train import make_pool_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(85)
+    rng = np.random.default_rng(85)
+    kv_f = sliced["kv"]
+    pool_f = pool_classifier_params_from_numpy(sliced["flat"], device="cuda")
+    kv_h = torch.randn((H2_B, H2_M, H2_E), generator=gen, device="cuda")
+    params_h = _pool_params(torch, rng, H2_E, "cuda")
+    query_h = torch.randn((1, 1, H2_E), generator=gen, device="cuda")
+    with torch.inference_mode():
+        u1, c1 = _prep(pool_f["pool"], pool_f["query"][0, 0], 1)[:2]
+        u2, c2 = _prep(params_h, query_h[0, 0], 2)[:2]
+    d_mix_f = torch.randn((ST_B, ST_E), generator=gen, device="cuda")
+    d_mix_h = torch.randn((H2_B, 2 * H2_E), generator=gen, device="cuda")
+    seed = (12345, 678)
+
+    def mix_work(B, M, E, H):  # kv, u, c in; mix, w, mw, ent, rate out
+        return (4 * (B * M * E + H * E + H + B * H * E + 2 * B * M + 2 * B),
+                4 * B * M * E * H)
+
+    def bwd_work(B, M, E, H, dkv):  # kv, d_mix, u, c in; du, dc (d_kv) out
+        return (4 * (B * M * E * (2 if dkv else 1) + B * H * E + 2 * H * E
+                     + 2 * H),
+                (10 if dkv else 6) * B * M * E * H)
+
+    runs = (
+        ("stream_mix", "(f) training", (ST_B, ST_M, ST_E, 1),
+         lambda: stream_mix(kv_f, u1, c1, None, training=True, seed=seed),
+         lambda: stream_mix_plain(kv_f, u1, c1, None, training=True, seed=seed),
+         mix_work(ST_B, ST_M, ST_E, 1)),
+        ("stream_mix", "(i) eval", (ST_B, ST_M, ST_E, 1),
+         lambda: stream_mix(kv_f, u1, c1, None),
+         lambda: stream_mix_plain(kv_f, u1, c1, None),
+         mix_work(ST_B, ST_M, ST_E, 1)),
+        ("stream_bwd", "(f), no d_kv", (ST_B, ST_M, ST_E, 1),
+         lambda: stream_bwd(kv_f, d_mix_f, None, None, u1, c1, want_dkv=False),
+         lambda: stream_bwd_plain(kv_f, d_mix_f, None, None, u1, c1,
+                                  want_dkv=False),
+         bwd_work(ST_B, ST_M, ST_E, 1, False)),
+        ("stream_bwd", "(f), d_kv", (ST_B, ST_M, ST_E, 1),
+         lambda: stream_bwd(kv_f, d_mix_f, None, None, u1, c1, want_dkv=True),
+         lambda: stream_bwd_plain(kv_f, d_mix_f, None, None, u1, c1,
+                                  want_dkv=True),
+         bwd_work(ST_B, ST_M, ST_E, 1, True)),
+        ("stream_bwd_mh", "(h), no d_kv", (H2_B, H2_M, H2_E, 2),
+         lambda: stream_bwd_mh(kv_h, d_mix_h, None, None, u2, c2,
+                               want_dkv=False),
+         lambda: stream_bwd_plain(kv_h, d_mix_h, None, None, u2, c2,
+                                  want_dkv=False),
+         bwd_work(H2_B, H2_M, H2_E, 2, False)),
+    )
+    times = {}
+    with torch.inference_mode():
+        for name, what, (B, M, E, H), kernel, plain, work in runs:
+            times.setdefault(name, _time_pair(
+                torch, f"{name} {what} B={B} M={M} E={E} H={H}", kernel,
+                plain, work, smi))
+
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    rates = {"auto": [], "torch": []}
+    for impl in ("auto", "torch", "torch", "auto"):
+        state = _state(torch, sliced["flat"], sgd)
+        step = make_pool_train_step(impl=impl, entropy_coeff=1.0)
+        gen_mask = torch.Generator().manual_seed(3)
+        run_step = lambda: step(state, kv_f, None, gen_mask)  # noqa: E731
+        dt = _step_s(torch, run_step)
+        rates[impl].append(ST_B / dt)
+        print(f"time make_pool_train_step impl={impl} slice (f) B={ST_B} "
+              f"M={ST_M} E={ST_E} H=1 training: {ST_B / dt:.1f} samples/s, "
+              f"{dt * 1e3:.4f} ms/step (host clock over 20 synchronised "
+              f"steps; {smi})")
+        if profiled and len(rates[impl]) == 1:
+            _profile_steps(torch, run_step, f"slice (f) impl={impl}", smi)
+    print(f"slice (f) samples/s, 'auto' {rates['auto']} vs 'torch' "
+          f"{rates['torch']}; {smi}")
+    return times
+
+
+def _profile_steps(torch, run_step, what: str, smi: str, steps=10) -> None:
+    """Device time by kernel over ``steps`` synchronised steps
+    (``torch.profiler``; CUDA kernels only; ``--profile``): kernel ms per
+    step, the device's busy share of the (profiled) host wall, the cuBLAS
+    GEMM/GEMV share and the port's own kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    per_step = {e.key: e.self_device_time_total / steps / 1e3
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "#" not in e.key}
+    total = sum(per_step.values())
+    gemm = sum(v for k, v in per_step.items() if "gemm" in k or "gemv" in k)
+    ours = {k[k.index("::stream_") + 2:].split("(")[0]: v
+            for k, v in per_step.items() if "::stream_" in k}
+    print(f"profile {what}: {total:.4f} ms of kernels a step in "
+          f"{wall:.4f} ms of profiled host wall (busy {total / wall:.3f}); "
+          f"cuBLAS GEMM/GEMV {gemm:.4f} ms; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(ours.items()))
+          + f" ({steps} steps, torch.profiler; {smi})")
 
 
 def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
@@ -1281,8 +1716,38 @@ def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_pair(torch, label, kernel, plain, work, smi, iters=50,
+               warmup=5) -> tuple:
+    """A kernel and its plain version (CUDA-event means, turns plain,
+    kernel, kernel, plain) beside the bound of ``work`` = (bytes, f32
+    operations); prints one line and returns ``(kernel ms, plain ms, bound
+    ms, bound_by)``."""
+    p1, k1, k2, p2 = (cuda_ms(torch, f, iters=iters, warmup=warmup)
+                      for f in (plain, kernel, kernel, plain))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bound = _bound(*work)
+    print(f"time {label} f32: kernel {k1:.5f}/{k2:.5f} ms, plain "
+          f"{p1:.5f}/{p2:.5f} ms (mean {k_ms:.5f} vs {p_ms:.5f}; bound "
+          f"{bound[0]:.5f} ms by {bound[1]}, {work[0] / 1e6:.1f} MB, "
+          f"{work[1] / 1e9:.3f} GFLOP; {smi})")
+    return (k_ms, p_ms, *bound)
+
+
+def _step_s(torch, run_step, steps=20, warmup=3) -> float:
+    """Host-clock seconds a step of ``run_step`` over ``steps``
+    synchronised steps, after ``warmup``."""
+    for _ in range(warmup):
+        run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run_step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
 def time_kernels(torch, smi: str, gpu_pred) -> dict:
-    """Phase 6a: the eval forward kernel vs its plain version at the
+    """Phase 7a: the eval forward kernel vs its plain version at the
     serving shapes (turns: plain, kernel, kernel, plain), then one
     predictor call per bucket."""
     from aecf_tpu_torch.kernels import shared_query_fwd, shared_query_fwd_plain
@@ -1304,14 +1769,15 @@ def time_kernels(torch, smi: str, gpu_pred) -> dict:
                 device="cuda",
             )
             args = (kv, u, c, None, wctx, bctx, wo, bo)
-            kernel = lambda: shared_query_fwd(*args)  # noqa: E731
-            plain = lambda: shared_query_fwd_plain(*args)  # noqa: E731
-            p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
-            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            times[B] = (k_ms, p_ms)
-            print(f"time shared_query_fwd B={B} M={M} E={E} H={H} f32: kernel "
-                  f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms "
-                  f"(mean {k_ms:.5f} vs {p_ms:.5f}; {smi})")
+            # kv, u, c, W_vo, b_ctx in; out, w, mw, ent, rate out
+            work = (4 * (B * M * E + E * E + 3 * E + 1 + B * E + 2 * B * M
+                         + 2 * B),
+                    2 * B * E * E + 4 * B * M * E)
+            times[B] = _time_pair(
+                torch, f"shared_query_fwd B={B} M={M} E={E} H={H}",
+                lambda: shared_query_fwd(*args),
+                lambda: shared_query_fwd_plain(*args), work, smi,
+                iters=200, warmup=20)
 
     feats = np.random.default_rng(5)
     for b in BUCKETS:
@@ -1330,6 +1796,21 @@ def time_kernels(torch, smi: str, gpu_pred) -> dict:
     return times
 
 
+# Each kernel's source and the TPU kernel it replaces.
+KERNELS = (
+    ("shared_query_fwd", "shared_query_fwd.cu",
+     "aecf_tpu/kernels/shared_query.py:508"),
+    ("shared_query_bwd", "shared_query_bwd.cu",
+     "aecf_tpu/kernels/shared_query.py:1148"),
+    ("train_step", "train_step.cu", "aecf_tpu/kernels/train_step.py:122"),
+    ("fused_pool_fwd", "fused_pool_fwd.cu", "aecf_tpu/kernels/fused_pool.py:115"),
+    ("stream_mix", "stream_mix.cu", "aecf_tpu/kernels/shared_query.py:723"),
+    ("stream_bwd", "stream_bwd.cu", "aecf_tpu/kernels/shared_query.py:1474"),
+    ("stream_bwd_mh", "stream_bwd.cu",
+     "aecf_tpu/kernels/shared_query.py:1526"),
+)
+
+
 def main() -> None:
     torch = require_cuda()
     smi = device_report(torch)
@@ -1342,35 +1823,43 @@ def main() -> None:
     errs["train_step"] = check_step(torch)
     errs["fused_pool_fwd"] = check_fused_pool(torch)
     check_fused_pool_grads(torch)
+    errs["stream_mix"] = check_stream_mix(torch)
+    errs.update(check_stream_bwd(torch))
+    check_stream_masks(torch)
     served = serve_slice(torch)
     trained = train_slice(torch)
     module = module_slice(torch)
     large = large_config(torch)
+    sliced = stream_slices(torch)
     time_kernels(torch, smi, served["gpu_pred"])
     times = time_training(torch, smi, trained)
     times["fused_pool_fwd"] = time_module(torch, smi)
+    times.update(time_streamed(torch, smi, sliced,
+                               profiled="--profile" in sys.argv[1:]))
     launches = dict(trained["launches"])
     launches["shared_query_fwd"] += served["launches"]
     launches["fused_pool_fwd"] = module["launches"] + large["launches"]
+    launches.update(sliced["launches"])
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    # No single PyTorch call computes any of these functions (each fuses a
+    # softmax over M with its entropy, mask or gradient sums), so there is
+    # no library time.
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": f"aecf_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"aecf_tpu_torch/kernels/csrc/{source}",
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": times[name][2],
+            "bound_by": times[name][3],
+            "library_ms": None,
         }
-        for name, replaces in (
-            ("shared_query_fwd", "aecf_tpu/kernels/shared_query.py:508"),
-            ("shared_query_bwd", "aecf_tpu/kernels/shared_query.py:1148"),
-            ("train_step", "aecf_tpu/kernels/train_step.py:122"),
-            ("fused_pool_fwd", "aecf_tpu/kernels/fused_pool.py:115"),
-        )
+        for name, source, replaces in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

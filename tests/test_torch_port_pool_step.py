@@ -137,13 +137,14 @@ def test_params_converter_round_trips(bias):
 
 def test_init_shapes_and_leaves():
     g = torch.Generator().manual_seed(0)
-    p = init_pool_classifier_params(g, E, C)
+    p = init_pool_classifier_params(g, E, C, device="cpu")
     assert tuple(p["head"]["w"].shape) == (E, C) and tuple(p["head"]["b"].shape) == (C,)
     assert tuple(p["query"].shape) == (1, 1, E)
     assert len(param_leaves(p)) == 7
-    p2 = init_pool_classifier_params(g, E, C, head_bias=False, bias=False)
+    p2 = init_pool_classifier_params(g, E, C, head_bias=False, bias=False,
+                                     device="cpu")
     assert "b" not in p2["head"] and len(param_leaves(p2)) == 4
-    assert "head" not in init_pool_classifier_params(g, E)
+    assert "head" not in init_pool_classifier_params(g, E, device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["torch", "fused-step"])

@@ -54,7 +54,7 @@ def small():
     )
     port_pred = FusionPredictor(
         lambda image, text: tm(image, text),
-        modality_names=("image", "text"), buckets=(8, 32),
+        modality_names=("image", "text"), buckets=(8, 32), device="cpu",
     )
     return jax_pred, port_pred
 
@@ -114,7 +114,8 @@ def test_predictor_matches_jax(small, rows, mods):
 def test_predictor_validation_and_calls():
     _, _, tm = _pair(**SMALL)
     pred = FusionPredictor(lambda image, text: tm(image, text),
-                           modality_names=("image", "text"), buckets=(8, 32))
+                           modality_names=("image", "text"), buckets=(8, 32),
+                           device="cpu")
     img = np.ones((3, 32), np.float32)
     with pytest.raises(ValueError, match="At least one"):
         pred()
@@ -168,7 +169,8 @@ def test_http_round_trip(small):
 def test_micro_batcher_coalesces_concurrent_requests():
     _, _, tm = _pair(**SMALL)
     pred = FusionPredictor(lambda image, text: tm(image, text),
-                           modality_names=("image", "text"), buckets=(8, 32))
+                           modality_names=("image", "text"), buckets=(8, 32),
+                           device="cpu")
     rng = np.random.default_rng(2)
     img = rng.standard_normal((16, 32)).astype(np.float32)
     txt = rng.standard_normal((16, 16)).astype(np.float32)

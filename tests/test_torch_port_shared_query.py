@@ -121,18 +121,22 @@ def test_plain_version_keeps_autograd_on_cpu():
 
 
 def test_training_raises_not_ported():
-    """Training needs a generator for its draw, and E > 1024 needs the
-    streamed split, which is not ported (the error names ROADMAP.md)."""
+    """Training needs a generator for its draw; E > 1024 trains through the
+    streamed split (zero weights: uniform attention, zero output)."""
     _, tp, q, kv, _ = _inputs(6, 4, 2, 1, False)
     with pytest.raises(ValueError, match="generator"):
         fused_fusion_pool_shared(tp, torch.from_numpy(q), torch.from_numpy(kv),
                                  training=True)
     e = 2048
     big = AttentionPoolParams(torch.zeros(3 * e, e), torch.zeros(e, e))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_fusion_pool_shared(big, torch.zeros(1, 1, e), torch.zeros(2, 2, e),
-                                 training=True,
-                                 generator=torch.Generator().manual_seed(0))
+    out, w, mw, info = fused_fusion_pool_shared(
+        big, torch.zeros(1, 1, e), torch.ones(2, 2, e), training=True,
+        generator=torch.Generator().manual_seed(0),
+    )
+    assert tuple(out.shape) == (2, 1, e) and bool((out == 0).all())
+    torch.testing.assert_close(w, torch.full((2, 1, 2), 0.5))
+    assert set(info) == {"entropy", "mask_rate", "target_entropy"}
+    assert bool(((info["mask_rate"] >= 0) & (info["mask_rate"] <= 0.5)).all())
 
 
 @pytest.mark.parametrize("training", [False, True])
@@ -152,7 +156,7 @@ def test_auto_dispatch_picks_torch_for_cpu_tensors(training):
     [
         ({"precision": "high"}, ValueError, "precision"),
         ({"query_shape": (2, 1, E)}, ValueError, "query"),
-        ({"E": 2048}, NotImplementedError, "streamed split"),
+        ({"E": 2048, "H": 4}, ValueError, "num_heads<=2"),
         ({"E": 16384}, ValueError, "cap"),
         ({"M": 9}, ValueError, "M <= 8"),
         ({"H": 4}, ValueError, "H <="),
