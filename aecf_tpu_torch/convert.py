@@ -18,7 +18,7 @@ flat form of JAX's ``init_pool_classifier_params`` pytree, and
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
@@ -84,13 +84,14 @@ def _dotted(key: str) -> str:
 
 
 def pool_classifier_params_from_numpy(
-    flat: Dict[str, np.ndarray], device: Optional[torch.device] = None
+    flat: Dict[str, np.ndarray], device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, Any]:
     """The port's ``{'pool', 'query'[, 'head']}`` parameters from the flat
     numpy form of JAX's ``init_pool_classifier_params`` pytree (keystr or
-    dotted paths).  The head weight keeps JAX's ``(E, C)`` layout, which
-    the step kernel takes as it is.  Biases absent from ``flat`` stay
-    absent; every other key must be known."""
+    dotted paths), on ``device`` (the card unless the caller asks for
+    another).  The head weight keeps JAX's ``(E, C)`` layout, which the
+    step kernel takes as it is.  Biases absent from ``flat`` stay absent;
+    every other key must be known."""
     arrays = {_dotted(k): v for k, v in flat.items()}
 
     def param(key):

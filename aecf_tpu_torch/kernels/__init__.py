@@ -12,6 +12,7 @@ from .fused_pool import (
 )
 from .shared_query import (
     fused_fusion_pool_shared,
+    quantize_features,
     shared_query_bwd,
     shared_query_bwd_plain,
     shared_query_fwd,
@@ -39,6 +40,7 @@ __all__ = [
     "fused_pool_head_train_step",
     "fused_pool_train_step",
     "prefers_fused",
+    "quantize_features",
     "shared_query_bwd",
     "shared_query_bwd_plain",
     "shared_query_fwd",

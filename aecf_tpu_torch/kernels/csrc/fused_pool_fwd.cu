@@ -138,7 +138,7 @@ AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
       __syncwarp();
       float a[kMaxH][kMaxM];
       float w[kMaxM];
-      row_softmax(kv + (size_t)gr * M * E, ur, c_s + r,
+      row_softmax(KvRow<T>(kv, nullptr, gr, M, E), ur, c_s + r,
                   p.pad != nullptr ? p.pad + (size_t)gr * M : nullptr, M, E,
                   1, a, w);
       if (lane == 0) {
@@ -174,7 +174,8 @@ AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
 
   // ---- per head: mix_h, ctx_h (quirk Q1: the unmasked a_h); qp is spent ---
   for (int h = 0; h < H; ++h) {
-    build_mix(kv, a_s, xs, (float*)nullptr, row0, B, M, E, H, h);
+    build_mix(kv, (const float*)nullptr, a_s, xs, (float*)nullptr, row0, B,
+              M, E, H, h);
     __syncthreads();
     // ctx[r, h Dh + n] = sum_k mix_h[r, k] Wv[h Dh + n, k] + bv[h Dh + n]
     gemm_rows_wide(xs, E, E, p.wv_t + h * Dh, E, p.bv + h * Dh, Dh, wt,

@@ -31,6 +31,11 @@
 // the same mask for the same seed.  The uniform is the TPU kernel's 24-bit
 // construction (bits >> 8) * 2^-24.
 //
+// Features: f32, bf16 or int8, always read through KvRow (the port of
+// _kv_tile_slices): f32 and bf16 are cast, int8 is dequantized per element
+// as float(q) * scale[row, m], so every kernel sees the f32 values that
+// q.float() * scales gives in torch.
+//
 // Numerics: f32 throughout; entropy floors w at the subnormal 1e-38, so
 // every source that includes this header is built without fast-math and
 // without flush-to-zero.
@@ -91,6 +96,61 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(q[1]);
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
+// The feature storage codes of the C interfaces (kv_dtype).
+enum KvDtype : int { kKvF32 = 0, kKvBf16 = 1, kKvInt8 = 2 };
+
+// int8 features are frozen (quantization is not differentiable): no
+// kernel writes a d_kv for them.
+template <typename T>
+constexpr bool kQuantized = false;
+template <>
+constexpr bool kQuantized<int8_t> = true;
+
+// One batch row of kv (M x E elements, contiguous) read as f32: at(m, e)
+// one feature, at4(m, j) the four features j .. j + 3 in one access of
+// 16 (f32), 8 (bf16) or 4 (int8) bytes, aligned to that size.  The f32
+// and bf16 forms are the plain loads; the int8 form holds the row's M
+// scales (B, M) in registers, loaded once, and returns float(q) * scale[m]
+// rounded on its own (__fmul_rn: never contracted into a later FMA), so
+// its values equal the f32 kernel's on q.float() * scales bit for bit.
+// `scales` is read only for int8.
+template <typename T>
+struct KvRow {
+  const T* p;
+  int E;
+  __device__ __forceinline__ KvRow(const T* kv, const float* /*scales*/,
+                                   int row, int M, int E_)
+      : p(kv + (size_t)row * M * E_), E(E_) {}
+  __device__ __forceinline__ float at(int m, int e) const {
+    return to_f32(p[(size_t)m * E + e]);
+  }
+  __device__ __forceinline__ float4 at4(int m, int j) const {
+    return load4(p + (size_t)m * E + j);
+  }
+};
+
+template <>
+struct KvRow<int8_t> {
+  const int8_t* p;
+  int E;
+  float s[kMaxM];
+  __device__ __forceinline__ KvRow(const int8_t* kv, const float* scales,
+                                   int row, int M, int E_)
+      : p(kv + (size_t)row * M * E_), E(E_) {
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m)
+      s[m] = m < M ? scales[(size_t)row * M + m] : 0.f;
+  }
+  __device__ __forceinline__ float at(int m, int e) const {
+    return __fmul_rn((float)p[(size_t)m * E + e], s[m]);
+  }
+  __device__ __forceinline__ float4 at4(int m, int j) const {
+    const char4 q = *reinterpret_cast<const char4*>(p + (size_t)m * E + j);
+    return make_float4(__fmul_rn((float)q.x, s[m]), __fmul_rn((float)q.y, s[m]),
+                       __fmul_rn((float)q.z, s[m]), __fmul_rn((float)q.w, s[m]));
+  }
+};
+
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
@@ -201,7 +261,7 @@ struct MaskParams {
 // One warp per row: per-head softmax weights a[h][m] (every lane holds
 // them) and the head mean w[m].  s_h[m] = (kv[m] . u_h + c_h) + pad[m].
 template <typename T>
-__device__ __forceinline__ void row_softmax(const T* __restrict__ kvr,
+__device__ __forceinline__ void row_softmax(const KvRow<T>& kvr,
                                             const float* __restrict__ u,
                                             const float* __restrict__ c,
                                             const float* pad_row, int M,
@@ -220,7 +280,7 @@ __device__ __forceinline__ void row_softmax(const T* __restrict__ kvr,
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m) {
       if (m < M) {
-        const float x = to_f32(kvr[(size_t)m * E + e]);
+        const float x = kvr.at(m, e);
 #pragma unroll
         for (int h = 0; h < kMaxH; ++h) a[h][m] = fmaf(x, uh[h], a[h][m]);
       }
@@ -504,12 +564,14 @@ constexpr int kStageFloats =
 __host__ __device__ inline int align4(int floats) { return (floats + 3) & ~3; }
 
 // mix[r, e] = sum_m a[r, h, m] kv[row0 + r, m, e]; zero for rows past B.
-// a_s is (kRows, H, M).  mix_out (B, E) in global memory, when given,
-// receives the block's valid rows too.  Not inlined: inlined, it pushed
-// the eval forward kernel into register spills (measured on the H100 at
-// 64 registers: 0.053 vs 0.045 ms at B = 32).
+// a_s is (kRows, H, M); scales (B, M) is read for int8 kv only.  mix_out
+// (B, E) in global memory, when given, receives the block's valid rows
+// too.  Not inlined: inlined, it pushed the eval forward kernel into
+// register spills (measured on the H100 at 64 registers: 0.053 vs 0.045
+// ms at B = 32).
 template <typename T>
-__device__ __noinline__ void build_mix(const T* __restrict__ kv, const float* a_s,
+__device__ __noinline__ void build_mix(const T* __restrict__ kv,
+                          const float* __restrict__ scales, const float* a_s,
                           float* mix, float* __restrict__ mix_out, int row0,
                           int B, int M, int E, int H, int h) {
   const int lane = threadIdx.x & 31;
@@ -524,12 +586,12 @@ __device__ __noinline__ void build_mix(const T* __restrict__ kv, const float* a_
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
       a[m] = m < M ? a_s[(r * H + h) * M + m] : 0.f;
-    const T* kvr = kv + (size_t)gr * M * E;
+    const KvRow<T> kvr(kv, scales, gr, M, E);
     for (int e = lane; e < E; e += 32) {
-      float acc = a[0] * to_f32(kvr[e]);
+      float acc = a[0] * kvr.at(0, e);
 #pragma unroll
       for (int m = 1; m < kMaxM; ++m)
-        if (m < M) acc = acc + a[m] * to_f32(kvr[(size_t)m * E + e]);
+        if (m < M) acc = acc + a[m] * kvr.at(m, e);
       mix[r * E + e] = acc;
       if (mix_out != nullptr) mix_out[(size_t)gr * E + e] = acc;
     }
@@ -540,9 +602,11 @@ __device__ __noinline__ void build_mix(const T* __restrict__ kv, const float* a_
 // d_mix (kRows x E, shared) and an optional weights cotangent d_w (B, M):
 //   d_a[m] = d_mix . kv[m] + d_w[m];  d_s = a (d_a - sum_m a d_a)
 // into ds_s (kRows x kMaxM, zero for rows past B), and, when dkv is
-// given, d_kv[m] = a[m] d_mix + d_s[m] u in the feature dtype.
+// given, d_kv[m] = a[m] d_mix + d_s[m] u in the feature dtype (never for
+// int8: dkv must be null).
 template <typename T>
 __device__ void softmax_bwd_rows(const T* __restrict__ kv,
+                                 const float* __restrict__ scales,
                                  const float* __restrict__ u,
                                  const float* dmix, const float* a_s,
                                  const float* __restrict__ dw, float* ds_s,
@@ -557,7 +621,7 @@ __device__ void softmax_bwd_rows(const T* __restrict__ kv,
         for (int m = 0; m < kMaxM; ++m) ds_s[r * kMaxM + m] = 0.f;
       continue;
     }
-    const T* kvr = kv + (size_t)gr * M * E;
+    const KvRow<T> kvr(kv, scales, gr, M, E);
     float da[kMaxM];
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m) da[m] = 0.f;
@@ -565,7 +629,7 @@ __device__ void softmax_bwd_rows(const T* __restrict__ kv,
       const float dm = dmix[r * E + e];
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m)
-        if (m < M) da[m] = fmaf(dm, to_f32(kvr[(size_t)m * E + e]), da[m]);
+        if (m < M) da[m] = fmaf(dm, kvr.at(m, e), da[m]);
     }
     float a[kMaxM];
     float dot = 0.f;
@@ -584,14 +648,17 @@ __device__ void softmax_bwd_rows(const T* __restrict__ kv,
       ds[m] = m < M ? a[m] * (da[m] - dot) : 0.f;
       if (lane == 0) ds_s[r * kMaxM + m] = ds[m];
     }
-    if (dkv != nullptr) {
-      T* dkvr = dkv + (size_t)gr * M * E;
-      for (int e = lane; e < E; e += 32) {
-        const float dm = dmix[r * E + e];
-        const float ue = u[e];
+    if constexpr (!kQuantized<T>) {
+      if (dkv != nullptr) {
+        T* dkvr = dkv + (size_t)gr * M * E;
+        for (int e = lane; e < E; e += 32) {
+          const float dm = dmix[r * E + e];
+          const float ue = u[e];
 #pragma unroll
-        for (int m = 0; m < kMaxM; ++m)
-          if (m < M) dkvr[(size_t)m * E + e] = from_f32<T>(a[m] * dm + ds[m] * ue);
+          for (int m = 0; m < kMaxM; ++m)
+            if (m < M)
+              dkvr[(size_t)m * E + e] = from_f32<T>(a[m] * dm + ds[m] * ue);
+        }
       }
     }
   }
@@ -601,17 +668,19 @@ __device__ void softmax_bwd_rows(const T* __restrict__ kv,
 // kv[r, m, e] (du), part[E + e] = sum_r d_out[r, e], part[2E] = sum d_s,
 // over the block's valid rows in a fixed order.
 template <typename T>
-__device__ void block_partials(const T* __restrict__ kv, const float* ds_s,
-                               const float* dout, float* __restrict__ part,
-                               int row0, int B, int M, int E) {
+__device__ void block_partials(const T* __restrict__ kv,
+                               const float* __restrict__ scales,
+                               const float* ds_s, const float* dout,
+                               float* __restrict__ part, int row0, int B,
+                               int M, int E) {
   const int rows_valid = min(kRows, B - row0);
   for (int e = threadIdx.x; e < E; e += kThreads) {
     float du = 0.f;
     float dsum = 0.f;
     for (int r = 0; r < rows_valid; ++r) {
-      const T* kvr = kv + (size_t)(row0 + r) * M * E + e;
+      const KvRow<T> kvr(kv, scales, row0 + r, M, E);
       for (int m = 0; m < M; ++m)
-        du = fmaf(ds_s[r * kMaxM + m], to_f32(kvr[(size_t)m * E]), du);
+        du = fmaf(ds_s[r * kMaxM + m], kvr.at(m, e), du);
       dsum += dout[r * E + e];
     }
     part[e] = du;

@@ -1,6 +1,8 @@
 // Shared-query fusion-pool forward (eval and training) for Hopper (sm_90a).
 //
-// Replaces aecf_tpu/kernels/shared_query.py::_shared_kernel: _shared_body
+// Replaces aecf_tpu/kernels/shared_query.py::_shared_kernel (f32/bf16
+// features) and ::_shared_kernel_q8 (int8 features with per-(row,
+// modality) f32 scales, dequantized per element by KvRow): _shared_body
 // -> _weights_entropy_mask (with the training branch, _mask_and_renorm),
 // then the context GEMM.  Per batch row b, with the per-call vectors u
 // (H, E), c (H,) and the fused context weights computed outside the kernel:
@@ -34,6 +36,13 @@
 // global load and two barriers per chunk, and up to B = 256 there are
 // fewer blocks (128) than SMs (132).
 //
+// int8 features (the _shared_kernel_q8 instance): every column block of a
+// row tile reads the tile's kv again for the scores and the mix (E / 64
+// times, mostly from L2), so the quarter-size int8 rows show even in this
+// GEMM-heavy kernel: 2.865 ms against 4.074 ms for f32 features holding
+// the same dequantized values, at B = 8192, M = 4, E = 1024, H = 1, eval
+// (bound 0.258 ms, by operations; H100 SXM, 700 W).
+//
 // Numerics: full f32 FMAs for every precision mode.  Entropy uses logf on
 // max(w, 1e-38) — a subnormal floor — so this file must be built without
 // --use_fast_math and without -ftz=true.
@@ -46,7 +55,8 @@ namespace {
 
 template <typename T, bool kTraining>
 AECF_ROW_KERNEL(4) shared_query_fwd_kernel(
-    const T* __restrict__ kv, const float* __restrict__ u,
+    const T* __restrict__ kv, const float* __restrict__ scales,
+    const float* __restrict__ u,
     const float* __restrict__ c, const float* __restrict__ pad,
     const float* __restrict__ wctx, const float* __restrict__ wo,
     const float* __restrict__ bctx, const float* __restrict__ bo,
@@ -71,7 +81,7 @@ AECF_ROW_KERNEL(4) shared_query_fwd_kernel(
     if (gr >= B) continue;  // warp-uniform
     float a[kMaxH][kMaxM];
     float w[kMaxM];
-    row_softmax(kv + (size_t)gr * M * E, u, c,
+    row_softmax(KvRow<T>(kv, scales, gr, M, E), u, c,
                 pad != nullptr ? pad + (size_t)gr * M : nullptr, M, E, H, a,
                 w);
     if (lane == 0) {
@@ -89,7 +99,7 @@ AECF_ROW_KERNEL(4) shared_query_fwd_kernel(
 
   // ---- mix -> context GEMM(s) (quirk Q1: unmasked per-head attention) ----
   if (H == 1) {
-    build_mix(kv, a_s, mix, (float*)nullptr, row0, B, M, E, H, 0);
+    build_mix(kv, scales, a_s, mix, (float*)nullptr, row0, B, M, E, H, 0);
     __syncthreads();
     const int n0 = blockIdx.y * kCols;
     gemm_rows<false>(mix, E, E, wctx, E, bctx, n0, min(E, n0 + kCols), wt,
@@ -98,7 +108,7 @@ AECF_ROW_KERNEL(4) shared_query_fwd_kernel(
   }
   const int Dh = E / H;
   for (int h = 0; h < H; ++h) {
-    build_mix(kv, a_s, mix, (float*)nullptr, row0, B, M, E, H, h);
+    build_mix(kv, scales, a_s, mix, (float*)nullptr, row0, B, M, E, H, h);
     __syncthreads();
     // Rows h*Dh.. of Wv are head h's value projection.
     gemm_rows<false>(mix, E, E, wctx, E, bctx, h * Dh, (h + 1) * Dh, wt, ctx,
@@ -115,7 +125,8 @@ size_t smem_bytes(int E, int H) {
 }
 
 template <typename T, bool kTraining>
-cudaError_t launch(const void* kv, const float* u, const float* c,
+cudaError_t launch(const void* kv, const float* scales, const float* u,
+                   const float* c,
                    const float* pad, const float* wctx, const float* wo,
                    const float* bctx, const float* bo, float* out, float* w,
                    float* mw, float* ent, float* rate, int B, int M, int E,
@@ -128,8 +139,8 @@ cudaError_t launch(const void* kv, const float* u, const float* c,
   // the block's whole ctx tile, which a column split would recompute.
   const dim3 grid(row_blocks(B), H == 1 ? (E + kCols - 1) / kCols : 1);
   shared_query_fwd_kernel<T, kTraining><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(kv), u, c, pad, wctx, wo, bctx, bo, out, w, mw,
-      ent, rate, B, M, E, H, mp);
+      static_cast<const T*>(kv), scales, u, c, pad, wctx, wo, bctx, bo, out,
+      w, mw, ent, rate, B, M, E, H, mp);
   return cudaGetLastError();
 }
 
@@ -138,12 +149,14 @@ cudaError_t launch(const void* kv, const float* u, const float* c,
 extern "C" {
 
 // Returns a cudaError_t; 0 means the launch was accepted.  kv is (B, M, E)
-// f32 (kv_bf16 = 0) or bf16 (kv_bf16 = 1); pad may be null (no padding);
-// wo and bo are read only when H > 1.  All other pointers are f32 device
-// buffers of the shapes in the header comment, contiguous.  training = 0
-// is the eval branch (seed words, mask_prob and min_active unread).
-int aecf_shared_query_fwd(const void* kv, int kv_bf16, const float* u,
-                          const float* c, const float* pad, const float* wctx,
+// f32 (kv_dtype = 0), bf16 (1) or int8 (2, with scales (B, M) f32; scales
+// is read for int8 only); pad may be null (no padding); wo and bo are read
+// only when H > 1.  All other pointers are f32 device buffers of the
+// shapes in the header comment, contiguous.  training = 0 is the eval
+// branch (seed words, mask_prob and min_active unread).
+int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
+                          const float* u, const float* c, const float* pad,
+                          const float* wctx,
                           const float* wo, const float* bctx, const float* bo,
                           float* out, float* w, float* mw, float* ent,
                           float* rate, int B, int M, int E, int H,
@@ -151,7 +164,7 @@ int aecf_shared_query_fwd(const void* kv, int kv_bf16, const float* u,
                           unsigned int seed1, float mask_prob, int min_active,
                           void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 1 ||
-      E % H != 0) {
+      E % H != 0 || (kv_dtype == kKvInt8 && scales == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   MaskParams mp;
@@ -164,16 +177,21 @@ int aecf_shared_query_fwd(const void* kv, int kv_bf16, const float* u,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // eval and training are separate instances (see row_side_outputs)
   auto run = [&](auto launcher) {
-    return launcher(kv, u, c, pad, wctx, wo, bctx, bo, out, w, mw, ent, rate,
-                    B, M, E, H, mp, s);
+    return launcher(kv, scales, u, c, pad, wctx, wo, bctx, bo, out, w, mw,
+                    ent, rate, B, M, E, H, mp, s);
   };
-  cudaError_t err;
-  if (kv_bf16)
-    err = training ? run(launch<__nv_bfloat16, true>)
-                   : run(launch<__nv_bfloat16, false>);
-  else
-    err = training ? run(launch<float, true>) : run(launch<float, false>);
-  return (int)err;
+  switch (kv_dtype) {
+    case kKvF32:
+      return (int)(training ? run(launch<float, true>)
+                            : run(launch<float, false>));
+    case kKvBf16:
+      return (int)(training ? run(launch<__nv_bfloat16, true>)
+                            : run(launch<__nv_bfloat16, false>));
+    case kKvInt8:
+      return (int)(training ? run(launch<int8_t, true>)
+                            : run(launch<int8_t, false>));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Philox4x32-10 of n (c0, c1, c2, c3, k0, k1) rows of `in` into n x 4

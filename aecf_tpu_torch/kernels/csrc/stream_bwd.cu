@@ -2,11 +2,13 @@
 //
 // Replaces aecf_tpu/kernels/shared_query.py::_bwd_kernel_streamed (H == 1,
 // launched by _bwd_streamed) and ::_bwd_kernel_streamed_mh (H >= 2, by
-// _bwd_streamed_mh; here H == 2, the streamed split's widest): the
-// backward of the streamed split.  The GEMMs that need an E x E matrix
-// (d_mix = d_out W_vo and G = d_out^T mix for H == 1; the per-head
-// output/V-projection backward for H == 2) run in cuBLAS before this
-// kernel, as the JAX package runs them in XLA.  Per batch row b, with the
+// _bwd_streamed_mh; here H == 2, the streamed split's widest), f32/bf16
+// features and their quantized=True branches (int8 with per-(row,
+// modality) scales, read through KvRow in 4-byte loads; frozen, so no
+// d_kv): the backward of the streamed split.  The GEMMs that need an
+// E x E matrix (d_mix = d_out W_vo and G = d_out^T mix for H == 1; the
+// per-head output/V-projection backward for H == 2) run in cuBLAS before
+// this kernel, as the JAX package runs them in XLA.  Per batch row b, with the
 // score vectors u (H, E) and offsets c (H,):
 //
 //   recompute  a_h = softmax_m(kv[b, m] . u_h + c_h + pad[b, m])
@@ -29,9 +31,11 @@
 // repeats bit for bit.  Padded rows (>= B) write nothing and add nothing.
 // Needs E % 4 == 0.
 //
-// Measured on an H100 SXM (700 W), f32, no d_kv: 0.153 ms at B = 4096,
-// M = 4, E = 2048, H = 1 (bound 0.050 ms; with d_kv 0.213 ms, bound 0.090);
-// 0.202 ms at B = 8192, M = 4, E = 1024, H = 2 (bound 0.060 ms).
+// Measured on an H100 SXM (700 W), f32, no d_kv: 0.134 ms at B = 4096,
+// M = 4, E = 2048, H = 1 (bound 0.050 ms; with d_kv 0.209 ms, bound 0.090);
+// 0.198 ms at B = 8192, M = 4, E = 1024, H = 2 (bound 0.060 ms).  int8, no
+// d_kv: 0.114 ms (bound 0.020 ms) and 0.156 ms (bound 0.030 ms) at the same
+// shapes; d_mix, read in f32, is then most of the bytes.
 
 #include "pool_common.cuh"
 
@@ -39,16 +43,17 @@ using namespace aecf;
 
 // Also declared, field for field, by kernels/shared_query.py (ctypes).
 struct StreamBwdParams {
-  const void* kv;     // (B, M, E) f32 or bf16
+  const void* kv;     // (B, M, E) f32, bf16 or int8 (kv_dtype)
+  const float* scales;  // (B, M) dequant scales, int8 only
   const float* dmix;  // (B, H E)
   const float* dw;    // (B, M) or null: the weights cotangent (head mean)
   const float* pad;   // (B, M) or null
   const float* u;     // (H, E)
   const float* c;     // (H,)
-  void* dkv;          // (B, M, E) kv dtype, or null: no d_kv
+  void* dkv;          // (B, M, E) kv dtype, or null: no d_kv (int8: null)
   float* acc;         // (H E + H): du_0 .. du_{H-1} | dc
   float* ws;          // aecf_stream_bwd_workspace floats
-  int B, M, E, kv_bf16;
+  int B, M, E, kv_dtype;  // KvDtype: 0 f32, 1 bf16, 2 int8
 };
 
 namespace {
@@ -70,7 +75,7 @@ AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
   // ---- phase A: scores and d_a in one pass, then the softmax backward ----
   for (int r = warp; r < rows_valid; r += kWarps) {
     const int gr = row0 + r;
-    const T* kvr = kv + (size_t)gr * M * E;
+    const KvRow<T> kvr(kv, p.scales, gr, M, E);
     const float* dmr = p.dmix + (size_t)gr * kH * E;
     float s[kH][kMaxM];
     float da[kH][kMaxM];
@@ -89,7 +94,7 @@ AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
         if (m < M) {
-          const float4 x = load4(kvr + (size_t)m * E + j);
+          const float4 x = kvr.at4(m, j);
 #pragma unroll
           for (int h = 0; h < kH; ++h) {
             s[h][m] = dot4(x, uh[h], s[h][m]);
@@ -153,6 +158,7 @@ AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
     }
     for (int r = 0; r < rows_valid; ++r) {
       const int gr = row0 + r;
+      const KvRow<T> kvr(kv, p.scales, gr, M, E);
       float4 dm[kH];
       if (dkv != nullptr) {
 #pragma unroll
@@ -162,18 +168,20 @@ AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
         if (m < M) {
-          const size_t off = ((size_t)gr * M + m) * E + j;
-          const float4 x = load4(kv + off);
+          const float4 x = kvr.at4(m, j);
 #pragma unroll
           for (int h = 0; h < kH; ++h) du[h] = axpy4(ds_s[r][h][m], x, du[h]);
-          if (dkv != nullptr) {
-            float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+          if constexpr (!kQuantized<T>) {
+            if (dkv != nullptr) {
+              float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-            for (int h = 0; h < kH; ++h) {
-              g = axpy4(a_s[r][h][m], dm[h], g);
-              g = axpy4(ds_s[r][h][m], uh[h], g);
+              for (int h = 0; h < kH; ++h) {
+                g = axpy4(a_s[r][h][m], dm[h], g);
+                g = axpy4(ds_s[r][h][m], uh[h], g);
+              }
+              // the load's offset: d_kv is laid out as kv
+              store4(dkv + (kvr.p - kv) + (size_t)m * E + j, g);
             }
-            store4(dkv + off, g);
           }
         }
       }
@@ -210,12 +218,17 @@ cudaError_t launch(const StreamBwdParams& p, cudaStream_t stream) {
 
 template <int kH>
 int run(const StreamBwdParams* p, void* stream) {
-  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 4 || p->E % 4 != 0) {
+  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 4 || p->E % 4 != 0 ||
+      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(p->kv_bf16 ? launch<__nv_bfloat16, kH>(*p, s)
-                          : launch<float, kH>(*p, s));
+  switch (p->kv_dtype) {
+    case kKvF32: return (int)launch<float, kH>(*p, s);
+    case kKvBf16: return (int)launch<__nv_bfloat16, kH>(*p, s);
+    case kKvInt8: return (int)launch<int8_t, kH>(*p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -231,7 +244,7 @@ size_t aecf_stream_bwd_workspace(int B, int E, int H) {
 // The H == 1 backward (_bwd_kernel_streamed).  Returns a cudaError_t; 0
 // means every launch was accepted.  Pointers are contiguous device
 // buffers as listed in StreamBwdParams; kv, dmix, u, dkv and ws aligned
-// to four elements.
+// to four elements; int8 needs scales and takes no dkv.
 int aecf_stream_bwd(const StreamBwdParams* p, void* stream) {
   return run<1>(p, stream);
 }

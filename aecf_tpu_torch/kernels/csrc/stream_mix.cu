@@ -1,7 +1,9 @@
 // Streamed shared-query forward (the "mix" kernel) for Hopper (sm_90a).
 //
 // Replaces aecf_tpu/kernels/shared_query.py::_mix_kernel (launched by
-// _forward_streamed): the forward of the streamed split, which takes the
+// _forward_streamed), f32/bf16 features and its quantized=True branch
+// (int8 with per-(row, modality) scales, read through KvRow in 4-byte
+// loads): the forward of the streamed split, which takes the
 // shared-query pools with H <= 2 above the resident kernel's cap
 // (1024 < E <= 8192) and H == 2 training from E = 512.  Per batch row b,
 // with u (H, E) and c (H,) computed outside the kernel:
@@ -22,14 +24,16 @@
 // row_side_outputs run the resident forward's chain in the same order, so
 // the two kernels give the same weights, entropy and mask bit for bit for
 // the same seed words; then a second pass over the row reads kv in 16-byte
-// (f32) or 8-byte (bf16) loads and writes mix in 16-byte stores.  That
-// second read comes from L2 only while the rows in flight fit in it (32 KB
-// a row at M = 4, E = 2048), so at large B M E it goes to device memory
-// again.  Needs E % 4 == 0.  Tensor cores have nothing to do here.
+// (f32), 8-byte (bf16) or 4-byte (int8) loads and writes mix in 16-byte
+// stores.  That second read comes from L2 only while the rows in flight
+// fit in it (32 KB a row at M = 4, E = 2048 in f32), so at large B M E it
+// goes to device memory again.  Needs E % 4 == 0.  Tensor cores have
+// nothing to do here.
 //
 // Measured on an H100 SXM (700 W) at B = 4096, M = 4, E = 2048, H = 1, f32:
-// 0.143 ms in training and in eval, against a bound of 0.050 ms (168 MB at
-// 3.35 TB/s).
+// 0.141 ms in training and 0.139 ms in eval, against a bound of 0.050 ms
+// (168 MB at 3.35 TB/s); int8, eval: 0.085 ms against a bound of 0.020 ms
+// (67 MB).
 //
 // Numerics: f32 throughout; the entropy floors w at the subnormal 1e-38,
 // so this file is built without fast-math and without flush-to-zero.
@@ -42,7 +46,8 @@ namespace {
 
 template <typename T, bool kTraining>
 AECF_ROW_KERNEL(4) stream_mix_kernel(
-    const T* __restrict__ kv, const float* __restrict__ u,
+    const T* __restrict__ kv, const float* __restrict__ scales,
+    const float* __restrict__ u,
     const float* __restrict__ c, const float* __restrict__ pad,
     float* __restrict__ mix, float* __restrict__ w_out,
     float* __restrict__ mw_out, float* __restrict__ ent_out,
@@ -51,7 +56,7 @@ AECF_ROW_KERNEL(4) stream_mix_kernel(
   const int lane = threadIdx.x & 31;
   const int gr = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (gr >= B) return;  // warp-uniform; the kernel has no block barrier
-  const T* kvr = kv + (size_t)gr * M * E;
+  const KvRow<T> kvr(kv, scales, gr, M, E);
   float a[kMaxH][kMaxM];
   float w[kMaxM];
   row_softmax(kvr, u, c, pad != nullptr ? pad + (size_t)gr * M : nullptr, M,
@@ -66,7 +71,7 @@ AECF_ROW_KERNEL(4) stream_mix_kernel(
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m) {
       if (m < M) {
-        const float4 x = load4(kvr + (size_t)m * E + j);
+        const float4 x = kvr.at4(m, j);
 #pragma unroll
         for (int h = 0; h < kMaxH; ++h)
           if (h < H) acc[h] = axpy4(a[h][m], x, acc[h]);
@@ -79,14 +84,15 @@ AECF_ROW_KERNEL(4) stream_mix_kernel(
 }
 
 template <typename T, bool kTraining>
-cudaError_t launch(const void* kv, const float* u, const float* c,
-                   const float* pad, float* mix, float* w, float* mw,
+cudaError_t launch(const void* kv, const float* scales, const float* u,
+                   const float* c, const float* pad, float* mix, float* w,
+                   float* mw,
                    float* ent, float* rate, int B, int M, int E, int H,
                    const MaskParams& mp, cudaStream_t stream) {
   const int blocks = (B + kWarps - 1) / kWarps;
   stream_mix_kernel<T, kTraining><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(kv), u, c, pad, mix, w, mw, ent, rate, B, M, E,
-      H, mp);
+      static_cast<const T*>(kv), scales, u, c, pad, mix, w, mw, ent, rate, B,
+      M, E, H, mp);
   return cudaGetLastError();
 }
 
@@ -95,18 +101,20 @@ cudaError_t launch(const void* kv, const float* u, const float* c,
 extern "C" {
 
 // Returns a cudaError_t; 0 means the launch was accepted.  kv is (B, M, E)
-// f32 (kv_bf16 = 0) or bf16 (kv_bf16 = 1), aligned to four elements; pad
-// may be null (no padding); mix is (B, H E) f32, 16-byte aligned; w, mw
-// (B, M), ent, rate (B,).  All contiguous device buffers.  training = 0 is
-// the eval branch (seed words, mask_prob and min_active unread).
-int aecf_stream_mix(const void* kv, int kv_bf16, const float* u,
-                    const float* c, const float* pad, float* mix, float* w,
+// f32 (kv_dtype = 0), bf16 (1) or int8 (2, with scales (B, M) f32, read
+// for int8 only), aligned to four elements; pad may be null (no padding);
+// mix is (B, H E) f32, 16-byte aligned; w, mw (B, M), ent, rate (B,).  All
+// contiguous device buffers.  training = 0 is the eval branch (seed words,
+// mask_prob and min_active unread).
+int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
+                    const float* u, const float* c, const float* pad,
+                    float* mix, float* w,
                     float* mw, float* ent, float* rate, int B, int M, int E,
                     int H, float max_entropy, int training,
                     unsigned int seed0, unsigned int seed1, float mask_prob,
                     int min_active, void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 4 ||
-      E % 4 != 0) {
+      E % 4 != 0 || (kv_dtype == kKvInt8 && scales == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   MaskParams mp;
@@ -118,15 +126,21 @@ int aecf_stream_mix(const void* kv, int kv_bf16, const float* u,
   mp.seed1 = seed1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto launcher) {
-    return launcher(kv, u, c, pad, mix, w, mw, ent, rate, B, M, E, H, mp, s);
+    return launcher(kv, scales, u, c, pad, mix, w, mw, ent, rate, B, M, E, H,
+                    mp, s);
   };
-  cudaError_t err;
-  if (kv_bf16)
-    err = training ? run(launch<__nv_bfloat16, true>)
-                   : run(launch<__nv_bfloat16, false>);
-  else
-    err = training ? run(launch<float, true>) : run(launch<float, false>);
-  return (int)err;
+  switch (kv_dtype) {
+    case kKvF32:
+      return (int)(training ? run(launch<float, true>)
+                            : run(launch<float, false>));
+    case kKvBf16:
+      return (int)(training ? run(launch<__nv_bfloat16, true>)
+                            : run(launch<__nv_bfloat16, false>));
+    case kKvInt8:
+      return (int)(training ? run(launch<int8_t, true>)
+                            : run(launch<int8_t, false>));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* aecf_cuda_error_string(int err) {

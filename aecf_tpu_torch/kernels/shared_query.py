@@ -2,9 +2,10 @@
 streamed split (H ≤ 2 up to E = 8192, and H == 2 training from E = 512),
 with CUDA kernels.
 
-Port of :mod:`aecf_tpu.kernels.shared_query` (f32/bf16 features).  Every
-reference flow expands one learnable ``(1, 1, E)`` fusion query across the
-batch, which lets the attention pool be restructured algebraically:
+Port of :mod:`aecf_tpu.kernels.shared_query` (f32, bf16 and int8
+features).  Every reference flow expands one learnable ``(1, 1, E)`` fusion
+query across the batch, which lets the attention pool be restructured
+algebraically:
 
   *  scores:  ``s_h[b, m] = kv[b, m] · u_h + c_h`` with
      ``u_h = scale·(qp_h @ Wk_h)`` and ``c_h = scale·(qp_h · bk_h)``
@@ -34,6 +35,12 @@ PyTorch, as the JAX package leaves it to XLA.  Four kernels:
   recompute and backward, optional ``d_kv`` summed over heads, du/dc; its
   E×E GEMMs run in cuBLAS first.
 
+Each takes f32, bf16 or int8 features; int8 comes with per-(row,
+modality) f32 scales ``kv_scales (B, M)`` (:func:`quantize_features`) and
+is dequantized per element in the kernel, ``float(q)·scale``, as every
+plain version does through :func:`_dequant` (JAX's ``_kv_tile_slices``).
+int8 features are frozen: no kernel writes a ``d_kv`` for them.
+
 Each has a plain version beside it (``*_plain``).  :class:`_SharedPool`
 ties them into one ``torch.autograd.Function``; :func:`_vjp_wants_streamed`
 chooses the route as the JAX package does.  The resident H > 1 backward is
@@ -46,7 +53,9 @@ order, so weights match the naive oracle to ~1e-6, not bitwise.  Padded
 slots get a ``-1e30`` score bias (a fully padded row comes out uniform),
 where the oracle's ``-inf`` gives NaN.
 
-Not ported yet (see ROADMAP.md): the int8 path.
+The resident kernels keep per-row register arrays for H ≤ 2: a call with
+H > 2 raises, naming its ROADMAP.md item (``'auto'`` takes the torch path
+there, as JAX's takes XLA).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from .draws import draw_seed_words, mask_and_renorm, mask_uniforms
 
 __all__ = [
     "fused_fusion_pool_shared",
+    "quantize_features",
     "shared_query_bwd",
     "shared_query_bwd_plain",
     "shared_query_fwd",
@@ -87,6 +97,13 @@ _STREAMED_H2_MIN_E = 512
 # Static bounds of the kernels' per-row register arrays (kMaxM, kMaxH).
 _MAX_M = 8
 _MAX_H = 2
+_H_LIMIT = (
+    "the resident shared-query kernels take 1 <= H <= {h} dividing E, got "
+    "H={H}, E={E}; H > 2 is not ported (ROADMAP.md, queue 2, item 9: H > 2 "
+    "on #1/#2 _shared_kernel); use implementation='torch'"
+)
+# kv_dtype codes of the C interfaces (KvDtype in csrc/pool_common.cuh).
+_KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _vjp_wants_streamed(num_heads: int, E: int) -> bool:
@@ -182,10 +199,47 @@ def _side_outputs(w, ent, *, training, seed, mask_prob, min_active):
     return mw, rate
 
 
-def _softmax_heads(kv, u, c, pad_bias) -> torch.Tensor:
+def quantize_features(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, modality) symmetric int8 quantization of ``(B, M, E)``
+    features: ``(kv_int8, scales (B, M) f32)`` for the quantized path of
+    :func:`fused_fusion_pool_shared` — JAX's ``quantize_features``, equal
+    to it bit for bit (``torch.round`` rounds half to even, as
+    ``jnp.round``)."""
+    absmax = kv.abs().amax(dim=-1)
+    scales = torch.where(absmax > 0, absmax / 127.0, 1.0).to(torch.float32)
+    q = torch.clamp(torch.round(kv / scales[..., None]), -127, 127)
+    return q.to(torch.int8), scales
+
+
+def _dequant(kv: torch.Tensor, kv_scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 features every plain version computes on (JAX's
+    ``_kv_tile_slices``): ``kv`` upcast, or int8 times its ``(B, M)``
+    scales — the values the kernels read."""
+    x = kv.float()
+    return x if kv_scales is None else x * kv_scales[..., None]
+
+
+def _check_kv_scales(kv, kv_scales, *, want_dkv=False) -> None:
+    """int8 features come with f32 ``(B, M)`` scales on kv's device and
+    are frozen; float features take no scales."""
+    if kv.dtype == torch.int8:
+        if kv_scales is None:
+            raise ValueError("int8 kv requires kv_scales (see quantize_features)")
+        if want_dkv:
+            raise ValueError("int8 features are frozen: no d_kv")
+        _check_f32(kv, {"kv_scales": (kv_scales, tuple(kv.shape[:2]))},
+                   why="int8 kv")
+    elif kv_scales is not None:
+        raise ValueError(
+            f"kv_scales passed with {kv.dtype} kv — the quantized path needs "
+            "int8 features (see quantize_features)"
+        )
+
+
+def _softmax_heads(x, u, c, pad_bias) -> torch.Tensor:
     """Per-head softmax weights ``a (B, H, M)`` of the scores
-    ``kv·u_h + c_h + pad``."""
-    s = torch.einsum("bme,he->bhm", kv.float(), u) + c[None, :, None]
+    ``x·u_h + c_h + pad`` on the f32 features ``x``."""
+    s = torch.einsum("bme,he->bhm", x, u) + c[None, :, None]
     if pad_bias is not None:
         s = s + pad_bias[:, None, :]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
@@ -208,11 +262,12 @@ def _context(mix, wctx, bctx, wo, bo):
 
 
 def stream_mix_plain(
-    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    kv: torch.Tensor,  # (B, M, E) f32, bf16 or int8
     u: torch.Tensor,  # (H, E)
     c: torch.Tensor,  # (H,)
     pad_bias: Optional[torch.Tensor],  # (B, M) or None
     *,
+    kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
     training: bool = False,
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
@@ -225,10 +280,11 @@ def stream_mix_plain(
     :func:`.draws.mask_uniforms` for ``seed``."""
     B, M, E = kv.shape
     H = u.shape[0]
-    a = _softmax_heads(kv, u, c, pad_bias)  # (B, H, M)
+    x = _dequant(kv, kv_scales)
+    a = _softmax_heads(x, u, c, pad_bias)  # (B, H, M)
     w = a.sum(dim=1) * (1.0 / H)
     ent = _entropy(w)
-    mix = torch.einsum("bhm,bme->bhe", a, kv.float()).reshape(B, H * E)
+    mix = torch.einsum("bhm,bme->bhe", a, x).reshape(B, H * E)
     mw, rate = _side_outputs(
         w, ent, training=training, seed=seed, mask_prob=mask_prob,
         min_active=min_active,
@@ -237,7 +293,7 @@ def stream_mix_plain(
 
 
 def shared_query_fwd_plain(
-    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    kv: torch.Tensor,  # (B, M, E) f32, bf16 or int8 (kv_scales= then)
     u: torch.Tensor,  # (H, E)
     c: torch.Tensor,  # (H,)
     pad_bias: Optional[torch.Tensor],  # (B, M) or None
@@ -249,13 +305,14 @@ def shared_query_fwd_plain(
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's function in plain PyTorch: ``(out (B,E), w (B,M),
     mw (B,M), ent (B,), rate (B,))`` — :func:`stream_mix_plain` (whose
-    ``training``, ``seed``, ``mask_prob`` and ``min_active`` it takes),
-    then the context GEMMs."""
+    ``kv_scales``, ``training``, ``seed``, ``mask_prob`` and
+    ``min_active`` it takes), then the context GEMMs."""
     mix, w, mw, ent, rate = stream_mix_plain(kv, u, c, pad_bias, **mask_kw)
     return _context(mix, wctx, bctx, wo, bo), w, mw, ent, rate
 
 
-def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
+def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo,
+                    kv_scales) -> None:
     if kv.ndim != 3:
         raise ValueError(f"kv must be (B, M, E), got shape {tuple(kv.shape)}")
     B, M, E = kv.shape
@@ -265,14 +322,14 @@ def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo) -> None:
     if not 1 <= M <= _MAX_M:
         raise ValueError(f"kernel takes 1 <= M <= {_MAX_M}, got M={M}")
     if not 1 <= H <= _MAX_H or E % H:
-        raise ValueError(
-            f"kernel takes 1 <= H <= {_MAX_H} dividing E={E}, got u "
-            f"{tuple(u.shape)}"
-        )
+        raise ValueError(_H_LIMIT.format(h=_MAX_H, H=H, E=E))
     if E > _RESIDENT_E_CAP:
         raise ValueError(f"kernel takes E <= {_RESIDENT_E_CAP}, got E={E}")
-    if kv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kv must be float32 or bfloat16, got {kv.dtype}")
+    if kv.dtype not in _KV_DTYPE:
+        raise TypeError(
+            f"kv must be float32 or bfloat16, or int8 with kv_scales, got "
+            f"{kv.dtype}")
+    _check_kv_scales(kv, kv_scales)
     _check_f32(kv, {
         "u": (u, (H, E)),
         "c": (c, (H,)),
@@ -335,6 +392,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _count_launch(wrapper, kv: torch.Tensor) -> None:
+    """One launch on ``wrapper``'s count: ``launches_q8`` for int8
+    features, ``launches`` for f32/bf16."""
+    if kv.dtype == torch.int8:
+        wrapper.launches_q8 += 1
+    else:
+        wrapper.launches += 1
+
+
 def shared_query_fwd(
     kv: torch.Tensor,
     u: torch.Tensor,
@@ -345,28 +411,31 @@ def shared_query_fwd(
     wo: Optional[torch.Tensor] = None,
     bo: Optional[torch.Tensor] = None,
     *,
+    kv_scales: Optional[torch.Tensor] = None,
     training: bool = False,
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
     min_active: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
-    """Wrapper of ``csrc/shared_query_fwd.cu``; operands as in
-    :func:`shared_query_fwd_plain`.
+    """Wrapper of ``csrc/shared_query_fwd.cu`` (``_shared_kernel``, and
+    ``_shared_kernel_q8`` for int8 ``kv`` with ``kv_scales``); operands as
+    in :func:`shared_query_fwd_plain`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel or
     raise — there is no fallback.  ``shared_query_fwd.launches`` counts
-    kernel launches (the plain version does not count).  The outputs
-    carry no autograd graph: :func:`fused_fusion_pool_shared` is the
-    differentiable entry.
+    f32/bf16 launches and ``shared_query_fwd.launches_q8`` int8 ones (the
+    plain version does not count).  The outputs carry no autograd graph:
+    :func:`fused_fusion_pool_shared` is the differentiable entry.
     """
-    _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo)
-    kw = dict(training=training, seed=seed, mask_prob=mask_prob,
-              min_active=min_active)
+    _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales)
+    kw = dict(kv_scales=kv_scales, training=training, seed=seed,
+              mask_prob=mask_prob, min_active=min_active)
     if kv.device.type == "cpu":
         return shared_query_fwd_plain(kv, u, c, pad_bias, wctx, bctx, wo, bo,
                                       **kw)
-    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias, wctx=wctx,
-                           bctx=bctx, wo=wo, bo=bo))
+    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
+                           pad_bias=pad_bias, wctx=wctx, bctx=bctx, wo=wo,
+                           bo=bo))
     B, M, E = kv.shape
     H = u.shape[0]
     out = torch.empty((B, E), dtype=torch.float32, device=kv.device)
@@ -377,7 +446,7 @@ def shared_query_fwd(
     lib = _fwd_library()
     with torch.cuda.device(kv.device):
         err = lib.aecf_shared_query_fwd(
-            _ptr(kv), int(kv.dtype == torch.bfloat16),
+            _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales),
             _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(wctx), _ptr(wo),
             _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
@@ -386,11 +455,11 @@ def shared_query_fwd(
             torch.cuda.current_stream(kv.device).cuda_stream,
         )
     _raise_on_error(lib, err, "shared_query_fwd")
-    shared_query_fwd.launches += 1
+    _count_launch(shared_query_fwd, kv)
     return out, w, mw, ent, rate
 
 
-shared_query_fwd.launches = 0
+shared_query_fwd.launches = shared_query_fwd.launches_q8 = 0
 
 
 def philox_on_device(rows: torch.Tensor) -> torch.Tensor:
@@ -419,11 +488,12 @@ def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-# (kv, kv_bf16, *pointers, B, M, E, H, max_entropy, training, seed0, seed1,
-# mask_prob, min_active, stream) of the two forward kernels' C entries
+# (kv, kv_dtype, scales, *pointers, B, M, E, H, max_entropy, training,
+# seed0, seed1, mask_prob, min_active, stream) of the two forward kernels'
+# C entries
 def _fwd_argtypes(pointers: int):
     p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    return [p, i] + [p] * pointers + [i, i, i, i, f, i, u32, u32, f, i, p]
+    return [p, i, p] + [p] * pointers + [i, i, i, i, f, i, u32, u32, f, i, p]
 
 
 @functools.cache
@@ -443,9 +513,9 @@ def _fwd_library() -> ctypes.CDLL:
 
 def _check_stream(kv: torch.Tensor, H: int) -> Tuple[int, int, int]:
     """Widths every streamed kernel takes; returns ``(B, M, E)``."""
-    if kv.ndim != 3 or kv.dtype not in (torch.float32, torch.bfloat16):
+    if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
-            f"kv must be float32/bfloat16 (B, M, E), got {kv.dtype} "
+            f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
             f"{tuple(kv.shape)}"
         )
     B, M, E = kv.shape
@@ -464,6 +534,7 @@ def stream_mix(
     c: torch.Tensor,
     pad_bias: Optional[torch.Tensor],
     *,
+    kv_scales: Optional[torch.Tensor] = None,
     training: bool = False,
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
@@ -472,17 +543,19 @@ def stream_mix(
     """Wrapper of ``csrc/stream_mix.cu``; operands and results as in
     :func:`stream_mix_plain`.  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.  ``stream_mix.launches`` counts
-    kernel launches."""
+    f32/bf16 launches, ``stream_mix.launches_q8`` int8 ones."""
     H = u.shape[0] if u.ndim == 2 else -1
     B, M, E = _check_stream(kv, H)
+    _check_kv_scales(kv, kv_scales)
     _check_f32(kv, {"u": (u, (H, E)), "c": (c, (H,)),
                     "pad_bias": (pad_bias, (B, M))},
                optional=("pad_bias",), why="the streamed forward")
-    kw = dict(training=training, seed=seed, mask_prob=mask_prob,
-              min_active=min_active)
+    kw = dict(kv_scales=kv_scales, training=training, seed=seed,
+              mask_prob=mask_prob, min_active=min_active)
     if kv.device.type == "cpu":
         return stream_mix_plain(kv, u, c, pad_bias, **kw)
-    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias))
+    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
+                           pad_bias=pad_bias))
     _require_aligned(dict(kv=kv, u=u))
     dev = kv.device
     mix = torch.empty((B, H * E), dtype=torch.float32, device=dev)
@@ -493,18 +566,18 @@ def stream_mix(
     lib = _mix_library()
     with torch.cuda.device(dev):
         err = lib.aecf_stream_mix(
-            _ptr(kv), int(kv.dtype == torch.bfloat16), _ptr(u), _ptr(c),
+            _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales), _ptr(u), _ptr(c),
             _ptr(pad_bias), _ptr(mix), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
             int(bool(training)), seed[0], seed[1], float(mask_prob),
             int(min_active), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(lib, err, "stream_mix")
-    stream_mix.launches += 1
+    _count_launch(stream_mix, kv)
     return mix, w, mw, ent, rate
 
 
-stream_mix.launches = 0
+stream_mix.launches = stream_mix.launches_q8 = 0
 
 
 @functools.cache
@@ -519,7 +592,7 @@ def _mix_library() -> ctypes.CDLL:
 
 
 def stream_bwd_plain(
-    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    kv: torch.Tensor,  # (B, M, E) f32, bf16 or int8
     d_mix: torch.Tensor,  # (B, H·E)
     d_w: Optional[torch.Tensor],  # (B, M) or None
     pad_bias: Optional[torch.Tensor],  # (B, M) or None
@@ -527,16 +600,17 @@ def stream_bwd_plain(
     c: torch.Tensor,  # (H,)
     *,
     want_dkv: bool,
+    kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """The streamed backward kernels' function in plain PyTorch: from the
     mix cotangent ``d_mix`` and the head-mean weights cotangent ``d_w``
     (``d_w / H`` on each head), ``(d_kv (B,M,E) in kv's dtype or None,
     du (H,E) = Σ_b Σ_m d_s·kv, dc (H,) = Σ d_s)``, ``d_kv`` summed over
-    heads."""
+    heads (float features only)."""
     B, M, E = kv.shape
     H = u.shape[0]
-    x = kv.float()
-    a = _softmax_heads(kv, u, c, pad_bias)  # (B, H, M)
+    x = _dequant(kv, kv_scales)
+    a = _softmax_heads(x, u, c, pad_bias)  # (B, H, M)
     dm = d_mix.reshape(B, H, E)
     d_a = torch.einsum("bhe,bme->bhm", dm, x)
     if d_w is not None:
@@ -556,25 +630,28 @@ class _StreamBwdParams(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_void_p)
-        for name in ("kv", "dmix", "dw", "pad", "u", "c", "dkv", "acc", "ws")
-    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_bf16")]
+        for name in ("kv", "scales", "dmix", "dw", "pad", "u", "c", "dkv",
+                     "acc", "ws")
+    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")]
 
 
-def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv):
+def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
+                kv_scales):
     """Checks and the launch behind :func:`stream_bwd` (``H == 1``) and
     :func:`stream_bwd_mh` (``H == 2``); None for CPU tensors."""
     if u.ndim != 2 or u.shape[0] != H:
         raise ValueError(f"{entry} takes u (H, E) with H == {H}, got "
                          f"{tuple(u.shape)}")
     B, M, E = _check_stream(kv, H)
+    _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
     _check_f32(kv, {
         "d_mix": (d_mix, (B, H * E)), "d_w": (d_w, (B, M)),
         "pad_bias": (pad_bias, (B, M)), "u": (u, (H, E)), "c": (c, (H,)),
     }, optional=("d_w", "pad_bias"), why="the streamed backward")
     if kv.device.type == "cpu":
         return None
-    _require_cuda(kv, dict(kv=kv, d_mix=d_mix, d_w=d_w, pad_bias=pad_bias,
-                           u=u, c=c))
+    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, d_mix=d_mix, d_w=d_w,
+                           pad_bias=pad_bias, u=u, c=c))
     _require_aligned(dict(kv=kv, d_mix=d_mix, u=u))
     lib = _stream_bwd_library()
     dev = kv.device
@@ -583,9 +660,9 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv):
     ws = torch.empty((lib.aecf_stream_bwd_workspace(B, E, H),),
                      dtype=torch.float32, device=dev)
     params = _StreamBwdParams(
-        _ptr(kv), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias), _ptr(u), _ptr(c),
-        _ptr(d_kv), _ptr(acc), _ptr(ws), B, M, E,
-        int(kv.dtype == torch.bfloat16),
+        _ptr(kv), _ptr(kv_scales), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias),
+        _ptr(u), _ptr(c), _ptr(d_kv), _ptr(acc), _ptr(ws), B, M, E,
+        _KV_DTYPE[kv.dtype],
     )
     with torch.cuda.device(dev):
         err = getattr(lib, f"aecf_{entry}")(
@@ -604,18 +681,19 @@ def stream_bwd(
     c: torch.Tensor,
     *,
     want_dkv: bool,
+    kv_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Wrapper of ``csrc/stream_bwd.cu`` at H == 1 (the port of
     ``_bwd_kernel_streamed``); operands and results as in
     :func:`stream_bwd_plain`.  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.  ``stream_bwd.launches`` counts
-    kernel launches."""
+    f32/bf16 launches, ``stream_bwd.launches_q8`` int8 ones."""
     got = _stream_bwd("stream_bwd", 1, kv, d_mix, d_w, pad_bias, u, c,
-                      want_dkv)
+                      want_dkv, kv_scales)
     if got is None:
         return stream_bwd_plain(kv, d_mix, d_w, pad_bias, u, c,
-                                want_dkv=want_dkv)
-    stream_bwd.launches += 1
+                                want_dkv=want_dkv, kv_scales=kv_scales)
+    _count_launch(stream_bwd, kv)
     return got
 
 
@@ -628,21 +706,22 @@ def stream_bwd_mh(
     c: torch.Tensor,
     *,
     want_dkv: bool,
+    kv_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Wrapper of ``csrc/stream_bwd.cu`` at H == 2 (the port of
     ``_bwd_kernel_streamed_mh``); as :func:`stream_bwd`, counting in
-    ``stream_bwd_mh.launches``."""
+    ``stream_bwd_mh.launches`` and ``stream_bwd_mh.launches_q8``."""
     got = _stream_bwd("stream_bwd_mh", 2, kv, d_mix, d_w, pad_bias, u, c,
-                      want_dkv)
+                      want_dkv, kv_scales)
     if got is None:
         return stream_bwd_plain(kv, d_mix, d_w, pad_bias, u, c,
-                                want_dkv=want_dkv)
-    stream_bwd_mh.launches += 1
+                                want_dkv=want_dkv, kv_scales=kv_scales)
+    _count_launch(stream_bwd_mh, kv)
     return got
 
 
-stream_bwd.launches = 0
-stream_bwd_mh.launches = 0
+stream_bwd.launches = stream_bwd.launches_q8 = 0
+stream_bwd_mh.launches = stream_bwd_mh.launches_q8 = 0
 
 
 @functools.cache
@@ -657,7 +736,7 @@ def _stream_bwd_library() -> ctypes.CDLL:
 
 
 def shared_query_bwd_plain(
-    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    kv: torch.Tensor,  # (B, M, E) f32, bf16 or int8
     u: torch.Tensor,  # (E,)
     c: torch.Tensor,  # (1,)
     pad_bias: Optional[torch.Tensor],  # (B, M) or None
@@ -666,13 +745,14 @@ def shared_query_bwd_plain(
     wvo: torch.Tensor,  # (E, E)
     *,
     want_dkv: bool,
+    kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward kernel's function in plain PyTorch.  Returns ``(d_kv
     (B,M,E) in kv's dtype or None, G (E,E) = Σ_b d_outᵀ mix, du (E,),
     Σ_b d_out (E,), dc = Σ d_s (0-d))``."""
-    mix = stream_mix_plain(kv, u[None], c, pad_bias)[0]
+    mix = stream_mix_plain(kv, u[None], c, pad_bias, kv_scales=kv_scales)[0]
     d_kv, du, dc = stream_bwd_plain(kv, d_out @ wvo, d_w, pad_bias, u[None],
-                                    c, want_dkv=want_dkv)
+                                    c, want_dkv=want_dkv, kv_scales=kv_scales)
     return d_kv, d_out.T @ mix, du[0], d_out.sum(dim=0), dc[0]
 
 
@@ -686,14 +766,17 @@ def shared_query_bwd(
     wvo: torch.Tensor,
     *,
     want_dkv: bool,
+    kv_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], ...]:
-    """Wrapper of ``csrc/shared_query_bwd.cu``; operands and results as in
-    :func:`shared_query_bwd_plain`.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel or raise.  ``shared_query_bwd.launches``
-    counts kernel launches."""
-    if kv.ndim != 3 or kv.dtype not in (torch.float32, torch.bfloat16):
+    """Wrapper of ``csrc/shared_query_bwd.cu`` (``_bwd_kernel``, and its
+    ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
+    and results as in :func:`shared_query_bwd_plain`.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.
+    ``shared_query_bwd.launches`` counts f32/bf16 launches,
+    ``shared_query_bwd.launches_q8`` int8 ones."""
+    if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
-            f"kv must be float32/bfloat16 (B, M, E), got {kv.dtype} "
+            f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
             f"{tuple(kv.shape)}"
         )
     B, M, E = kv.shape
@@ -707,11 +790,12 @@ def shared_query_bwd(
         "d_out": (d_out, (B, E)), "d_w": (d_w, (B, M)),
         "wvo": (wvo, (E, E)),
     }, optional=("pad_bias", "d_w"), why="the backward")
+    _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
     if kv.device.type == "cpu":
         return shared_query_bwd_plain(kv, u, c, pad_bias, d_out, d_w, wvo,
-                                      want_dkv=want_dkv)
-    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias, d_out=d_out,
-                           d_w=d_w, wvo=wvo))
+                                      want_dkv=want_dkv, kv_scales=kv_scales)
+    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
+                           pad_bias=pad_bias, d_out=d_out, d_w=d_w, wvo=wvo))
     if E % 4:
         raise ValueError(f"the backward kernel takes E divisible by 4, got E={E}")
     lib = _bwd_library()
@@ -722,20 +806,20 @@ def shared_query_bwd(
     ws = torch.empty((lib.aecf_shared_query_bwd_workspace(B, E),),
                      dtype=torch.float32, device=dev)
     params = _BwdParams(
-        _ptr(kv), _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(d_out), _ptr(d_w),
-        _ptr(wvo), _ptr(d_kv), _ptr(G), _ptr(sums), _ptr(ws), B, M, E,
-        int(kv.dtype == torch.bfloat16),
+        _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
+        _ptr(d_out), _ptr(d_w), _ptr(wvo), _ptr(d_kv), _ptr(G), _ptr(sums),
+        _ptr(ws), B, M, E, _KV_DTYPE[kv.dtype],
     )
     with torch.cuda.device(dev):
         err = lib.aecf_shared_query_bwd(
             ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream
         )
     _raise_on_error(lib, err, "shared_query_bwd")
-    shared_query_bwd.launches += 1
+    _count_launch(shared_query_bwd, kv)
     return d_kv, G, sums[:E], sums[E : 2 * E], sums[2 * E]
 
 
-shared_query_bwd.launches = 0
+shared_query_bwd.launches = shared_query_bwd.launches_q8 = 0
 
 
 class _BwdParams(ctypes.Structure):
@@ -744,10 +828,10 @@ class _BwdParams(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "kv", "u", "c", "pad", "dout", "dw", "wvo", "dkv", "g", "sums",
-            "ws",
+            "kv", "scales", "u", "c", "pad", "dout", "dw", "wvo", "dkv", "g",
+            "sums", "ws",
         )
-    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_bf16")]
+    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")]
 
 
 @functools.cache
@@ -838,8 +922,9 @@ def _fold_entropy_cotangent(d_w, d_ent, w):
 def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
     """H == 1 backward: the resident backward kernel (``_bwd_pallas``), or,
     after a streamed forward (``mix`` saved), the ``d_mix``/G GEMMs in
-    torch and the streamed kernel (``_bwd_streamed``)."""
-    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    torch and the streamed kernel (``_bwd_streamed``).  int8 features
+    take the kernels' quantized branches (JAX's ``_shared_q8_bwd``)."""
+    in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
     E = kv.shape[-1]
     wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
     (u, c, wvo, _, _, _), qp, scale = _prep_tensors(
@@ -851,11 +936,12 @@ def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
     if mix is None:
         d_kv, G, du, dsum_out, dc = shared_query_bwd(
             kv, u[0], c, pad, d_out, d_w, wvo, want_dkv=want_dkv,
+            kv_scales=kv_scales,
         )
         du, dc = du.reshape(1, E), dc.reshape(1)
     else:
         d_kv, du, dc = stream_bwd(kv, d_out @ wvo, d_w, pad, u, c,
-                                  want_dkv=want_dkv)
+                                  want_dkv=want_dkv, kv_scales=kv_scales)
         G, dsum_out = d_out.T @ mix, d_out.sum(dim=0)
     dWo, dWv, d_bv, dbo = _g_epilogue(
         G, dsum_out, wv, out_w, bv, out_b is not None
@@ -874,8 +960,10 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
     """H > 1 backward: the out/V-projection backward in torch, then the
     softmax backward — after a resident forward in plain torch, as the
     JAX package runs it in XLA (``_shared_bwd_impl``: ``mix`` recomputed),
-    after a streamed one in the multi-head kernel (``_bwd_streamed_mh``)."""
-    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    after a streamed one in the multi-head kernel (``_bwd_streamed_mh``);
+    int8 features: the plain torch on the dequantized features, or the
+    kernel's quantized branch."""
+    in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
     B, M, E = kv.shape
     H = num_heads
     Dh = E // H
@@ -886,7 +974,7 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
     pad = _pad_bias_rows(kpm)
     softmax_bwd = stream_bwd_mh
     if mix is None:
-        mix = stream_mix_plain(kv, u, c, pad)[0]
+        mix = stream_mix_plain(kv, u, c, pad, kv_scales=kv_scales)[0]
         softmax_bwd = stream_bwd_plain
     d_mix, dWo, dbo, dWv, d_bv = _out_vproj_bwd(
         d_out, mix.reshape(B, H, E), wv.reshape(H, Dh, E), out_w, bv,
@@ -895,7 +983,7 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
     d_kv, d_u, d_c = softmax_bwd(
         kv, d_mix.reshape(B, H * E).contiguous(),
         None if d_w is None else d_w.contiguous(),
-        pad, u, c, want_dkv=want_dkv,
+        pad, u, c, want_dkv=want_dkv, kv_scales=kv_scales,
     )
     d_qp, dWk, d_bk, dWq, d_qrow = _query_path_grads(
         scale, qp.reshape(H, Dh), wk.reshape(H, Dh, E), bk, d_u, d_c, wq,
@@ -911,15 +999,17 @@ def _forward(tensors, kpm, num_heads, mask_kw, *, streamed):
     """``((out, w, mw, ent, rate), mix)``: the resident forward kernel
     (``mix`` None), or the streamed one and the context GEMMs in torch
     (``_forward_streamed``; ``mix`` kept for the backward)."""
-    in_w, in_b, out_w, out_b, qrow, kv = tensors
+    in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
     u, c, wctx, bctx, wo, bo = _prep_tensors(
         in_w, in_b, out_w, out_b, qrow, num_heads
     )[0]
     pad = _pad_bias_rows(kpm)
     if not streamed:
-        outs = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo, **mask_kw)
+        outs = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo,
+                                kv_scales=kv_scales, **mask_kw)
         return outs, None
-    mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, **mask_kw)
+    mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, kv_scales=kv_scales,
+                                       **mask_kw)
     return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
 
 
@@ -930,12 +1020,14 @@ class _SharedPool(torch.autograd.Function):
     ``(out, w, mw, ent, rate)``; ``mw`` and ``rate`` carry no gradient,
     and the backward folds an entropy cotangent into the weights'
     (``_fold_entropy_cotangent``).  The backward needs no mask and no
-    draw: the output flows through the unmasked weights (quirk Q1)."""
+    draw: the output flows through the unmasked weights (quirk Q1).  With
+    int8 ``kv`` and its ``kv_scales`` (``_shared_core_q8``) both get None
+    gradients: int8 features are frozen."""
 
     @staticmethod
-    def forward(ctx, in_w, in_b, out_w, out_b, qrow, kv, kpm, num_heads,
-                mask_kw):
-        tensors = (in_w, in_b, out_w, out_b, qrow, kv)
+    def forward(ctx, in_w, in_b, out_w, out_b, qrow, kv, kv_scales, kpm,
+                num_heads, mask_kw):
+        tensors = (in_w, in_b, out_w, out_b, qrow, kv, kv_scales)
         outs, mix = _forward(
             tensors, kpm, num_heads, mask_kw,
             streamed=_vjp_wants_streamed(num_heads, kv.shape[-1]),
@@ -949,7 +1041,7 @@ class _SharedPool(torch.autograd.Function):
     def backward(ctx, d_out, d_w, _d_mw, d_ent, _d_rate):
         *tensors, kpm, w, mix = ctx.saved_tensors
         d_w = _fold_entropy_cotangent(d_w, d_ent, w)
-        want_dkv = ctx.needs_input_grad[5]
+        want_dkv = ctx.needs_input_grad[5]  # never for int8 kv
         if ctx.num_heads == 1:
             d_params, d_qrow, d_kv = _bwd_h1(tensors, kpm, d_out, d_w,
                                              want_dkv, mix)
@@ -960,7 +1052,7 @@ class _SharedPool(torch.autograd.Function):
         return (
             d_params["in_proj_weight"], d_params["in_proj_bias"],
             d_params["out_proj_weight"], d_params["out_proj_bias"],
-            d_qrow, d_kv, None, None, None,
+            d_qrow, d_kv, None, None, None, None,
         )
 
 
@@ -1000,6 +1092,7 @@ def fused_fusion_pool_shared(
     min_active: int = 1,
     key_padding_mask: Optional[torch.Tensor] = None,
     precision: str = "default",
+    kv_scales: Optional[torch.Tensor] = None,  # (B, M) f32, int8 kv only
     kv_grad: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Fused fusion pool for a batch-shared query, differentiable.
@@ -1015,6 +1108,12 @@ def fused_fusion_pool_shared(
     ``"default"``).  Up to E = 1024 the resident kernels run; above it (to
     E = 8192, H ≤ 2), and for H == 2 training or gradients from E = 512,
     the streamed split (:func:`_vjp_wants_streamed`).
+
+    Quantized path: int8 ``kv`` with ``kv_scales (B, M)``
+    (:func:`quantize_features`) — a quarter of the f32 feature bytes in
+    every kernel, forward and backward, on the same routes.  int8 features
+    are frozen by construction: gradients flow to the parameters and the
+    query only, and no backward computes a ``d_kv``.
     """
     if query.shape[:2] != (1, 1):
         raise ValueError(
@@ -1043,6 +1142,7 @@ def fused_fusion_pool_shared(
         raise ValueError(
             "fused_fusion_pool_shared(training=True) needs a `generator=`"
         )
+    _check_kv_scales(kv, kv_scales)
     mask_kw = dict(
         training=training, seed=draw_seed_words(generator),
         mask_prob=float(base_mask_prob), min_active=int(min_active),
@@ -1051,7 +1151,7 @@ def fused_fusion_pool_shared(
         kv = kv.detach()
     tensors = (params.in_proj_weight, params.in_proj_bias,
                params.out_proj_weight, params.out_proj_bias, query[0, 0, :],
-               kv)
+               kv, kv_scales)
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors
     ):

@@ -26,11 +26,13 @@ Draws are Philox (:mod:`.draws`) with tile-independent counters, so the
 step draws the same mask as the training forward kernel for the same seed
 words — with no condition on tile sizes.
 
+int8 features (``kv_scales``, the kernel's ``quantized=True`` branch) are
+dequantized per element in the kernel and are frozen: no ``d_kv``.
+
 Not ported (each raises, naming its ROADMAP.md item): staged-batch
-addressing (``row_offset``/``batch_rows``, packed 2-D ``kv``), int8
-features (``kv_scales``), and a custom ``row_loss`` on CUDA tensors (a
-Python callable cannot run inside a CUDA kernel; the plain version runs
-one on CPU tensors).
+addressing (``row_offset``/``batch_rows``, packed 2-D ``kv``) and a custom
+``row_loss`` on CUDA tensors (a Python callable cannot run inside a CUDA
+kernel; the plain version runs one on CPU tensors).
 """
 
 from __future__ import annotations
@@ -46,10 +48,14 @@ from ..core.attention import AttentionPoolParams
 from ._build import load_library
 from .draws import draw_seed_words
 from .shared_query import (
+    _KV_DTYPE,
     _MAX_M,
     _RESIDENT_E_CAP,
     _assemble_d_params,
     _check_f32,
+    _check_kv_scales,
+    _count_launch,
+    _dequant,
     _entropy,
     _g_epilogue,
     _pad_bias_rows,
@@ -108,7 +114,7 @@ def _bce_rows(logits, labels, inv):
 
 
 def train_step_plain(
-    kv: torch.Tensor,  # (B, M, E) f32 or bf16
+    kv: torch.Tensor,  # (B, M, E) f32, bf16 or int8 (kv_scales= then)
     u: torch.Tensor,  # (E,)
     c: torch.Tensor,  # (1,)
     pad_bias: Optional[torch.Tensor],  # (B, M) or None
@@ -126,6 +132,7 @@ def train_step_plain(
     labels: Optional[torch.Tensor] = None,  # (B, C)
     row_loss: Optional[Callable] = None,
     row_extras: Tuple[torch.Tensor, ...] = (),
+    kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
 ) -> Dict[str, Optional[torch.Tensor]]:
     """The step kernel's function in plain PyTorch.
 
@@ -139,7 +146,7 @@ def train_step_plain(
     replaces the built-in loss.
     """
     B, M, E = kv.shape
-    x = kv.float()
+    x = _dequant(kv, kv_scales)
     s = torch.einsum("bme,e->bm", x, u) + c
     if pad_bias is not None:
         s = s + pad_bias
@@ -207,14 +214,17 @@ def train_step(
     labels: Optional[torch.Tensor] = None,
     row_loss: Optional[Callable] = None,
     row_extras: Tuple[torch.Tensor, ...] = (),
+    kv_scales: Optional[torch.Tensor] = None,
 ) -> Dict[str, Optional[torch.Tensor]]:
-    """Wrapper of ``csrc/train_step.cu``; operands and results as in
-    :func:`train_step_plain`.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise (a custom ``row_loss`` raises).
-    ``train_step.launches`` counts kernel launches."""
-    if kv.ndim != 3 or kv.dtype not in (torch.float32, torch.bfloat16):
+    """Wrapper of ``csrc/train_step.cu`` (``_step_kernel``, and its
+    ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
+    and results as in :func:`train_step_plain`.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise (a custom ``row_loss``
+    raises).  ``train_step.launches`` counts f32/bf16 launches,
+    ``train_step.launches_q8`` int8 ones."""
+    if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
-            f"kv must be float32/bfloat16 (B, M, E), got {kv.dtype} "
+            f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
             f"{tuple(kv.shape)}"
         )
     B, M, E = kv.shape
@@ -233,9 +243,10 @@ def train_step(
         if labels is not None:
             want["labels"] = (labels, (B, C))
     _check_f32(kv, want, optional=("pad_bias", "labels"), why="the step")
+    _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
     kw = dict(inv=inv, want_dkv=want_dkv, training=training, seed=seed,
               mask_prob=mask_prob, min_active=min_active, head_w=head_w,
-              head_b=head_b, labels=labels)
+              head_b=head_b, labels=labels, kv_scales=kv_scales)
     if kv.device.type == "cpu":
         return train_step_plain(kv, u, c, pad_bias, wvo, bctx,
                                 row_loss=row_loss, row_extras=row_extras, **kw)
@@ -249,9 +260,9 @@ def train_step(
         raise ValueError("the step kernel's head loss needs labels")
     if E % 4:
         raise ValueError(f"the step kernel takes E divisible by 4, got E={E}")
-    _require_cuda(kv, dict(kv=kv, u=u, c=c, pad_bias=pad_bias, wvo=wvo,
-                           bctx=bctx, head_w=head_w, head_b=head_b,
-                           labels=labels))
+    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
+                           pad_bias=pad_bias, wvo=wvo, bctx=bctx,
+                           head_w=head_w, head_b=head_b, labels=labels))
     lib = _library()
     dev = kv.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -274,12 +285,12 @@ def train_step(
     ws = torch.empty((lib.aecf_train_step_workspace(B, E, C),), **f32)
     wvo_t = wvo.T.contiguous()  # the out GEMM reads W_vo row-contiguous in n
     params = _StepParams(
-        _ptr(kv), _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(wvo), _ptr(wvo_t),
-        _ptr(bctx),
+        _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
+        _ptr(wvo), _ptr(wvo_t), _ptr(bctx),
         _ptr(head_w), _ptr(head_b), _ptr(labels), _ptr(res["w"]),
         _ptr(res["mw"]), _ptr(res["ent"]), _ptr(res["rate"]),
         _ptr(res["d_kv"]), _ptr(res["G"]), _ptr(dhead_w), _ptr(sums),
-        _ptr(ws), B, M, E, C, int(kv.dtype == torch.bfloat16),
+        _ptr(ws), B, M, E, C, _KV_DTYPE[kv.dtype],
         int(bool(training)), int(min_active), seed[0], seed[1],
         math.log(M) if M > 1 else 0.0, float(mask_prob), float(inv),
         float(2.0 * inv),
@@ -289,7 +300,7 @@ def train_step(
             ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream
         )
     _raise_on_error(lib, err, "train_step")
-    train_step.launches += 1
+    _count_launch(train_step, kv)
     res.update(du=sums[:E], dsum_out=sums[E : 2 * E], dc=sums[2 * E],
                loss=sums[2 * E + 1])
     if C:
@@ -297,7 +308,7 @@ def train_step(
     return res
 
 
-train_step.launches = 0
+train_step.launches = train_step.launches_q8 = 0
 
 
 class _StepParams(ctypes.Structure):
@@ -307,15 +318,15 @@ class _StepParams(ctypes.Structure):
         [
             (name, ctypes.c_void_p)
             for name in (
-                "kv", "u", "c", "pad", "wvo", "wvo_t", "bctx", "head_w",
-                "head_b",
+                "kv", "scales", "u", "c", "pad", "wvo", "wvo_t", "bctx",
+                "head_w", "head_b",
                 "labels", "w", "mw", "ent", "rate", "dkv", "g", "dhead_w",
                 "sums", "ws",
             )
         ]
         + [
             (name, ctypes.c_int)
-            for name in ("B", "M", "E", "C", "kv_bf16", "training",
+            for name in ("B", "M", "E", "C", "kv_dtype", "training",
                          "min_active")
         ]
         + [("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32)]
@@ -345,7 +356,7 @@ def _library() -> ctypes.CDLL:
 def fused_pool_train_step(
     params: AttentionPoolParams,
     query: torch.Tensor,  # (1, 1, E) — the unexpanded fusion query
-    kv: torch.Tensor,  # (B, M, E) f32 / bf16
+    kv: torch.Tensor,  # (B, M, E) f32 / bf16 / int8 (with kv_scales)
     *,
     generator: Optional[torch.Generator] = None,
     training: bool = True,
@@ -380,7 +391,10 @@ def fused_pool_train_step(
     * ``d_head = {'w': (E, C), 'b': (C,) | None}`` — ``head_w`` keeps the
       JAX layout ``(E, C)`` (logits = out @ head_w + head_b), not
       ``nn.Linear``'s ``(C, E)``.
-    * ``d_kv`` — the feature cotangent when ``kv_grad=True``, else None.
+    * ``d_kv`` — the feature cotangent when ``kv_grad=True``, else None
+      (int8 features, with ``kv_scales (B, M)`` from
+      :func:`~aecf_tpu_torch.kernels.quantize_features`, are frozen:
+      ``kv_grad=True`` raises).
     * ``info`` — the training info contract (``entropy``, ``mask_rate``,
       ``target_entropy`` as (B, 1) values, plus ``attention_weights`` and
       ``masked_attention_weights`` (B, 1, M)); all detached (Q1/Q2).
@@ -395,11 +409,6 @@ def fused_pool_train_step(
         raise NotImplementedError(
             "staged-batch addressing (row_offset/batch_rows, packed 2-D kv) "
             "is " + _ROADMAP.format("staged row_offset in the step kernel")
-        )
-    if kv_scales is not None or kv.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 features (kv_scales) are not ported yet (ROADMAP.md, "
-            "queue 2: _shared_kernel_q8 and the quantized step)"
         )
     if query.shape[:2] != (1, 1):
         raise ValueError(
@@ -417,6 +426,7 @@ def fused_pool_train_step(
             f"fused kernels support precision 'default' or 'highest', got "
             f"{precision!r} — use the torch path for other modes"
         )
+    _check_kv_scales(kv, kv_scales, want_dkv=kv_grad)
     if training and generator is None and M > 1:
         raise ValueError(
             "fused_pool_train_step(training=True) needs a `generator=`"
@@ -462,6 +472,7 @@ def fused_pool_train_step(
             ),
             labels=labels.float().contiguous() if labels is not None else None,
             row_loss=row_loss, row_extras=tuple(row_extras),
+            kv_scales=kv_scales,
         )
         dWo, dWv, d_bv, dbo = _g_epilogue(
             res["G"], res["dsum_out"], wv, out_w, bv, out_b is not None

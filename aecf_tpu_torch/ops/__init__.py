@@ -22,7 +22,12 @@ from ..kernels import (
     supports_fused,
 )
 from ..kernels.fused_pool import _kernel_takes
-from ..kernels.shared_query import _MAX_M, _shared_takes
+from ..kernels.shared_query import (
+    _MAX_M,
+    _check_kv_scales,
+    _dequant,
+    _shared_takes,
+)
 
 __all__ = ["fusion_pool"]
 
@@ -32,10 +37,12 @@ def _wants_kernel(params, query, kv, *, num_heads, precision):
     they are ported and cannot change the call's meaning.  Training and
     gradients take them too — for a shared ``(1, 1, E)`` query (H ≤ 2, E
     up to the streamed-split cap) the resident or streamed forward kernel
-    with in-kernel masking and their backward kernels, for a per-row
-    ``(B, 1, E)`` query the per-row forward kernel."""
+    with in-kernel masking and their backward kernels, f32, bf16 or int8
+    features; for a per-row ``(B, 1, E)`` query the per-row forward
+    kernel, f32 or bf16."""
     E = query.shape[-1]
     shared = query.shape[0] == 1
+    dtypes = (torch.float32, torch.bfloat16) + ((torch.int8,) if shared else ())
     return (
         kv.is_cuda
         and supports_fused(
@@ -49,7 +56,7 @@ def _wants_kernel(params, query, kv, *, num_heads, precision):
             else _kernel_takes(kv.shape[1], E, num_heads)
         )
         and query.dtype == torch.float32
-        and kv.dtype in (torch.float32, torch.bfloat16)
+        and kv.dtype in dtypes
         # the kernel implements "highest"/"default" only
         and precision != "high"
         # M <= 1 masking is a no-op that the oracle handles; M above the
@@ -73,6 +80,7 @@ def fusion_pool(
     implementation: str = "auto",
     precision: str = "highest",
     kv_grad: bool = True,
+    kv_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention pool + curriculum masking with device dispatch.
 
@@ -87,12 +95,20 @@ def fusion_pool(
     generator on ``kv``'s device.  ``kv_grad=False`` detaches the
     features.  The torch path runs matmuls at PyTorch's global float32
     precision setting; ``precision`` selects the path only.
+
+    int8 features: pass ``kv`` as int8 with ``kv_scales (B, M)`` (see
+    :func:`aecf_tpu_torch.kernels.quantize_features`); they are frozen
+    (gradients reach the parameters and the query only).  The shared-query
+    kernels read them as int8; the per-row kernel and the torch path take
+    the dequantized features, detached.
     """
     if implementation not in ("auto", "torch", "kernel"):
         raise ValueError(
             f"unknown implementation {implementation!r} "
             "(expected 'auto', 'torch', or 'kernel')"
         )
+    _check_kv_scales(kv, kv_scales)
+    q8 = kv.dtype == torch.int8
     if not kv_grad:
         kv = kv.detach()
     impl = implementation
@@ -104,6 +120,12 @@ def fusion_pool(
             )
             else "torch"
         )
+
+    if q8 and (impl == "torch" or query.shape[0] != 1):
+        # no per-row int8 kernel, and the torch path computes in f32:
+        # the dequantized features, frozen
+        kv = _dequant(kv, kv_scales).detach()
+        kv_scales = None
 
     if impl == "kernel":
         kwargs = dict(
@@ -117,7 +139,8 @@ def fusion_pool(
         )
         if query.shape[0] == 1:
             return fused_fusion_pool_shared(
-                params, query, kv, precision=precision, **kwargs
+                params, query, kv, precision=precision, kv_scales=kv_scales,
+                **kwargs
             )
         return fused_fusion_pool(params, query, kv, **kwargs)
 

@@ -6,7 +6,10 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 chip_smoke.py [--profile]
 
 (``--profile`` adds a ``torch.profiler`` window of slice (f)'s step to
-phase 7.)  Phases (any failure raises and the exit code is not 0):
+phase 7.)  Phases (any failure raises and the exit code is not 0; every
+shared-query kernel check of phases 3 and 6 runs f32, bf16 and int8
+features — int8 from ``quantize_features``, each int8 case held to its
+plain version and to the f32 kernel on ``q.float() * s``):
 
 1. no CUDA device: stop before printing any result;
 2. the card (name, power limit) and the build of every CUDA kernel from
@@ -49,13 +52,25 @@ phase 7.)  Phases (any failure raises and the exit code is not 0):
    entropy regularizer; (g) the same at H=2, 3 steps; (h) H=2 below the
    resident cap, B=8192, M=4, E=1024, 3 steps; (i) one eval call of
    ``ops.fusion_pool`` at B=4096, M=4, E=2048, H=1;
+   then the int8 feature path (the suite's ``features_dtype='int8'``
+   sections), each slice held to the torch path on the dequantized
+   features: (j) one eval call of ``ops.fusion_pool(kv_scales=)`` at
+   B=8192, M=4, E=1024, H=1; (k) the same at B=4096, M=4, E=2048; (l) the
+   north-star one-pass step, 10 SGD steps of
+   ``fused_pool_train_step(kv_scales=)`` and 3 of the X3 head; (m) 3 steps
+   of ``fused_fusion_pool_shared(kv_scales=)`` under autograd at B=8192,
+   M=4, E=1024, H=1; (n) the same at B=4096, M=4, E=2048, H=1 and H=2;
 7. times (CUDA events) of each kernel and its plain version at the slice
-   shapes, of one predictor call per bucket, samples/s of one training
-   step, ms per Quick start module step, ``'auto'`` against ``'torch'``,
-   and samples/s of slice (f), ``'auto'`` against ``'torch'``;
-8. a JSON line of the kernels (with each one's bound: the larger of its
-   bytes over the card's memory rate and its f32 operations over the
-   SIMT rate, from this run's shapes), then the last line
+   shapes (each int8 kernel beside the f32 kernel at its shape), of one
+   predictor call per bucket, samples/s of one training step, ms per
+   Quick start module step, ``'auto'`` against ``'torch'``, samples/s of
+   slice (f), ``'auto'`` against ``'torch'``, and of slice (l), int8
+   against f32;
+8. a JSON line of the kernels, the int8 instantiations as entries of
+   their own (``*_q8``; with each one's bound: the larger of its bytes —
+   int8 features 1 byte each, 4 a scale — over the card's memory rate and
+   its f32 operations over the SIMT rate, from this run's shapes), then
+   the last line
    ``{"ok": true, "device": {...}}``.
 
 float32 matmuls run without TF32 (``allow_tf32 = False`` for both cuBLAS
@@ -196,13 +211,61 @@ def build_kernels() -> None:
         print(f"  {name}: {lib.relative_to(ROOT)}")
         log = lib.parent / f"{name}.build.log"
         lines = log.read_text().splitlines() if log.exists() else []
+        # ptxas -v: "Compiling entry function '<mangled>'", its stack and
+        # spill line, then "Used N registers, ..."
+        entry, spill = None, ""
         for line in lines:
-            if "ptxas info" in line and (
-                "registers" in line or "spill" in line or "smem" in line
-            ):
-                print(f"    {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             elif "bytes spill" in line:
-                print(f"    {line.strip()}")
+                spill = line.strip()
+            elif "ptxas info" in line and "Used" in line and entry:
+                print(f"    {_demangle(entry)}: "
+                      f"{line.split('Used', 1)[1].strip()}; {spill}")
+
+
+def _demangle(symbol: str) -> str:
+    """``ns::kernel<T, ...>`` of a mangled kernel name (``c++filt``, where
+    the machine has it; else the name as it is)."""
+    try:
+        name = subprocess.run(["c++filt", symbol], capture_output=True,
+                              text=True, timeout=30).stdout.strip() or symbol
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ")
+
+
+# Feature storage of the kernel checks: every int8 case holds the int8
+# kernel to its plain version (both dequantize to the same f32 values) and
+# to the f32 kernel on those values, at the f32 tolerances.
+def _dtypes(torch):
+    return (torch.float32, torch.bfloat16, torch.int8)
+
+
+def _features(torch, x, dtype):
+    """``(kv, kv_scales)`` in ``dtype`` from the f32 features ``x``: int8
+    through ``quantize_features`` with its (B, M) scales; f32 and bf16 a
+    cast, no scales."""
+    if dtype != torch.int8:
+        return x.to(dtype), None
+    from aecf_tpu_torch.kernels import quantize_features
+
+    return quantize_features(x)
+
+
+def _vs_f32(torch, same, name, got, f32, tols, where) -> None:
+    """An int8 kernel's outputs against the f32 kernel's on the
+    dequantized features ``q.float() * s``: each named tensor within its
+    tolerance (the f32 kernel-vs-plain one; None for the masks, held by
+    ``_hold_masks`` at the caller), tallied in ``same``: kernel name ->
+    [cases equal bit for bit, cases]."""
+    for k, tol in tols.items():
+        if tol is not None:
+            _hold(f"{name} int8 vs f32 {k}", got[k], f32[k], tol, where)
+    tally = same.setdefault(name, [0, 0])
+    tally[0] += int(all(torch.equal(got[k], f32[k]) for k in tols))
+    tally[1] += 1
 
 
 def _pool_params(torch, rng, E, device):
@@ -218,10 +281,12 @@ def _pool_params(torch, rng, E, device):
     )
 
 
-def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
+def check_kernel_vs_plain(torch, same, shapes=KERNEL_SHAPES) -> dict:
     """Phase 3: ``fused_fusion_pool_shared`` (the kernel) against the
-    kernel's plain version on the same CUDA tensors.  Returns the largest
-    absolute error over every output."""
+    kernel's plain version on the same CUDA tensors, f32, bf16 and int8
+    features (int8 also against the f32 kernel on the dequantized
+    features).  Returns the largest absolute error over every output,
+    for ``shared_query_fwd`` and ``shared_query_fwd_q8``."""
     from aecf_tpu_torch.kernels import (
         fused_fusion_pool_shared,
         shared_query_fwd_plain,
@@ -229,7 +294,7 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
 
     rng = np.random.default_rng(1)
-    worst = 0.0
+    worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
     cases = 0
     for E in shapes["E"]:
         for H in shapes["H"]:
@@ -238,15 +303,16 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
                 math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
                 dtype=torch.float32, device="cuda",
             )
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in _dtypes(torch):
+                q8 = dtype == torch.int8
                 for padded in (False, True):
                     errs = {"out": 0.0, "w": 0.0, "mw": 0.0, "ent": 0.0}
                     for B in shapes["B"]:
                         for M in shapes["M"]:
-                            kv = torch.tensor(
+                            kv, scales = _features(torch, torch.tensor(
                                 rng.standard_normal((B, M, E)),
                                 dtype=torch.float32, device="cuda",
-                            ).to(dtype)
+                            ), dtype)
                             kpm = None
                             if padded:
                                 mask = rng.random((B, M)) < 0.3
@@ -255,26 +321,34 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
                             with torch.inference_mode():
                                 out, w, mw, info = fused_fusion_pool_shared(
                                     params, query, kv, num_heads=H,
-                                    key_padding_mask=kpm,
+                                    key_padding_mask=kpm, kv_scales=scales,
                                 )
                                 u, c, wctx, bctx, wo, bo = _prep(
                                     params, query[0, 0], H
                                 )
                                 ref = shared_query_fwd_plain(
                                     kv, u, c, _pad_bias_rows(kpm), wctx,
-                                    bctx, wo, bo,
+                                    bctx, wo, bo, kv_scales=scales,
                                 )
+                                if q8:
+                                    f32 = fused_fusion_pool_shared(
+                                        params, query,
+                                        kv.float() * scales[..., None],
+                                        num_heads=H, key_padding_mask=kpm,
+                                    )
                             torch.cuda.synchronize()
                             got = {
                                 "out": out[:, 0], "w": w[:, 0],
                                 "mw": mw[:, 0], "ent": info["entropy"][:, 0],
                             }
                             want = dict(zip(("out", "w", "mw", "ent"), ref[:4]))
+                            where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                     f"padded={padded}")
                             for k in got:
                                 check(
                                     tuple(got[k].shape) == tuple(want[k].shape)
                                     and bool(torch.isfinite(got[k]).all()),
-                                    f"{k} shape/finite at B={B} M={M} E={E} H={H}",
+                                    f"{k} shape/finite at {where}",
                                 )
                                 err = (got[k] - want[k]).abs().max().item()
                                 errs[k] = max(errs[k], err)
@@ -286,15 +360,23 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
                                 check(
                                     err <= tol,
                                     f"{k} error {err:.3e} > {tol:.3e} at "
-                                    f"B={B} M={M} E={E} H={H} {dtype} "
-                                    f"padded={padded}",
+                                    f"{where}",
                                 )
                             check(
                                 bool((info["mask_rate"] == 0).all()),
                                 "mask_rate is not exactly 0",
                             )
+                            if q8:
+                                ref32 = {"out": f32[0][:, 0], "w": f32[1][:, 0],
+                                         "mw": f32[2][:, 0],
+                                         "ent": f32[3]["entropy"][:, 0]}
+                                _vs_f32(torch, same, "shared_query_fwd_q8", got,
+                                        ref32, {"out": _out_tol(ref32["out"]),
+                                                "w": TOL_W, "mw": TOL_W,
+                                                "ent": TOL_W}, where)
                             cases += 1
-                    worst = max(worst, *errs.values())
+                    name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
+                    worst[name] = max(worst[name], *errs.values())
                     print(
                         f"kernel vs plain E={E} H={H} kv={str(dtype)[6:]} "
                         f"padded={padded} B={shapes['B']} M={shapes['M']}: "
@@ -302,7 +384,9 @@ def check_kernel_vs_plain(torch, shapes=KERNEL_SHAPES) -> float:
                     )
     print(f"kernel vs plain: {cases} cases within tolerance "
           f"(w/mw/ent {TOL_W:g} abs, out {TOL_OUT_REL:g}*max|out|"
-          f"+{TOL_OUT_ABS:g}, rate exactly 0); max abs err {worst:.3e}")
+          f"+{TOL_OUT_ABS:g}, rate exactly 0); max abs err f32/bf16 "
+          f"{worst['shared_query_fwd']:.3e}, int8 "
+          f"{worst['shared_query_fwd_q8']:.3e}")
     return worst
 
 
@@ -388,16 +472,18 @@ def _hold_masks(name, mw, rate, mw_p, rate_p, near, where) -> int:
     return int(near.sum())
 
 
-def check_training_forward(torch, shapes=TRAIN_SHAPES) -> float:
+def check_training_forward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     """Phase 3c: the forward kernel's training branch (Philox draw,
     min_active, renorm) against the plain version on the same CUDA
-    tensors, H = 1 and 2, f32 and bf16, with and without padding."""
+    tensors, H = 1 and 2, f32, bf16 and int8 (int8 also against the f32
+    kernel on the dequantized features), with and without padding."""
     from aecf_tpu_torch.kernels import shared_query_fwd, shared_query_fwd_plain
     from aecf_tpu_torch.kernels.draws import draw_seed_words
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
 
     rng = np.random.default_rng(11)
-    worst, cases, near_rows = 0.0, 0, 0
+    worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
+    cases, near_rows = 0, 0
     for E in shapes["E"]:
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
@@ -407,14 +493,16 @@ def check_training_forward(torch, shapes=TRAIN_SHAPES) -> float:
         for H in (1, 2):
             with torch.inference_mode():
                 pre = _prep(params, query[0, 0], H)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in _dtypes(torch):
+                q8 = dtype == torch.int8
+                name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
                 for padded in (False, True):
                     for B in shapes["B"]:
                         for M in shapes["M"]:
-                            kv = torch.tensor(
+                            kv, scales = _features(torch, torch.tensor(
                                 rng.standard_normal((B, M, E)),
                                 dtype=torch.float32, device="cuda",
-                            ).to(dtype)
+                            ), dtype)
                             pad = None
                             if padded:
                                 mask = rng.random((B, M)) < 0.3
@@ -427,15 +515,21 @@ def check_training_forward(torch, shapes=TRAIN_SHAPES) -> float:
                             kw = dict(training=True, seed=seed,
                                       mask_prob=0.6, min_active=1 + cases % 2)
                             with torch.inference_mode():
-                                got = shared_query_fwd(kv, *pre[:2], pad,
-                                                       *pre[2:], **kw)
+                                got = shared_query_fwd(
+                                    kv, *pre[:2], pad, *pre[2:],
+                                    kv_scales=scales, **kw)
                                 want = shared_query_fwd_plain(
-                                    kv, *pre[:2], pad, *pre[2:], **kw)
+                                    kv, *pre[:2], pad, *pre[2:],
+                                    kv_scales=scales, **kw)
+                                if q8:
+                                    f32 = shared_query_fwd(
+                                        kv.float() * scales[..., None],
+                                        *pre[:2], pad, *pre[2:], **kw)
                             torch.cuda.synchronize()
                             where = (f"B={B} M={M} E={E} H={H} {dtype} "
                                      f"padded={padded}")
-                            worst = max(
-                                worst,
+                            worst[name] = max(
+                                worst[name],
                                 _hold("out", got[0], want[0],
                                       _out_tol(want[0]), where),
                                 _hold("w", got[1], want[1], TOL_W, where),
@@ -445,23 +539,37 @@ def check_training_forward(torch, shapes=TRAIN_SHAPES) -> float:
                             near_rows += _hold_masks(
                                 "training forward", got[2], got[4],
                                 want[2], want[4], near, where)
+                            if q8:
+                                keys = ("out", "w", "mw", "ent", "rate")
+                                _vs_f32(torch, same, name, dict(zip(keys, got)),
+                                        dict(zip(keys, f32)),
+                                        {"out": _out_tol(f32[0]), "w": TOL_W,
+                                         "ent": TOL_W, "mw": None,
+                                         "rate": None}, where)
+                                _hold_masks("int8 vs f32 training forward",
+                                            got[2], got[4], f32[2], f32[4],
+                                            near, where)
                             cases += 1
     print(f"training forward vs plain: {cases} cases within tolerance (out "
           f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; masks: "
           f"rate exact and mw within {TOL_MW:g} on every row whose uniforms "
           f"are >= {TOL_KEEP:g} from keep; {near_rows} rows within it); "
-          f"max abs err {worst:.3e}")
+          f"max abs err f32/bf16 {worst['shared_query_fwd']:.3e}, int8 "
+          f"{worst['shared_query_fwd_q8']:.3e}")
     return worst
 
 
-def check_backward(torch, shapes=TRAIN_SHAPES) -> float:
+def check_backward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     """Phase 3d: the H=1 backward kernel against its plain version on the
-    same CUDA tensors, with a weights cotangent, d_kv on and off."""
+    same CUDA tensors, with a weights cotangent, d_kv on and off (f32 and
+    bf16; int8 features are frozen: off, and also against the f32 kernel
+    on the dequantized features)."""
     from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_bwd_plain
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
 
     rng = np.random.default_rng(12)
-    worst, cases = 0.0, 0
+    worst = {"shared_query_bwd": 0.0, "shared_query_bwd_q8": 0.0}
+    cases = 0
     for E in shapes["E"]:
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
@@ -470,13 +578,16 @@ def check_backward(torch, shapes=TRAIN_SHAPES) -> float:
         )
         with torch.inference_mode():
             u, c, wvo, _, _, _ = _prep(params, query[0, 0], 1)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            name = "shared_query_bwd_q8" if q8 else "shared_query_bwd"
             for padded in (False, True):
                 for B in shapes["B"]:
                     for M in shapes["M"]:
                         t = lambda a: torch.tensor(  # noqa: E731
                             a, dtype=torch.float32, device="cuda")
-                        kv = t(rng.standard_normal((B, M, E))).to(dtype)
+                        kv, scales = _features(
+                            torch, t(rng.standard_normal((B, M, E))), dtype)
                         d_out = t(rng.standard_normal((B, E)) / (B * E))
                         d_w = t(rng.standard_normal((B, M)) / B)
                         pad = None
@@ -484,12 +595,17 @@ def check_backward(torch, shapes=TRAIN_SHAPES) -> float:
                             mask = rng.random((B, M)) < 0.3
                             mask[:, 0] = False
                             pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
-                        for want_dkv in (False, True):
+                        for want_dkv in (False,) if q8 else (False, True):
                             args = (kv, u[0], c, pad, d_out, d_w, wvo)
                             with torch.inference_mode():
-                                got = shared_query_bwd(*args, want_dkv=want_dkv)
+                                got = shared_query_bwd(
+                                    *args, want_dkv=want_dkv, kv_scales=scales)
                                 want = shared_query_bwd_plain(
-                                    *args, want_dkv=want_dkv)
+                                    *args, want_dkv=want_dkv, kv_scales=scales)
+                                if q8:
+                                    f32 = shared_query_bwd(
+                                        kv.float() * scales[..., None],
+                                        *args[1:], want_dkv=False)
                             torch.cuda.synchronize()
                             where = (f"B={B} M={M} E={E} {dtype} "
                                      f"padded={padded} d_kv={want_dkv}")
@@ -511,19 +627,31 @@ def check_backward(torch, shapes=TRAIN_SHAPES) -> float:
                                                   where))
                             else:
                                 check(got[0] is None, "d_kv without kv_grad")
-                            worst = max(worst, *errs)
+                            if q8:
+                                keys = ("G", "du", "sum d_out", "dc")
+                                _vs_f32(torch, same, name, dict(zip(keys, got[1:])),
+                                        dict(zip(keys, f32[1:])),
+                                        {"G": _sum_tol(f32[1]),
+                                         "du": _sum_tol(f32[2]),
+                                         "sum d_out": _sum_tol(f32[3]),
+                                         "dc": _sum_tol(f32[4], f32[2])},
+                                        where)
+                            worst[name] = max(worst[name], *errs)
                             cases += 1
     print(f"backward vs plain: {cases} cases within tolerance (G/du/sum "
           f"d_out {TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv "
-          f"as out, bf16 d_kv +{TOL_BF16_REL:g}*|ref|); max abs err "
-          f"{worst:.3e}")
+          f"as out, bf16 d_kv +{TOL_BF16_REL:g}*|ref|); max abs err f32/bf16 "
+          f"{worst['shared_query_bwd']:.3e}, int8 "
+          f"{worst['shared_query_bwd_q8']:.3e}")
     return worst
 
 
-def check_step(torch, shapes=TRAIN_SHAPES) -> float:
+def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
     """Phase 3e: the one-pass train-step kernel against its plain version
     on the same CUDA tensors — quadratic loss and the C=14 head, d_kv on
-    and off — and, for one seed, its mask against the forward kernel's."""
+    and off (f32 and bf16; int8: off, and also against the f32 kernel on
+    the dequantized features) — and, for one seed, its mask against the
+    forward kernel's."""
     from aecf_tpu_torch.kernels import (
         shared_query_fwd,
         train_step,
@@ -533,7 +661,8 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
 
     rng = np.random.default_rng(13)
-    worst, cases, near_rows, same_mask = 0.0, 0, 0, 0
+    worst = {"train_step": 0.0, "train_step_q8": 0.0}
+    cases, near_rows, same_mask = 0, 0, 0
     C = NS_C
     for E in shapes["E"]:
         params = _pool_params(torch, rng, E, "cuda")
@@ -546,11 +675,14 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
         head_b = t(rng.uniform(-E ** -0.5, E ** -0.5, C))
         with torch.inference_mode():
             u, c, wvo, bctx, _, _ = _prep(params, query[0, 0], 1)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            name = "train_step_q8" if q8 else "train_step"
             for padded in (False, True):
                 for B in shapes["B"]:
                     for M in shapes["M"]:
-                        kv = t(rng.standard_normal((B, M, E))).to(dtype)
+                        kv, scales = _features(
+                            torch, t(rng.standard_normal((B, M, E))), dtype)
                         labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
                         pad = None
                         if padded:
@@ -559,7 +691,7 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
                             pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
                         seed = draw_seed_words(torch.Generator().manual_seed(cases))
                         for head in (False, True):
-                            for want_dkv in (False, True):
+                            for want_dkv in (False,) if q8 else (False, True):
                                 kw = dict(
                                     inv=1.0 / (B * (C if head else E)),
                                     want_dkv=want_dkv, training=True,
@@ -570,8 +702,14 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
                                               labels=labels)
                                 args = (kv, u[0], c, pad, wvo, bctx)
                                 with torch.inference_mode():
-                                    got = train_step(*args, **kw)
-                                    want = train_step_plain(*args, **kw)
+                                    got = train_step(*args, kv_scales=scales,
+                                                     **kw)
+                                    want = train_step_plain(
+                                        *args, kv_scales=scales, **kw)
+                                    if q8:
+                                        f32 = train_step(
+                                            kv.float() * scales[..., None],
+                                            *args[1:], **kw)
                                 torch.cuda.synchronize()
                                 where = (f"B={B} M={M} E={E} {dtype} "
                                          f"padded={padded} head={head} "
@@ -597,19 +735,31 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
                                     errs.append(_hold(
                                         "d_kv", got["d_kv"], want["d_kv"],
                                         _dkv_tol(torch, want["d_kv"]), where))
-                                worst = max(worst, *errs)
+                                worst[name] = max(worst[name], *errs)
                                 near = _mask_rows(kv, want["ent"], seed,
                                                   0.6)
                                 near_rows += _hold_masks(
                                     "step", got["mw"], got["rate"],
                                     want["mw"], want["rate"], near, where)
+                                if q8:
+                                    tols = {k: _sum_tol(f32[k]) for k in (
+                                        "loss", "G", "du", "dsum_out") + (
+                                        ("dW_head", "db_head") if head else ())}
+                                    tols.update(w=TOL_W, ent=TOL_W, mw=None,
+                                                rate=None,
+                                                dc=_sum_tol(f32["dc"], f32["du"]))
+                                    _vs_f32(torch, same, name, got, f32, tols, where)
+                                    _hold_masks("int8 vs f32 step", got["mw"],
+                                                got["rate"], f32["mw"],
+                                                f32["rate"], near, where)
                                 cases += 1
                         # the one-pass step and the training forward draw
                         # the same mask for the same seed
                         with torch.inference_mode():
                             fwd = shared_query_fwd(
                                 kv, u, c, pad, wvo, bctx, training=True,
-                                seed=seed, mask_prob=0.6, min_active=1)
+                                seed=seed, mask_prob=0.6, min_active=1,
+                                kv_scales=scales)
                         torch.cuda.synchronize()
                         check(torch.equal(fwd[4], got["rate"])
                               and torch.equal(fwd[2], got["mw"]),
@@ -619,7 +769,8 @@ def check_step(torch, shapes=TRAIN_SHAPES) -> float:
           f"{TOL_W:g}, loss/G/du/sum d_out/dW_head/db_head "
           f"{TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv as "
           f"the backward's; masks as the forward's, {near_rows} rows near "
-          f"keep); max abs err {worst:.3e}; step mask == forward mask "
+          f"keep); max abs err f32/bf16 {worst['train_step']:.3e}, int8 "
+          f"{worst['train_step_q8']:.3e}; step mask == forward mask "
           f"bit for bit in {same_mask} of {same_mask} seeds")
     return worst
 
@@ -899,15 +1050,24 @@ def _kernel_wrappers():
 def _reset_counts():
     for k in _kernel_wrappers().values():
         k.launches = 0
+        if hasattr(k, "launches_q8"):
+            k.launches_q8 = 0
 
 
 def _counts():
-    return {name: k.launches for name, k in _kernel_wrappers().items()}
+    """Launches of every kernel, the int8 instantiations under ``<name>_q8``
+    (each wrapper counts them apart, in ``launches_q8``)."""
+    counts = {}
+    for name, k in _kernel_wrappers().items():
+        counts[name] = k.launches
+        if hasattr(k, "launches_q8"):
+            counts[f"{name}_q8"] = k.launches_q8
+    return counts
 
 
 def _only(**launches):
     """Every kernel's expected count: those named, and 0 for the rest."""
-    return {name: launches.get(name, 0) for name in _kernel_wrappers()}
+    return {name: launches.get(name, 0) for name in _counts()}
 
 
 def _lockstep(torch, flat, kv, labels, impls, steps, opt, **builder):
@@ -1215,24 +1375,28 @@ def _grid_label(bms) -> str:
             f"M={tuple(sorted({m for _, m in bms}))}")
 
 
-def check_stream_mix(torch, shapes=STREAM_SHAPES) -> float:
+def check_stream_mix(torch, same, shapes=STREAM_SHAPES) -> dict:
     """Phase 6a: the streamed forward kernel (``stream_mix``) against its
     plain version on the same CUDA tensors: eval and training, H = 1 and
-    2, f32 and bf16, with and without padding (a fully padded row
+    2, f32, bf16 and int8 (int8 also against the f32 kernel on the
+    dequantized features), with and without padding (a fully padded row
     included), over ``_stream_grid``."""
     from aecf_tpu_torch.kernels import stream_mix, stream_mix_plain
     from aecf_tpu_torch.kernels.draws import draw_seed_words
 
     gen = torch.Generator(device="cuda").manual_seed(81)
-    worst, cases, near_rows = 0.0, 0, 0
+    worst = {"stream_mix": 0.0, "stream_mix_q8": 0.0}
+    cases, near_rows = 0, 0
     for E, H, bms in _stream_grid(shapes):
         u, c = _score_vectors(torch, gen, H, E)
-        errs = {"mix": 0.0, "w": 0.0, "ent": 0.0}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            name = "stream_mix_q8" if q8 else "stream_mix"
+            errs = {"mix": 0.0, "w": 0.0, "ent": 0.0}
             for padded in (False, True):
                 for B, M in bms:
-                    kv = torch.randn((B, M, E), generator=gen,
-                                     device="cuda").to(dtype)
+                    kv, scales = _features(torch, torch.randn(
+                        (B, M, E), generator=gen, device="cuda"), dtype)
                     pad = _pad_of(torch, gen, B, M, True) if padded else None
                     for training in (False, True):
                         seed = draw_seed_words(
@@ -1240,8 +1404,14 @@ def check_stream_mix(torch, shapes=STREAM_SHAPES) -> float:
                         kw = dict(training=training, seed=seed, mask_prob=0.6,
                                   min_active=1 + cases % 2)
                         with torch.inference_mode():
-                            got = stream_mix(kv, u, c, pad, **kw)
-                            want = stream_mix_plain(kv, u, c, pad, **kw)
+                            got = stream_mix(kv, u, c, pad, kv_scales=scales,
+                                             **kw)
+                            want = stream_mix_plain(kv, u, c, pad,
+                                                    kv_scales=scales, **kw)
+                            if q8:
+                                f32 = stream_mix(
+                                    kv.float() * scales[..., None], u, c,
+                                    pad, **kw)
                         torch.cuda.synchronize()
                         where = (f"B={B} M={M} E={E} H={H} {dtype} "
                                  f"padded={padded} training={training}")
@@ -1258,48 +1428,69 @@ def check_stream_mix(torch, shapes=STREAM_SHAPES) -> float:
                             check(torch.equal(got[2], got[1])
                                   and bool((got[4] == 0).all()),
                                   f"eval passthrough at {where}")
+                        if q8:
+                            keys = ("mix", "w", "mw", "ent", "rate")
+                            _vs_f32(torch, same, name, dict(zip(keys, got)),
+                                    dict(zip(keys, f32)),
+                                    {"mix": _out_tol(f32[0]), "w": TOL_W,
+                                     "ent": TOL_W, "mw": None, "rate": None},
+                                    where)
+                            _hold_masks("int8 vs f32 streamed forward",
+                                        got[2], got[4], f32[2], f32[4],
+                                        _mask_rows(kv, want[3], seed, 0.6),
+                                        where)
                         cases += 1
-        worst = max(worst, *errs.values())
-        print(f"stream_mix vs plain E={E} H={H} f32+bf16 padded+not "
-              f"eval+training {_grid_label(bms)}: "
-              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+            worst[name] = max(worst[name], *errs.values())
+            print(f"stream_mix vs plain E={E} H={H} kv={str(dtype)[6:]} "
+                  f"padded+not eval+training {_grid_label(bms)}: "
+                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     print(f"stream_mix vs plain: {cases} cases within tolerance (mix "
           f"{TOL_OUT_REL:g}*max|mix|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; eval "
           f"mw == w, rate 0; training masks as the resident forward's, "
-          f"{near_rows} rows near keep); max abs err {worst:.3e}")
+          f"{near_rows} rows near keep); max abs err f32/bf16 "
+          f"{worst['stream_mix']:.3e}, int8 {worst['stream_mix_q8']:.3e}")
     return worst
 
 
-def check_stream_bwd(torch, shapes=STREAM_SHAPES) -> dict:
+def check_stream_bwd(torch, same, shapes=STREAM_SHAPES) -> dict:
     """Phase 6b: the streamed backward kernel (``stream_bwd`` at H = 1,
     ``stream_bwd_mh`` at H = 2) against its plain version on the same CUDA
-    tensors, with a weights cotangent, d_kv on and off, f32 and bf16, with
-    and without padding, over ``_stream_grid``.  Returns the largest
-    absolute error per wrapper."""
+    tensors, with a weights cotangent, d_kv on and off (f32 and bf16;
+    int8: off, and also against the f32 kernel on the dequantized
+    features), with and without padding, over ``_stream_grid``.  Returns
+    the largest absolute error per wrapper and feature type."""
     from aecf_tpu_torch.kernels import stream_bwd, stream_bwd_mh, stream_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(82)
-    worst = {"stream_bwd": 0.0, "stream_bwd_mh": 0.0}
+    worst = {"stream_bwd": 0.0, "stream_bwd_mh": 0.0, "stream_bwd_q8": 0.0,
+             "stream_bwd_mh_q8": 0.0}
     cases = 0
     for E, H, bms in _stream_grid(shapes):
-        name, kernel = (("stream_bwd", stream_bwd) if H == 1
+        base, kernel = (("stream_bwd", stream_bwd) if H == 1
                         else ("stream_bwd_mh", stream_bwd_mh))
         u, c = _score_vectors(torch, gen, H, E)
-        group = 0.0
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            name = base + "_q8" if q8 else base
+            group = 0.0
             for padded in (False, True):
                 for B, M in bms:
-                    kv = torch.randn((B, M, E), generator=gen,
-                                     device="cuda").to(dtype)
+                    kv, scales = _features(torch, torch.randn(
+                        (B, M, E), generator=gen, device="cuda"), dtype)
                     d_mix = torch.randn((B, H * E), generator=gen,
                                         device="cuda")
                     d_w = torch.randn((B, M), generator=gen, device="cuda")
                     pad = _pad_of(torch, gen, B, M, False) if padded else None
-                    for want_dkv in (False, True):
+                    for want_dkv in (False,) if q8 else (False, True):
                         args = (kv, d_mix, d_w, pad, u, c)
                         with torch.inference_mode():
-                            got = kernel(*args, want_dkv=want_dkv)
-                            want = stream_bwd_plain(*args, want_dkv=want_dkv)
+                            got = kernel(*args, want_dkv=want_dkv,
+                                         kv_scales=scales)
+                            want = stream_bwd_plain(*args, want_dkv=want_dkv,
+                                                    kv_scales=scales)
+                            if q8:
+                                f32 = kernel(kv.float() * scales[..., None],
+                                             *args[1:], want_dkv=False)
                         torch.cuda.synchronize()
                         where = (f"B={B} M={M} E={E} H={H} {dtype} "
                                  f"padded={padded} d_kv={want_dkv}")
@@ -1316,16 +1507,23 @@ def check_stream_bwd(torch, shapes=STREAM_SHAPES) -> dict:
                                               _dkv_tol(torch, want[0]), where))
                         else:
                             check(got[0] is None, "d_kv without kv_grad")
+                        if q8:
+                            _vs_f32(torch, same, name,
+                                    {"du": got[1], "dc": got[2]},
+                                    {"du": f32[1], "dc": f32[2]},
+                                    {"du": _sum_tol(f32[1]),
+                                     "dc": _sum_tol(f32[2], f32[1])}, where)
                         group = max(group, *errs)
                         cases += 1
-        worst[name] = max(worst[name], group)
-        print(f"{name} vs plain E={E} H={H} f32+bf16 padded+not d_kv+not "
-              f"{_grid_label(bms)}: max abs err {group:.3e}")
+            worst[name] = max(worst[name], group)
+            print(f"{name} vs plain E={E} H={H} kv={str(dtype)[6:]} "
+                  f"padded+not d_kv{'' if q8 else '+not'} "
+                  f"{_grid_label(bms)}: max abs err {group:.3e}")
     print(f"stream_bwd/stream_bwd_mh vs plain: {cases} cases within "
           f"tolerance (du {TOL_SUM_REL:g}*max|du|, dc {TOL_SUM_REL:g}*"
           f"max|du|, d_kv {TOL_OUT_REL:g}*max|d_kv|+{TOL_OUT_ABS:g}, bf16 "
-          f"d_kv +{TOL_BF16_REL:g}*|ref|); max abs err H=1 "
-          f"{worst['stream_bwd']:.3e}, H=2 {worst['stream_bwd_mh']:.3e}")
+          f"d_kv +{TOL_BF16_REL:g}*|ref|); max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
 
 
@@ -1333,7 +1531,8 @@ def check_stream_masks(torch) -> None:
     """Phase 6c: the streamed and the resident forward kernels on the same
     inputs and seed words give the same weights, entropy, masked weights
     and mask rate, bit for bit (the draws are keyed by row and modality,
-    and both run one chain), at E = 512 and 1024, H = 1 and 2."""
+    and both run one chain), at E = 512 and 1024, H = 1 and 2, f32, bf16
+    and int8."""
     from aecf_tpu_torch.kernels import shared_query_fwd, stream_mix
     from aecf_tpu_torch.kernels.draws import draw_seed_words
     from aecf_tpu_torch.kernels.shared_query import _prep
@@ -1347,12 +1546,13 @@ def check_stream_masks(torch) -> None:
         for H in (1, 2):
             with torch.inference_mode():
                 u, c, wctx, bctx, wo, bo = _prep(params, query[0, 0], H)
-            for dtype in (torch.float32, torch.bfloat16):
-                kv = torch.randn((ST_B, ST_M, E), generator=gen,
-                                 device="cuda").to(dtype)
+            for dtype in _dtypes(torch):
+                kv, scales = _features(torch, torch.randn(
+                    (ST_B, ST_M, E), generator=gen, device="cuda"), dtype)
                 pad = _pad_of(torch, gen, ST_B, ST_M, True)
                 seed = draw_seed_words(torch.Generator().manual_seed(cases))
-                kw = dict(training=True, seed=seed, mask_prob=0.6, min_active=2)
+                kw = dict(training=True, seed=seed, mask_prob=0.6, min_active=2,
+                          kv_scales=scales)
                 with torch.inference_mode():
                     res = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo,
                                            **kw)
@@ -1366,7 +1566,7 @@ def check_stream_masks(torch) -> None:
                 cases += 1
     print(f"stream_mix vs shared_query_fwd, training, same seed words: w, "
           f"ent, mw and rate equal bit for bit in {cases} cases (B={ST_B}, "
-          f"M={ST_M}, E 512/1024, H 1/2, f32+bf16, padded)")
+          f"M={ST_M}, E 512/1024, H 1/2, f32+bf16+int8, padded)")
 
 
 def stream_slices(torch) -> dict:
@@ -1436,6 +1636,207 @@ def stream_slices(torch) -> dict:
           f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}); max "
           f"abs err {max(errs):.3e}; launches {counts}")
     out["launches"] = launches
+    return out
+
+
+def _q8_step(torch, impl, params, kv, scales, labels, gen, num_heads=1):
+    """One training step's loss and gradients (``param_leaves`` order) on
+    int8 features, the protocol of ``measure.build_chunk``: ``(out²).mean()``
+    or, with ``labels``, the head's mean BCE, plus the entropy regulariser
+    (a detached value in training, quirk Q2).  ``impl``: ``'fused-step'``
+    (``fused_pool_train_step`` / ``fused_pool_head_train_step`` with
+    ``kv_scales``), ``'kernel'`` (``fused_fusion_pool_shared(kv_scales=)``
+    under autograd) or ``'torch'`` (``ops.fusion_pool``'s torch path, which
+    dequantizes).  Seed words come from the CPU ``gen``."""
+    import torch.nn.functional as F
+
+    from aecf_tpu_torch.core.masking import entropy_loss
+    from aecf_tpu_torch.kernels import (
+        fused_fusion_pool_shared,
+        fused_pool_head_train_step,
+        fused_pool_train_step,
+    )
+    from aecf_tpu_torch.kernels.draws import device_generator, draw_seed_words
+    from aecf_tpu_torch.ops import fusion_pool
+    from aecf_tpu_torch.train import param_leaves
+    from aecf_tpu_torch.train.pool_step import _flat_grads
+
+    M = kv.shape[1]
+    head = params.get("head")
+    if impl == "fused-step":
+        kw = dict(generator=gen, training=True, kv_scales=scales)
+        if head is None:
+            loss, d_pool, d_query, _, info = fused_pool_train_step(
+                params["pool"], params["query"], kv, **kw)
+            grads = {"pool": d_pool, "query": d_query}
+        else:
+            loss, grads, _, info = fused_pool_head_train_step(
+                params["pool"], params["query"], head, kv, labels, **kw)
+        loss = loss + entropy_loss(info["entropy"], seq_len=M)
+        return loss.detach(), _flat_grads(grads, params)
+    if impl == "kernel":
+        out, _, _, info = fused_fusion_pool_shared(
+            params["pool"], params["query"], kv, kv_scales=scales,
+            num_heads=num_heads, training=True, generator=gen)
+    else:
+        out, _, _, info = fusion_pool(
+            params["pool"], params["query"], kv, kv_scales=scales,
+            num_heads=num_heads, training=True, implementation="torch",
+            generator=device_generator(draw_seed_words(gen), kv.device))
+    pooled = out[:, 0]
+    if head is None:
+        loss = (pooled * pooled).mean()
+    else:
+        loss = F.binary_cross_entropy_with_logits(
+            pooled @ head["w"] + head["b"], labels)
+    loss = loss + entropy_loss(info["entropy"], seq_len=M)
+    leaves = param_leaves(params)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def _q8_lockstep(torch, impl, flat, kv, scales, labels, steps, lr,
+                 num_heads=1):
+    """``steps`` SGD(``lr``) steps of ``impl`` and of the torch path on the
+    same int8 features from the same parameters (``_q8_step``): the loss
+    held at every step (rtol TOL_LOSS_REL), the parameters after the last
+    (TOL_PARAM).  Returns the kernel launches and the worst deviations."""
+    from aecf_tpu_torch.convert import (
+        pool_classifier_params_from_numpy,
+        pool_classifier_params_to_numpy,
+    )
+    from aecf_tpu_torch.train import param_leaves
+
+    params = {i: pool_classifier_params_from_numpy(flat, device="cuda")
+              for i in (impl, "torch")}
+    opts = {i: torch.optim.SGD(param_leaves(p), lr=lr)
+            for i, p in params.items()}
+    gens = {i: torch.Generator().manual_seed(17) for i in params}
+    worst_loss = 0.0
+    _reset_counts()
+    for n in range(steps):
+        losses = {}
+        for i, p in params.items():
+            loss, grads = _q8_step(torch, i, p, kv, scales, labels, gens[i],
+                                   num_heads)
+            for leaf, g in zip(param_leaves(p), grads):
+                leaf.grad = g
+            opts[i].step()
+            losses[i] = float(loss)
+            check(math.isfinite(losses[i]), f"{i}: loss not finite at {n}")
+        rel = abs(losses[impl] - losses["torch"]) / abs(losses["torch"])
+        check(rel <= TOL_LOSS_REL, f"int8 {impl} loss {losses[impl]!r} vs "
+                                   f"torch {losses['torch']!r} at step {n}")
+        worst_loss = max(worst_loss, rel)
+    torch.cuda.synchronize()
+    counts = _counts()
+    a = pool_classifier_params_to_numpy(params[impl])
+    worst_param = 0.0
+    for k, v in pool_classifier_params_to_numpy(params["torch"]).items():
+        err = float(np.abs(a[k] - v).max())
+        check(err <= TOL_PARAM, f"int8 {impl} param {k} off by {err:.3e} "
+                                f"after {steps} steps")
+        worst_param = max(worst_param, err)
+    return counts, worst_loss, worst_param, losses[impl]
+
+
+def q8_slices(torch) -> dict:
+    """Phase 6e: the int8 feature path at full width through the entry
+    points a user calls, each held to the torch path on the dequantized
+    features, with features quantized once by ``quantize_features`` (the
+    suite's ``features_dtype='int8'``): (j) one eval call of
+    ``ops.fusion_pool(kv_scales=)`` at B=8192, M=4, E=1024, H=1
+    (``eval_fwd_ab_large``); (k) the same at B=4096, M=4, E=2048
+    (``eval_fwd_ab_e2048``); (l) the north-star one-pass step (B=4096, M=3,
+    E=512, ``features_q8_ab_fused_north_star``), 10 SGD(1e-3) steps of
+    ``fused_pool_train_step(kv_scales=)``, then 3 of the X3 head (C=14)
+    through ``fused_pool_head_train_step``; (m) 3 SGD(1e-2) steps of
+    ``fused_fusion_pool_shared(kv_scales=)`` under autograd at B=8192, M=4,
+    E=1024, H=1 (``features_q8_ab_large``); (n) the same at B=4096, M=4,
+    E=2048, H=1 and H=2 (streamed).  Every int8 kernel's launches must
+    equal the calls that ran it."""
+    from aecf_tpu_torch.kernels import quantize_features
+    from aecf_tpu_torch.ops import fusion_pool
+
+    rng = np.random.default_rng(91)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device="cuda")  # noqa: E731
+    launches = {}
+    out = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for tag, (B, M, E), kernel in (("j", (H2_B, H2_M, H2_E), "shared_query_fwd_q8"),
+                                   ("k", (ST_B, ST_M, ST_E), "stream_mix_q8")):
+        params = _pool_params(torch, rng, E, "cuda")
+        query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
+        kv, scales = quantize_features(t(rng.standard_normal((B, M, E))))
+        out[tag] = (kv, scales)
+        _reset_counts()
+        got = {}
+        with torch.no_grad():
+            for impl in ("auto", "torch"):
+                got[impl] = fusion_pool(params, query, kv, kv_scales=scales,
+                                        implementation=impl)
+        torch.cuda.synchronize()
+        counts = _counts()
+        check(counts == _only(**{kernel: 1}),
+              f"slice ({tag}) launches {counts} != one {kernel}")
+        add(counts)
+        (o_k, w_k, m_k, i_k), (o_t, w_t, _, i_t) = got["auto"], got["torch"]
+        where = f"slice ({tag}) B={B} M={M} E={E} H=1 int8 eval"
+        errs = [
+            _hold("out", o_k, o_t, _out_tol(o_t), where),
+            _hold("weights", w_k, w_t, TOL_W, where),
+            _hold("entropy", i_k["entropy"], i_t["entropy"], TOL_W, where),
+        ]
+        check(torch.equal(m_k, w_k) and bool((i_k["mask_rate"] == 0).all()),
+              f"eval passthrough at {where}")
+        print(f"{where}: ops.fusion_pool(kv_scales=) 'auto' vs 'torch' "
+              f"within tolerance (out {TOL_OUT_REL:g}*max|out|+"
+              f"{TOL_OUT_ABS:g}, w/ent {TOL_W:g}); max abs err "
+              f"{max(errs):.3e}; launches {counts}")
+
+    B, M, E, C = NS_B, NS_M, NS_E, NS_C
+    kv, scales = quantize_features(t(rng.standard_normal((B, M, E))))
+    labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
+    out["l"] = (kv, scales, labels)
+    for what, lab, steps, lr in (("quadratic + entropy", None, 10, 1e-3),
+                                 (f"X3 head C={C} + entropy", labels, 3, 1e-3)):
+        flat = _classifier_flat(rng, E, C if lab is not None else None)
+        counts, wl, wp, last = _q8_lockstep(torch, "fused-step", flat, kv,
+                                            scales, lab, steps, lr)
+        check(counts == _only(train_step_q8=steps),
+              f"slice (l) launches {counts} != {steps} int8 steps")
+        add(counts)
+        print(f"slice (l) B={B} M={M} E={E} H=1 int8, {what}, {steps} "
+              f"SGD({lr:g}) steps of the one-pass step vs the torch path: "
+              f"loss rel err max {wl:.3e} (tol {TOL_LOSS_REL:g}), params max "
+              f"abs err {wp:.3e} (tol {TOL_PARAM:g}); last loss {last:.6f}; "
+              f"launches {counts}")
+
+    for tag, (B, M, E), H, want in (
+            ("m", (H2_B, H2_M, H2_E), 1,
+             dict(shared_query_fwd_q8=3, shared_query_bwd_q8=3)),
+            ("n", (ST_B, ST_M, ST_E), 1,
+             dict(stream_mix_q8=3, stream_bwd_q8=3)),
+            ("n", (ST_B, ST_M, ST_E), 2,
+             dict(stream_mix_q8=3, stream_bwd_mh_q8=3))):
+        kv, scales = quantize_features(t(rng.standard_normal((B, M, E))))
+        out[f"{tag}{H}"] = (kv, scales)
+        counts, wl, wp, last = _q8_lockstep(
+            torch, "kernel", _classifier_flat(rng, E), kv, scales, None, 3,
+            1e-2, num_heads=H)
+        check(counts == _only(**want),
+              f"slice ({tag}) H={H} launches {counts} != {want}")
+        add(counts)
+        print(f"slice ({tag}) B={B} M={M} E={E} H={H} int8 training, "
+              f"quadratic + entropy, 3 SGD(1e-2) steps of "
+              f"fused_fusion_pool_shared(kv_scales=) under autograd vs the "
+              f"torch path: loss rel err max {wl:.3e} (tol {TOL_LOSS_REL:g}), "
+              f"params max abs err {wp:.3e} (tol {TOL_PARAM:g}); last loss "
+              f"{last:.6f}; launches {counts}")
+    out["launches"] = {k: v for k, v in launches.items() if k.endswith("_q8")}
     return out
 
 
@@ -1672,6 +2073,173 @@ def time_streamed(torch, smi: str, sliced: dict, profiled: bool) -> dict:
     return times
 
 
+def time_q8(torch, smi: str, q8: dict) -> dict:
+    """Phase 7e: each int8 kernel and its plain version (CUDA events, turns
+    plain, kernel, kernel, plain) at its slice's shape, the f32 kernel on
+    the dequantized features at the same shape timed before and after
+    them, and the bound from the int8 bytes (1 a feature, 4 a scale);
+    then samples/s of slice (l)'s one-pass step (quadratic + entropy,
+    SGD), int8 against f32 (host clock over 20 synchronised steps, turns
+    int8, f32, f32, int8).  Returns ``name -> (ms, plain ms, bound ms,
+    bound_by, f32 kernel ms)``."""
+    from aecf_tpu_torch.convert import pool_classifier_params_from_numpy
+    from aecf_tpu_torch.kernels import (
+        shared_query_bwd,
+        shared_query_bwd_plain,
+        shared_query_fwd,
+        shared_query_fwd_plain,
+        stream_bwd,
+        stream_bwd_mh,
+        stream_bwd_plain,
+        stream_mix,
+        stream_mix_plain,
+        train_step,
+        train_step_plain,
+    )
+    from aecf_tpu_torch.kernels.shared_query import _prep
+    from aecf_tpu_torch.train import param_leaves
+
+    rng = np.random.default_rng(92)
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    C = NS_C
+
+    def prep(E, H):
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.randn((1, 1, E), generator=gen, device="cuda")
+        query = query * math.sqrt(2.0 / E)
+        with torch.inference_mode():
+            return _prep(params, query[0, 0], H)
+
+    def deq(kv, s):
+        return kv.float() * s[..., None]
+
+    runs = []
+    # (j) eval forward, B=8192, M=4, E=1024, H=1
+    kv, s = q8["j"]
+    B, M, E = kv.shape
+    u_j, c_j, wctx, bctx, _, _ = prep(E, 1)
+    x = deq(kv, s)
+    runs.append((
+        "shared_query_fwd_q8", f"(j) eval B={B} M={M} E={E} H=1",
+        lambda: shared_query_fwd(kv, u_j, c_j, None, wctx, bctx, kv_scales=s),
+        lambda: shared_query_fwd_plain(kv, u_j, c_j, None, wctx, bctx, None,
+                                       None, kv_scales=s),
+        lambda: shared_query_fwd(x, u_j, c_j, None, wctx, bctx),
+        (B * M * E + 4 * (B * M + E * E + 3 * E + 1 + B * E + 2 * B * M
+                          + 2 * B),
+         2 * B * E * E + 4 * B * M * E)))
+    # (m) backward, no d_kv, same shape
+    kv_m, s_m = q8["m1"]
+    x_m = deq(kv_m, s_m)
+    u_m, c_m, wvo, _, _, _ = prep(E, 1)
+    d_out = torch.randn((B, E), generator=gen, device="cuda") / (B * E)
+    runs.append((
+        "shared_query_bwd_q8", f"(m) B={B} M={M} E={E}, no d_kv",
+        lambda: shared_query_bwd(kv_m, u_m[0], c_m, None, d_out, None, wvo,
+                                 want_dkv=False, kv_scales=s_m),
+        lambda: shared_query_bwd_plain(kv_m, u_m[0], c_m, None, d_out, None,
+                                       wvo, want_dkv=False, kv_scales=s_m),
+        lambda: shared_query_bwd(x_m, u_m[0], c_m, None, d_out, None, wvo,
+                                 want_dkv=False),
+        (B * M * E + 4 * (B * M + 2 * E * E + 3 * E + 2 + B * E),
+         4 * B * E * E + 8 * B * M * E)))
+    # (l) the one-pass step with the C=14 head, no d_kv
+    kv_l, s_l, labels = q8["l"]
+    x_l = deq(kv_l, s_l)
+    Bl, Ml, El = kv_l.shape
+    u_l, c_l, wvo_l, bctx_l, _, _ = prep(El, 1)
+    head_w = torch.randn((El, C), generator=gen, device="cuda") * 0.02
+    head_b = torch.zeros(C, device="cuda")
+    step_kw = dict(inv=1.0 / (Bl * C), want_dkv=False, training=True,
+                   seed=(12345, 678), head_w=head_w, head_b=head_b,
+                   labels=labels)
+    ee = El * El
+    runs.append((
+        "train_step_q8", f"north star B={Bl} M={Ml} E={El} C={C}, no d_kv",
+        lambda: train_step(kv_l, u_l[0], c_l, None, wvo_l, bctx_l,
+                           kv_scales=s_l, **step_kw),
+        lambda: train_step_plain(kv_l, u_l[0], c_l, None, wvo_l, bctx_l,
+                                 kv_scales=s_l, **step_kw),
+        lambda: train_step(x_l, u_l[0], c_l, None, wvo_l, bctx_l, **step_kw),
+        (Bl * Ml * El + 4 * (Bl * Ml + 2 * ee + 4 * El + 2 * El * C + 2 * C
+                             + Bl * C + 2 * Bl * Ml + 2 * Bl + 3),
+         6 * Bl * ee + 6 * Bl * El * C + 8 * Bl * Ml * El)))
+    # (k) streamed eval forward, B=4096, M=4, E=2048, H=1
+    kv_k, s_k = q8["k"]
+    x_k = deq(kv_k, s_k)
+    Bs, Ms, Es = kv_k.shape
+    u1, c1 = _score_vectors(torch, gen, 1, Es)
+    runs.append((
+        "stream_mix_q8", f"(k) eval B={Bs} M={Ms} E={Es} H=1",
+        lambda: stream_mix(kv_k, u1, c1, None, kv_scales=s_k),
+        lambda: stream_mix_plain(kv_k, u1, c1, None, kv_scales=s_k),
+        lambda: stream_mix(x_k, u1, c1, None),
+        (Bs * Ms * Es + 4 * (Bs * Ms + Es + 1 + Bs * Es + 2 * Bs * Ms + 2 * Bs),
+         4 * Bs * Ms * Es)))
+    # (n) streamed backward, H=1, no d_kv
+    kv_n, s_n = q8["n1"]
+    x_n = deq(kv_n, s_n)
+    d_mix1 = torch.randn((Bs, Es), generator=gen, device="cuda")
+    runs.append((
+        "stream_bwd_q8", f"(n) B={Bs} M={Ms} E={Es} H=1, no d_kv",
+        lambda: stream_bwd(kv_n, d_mix1, None, None, u1, c1, want_dkv=False,
+                           kv_scales=s_n),
+        lambda: stream_bwd_plain(kv_n, d_mix1, None, None, u1, c1,
+                                 want_dkv=False, kv_scales=s_n),
+        lambda: stream_bwd(x_n, d_mix1, None, None, u1, c1, want_dkv=False),
+        (Bs * Ms * Es + 4 * (Bs * Ms + Bs * Es + 2 * Es + 2),
+         6 * Bs * Ms * Es)))
+    # slice (h)'s shape, B=8192, M=4, E=1024, H=2, no d_kv
+    u2, c2 = _score_vectors(torch, gen, 2, E)
+    d_mix2 = torch.randn((B, 2 * E), generator=gen, device="cuda")
+    runs.append((
+        "stream_bwd_mh_q8", f"(h) B={B} M={M} E={E} H=2, no d_kv",
+        lambda: stream_bwd_mh(kv_m, d_mix2, None, None, u2, c2,
+                              want_dkv=False, kv_scales=s_m),
+        lambda: stream_bwd_plain(kv_m, d_mix2, None, None, u2, c2,
+                                 want_dkv=False, kv_scales=s_m),
+        lambda: stream_bwd_mh(x_m, d_mix2, None, None, u2, c2,
+                              want_dkv=False),
+        (B * M * E + 4 * (B * M + 2 * B * E + 4 * E + 4),
+         12 * B * M * E)))
+
+    times = {}
+    with torch.inference_mode():
+        for name, what, kernel, plain, f32, work in runs:
+            f1 = cuda_ms(torch, f32, iters=50, warmup=5)
+            pair = _time_pair(torch, f"{name} {what}", kernel, plain, work,
+                              smi, feats="int8")
+            f2 = cuda_ms(torch, f32, iters=50, warmup=5)
+            times[name] = (*pair, (f1 + f2) / 2)
+            print(f"time {name} {what}: f32 kernel on the dequantized "
+                  f"features {f1:.5f}/{f2:.5f} ms; int8/f32 "
+                  f"{pair[0] / ((f1 + f2) / 2):.3f} ({smi})")
+
+    flat = _classifier_flat(rng, El)
+    rates = {"int8": [], "f32": []}
+    for feats in ("int8", "f32", "f32", "int8"):
+        params = pool_classifier_params_from_numpy(flat, device="cuda")
+        opt = torch.optim.SGD(param_leaves(params), lr=1e-3)
+        g = torch.Generator().manual_seed(3)
+        x, sc = (kv_l, s_l) if feats == "int8" else (x_l, None)
+
+        def run_step():
+            _, grads = _q8_step(torch, "fused-step", params, x, sc, None, g)
+            for leaf, gr in zip(param_leaves(params), grads):
+                leaf.grad = gr
+            opt.step()
+
+        dt = _step_s(torch, run_step)
+        rates[feats].append(Bl / dt)
+        print(f"time slice (l) one-pass step {feats} B={Bl} M={Ml} E={El} "
+              f"H=1 training, quadratic + entropy, SGD: {Bl / dt:.1f} "
+              f"samples/s, {dt * 1e3:.4f} ms/step (host clock over 20 "
+              f"synchronised steps; {smi})")
+    print(f"slice (l) samples/s, int8 {rates['int8']} vs f32 {rates['f32']}; "
+          f"{smi}")
+    return times
+
+
 def _profile_steps(torch, run_step, what: str, smi: str, steps=10) -> None:
     """Device time by kernel over ``steps`` synchronised steps
     (``torch.profiler``; CUDA kernels only; ``--profile``): kernel ms per
@@ -1716,8 +2284,28 @@ def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, kernel: str, calls=200) -> str:
+    """Mean device time a call of ``fn`` spends in the CUDA kernels whose
+    name holds ``kernel`` (``torch.profiler``), host time excluded, as
+    text: "not measured" where the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return f"{total / calls / 1e3:.5f}" if total > 0 else "not measured"
+
+
 def _time_pair(torch, label, kernel, plain, work, smi, iters=50,
-               warmup=5) -> tuple:
+               warmup=5, feats="f32") -> tuple:
     """A kernel and its plain version (CUDA-event means, turns plain,
     kernel, kernel, plain) beside the bound of ``work`` = (bytes, f32
     operations); prints one line and returns ``(kernel ms, plain ms, bound
@@ -1726,7 +2314,7 @@ def _time_pair(torch, label, kernel, plain, work, smi, iters=50,
                       for f in (plain, kernel, kernel, plain))
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     bound = _bound(*work)
-    print(f"time {label} f32: kernel {k1:.5f}/{k2:.5f} ms, plain "
+    print(f"time {label} {feats}: kernel {k1:.5f}/{k2:.5f} ms, plain "
           f"{p1:.5f}/{p2:.5f} ms (mean {k_ms:.5f} vs {p_ms:.5f}; bound "
           f"{bound[0]:.5f} ms by {bound[1]}, {work[0] / 1e6:.1f} MB, "
           f"{work[1] / 1e9:.3f} GFLOP; {smi})")
@@ -1778,6 +2366,13 @@ def time_kernels(torch, smi: str, gpu_pred) -> dict:
                 lambda: shared_query_fwd(*args),
                 lambda: shared_query_fwd_plain(*args), work, smi,
                 iters=200, warmup=20)
+            # back to back, these calls are bound by the wrapper's host
+            # time; the kernel's own device time:
+            dev = _device_ms(torch, lambda: shared_query_fwd(*args),
+                             "shared_query_fwd_kernel")
+            print(f"time shared_query_fwd B={B} M={M} E={E} H={H} f32: "
+                  f"device {dev} ms a launch (torch.profiler over 200 "
+                  f"calls; {smi})")
 
     feats = np.random.default_rng(5)
     for b in BUCKETS:
@@ -1808,6 +2403,18 @@ KERNELS = (
     ("stream_bwd", "stream_bwd.cu", "aecf_tpu/kernels/shared_query.py:1474"),
     ("stream_bwd_mh", "stream_bwd.cu",
      "aecf_tpu/kernels/shared_query.py:1526"),
+    # the int8 instantiations: _shared_kernel_q8 and the quantized=True
+    # branches of the others
+    ("shared_query_fwd_q8", "shared_query_fwd.cu",
+     "aecf_tpu/kernels/shared_query.py:528"),
+    ("shared_query_bwd_q8", "shared_query_bwd.cu",
+     "aecf_tpu/kernels/shared_query.py:1154"),
+    ("train_step_q8", "train_step.cu", "aecf_tpu/kernels/train_step.py:141"),
+    ("stream_mix_q8", "stream_mix.cu", "aecf_tpu/kernels/shared_query.py:727"),
+    ("stream_bwd_q8", "stream_bwd.cu",
+     "aecf_tpu/kernels/shared_query.py:1479"),
+    ("stream_bwd_mh_q8", "stream_bwd.cu",
+     "aecf_tpu/kernels/shared_query.py:1532"),
 )
 
 
@@ -1815,33 +2422,41 @@ def main() -> None:
     torch = require_cuda()
     smi = device_report(torch)
     build_kernels()
-    errs = {"shared_query_fwd": check_kernel_vs_plain(torch)}
+    same = {}  # int8 vs f32 kernel: [cases equal bit for bit, cases]
+    errs = check_kernel_vs_plain(torch, same)
     check_philox(torch)
-    errs["shared_query_fwd"] = max(errs["shared_query_fwd"],
-                                   check_training_forward(torch))
-    errs["shared_query_bwd"] = check_backward(torch)
-    errs["train_step"] = check_step(torch)
+    for name, err in check_training_forward(torch, same).items():
+        errs[name] = max(errs[name], err)
+    errs.update(check_backward(torch, same))
+    errs.update(check_step(torch, same))
     errs["fused_pool_fwd"] = check_fused_pool(torch)
     check_fused_pool_grads(torch)
-    errs["stream_mix"] = check_stream_mix(torch)
-    errs.update(check_stream_bwd(torch))
+    errs.update(check_stream_mix(torch, same))
+    errs.update(check_stream_bwd(torch, same))
     check_stream_masks(torch)
+    print("int8 kernel vs f32 kernel on q.float() * s, within the f32 "
+          "kernel-vs-plain tolerances; bit for bit equal in: "
+          + ", ".join(f"{k} {a} of {n}" for k, (a, n) in same.items()))
     served = serve_slice(torch)
     trained = train_slice(torch)
     module = module_slice(torch)
     large = large_config(torch)
     sliced = stream_slices(torch)
+    quantized = q8_slices(torch)
     time_kernels(torch, smi, served["gpu_pred"])
     times = time_training(torch, smi, trained)
     times["fused_pool_fwd"] = time_module(torch, smi)
     times.update(time_streamed(torch, smi, sliced,
                                profiled="--profile" in sys.argv[1:]))
+    times.update(time_q8(torch, smi, quantized))
     launches = dict(trained["launches"])
     launches["shared_query_fwd"] += served["launches"]
     launches["fused_pool_fwd"] = module["launches"] + large["launches"]
     launches.update(sliced["launches"])
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    launches.update(quantized["launches"])
+    for name, _, _ in KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the main path")
     # No single PyTorch call computes any of these functions (each fuses a
     # softmax over M with its entropy, mask or gradient sums), so there is
     # no library time.

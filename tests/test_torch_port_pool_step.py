@@ -73,7 +73,7 @@ def _jax_trajectory(with_head):
 
 
 def _port_state(flat, opt=lambda ps: torch.optim.SGD(ps, lr=1e-2)):
-    params = pool_classifier_params_from_numpy(flat)
+    params = pool_classifier_params_from_numpy(flat, device="cpu")
     return TrainState(params, opt(param_leaves(params)))
 
 
@@ -124,7 +124,7 @@ def test_adamw_update_matches_optax():
 def test_params_converter_round_trips(bias):
     flat = _flat(jax_init(jax.random.key(3), E, C, bias=bias,
                           head_bias=bias))
-    params = pool_classifier_params_from_numpy(flat)
+    params = pool_classifier_params_from_numpy(flat, device="cpu")
     assert tuple(params["head"]["w"].shape) == (E, C)  # JAX layout, (E, C)
     assert (params["pool"].in_proj_bias is None) == (not bias)
     back = pool_classifier_params_to_numpy(params)
@@ -132,7 +132,8 @@ def test_params_converter_round_trips(bias):
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k])
     with pytest.raises(KeyError, match="unknown"):
-        pool_classifier_params_from_numpy({**flat, "['extra']": flat["['query']"]})
+        pool_classifier_params_from_numpy(
+            {**flat, "['extra']": flat["['query']"]}, device="cpu")
 
 
 def test_init_shapes_and_leaves():

@@ -411,7 +411,7 @@ def test_slice_lockstep_with_jax(H):
     jstate = JaxState(jparams, opt.init(jparams), jnp.zeros((), jnp.int32))
     jstep = jax_make(opt, num_heads=H, impl="xla", training=False,
                      entropy_coeff=0.01, precision="highest", donate=False)
-    params = pool_classifier_params_from_numpy(flat)
+    params = pool_classifier_params_from_numpy(flat, device="cpu")
     state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1e-2))
     step = make_pool_train_step(num_heads=H, impl="kernel", training=False,
                                 entropy_coeff=0.01)

@@ -206,7 +206,7 @@ def test_custom_row_loss_on_cpu_equals_the_built_in():
     "kwargs,exc,match",
     [
         ({"row_offset": 0, "batch_rows": 8}, NotImplementedError, "ROADMAP"),
-        ({"kv_scales": torch.ones(8, M)}, NotImplementedError, "ROADMAP"),
+        ({"kv_scales": torch.ones(8, M)}, ValueError, "kv_scales passed"),
         ({"precision": "high"}, ValueError, "precision"),
         ({"training": True}, ValueError, "generator"),
         ({"head_w": torch.zeros(E, C)}, ValueError, "labels"),
