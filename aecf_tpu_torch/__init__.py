@@ -4,7 +4,7 @@ The JAX package ``aecf_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Public API (the reference's
 ``aecf/__init__.py``): ``CurriculumMasking``, ``MultimodalAttentionPool``,
 ``multimodal_attention_pool``, ``create_fusion_pool``.  Ported so far —
-the module API, the serving path of the vision-language model and the
+the module API, the model families, the serving path and the
 pool-protocol training step:
 
     aecf_tpu_torch.nn            — the four public symbols (nn.Modules)
@@ -12,7 +12,9 @@ pool-protocol training step:
     aecf_tpu_torch.kernels       — hand-written CUDA kernels for Hopper,
                                    each with its plain PyTorch version
     aecf_tpu_torch.ops           — fusion_pool, dispatching kernel/oracle
-    aecf_tpu_torch.models        — VisionLanguageModel
+    aecf_tpu_torch.models        — VisionLanguageModel,
+                                   MedicalDiagnosisModel, XrayAECFModel,
+                                   XrayBaselineModel, MultiScaleFusion
     aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher
     aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
     aecf_tpu_torch.train         — TrainState, make_pool_train_step,

@@ -47,13 +47,15 @@ _MHA_KEYS = {
 def params_from_numpy(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     """Copy ``flat`` (parameter path → array) into ``model`` and return it.
 
-    Paths are ``jax.tree_util.keystr`` strings (``.pool.in_proj_weight``)
-    or state-dict keys (``pool.in_proj_weight``); they must name exactly the
-    model's parameters, with equal shapes (``load_state_dict(strict=True)``).
+    Paths are ``jax.tree_util.keystr`` strings (``.pool.in_proj_weight``,
+    ``.pools[1].in_proj_weight`` for a list of pools) or state-dict keys
+    (``pool.in_proj_weight``, ``pools.1.in_proj_weight``); they must name
+    exactly the model's parameters, with equal shapes
+    (``load_state_dict(strict=True)``).
     Arrays are copied to each parameter's dtype and device.
     """
     state = {
-        key.lstrip("."): torch.from_numpy(np.array(value))
+        _dotted(key): torch.from_numpy(np.array(value))
         for key, value in flat.items()
     }
     model.load_state_dict(state, strict=True)
@@ -78,9 +80,12 @@ def attention_pool_from_numpy(pool: nn.Module, flat: Dict[str, np.ndarray]) -> n
 
 
 def _dotted(key: str) -> str:
-    """``['pool'].in_proj_weight`` / ``['head']['w']`` (keystr) or
-    ``pool.in_proj_weight`` → ``pool.in_proj_weight`` / ``head.w``."""
-    return re.sub(r"\['([^']*)'\]", r".\1", key).lstrip(".")
+    """``['pool'].in_proj_weight`` / ``['head']['w']`` / ``.queries[0]``
+    (keystr) or ``pool.in_proj_weight`` → ``pool.in_proj_weight`` /
+    ``head.w`` / ``queries.0`` (a list index is a ``ModuleList`` /
+    ``ParameterList`` entry)."""
+    key = re.sub(r"\['([^']*)'\]", r".\1", key)
+    return re.sub(r"\[(\d+)\]", r".\1", key).lstrip(".")
 
 
 def pool_classifier_params_from_numpy(

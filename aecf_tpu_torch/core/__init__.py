@@ -15,6 +15,7 @@ from .masking import (
     curriculum_mask,
     entropy_loss,
 )
+from .precision import PRECISIONS, matmul_precision
 
 __all__ = [
     "AttentionPoolConfig",
@@ -29,4 +30,6 @@ __all__ = [
     "compute_entropy",
     "curriculum_mask",
     "entropy_loss",
+    "PRECISIONS",
+    "matmul_precision",
 ]

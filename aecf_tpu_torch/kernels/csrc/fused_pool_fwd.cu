@@ -30,7 +30,9 @@
 // and softmax, then every head's mix and context, so two 16 x E f32 tiles
 // are enough (q -> u_h -> mix_h, and qp -> ctx): 82 KB of shared memory
 // with the staging tile at E = 512 (two blocks an SM; a third q tile would
-// have left one), 146 KB at E = 1024 (one).  Rows past B are
+// have left one), 146 KB at E = 1024 (one); the heads' weights (kRows x H
+// x M floats, sized by the call) add 4 KB at most, H = 8 and M = 8, so any
+// H with E a multiple of 4 H runs, one head a pass.  Rows past B are
 // masked here and nothing is padded on the host.  The query may have any
 // row stride, 0 included (the expanded (1, 1, E) fusion query), and may be
 // bf16, as kv may.  Tensor cores, TMA and wgmma are later work.
@@ -71,13 +73,14 @@ struct FusedParams {
 
 namespace {
 
-// Floats of shared memory before the staging tile.
-__host__ __device__ inline int tile_floats(int E) {
-  return align4(2 * kRows * E + kRows * kMaxH * kMaxM + kRows * kMaxM + kRows);
+// Floats of shared memory before the staging tile; a_s is sized by the
+// call's H and M.
+__host__ __device__ inline int tile_floats(int E, int H, int M) {
+  return align4(2 * kRows * E + kRows * H * M + kRows * kMaxM + kRows);
 }
 
-size_t smem_bytes(int E) {
-  return sizeof(float) * ((size_t)tile_floats(E) + kStageFloats);
+size_t smem_bytes(int E, int H, int M) {
+  return sizeof(float) * ((size_t)tile_floats(E, H, M) + kStageFloats);
 }
 
 template <typename T, bool kTraining>
@@ -91,9 +94,9 @@ AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
   float* xs = smem;                           // kRows x E: q, u_h, mix_h
   float* ys = xs + kRows * E;                 // kRows x E: qp, then ctx
   float* a_s = ys + kRows * E;                // kRows x H x M
-  float* wsum = a_s + kRows * kMaxH * kMaxM;  // kRows x kMaxM: sum_h a_h
+  float* wsum = a_s + kRows * H * M;          // kRows x kMaxM: sum_h a_h
   float* c_s = wsum + kRows * kMaxM;          // kRows: c_h
-  float* wt = smem + tile_floats(E);          // kStageFloats
+  float* wt = smem + tile_floats(E, H, M);    // kStageFloats
 
   const T* kv = static_cast<const T*>(p.kv);
   const int lane = threadIdx.x & 31;
@@ -190,7 +193,7 @@ AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
 
 template <typename T, bool kTraining>
 cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.E);
+  const size_t smem = smem_bytes(p.E, p.H, p.M);
   const cudaError_t err = allow_smem(fused_pool_fwd_kernel<T, kTraining>, smem);
   if (err != cudaSuccess) return err;
   fused_pool_fwd_kernel<T, kTraining>
@@ -202,16 +205,19 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared memory in bytes one block asks for at width E.
-size_t aecf_fused_pool_fwd_smem(int E) { return smem_bytes(E); }
+// Shared memory in bytes one block asks for at width E with H heads and M
+// modalities.
+size_t aecf_fused_pool_fwd_smem(int E, int H, int M) {
+  return smem_bytes(E, H, M);
+}
 
 // Returns a cudaError_t; 0 means the launch was accepted.  Pointers are
-// device buffers as listed in FusedParams; E must be a multiple of 4 H
+// device buffers as listed in FusedParams; any H with E a multiple of 4 H
 // (the GEMMs read float4 rows of each head's slice).  training = 0 is the
 // eval branch (seed words, mask_prob and min_active unread).
 int aecf_fused_pool_fwd(const FusedParams* p, void* stream) {
-  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->H < 1 || p->H > kMaxH ||
-      p->E < 1 || p->E % (4 * p->H) != 0 || p->ldq < 0) {
+  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->H < 1 || p->E < 1 ||
+      p->E % (4 * p->H) != 0 || p->ldq < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

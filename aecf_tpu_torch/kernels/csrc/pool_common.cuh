@@ -321,6 +321,43 @@ __device__ __forceinline__ void row_softmax(const KvRow<T>& kvr,
   for (int m = 0; m < kMaxM; ++m) w[m] *= inv_h;
 }
 
+// Any H (H > kMaxH included): row_softmax over the heads in passes of at
+// most kMaxH, so the register arrays stay a[kMaxH][kMaxM] — a[8][8] would
+// spill under the row kernels' 64-register bound.  Each pass re-reads the
+// warp's kv row (from L1) and lane 0 writes its heads' weights to a_row
+// (H x M, shared memory); the head mean then sums a_row in head order,
+// w = (sum_h a_h) * (1/H), the order row_softmax and the plain version use.
+template <typename T>
+__device__ __forceinline__ void row_softmax_heads(
+    const KvRow<T>& kvr, const float* __restrict__ u,
+    const float* __restrict__ c, const float* pad_row, int M, int E, int H,
+    float* a_row, float w[kMaxM]) {
+  const int lane = threadIdx.x & 31;
+  for (int h0 = 0; h0 < H; h0 += kMaxH) {
+    const int nh = min(kMaxH, H - h0);
+    float a[kMaxH][kMaxM];
+    row_softmax(kvr, u + (size_t)h0 * E, c + h0, pad_row, M, E, nh, a, w);
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+          if (h < nh && m < M) a_row[(h0 + h) * M + m] = a[h][m];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) {
+    float s = 0.f;
+    if (m < M)
+      for (int h = 0; h < H; ++h) s += a_row[h * M + m];
+    w[m] = s;
+  }
+  const float inv_h = 1.0f / (float)H;
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) w[m] *= inv_h;
+}
+
 // Entropy clip(-sum w log(max(w, 1e-38)) [w > 0], 0, ln M), then (when
 // kTraining and mp.training) the training mask chain, writing the four
 // side outputs of row gr (lane 0).  kTraining = false compiles the eval

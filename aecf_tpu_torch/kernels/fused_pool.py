@@ -17,13 +17,15 @@ The backward is plain torch — the JAX package runs it as XLA einsums
 the two into one ``torch.autograd.Function``; :func:`fused_fusion_pool`
 is the differentiable entry with the JAX function's info contract.
 
-Kernel limits: H ≤ 2, 1 ≤ M ≤ 8, E ≤ 1024 with E a multiple of 4·H.  H > 2
-is not ported (ROADMAP.md, queue 2); ``'auto'`` dispatch sends it to the
-torch path.  Padded slots get a ``-1e30`` score bias (a fully padded row
-comes out uniform), where the oracle's ``-inf`` gives NaN.
+Kernel limits: 1 ≤ M ≤ 8, E ≤ 1024 with E a multiple of 4·H, any H (the
+kernel takes the heads one a pass).  Padded slots get a ``-1e30`` score
+bias (a fully padded row comes out uniform), where the oracle's ``-inf``
+gives NaN.
 
 The gates (:func:`supports_fused`, :func:`prefers_fused`) encode the JAX
-package's TPU measurements; re-deriving them on the H100 is open work.
+package's TPU measurements: ``'auto'`` sends H > 2 to the torch path,
+although the kernels take it when forced.  The card's H > 2 times are in
+PERF.md §6; re-deriving the gates from them is ROADMAP.md queue 2, item 7.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from ..core.attention import AttentionPoolParams
 from ._build import load_library
 from .draws import draw_seed_words
 from .shared_query import (
-    _MAX_H,
     _MAX_M,
     _RESIDENT_E_CAP,
     _STREAMED_E_CAP,
@@ -64,9 +65,10 @@ __all__ = [
 ]
 
 _LIMITS = (
-    "the per-row-query kernel takes H <= {h}, 1 <= M <= {m} and E <= {e} "
-    "with E a multiple of 4*H, got H={H}, M={M}, E={E}; the rest is not "
-    "ported (ROADMAP.md, queue 2: #7 _fusion_kernel, H > 2)"
+    "the per-row-query kernel takes 1 <= M <= {m} and E <= {e} with E a "
+    "multiple of 4*H, got H={H}, M={M}, E={E}; other widths take "
+    "implementation='torch' (the kernels' limits and gates: ROADMAP.md, "
+    "queue 2)"
 )
 
 
@@ -99,15 +101,17 @@ def supports_fused(
 
 def prefers_fused(*, num_heads: int) -> bool:
     """Performance preference (vs capability — :func:`supports_fused`): the
-    fused kernels for H ≤ 2.  On the TPU the per-head GEMMs lost to XLA's
-    batched heads from H=4 up; the boundary has not been measured on the
-    H100."""
+    fused kernels for H ≤ 2, the JAX package's rule (on the TPU the
+    per-head GEMMs lost to XLA's batched heads from H=4 up).  The kernels
+    take H > 2 when forced; their times on the H100 beside the torch path's
+    are in PERF.md §6, and the gate's re-derivation is ROADMAP.md queue 2,
+    item 7."""
     return num_heads <= 2
 
 
 def _kernel_takes(M: int, E: int, H: int) -> bool:
     """Whether :func:`fused_pool_fwd` takes these widths."""
-    return 1 <= H <= _MAX_H and 1 <= M <= _MAX_M and E <= _RESIDENT_E_CAP and (
+    return H >= 1 and 1 <= M <= _MAX_M and E <= _RESIDENT_E_CAP and (
         E % (4 * H) == 0
     )
 
@@ -170,8 +174,8 @@ def _check_operands(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads):
         )
     if not _kernel_takes(M, E, num_heads):
         raise ValueError(
-            _LIMITS.format(h=_MAX_H, m=_MAX_M, e=_RESIDENT_E_CAP, H=num_heads,
-                           M=M, E=E)
+            _LIMITS.format(m=_MAX_M, e=_RESIDENT_E_CAP, H=num_heads, M=M,
+                           E=E)
         )
     for name, t in (("q", q), ("kv", kv)):
         if t.dtype not in (torch.float32, torch.bfloat16):
@@ -213,7 +217,7 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(_FusedParams), ctypes.c_void_p,
     ]
     lib.aecf_fused_pool_fwd.restype = ctypes.c_int
-    lib.aecf_fused_pool_fwd_smem.argtypes = [ctypes.c_int]
+    lib.aecf_fused_pool_fwd_smem.argtypes = [ctypes.c_int] * 3
     lib.aecf_fused_pool_fwd_smem.restype = ctypes.c_size_t
     lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aecf_cuda_error_string.restype = ctypes.c_char_p

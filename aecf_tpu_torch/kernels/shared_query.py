@@ -53,9 +53,13 @@ order, so weights match the naive oracle to ~1e-6, not bitwise.  Padded
 slots get a ``-1e30`` score bias (a fully padded row comes out uniform),
 where the oracle's ``-inf`` gives NaN.
 
-The resident kernels keep per-row register arrays for H ≤ 2: a call with
-H > 2 raises, naming its ROADMAP.md item (``'auto'`` takes the torch path
-there, as JAX's takes XLA).
+The resident forward takes any H dividing E (E ≤ 1024), as JAX's kernel
+does when forced: above H = 2 it takes the heads in passes of two
+(``row_softmax_heads`` in ``csrc/pool_common.cuh``), and its gradients
+run through ``_bwd_heads`` in torch, as JAX's XLA backward.  ``'auto'``
+keeps H > 2 on the torch path (``prefers_fused``, the JAX package's rule)
+until the card's times at H > 2 (PERF.md §6) decide the gate, ROADMAP.md
+queue 2, item 7.  The streamed kernels take H ≤ 2, as JAX's.
 """
 
 from __future__ import annotations
@@ -94,14 +98,12 @@ _RESIDENT_E_CAP = 1024
 _STREAMED_E_CAP = 8192
 # Below the resident cap, H == 2 training streams from this E up.
 _STREAMED_H2_MIN_E = 512
-# Static bounds of the kernels' per-row register arrays (kMaxM, kMaxH).
+# Static bound of the kernels' per-row register arrays (kMaxM).
 _MAX_M = 8
-_MAX_H = 2
-_H_LIMIT = (
-    "the resident shared-query kernels take 1 <= H <= {h} dividing E, got "
-    "H={H}, E={E}; H > 2 is not ported (ROADMAP.md, queue 2, item 9: H > 2 "
-    "on #1/#2 _shared_kernel); use implementation='torch'"
-)
+# Heads of the streamed kernels (JAX's streamed split is H <= 2 too).
+_STREAMED_MAX_H = 2
+_HEADS = ("the resident shared-query kernel takes 1 <= H <= E with H "
+          "dividing E, got H={H}, E={E}")
 # kv_dtype codes of the C interfaces (KvDtype in csrc/pool_common.cuh).
 _KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -113,7 +115,7 @@ def _vjp_wants_streamed(num_heads: int, E: int) -> bool:
     from E = 512, where the one-pass multi-head backward kernel replaces
     the torch einsum backward.  Gradient-free eval keeps the resident
     kernel below the cap."""
-    if num_heads > 2:
+    if num_heads > _STREAMED_MAX_H:
         return False
     if E > _RESIDENT_E_CAP:
         return True
@@ -321,8 +323,8 @@ def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo,
         raise ValueError("kv must have at least one row")
     if not 1 <= M <= _MAX_M:
         raise ValueError(f"kernel takes 1 <= M <= {_MAX_M}, got M={M}")
-    if not 1 <= H <= _MAX_H or E % H:
-        raise ValueError(_H_LIMIT.format(h=_MAX_H, H=H, E=E))
+    if H < 1 or E % H:
+        raise ValueError(_HEADS.format(H=H, E=E))
     if E > _RESIDENT_E_CAP:
         raise ValueError(f"kernel takes E <= {_RESIDENT_E_CAP}, got E={E}")
     if kv.dtype not in _KV_DTYPE:
@@ -519,11 +521,12 @@ def _check_stream(kv: torch.Tensor, H: int) -> Tuple[int, int, int]:
             f"{tuple(kv.shape)}"
         )
     B, M, E = kv.shape
-    if B < 1 or not 1 <= M <= _MAX_M or not 1 <= H <= _MAX_H or E % 4:
+    if (B < 1 or not 1 <= M <= _MAX_M or not 1 <= H <= _STREAMED_MAX_H
+            or E % 4):
         raise ValueError(
             f"the streamed kernels take B >= 1, 1 <= M <= {_MAX_M}, "
-            f"1 <= H <= {_MAX_H} and E divisible by 4, got B={B}, M={M}, "
-            f"H={H}, E={E}"
+            f"1 <= H <= {_STREAMED_MAX_H} and E divisible by 4, got B={B}, "
+            f"M={M}, H={H}, E={E}"
         )
     return B, M, E
 
@@ -1105,9 +1108,10 @@ def fused_fusion_pool_shared(
     shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
     ``precision`` is ``"default"`` or ``"highest"``; both run full f32
     FMAs in these kernels (tighter than the JAX package's bf16
-    ``"default"``).  Up to E = 1024 the resident kernels run; above it (to
-    E = 8192, H ≤ 2), and for H == 2 training or gradients from E = 512,
-    the streamed split (:func:`_vjp_wants_streamed`).
+    ``"default"``).  Up to E = 1024 the resident kernels run, at any H
+    dividing E; above it (to E = 8192, H ≤ 2), and for H == 2 training or
+    gradients from E = 512, the streamed split
+    (:func:`_vjp_wants_streamed`).
 
     Quantized path: int8 ``kv`` with ``kv_scales (B, M)``
     (:func:`quantize_features`) — a quarter of the f32 feature bytes in
@@ -1132,7 +1136,9 @@ def fused_fusion_pool_shared(
             f"embed_dim {E} exceeds the streamed-split cap E="
             f"{_STREAMED_E_CAP}; use implementation='torch'"
         )
-    if E > _RESIDENT_E_CAP and num_heads > 2:
+    if num_heads < 1 or E % num_heads:
+        raise ValueError(_HEADS.format(H=num_heads, E=E))
+    if E > _RESIDENT_E_CAP and num_heads > _STREAMED_MAX_H:
         raise ValueError(
             f"E={E} above the resident cap E={_RESIDENT_E_CAP} needs "
             "num_heads<=2 (the streamed split); use implementation='torch' "

@@ -79,7 +79,7 @@ __all__ = [
 
 # Batch rows one block of the step kernel holds (kRows in the source).
 _STEP_ROWS = 16
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1, item 15: {})"
+_ROADMAP = "not ported yet (ROADMAP.md, queue 1, item 1: {})"
 
 
 def supports_fused_step(num_heads: int, embed_dim: int) -> bool:
@@ -98,7 +98,7 @@ def step_tile(
     kv_grad: bool = False,
 ) -> int:
     """The batch rows one block of the step kernel takes: a constant (16)
-    for now — the per-device tile table is a later item (ROADMAP.md).
+    for now — the per-device tile table is ROADMAP.md, queue 1, item 8.
     The kernel masks a ragged last block itself, so any batch size runs."""
     return _STEP_ROWS
 

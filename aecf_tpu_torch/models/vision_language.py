@@ -13,11 +13,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.init import init_attention_pool_params, init_fusion_query
 from ..ops import fusion_pool
-from .layers import init_linear, linear
+from .layers import fork_generator, init_linear, linear
 
 __all__ = ["VisionLanguageModel"]
 
@@ -27,9 +28,10 @@ class VisionLanguageModel(nn.Module):
     config #4 defaults).
 
     Parameters are drawn on the CPU from ``generator`` (a fresh seed-0
-    generator by default) and then moved to ``device``.  ``forward`` runs
-    in eval or training mode after ``self.training``; training draws its
-    curriculum mask from the ``generator`` passed to ``forward``.
+    generator by default) and then moved to ``device`` (the card unless
+    the caller asks for another).  ``forward`` runs in eval or training
+    mode after ``self.training``; training draws its curriculum mask from
+    the ``generator`` passed to ``forward``.
     """
 
     def __init__(
@@ -44,7 +46,7 @@ class VisionLanguageModel(nn.Module):
         min_active: int = 1,
         *,
         generator: Optional[torch.Generator] = None,
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device] = "cuda",
     ):
         super().__init__()
         self.img_dim = img_dim
@@ -62,8 +64,7 @@ class VisionLanguageModel(nn.Module):
         self.fusion_query = nn.Parameter(init_fusion_query(generator, hidden_dim))
         self.pool = init_attention_pool_params(generator, hidden_dim)
         self.classifier = init_linear(generator, hidden_dim, num_classes)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(
         self,
@@ -72,23 +73,44 @@ class VisionLanguageModel(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         return_info: bool = False,
+        use_checkpoint: bool = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
+        """``use_checkpoint=True`` recomputes the fusion pool in the
+        backward (``torch.utils.checkpoint``, training only), as the JAX
+        model's ``jax.checkpoint``.  The pool draws from a generator forked
+        from ``generator`` (:func:`.layers.fork_generator`) before it runs,
+        so the recompute leaves ``generator`` alone and both settings give
+        the same outputs, gradients and generator state."""
         img = linear(self.img_proj, image_feats)
         txt = linear(self.txt_proj, text_feats)
         modalities = torch.stack([img, txt], dim=1)  # (B, 2, hidden)
+        pool_gen = fork_generator(generator)
+
         # The unexpanded (1, 1, E) query reaches the shared-query kernel on
         # CUDA (aecf_tpu_torch.ops.fusion_pool dispatch).
-        pooled, weights, masked_weights, mask_info = fusion_pool(
-            self.pool,
-            self.fusion_query,
-            modalities,
-            num_heads=self.num_heads,
-            generator=generator,
-            training=self.training,
-            base_mask_prob=self.mask_prob,
-            entropy_target=self.entropy_target,
-            min_active=self.min_active,
-        )
+        def fuse(query, kv):
+            return fusion_pool(
+                self.pool,
+                query,
+                kv,
+                num_heads=self.num_heads,
+                generator=pool_gen,
+                training=self.training,
+                base_mask_prob=self.mask_prob,
+                entropy_target=self.entropy_target,
+                min_active=self.min_active,
+            )
+
+        if use_checkpoint and self.training:
+            pooled, weights, masked_weights, mask_info = (
+                torch.utils.checkpoint.checkpoint(
+                    fuse, self.fusion_query, modalities, use_reentrant=False
+                )
+            )
+        else:
+            pooled, weights, masked_weights, mask_info = fuse(
+                self.fusion_query, modalities
+            )
         logits = linear(self.classifier, pooled.squeeze(1))
         if return_info:
             info: Dict[str, Any] = dict(mask_info)

@@ -42,6 +42,7 @@ from ..core.masking import (
     curriculum_mask,
     entropy_loss,
 )
+from ..core.precision import PRECISIONS, matmul_precision
 from ..kernels import (
     fused_fusion_pool,
     fused_fusion_pool_shared,
@@ -211,6 +212,10 @@ class MultimodalAttentionPool(nn.Module):
     per-row kernel for a ``(B, 1, E)`` one; their plain versions on CPU
     tensors) or ``'auto'`` (the kernels for CUDA features when H ≤ 2).
     Configurations the kernels do not cover take the torch path either way.
+    ``precision``: the torch path's forward runs under
+    :func:`~aecf_tpu_torch.core.matmul_precision` (``'highest'``, the
+    default, is IEEE f32 whatever the process set) and restores the
+    process's mode; the kernels run full f32 FMAs at every setting.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
@@ -260,10 +265,10 @@ class MultimodalAttentionPool(nn.Module):
             raise ValueError(f"unknown implementation {implementation!r}")
         self.implementation = implementation
         # The kernels run full f32 FMAs for every setting; the torch path
-        # runs PyTorch's global float32 matmul precision.  'high' keeps the
-        # call on the torch path (the JAX kernels implement 'default' and
-        # 'highest' only).
-        if precision not in ("default", "high", "highest"):
+        # runs under core.matmul_precision(precision) ('highest' is IEEE
+        # f32).  'high' keeps the call on the torch path (the JAX kernels
+        # implement 'default' and 'highest' only).
+        if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be 'default', 'high', or 'highest', "
                 f"got {precision!r}"
@@ -373,7 +378,9 @@ class MultimodalAttentionPool(nn.Module):
         impl = self.implementation
         if impl == "auto":
             # ops.fusion_pool's gate, so the two cannot drift: CUDA features,
-            # H <= 2 (JAX's auto sends H > 2 to XLA), the kernels' widths
+            # the kernels' widths, and H <= 2 — the kernels take H > 2 when
+            # forced, but 'auto' keeps JAX's rule (H > 2 to XLA) until the
+            # card's times decide it (PERF.md §6; ROADMAP.md queue 2, item 7)
             impl = (
                 "kernel"
                 if _wants_kernel(params, query, key, num_heads=self.num_heads,
@@ -421,18 +428,21 @@ class MultimodalAttentionPool(nn.Module):
                 device_generator(drop_seed, q.device) if dropout_active
                 else None
             )
-            return attention_pool_core(
-                params,
-                q,
-                k,
-                v,
-                num_heads=self.num_heads,
-                key_padding_mask=key_padding_mask,
-                attn_mask=attn_mask,
-                dropout_rate=self.config.dropout if dropout_active else 0.0,
-                dropout_generator=drop_gen,
-                need_weights=need_weights,
-            )
+            with matmul_precision(self.precision):
+                return attention_pool_core(
+                    params,
+                    q,
+                    k,
+                    v,
+                    num_heads=self.num_heads,
+                    key_padding_mask=key_padding_mask,
+                    attn_mask=attn_mask,
+                    dropout_rate=(
+                        self.config.dropout if dropout_active else 0.0
+                    ),
+                    dropout_generator=drop_gen,
+                    need_weights=need_weights,
+                )
 
         if use_checkpoint and self.training:
             out, weights = torch.utils.checkpoint.checkpoint(
@@ -458,9 +468,10 @@ class MultimodalAttentionPool(nn.Module):
                 step=step,
             )
             if self.apply_masking_to_output:
-                out = apply_pooled_weights(
-                    params, masked, value, num_heads=self.num_heads
-                )
+                with matmul_precision(self.precision):
+                    out = apply_pooled_weights(
+                        params, masked, value, num_heads=self.num_heads
+                    )
             info.update(mask_info)
             # Grad-carrying raw weights (reference AECFLayer.py:538).
             info["attention_weights"] = weights

@@ -15,6 +15,7 @@ import torch
 
 from ..core.attention import AttentionPoolParams, attention_pool_core
 from ..core.masking import curriculum_mask
+from ..core.precision import matmul_precision
 from ..kernels import (
     fused_fusion_pool,
     fused_fusion_pool_shared,
@@ -28,18 +29,23 @@ from ..kernels.shared_query import (
     _dequant,
     _shared_takes,
 )
+from ..kernels.draws import generator_on
 
 __all__ = ["fusion_pool"]
 
 
 def _wants_kernel(params, query, kv, *, num_heads, precision):
     """Static gate of ``implementation='auto'``: the kernels run only where
-    they are ported and cannot change the call's meaning.  Training and
-    gradients take them too — for a shared ``(1, 1, E)`` query (H ≤ 2, E
-    up to the streamed-split cap) the resident or streamed forward kernel
-    with in-kernel masking and their backward kernels, f32, bf16 or int8
-    features; for a per-row ``(B, 1, E)`` query the per-row forward
-    kernel, f32 or bf16."""
+    they are ported, cannot change the call's meaning and are preferred.
+    Training and gradients take them too — for a shared ``(1, 1, E)``
+    query (E up to the streamed-split cap) the resident or streamed
+    forward kernel with in-kernel masking and their backward kernels, f32,
+    bf16 or int8 features; for a per-row ``(B, 1, E)`` query the per-row
+    forward kernel, f32 or bf16.  H > 2 takes the torch path here although
+    the resident kernels take any H dividing E (``implementation=
+    'kernel'``): ``prefers_fused`` keeps the JAX package's rule until the
+    card's H > 2 times decide it (PERF.md §6, ROADMAP.md queue 2, item
+    7)."""
     E = query.shape[-1]
     shared = query.shape[0] == 1
     dtypes = (torch.float32, torch.bfloat16) + ((torch.int8,) if shared else ())
@@ -90,11 +96,16 @@ def fusion_pool(
     ``(1, 1, E)`` query, the per-row kernel for a ``(B, 1, E)`` one;
     ``'torch'`` forces the oracle path; ``'kernel'`` forces the kernel
     (its plain version for CPU tensors).
-    ``generator`` draws the training mask: the kernel takes two seed words
-    from a CPU generator, the torch path draws ``torch.bernoulli`` from a
-    generator on ``kv``'s device.  ``kv_grad=False`` detaches the
-    features.  The torch path runs matmuls at PyTorch's global float32
-    precision setting; ``precision`` selects the path only.
+    ``generator`` (a CPU ``torch.Generator``) draws the training mask: the
+    kernel takes two seed words from it, the torch path draws
+    ``torch.bernoulli`` from it or, for features on a card, from a
+    generator there seeded from two words drawn from it
+    (:func:`aecf_tpu_torch.kernels.draws.generator_on`; a generator on
+    ``kv``'s device is used as it is).  ``kv_grad=False`` detaches the
+    features.  The torch path's forward runs under the float32 matmul mode
+    ``precision`` names (:func:`aecf_tpu_torch.core.matmul_precision`:
+    ``'highest'`` is IEEE f32 whatever the process set) and leaves the
+    process's mode as it found it.
 
     int8 features: pass ``kv`` as int8 with ``kv_scales (B, M)`` (see
     :func:`aecf_tpu_torch.kernels.quantize_features`); they are frozen
@@ -146,18 +157,19 @@ def fusion_pool(
 
     B = kv.shape[0]
     q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
-    out, weights = attention_pool_core(
-        params,
-        q_full,
-        kv,
-        kv,
-        num_heads=num_heads,
-        key_padding_mask=key_padding_mask,
-        need_weights=True,
-    )
+    with matmul_precision(precision):
+        out, weights = attention_pool_core(
+            params,
+            q_full,
+            kv,
+            kv,
+            num_heads=num_heads,
+            key_padding_mask=key_padding_mask,
+            need_weights=True,
+        )
     masked, info = curriculum_mask(
         weights,
-        generator=generator,
+        generator=generator_on(generator, kv.device),
         training=training,
         base_mask_prob=base_mask_prob,
         entropy_target=entropy_target,

@@ -285,7 +285,7 @@ def make_pool_train_step(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= data-parallel training is not ported yet (ROADMAP.md, "
-            "queue 1, item 8: parallel/)"
+            "queue 1, item 6: parallel/)"
         )
     local_step = _make_local_step(
         num_heads=num_heads, impl=impl, precision=precision,

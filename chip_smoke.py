@@ -21,6 +21,9 @@ plain version and to the f32 kernel on ``q.float() * s``):
    (mask chain), the H=1 backward, the one-pass train step and the
    per-row-query forward (eval and training, then gradients through its
    autograd function with the kernel forward against the plain forward);
+   the shared-query forward at H in {1, 2, 3, 4, 8} and the per-row one at
+   H in {1, 2, 4, 8}, the medical (B=4096, M=3, E=512, H=8, padded) and
+   X-ray (B=4096, M=2, E=256, H=4) pools among the shapes;
 4. the serving slice at full width: ``VisionLanguageModel`` (img 2048 +
    txt 768 → 512 → 1000 classes) with seeded random parameters, behind
    ``FusionPredictor(buckets=(32, 256))`` → ``MicroBatcher`` →
@@ -60,17 +63,26 @@ plain version and to the f32 kernel on ``q.float() * s``):
    ``fused_pool_train_step(kv_scales=)`` and 3 of the X3 head; (m) 3 steps
    of ``fused_fusion_pool_shared(kv_scales=)`` under autograd at B=8192,
    M=4, E=1024, H=1; (n) the same at B=4096, M=4, E=2048, H=1 and H=2;
+   (j8) one int8 eval call at the medical pool (H=8) forced onto the kernel;
+   then the model families at full width, B=4096 (``model_slices``): (o)
+   ``MedicalDiagnosisModel`` (H=8) and (p) ``XrayAECFModel`` (H=4), eval
+   against the CPU path and AdamW steps of ``'auto'`` (the torch path at
+   H > 2) in lockstep with the model forced onto the kernel; (q)
+   ``MultiScaleFusion`` (256/512/1024, H=1), eval and AdamW steps of
+   ``'auto'`` (the kernels) against ``'torch'``;
 7. times (CUDA events) of each kernel and its plain version at the slice
    shapes (each int8 kernel beside the f32 kernel at its shape), of one
    predictor call per bucket, samples/s of one training step, ms per
    Quick start module step, ``'auto'`` against ``'torch'``, samples/s of
    slice (f), ``'auto'`` against ``'torch'``, and of slice (l), int8
-   against f32;
+   against f32; the resident forwards at H > 2 at the models' pool shapes
+   beside their plain versions, bounds and the torch route
+   (``attention_pool_core``, what ``'auto'`` runs there);
 8. a JSON line of the kernels, the int8 instantiations as entries of
    their own (``*_q8``; with each one's bound: the larger of its bytes —
    int8 features 1 byte each, 4 a scale — over the card's memory rate and
-   its f32 operations over the SIMT rate, from this run's shapes), then
-   the last line
+   its f32 operations over the SIMT rate, from this run's shapes; and the
+   head counts each kernel was checked at), then the last line
    ``{"ok": true, "device": {...}}``.
 
 float32 matmuls run without TF32 (``allow_tf32 = False`` for both cuBLAS
@@ -79,6 +91,7 @@ and cuDNN), so the plain versions are full float32 references.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -139,6 +152,31 @@ FUSED_SHAPES = {
 }
 QS_B, QS_M, QS_E = 4096, 3, 512
 LARGE_B, LARGE_M, LARGE_E, LARGE_H = 8192, 4, 1024, 2
+# Heads above two (the resident forwards take any H dividing E): the
+# medical model's pool (B=4096, M=3, E=512, H=8, padded slots; the repo's
+# heads8 configuration) and the X-ray model's (B=4096, M=2, E=256, H=4),
+# H = 3 at an E divisible by 3, and E=1024 at H=8; each (E, H) with its
+# (B, M) rows.
+MED_B, MED_M, MED_E, MED_H = 4096, 3, 512, 8
+XR_B, XR_M, XR_E, XR_H = 4096, 2, 256, 4
+HEAD_BMS = [(B, M) for B in (1, 32, 300) for M in (2, 3, 4)]
+HEAD_GRID = (
+    (384, 3, HEAD_BMS),
+    (512, 4, HEAD_BMS),
+    (512, 8, HEAD_BMS),
+    (1024, 8, [(300, 8)]),
+    (MED_E, MED_H, [(MED_B, MED_M)]),
+    (XR_E, XR_H, [(XR_B, XR_M)]),
+)
+# The per-row kernel's (E a multiple of 4 H), the Quick start's width at H=8.
+FUSED_HEAD_GRID = (
+    (512, 4, HEAD_BMS),
+    (512, 8, HEAD_BMS),
+    (1024, 8, [(300, 8)]),
+    (QS_E, 8, [(QS_B, QS_M)]),
+)
+# The multi-scale model's scales (H=1 each) and its rows.
+MS_DIMS, MS_B, MS_M = (256, 512, 1024), 4096, 3
 # The streamed split: its kernels' grid, the repo suite's streamed configs
 # (benchmarks/suite.py: streamed_e2048_ab, streamed_h2_e2048_ab and
 # eval_fwd_ab_e2048 at B=4096, M=4, E=2048; h2_belowcap_stream_ab at
@@ -268,6 +306,24 @@ def _vs_f32(torch, same, name, got, f32, tols, where) -> None:
     tally[1] += 1
 
 
+# The head counts at which each kernel was held to its plain version in
+# this run: kernel name -> {H, ...}, filled by the checks of phases 3 and
+# 6 and read into the kernels line.
+HELD_AT: dict = {}
+
+
+def _held_at(name, H) -> None:
+    HELD_AT.setdefault(name, set()).add(H)
+
+
+def _grid(shapes, extra=()):
+    """``[(E, H, [(B, M), ...]), ...]``: every (E, H) of ``shapes`` over
+    its B x M grid, then the groups of ``extra``."""
+    bms = [(B, M) for B in shapes["B"] for M in shapes["M"]]
+    return ([(E, H, bms) for E in shapes["E"] for H in shapes["H"]]
+            + list(extra))
+
+
 def _pool_params(torch, rng, E, device):
     from aecf_tpu_torch.core import AttentionPoolParams
 
@@ -296,92 +352,91 @@ def check_kernel_vs_plain(torch, same, shapes=KERNEL_SHAPES) -> dict:
     rng = np.random.default_rng(1)
     worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
     cases = 0
-    for E in shapes["E"]:
-        for H in shapes["H"]:
-            params = _pool_params(torch, rng, E, "cuda")
-            query = torch.tensor(
-                math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
-                dtype=torch.float32, device="cuda",
-            )
-            for dtype in _dtypes(torch):
-                q8 = dtype == torch.int8
-                for padded in (False, True):
-                    errs = {"out": 0.0, "w": 0.0, "mw": 0.0, "ent": 0.0}
-                    for B in shapes["B"]:
-                        for M in shapes["M"]:
-                            kv, scales = _features(torch, torch.tensor(
-                                rng.standard_normal((B, M, E)),
-                                dtype=torch.float32, device="cuda",
-                            ), dtype)
-                            kpm = None
-                            if padded:
-                                mask = rng.random((B, M)) < 0.3
-                                mask[0, :] = True  # one fully padded row
-                                kpm = torch.tensor(mask, device="cuda")
-                            with torch.inference_mode():
-                                out, w, mw, info = fused_fusion_pool_shared(
-                                    params, query, kv, num_heads=H,
-                                    key_padding_mask=kpm, kv_scales=scales,
-                                )
-                                u, c, wctx, bctx, wo, bo = _prep(
-                                    params, query[0, 0], H
-                                )
-                                ref = shared_query_fwd_plain(
-                                    kv, u, c, _pad_bias_rows(kpm), wctx,
-                                    bctx, wo, bo, kv_scales=scales,
-                                )
-                                if q8:
-                                    f32 = fused_fusion_pool_shared(
-                                        params, query,
-                                        kv.float() * scales[..., None],
-                                        num_heads=H, key_padding_mask=kpm,
-                                    )
-                            torch.cuda.synchronize()
-                            got = {
-                                "out": out[:, 0], "w": w[:, 0],
-                                "mw": mw[:, 0], "ent": info["entropy"][:, 0],
-                            }
-                            want = dict(zip(("out", "w", "mw", "ent"), ref[:4]))
-                            where = (f"B={B} M={M} E={E} H={H} {dtype} "
-                                     f"padded={padded}")
-                            for k in got:
-                                check(
-                                    tuple(got[k].shape) == tuple(want[k].shape)
-                                    and bool(torch.isfinite(got[k]).all()),
-                                    f"{k} shape/finite at {where}",
-                                )
-                                err = (got[k] - want[k]).abs().max().item()
-                                errs[k] = max(errs[k], err)
-                                tol = (
-                                    TOL_OUT_REL * want[k].abs().max().item()
-                                    + TOL_OUT_ABS
-                                    if k == "out" else TOL_W
-                                )
-                                check(
-                                    err <= tol,
-                                    f"{k} error {err:.3e} > {tol:.3e} at "
-                                    f"{where}",
-                                )
-                            check(
-                                bool((info["mask_rate"] == 0).all()),
-                                "mask_rate is not exactly 0",
+    for E, H, bms in _grid(shapes, HEAD_GRID):
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.tensor(
+            math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+            dtype=torch.float32, device="cuda",
+        )
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            for padded in (False, True):
+                errs = {"out": 0.0, "w": 0.0, "mw": 0.0, "ent": 0.0}
+                for B, M in bms:
+                    kv, scales = _features(torch, torch.tensor(
+                        rng.standard_normal((B, M, E)),
+                        dtype=torch.float32, device="cuda",
+                    ), dtype)
+                    kpm = None
+                    if padded:
+                        mask = rng.random((B, M)) < 0.3
+                        mask[0, :] = True  # one fully padded row
+                        kpm = torch.tensor(mask, device="cuda")
+                    with torch.inference_mode():
+                        out, w, mw, info = fused_fusion_pool_shared(
+                            params, query, kv, num_heads=H,
+                            key_padding_mask=kpm, kv_scales=scales,
+                        )
+                        u, c, wctx, bctx, wo, bo = _prep(
+                            params, query[0, 0], H
+                        )
+                        ref = shared_query_fwd_plain(
+                            kv, u, c, _pad_bias_rows(kpm), wctx,
+                            bctx, wo, bo, kv_scales=scales,
+                        )
+                        if q8:
+                            f32 = fused_fusion_pool_shared(
+                                params, query,
+                                kv.float() * scales[..., None],
+                                num_heads=H, key_padding_mask=kpm,
                             )
-                            if q8:
-                                ref32 = {"out": f32[0][:, 0], "w": f32[1][:, 0],
-                                         "mw": f32[2][:, 0],
-                                         "ent": f32[3]["entropy"][:, 0]}
-                                _vs_f32(torch, same, "shared_query_fwd_q8", got,
-                                        ref32, {"out": _out_tol(ref32["out"]),
-                                                "w": TOL_W, "mw": TOL_W,
-                                                "ent": TOL_W}, where)
-                            cases += 1
-                    name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
-                    worst[name] = max(worst[name], *errs.values())
-                    print(
-                        f"kernel vs plain E={E} H={H} kv={str(dtype)[6:]} "
-                        f"padded={padded} B={shapes['B']} M={shapes['M']}: "
-                        + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                    torch.cuda.synchronize()
+                    got = {
+                        "out": out[:, 0], "w": w[:, 0],
+                        "mw": mw[:, 0], "ent": info["entropy"][:, 0],
+                    }
+                    want = dict(zip(("out", "w", "mw", "ent"), ref[:4]))
+                    where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                             f"padded={padded}")
+                    for k in got:
+                        check(
+                            tuple(got[k].shape) == tuple(want[k].shape)
+                            and bool(torch.isfinite(got[k]).all()),
+                            f"{k} shape/finite at {where}",
+                        )
+                        err = (got[k] - want[k]).abs().max().item()
+                        errs[k] = max(errs[k], err)
+                        tol = (
+                            TOL_OUT_REL * want[k].abs().max().item()
+                            + TOL_OUT_ABS
+                            if k == "out" else TOL_W
+                        )
+                        check(
+                            err <= tol,
+                            f"{k} error {err:.3e} > {tol:.3e} at "
+                            f"{where}",
+                        )
+                    check(
+                        bool((info["mask_rate"] == 0).all()),
+                        "mask_rate is not exactly 0",
                     )
+                    if q8:
+                        ref32 = {"out": f32[0][:, 0], "w": f32[1][:, 0],
+                                 "mw": f32[2][:, 0],
+                                 "ent": f32[3]["entropy"][:, 0]}
+                        _vs_f32(torch, same, "shared_query_fwd_q8", got,
+                                ref32, {"out": _out_tol(ref32["out"]),
+                                        "w": TOL_W, "mw": TOL_W,
+                                        "ent": TOL_W}, where)
+                    cases += 1
+                name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
+                worst[name] = max(worst[name], *errs.values())
+                _held_at(name, H)
+                print(
+                    f"kernel vs plain E={E} H={H} kv={str(dtype)[6:]} "
+                    f"padded={padded} {_grid_label(bms)}: "
+                    + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                )
     print(f"kernel vs plain: {cases} cases within tolerance "
           f"(w/mw/ent {TOL_W:g} abs, out {TOL_OUT_REL:g}*max|out|"
           f"+{TOL_OUT_ABS:g}, rate exactly 0); max abs err f32/bf16 "
@@ -475,8 +530,9 @@ def _hold_masks(name, mw, rate, mw_p, rate_p, near, where) -> int:
 def check_training_forward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     """Phase 3c: the forward kernel's training branch (Philox draw,
     min_active, renorm) against the plain version on the same CUDA
-    tensors, H = 1 and 2, f32, bf16 and int8 (int8 also against the f32
-    kernel on the dequantized features), with and without padding."""
+    tensors, H = 1 and 2 and the heads of ``HEAD_GRID`` (3, 4, 8), f32,
+    bf16 and int8 (int8 also against the f32 kernel on the dequantized
+    features), with and without padding."""
     from aecf_tpu_torch.kernels import shared_query_fwd, shared_query_fwd_plain
     from aecf_tpu_torch.kernels.draws import draw_seed_words
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
@@ -484,72 +540,71 @@ def check_training_forward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     rng = np.random.default_rng(11)
     worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
     cases, near_rows = 0, 0
-    for E in shapes["E"]:
+    for E, H, bms in _grid({**shapes, "H": (1, 2)}, HEAD_GRID):
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
             math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
             dtype=torch.float32, device="cuda",
         )
-        for H in (1, 2):
-            with torch.inference_mode():
-                pre = _prep(params, query[0, 0], H)
-            for dtype in _dtypes(torch):
-                q8 = dtype == torch.int8
-                name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
-                for padded in (False, True):
-                    for B in shapes["B"]:
-                        for M in shapes["M"]:
-                            kv, scales = _features(torch, torch.tensor(
-                                rng.standard_normal((B, M, E)),
-                                dtype=torch.float32, device="cuda",
-                            ), dtype)
-                            pad = None
-                            if padded:
-                                mask = rng.random((B, M)) < 0.3
-                                mask[0, :] = True
-                                pad = _pad_bias_rows(
-                                    torch.tensor(mask, device="cuda"))
-                            seed = draw_seed_words(
-                                torch.Generator().manual_seed(cases))
-                            # min_active = 2 makes the replacement common
-                            kw = dict(training=True, seed=seed,
-                                      mask_prob=0.6, min_active=1 + cases % 2)
-                            with torch.inference_mode():
-                                got = shared_query_fwd(
-                                    kv, *pre[:2], pad, *pre[2:],
-                                    kv_scales=scales, **kw)
-                                want = shared_query_fwd_plain(
-                                    kv, *pre[:2], pad, *pre[2:],
-                                    kv_scales=scales, **kw)
-                                if q8:
-                                    f32 = shared_query_fwd(
-                                        kv.float() * scales[..., None],
-                                        *pre[:2], pad, *pre[2:], **kw)
-                            torch.cuda.synchronize()
-                            where = (f"B={B} M={M} E={E} H={H} {dtype} "
-                                     f"padded={padded}")
-                            worst[name] = max(
-                                worst[name],
-                                _hold("out", got[0], want[0],
-                                      _out_tol(want[0]), where),
-                                _hold("w", got[1], want[1], TOL_W, where),
-                                _hold("ent", got[3], want[3], TOL_W, where),
-                            )
-                            near = _mask_rows(kv, want[3], seed, 0.6)
-                            near_rows += _hold_masks(
-                                "training forward", got[2], got[4],
-                                want[2], want[4], near, where)
-                            if q8:
-                                keys = ("out", "w", "mw", "ent", "rate")
-                                _vs_f32(torch, same, name, dict(zip(keys, got)),
-                                        dict(zip(keys, f32)),
-                                        {"out": _out_tol(f32[0]), "w": TOL_W,
-                                         "ent": TOL_W, "mw": None,
-                                         "rate": None}, where)
-                                _hold_masks("int8 vs f32 training forward",
-                                            got[2], got[4], f32[2], f32[4],
-                                            near, where)
-                            cases += 1
+        with torch.inference_mode():
+            pre = _prep(params, query[0, 0], H)
+        for dtype in _dtypes(torch):
+            q8 = dtype == torch.int8
+            name = "shared_query_fwd_q8" if q8 else "shared_query_fwd"
+            for padded in (False, True):
+                for B, M in bms:
+                    kv, scales = _features(torch, torch.tensor(
+                        rng.standard_normal((B, M, E)),
+                        dtype=torch.float32, device="cuda",
+                    ), dtype)
+                    pad = None
+                    if padded:
+                        mask = rng.random((B, M)) < 0.3
+                        mask[0, :] = True
+                        pad = _pad_bias_rows(
+                            torch.tensor(mask, device="cuda"))
+                    seed = draw_seed_words(
+                        torch.Generator().manual_seed(cases))
+                    # min_active = 2 makes the replacement common
+                    kw = dict(training=True, seed=seed,
+                              mask_prob=0.6, min_active=1 + cases % 2)
+                    with torch.inference_mode():
+                        got = shared_query_fwd(
+                            kv, *pre[:2], pad, *pre[2:],
+                            kv_scales=scales, **kw)
+                        want = shared_query_fwd_plain(
+                            kv, *pre[:2], pad, *pre[2:],
+                            kv_scales=scales, **kw)
+                        if q8:
+                            f32 = shared_query_fwd(
+                                kv.float() * scales[..., None],
+                                *pre[:2], pad, *pre[2:], **kw)
+                    torch.cuda.synchronize()
+                    where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                             f"padded={padded}")
+                    worst[name] = max(
+                        worst[name],
+                        _hold("out", got[0], want[0],
+                              _out_tol(want[0]), where),
+                        _hold("w", got[1], want[1], TOL_W, where),
+                        _hold("ent", got[3], want[3], TOL_W, where),
+                    )
+                    _held_at(name, H)
+                    near = _mask_rows(kv, want[3], seed, 0.6)
+                    near_rows += _hold_masks(
+                        "training forward", got[2], got[4],
+                        want[2], want[4], near, where)
+                    if q8:
+                        keys = ("out", "w", "mw", "ent", "rate")
+                        _vs_f32(torch, same, name, dict(zip(keys, got)),
+                                dict(zip(keys, f32)),
+                                {"out": _out_tol(f32[0]), "w": TOL_W,
+                                 "ent": TOL_W, "mw": None,
+                                 "rate": None}, where)
+                        _hold_masks("int8 vs f32 training forward",
+                                    got[2], got[4], f32[2], f32[4],
+                                    near, where)
+                    cases += 1
     print(f"training forward vs plain: {cases} cases within tolerance (out "
           f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; masks: "
           f"rate exact and mw within {TOL_MW:g} on every row whose uniforms "
@@ -637,6 +692,7 @@ def check_backward(torch, same, shapes=TRAIN_SHAPES) -> dict:
                                          "dc": _sum_tol(f32[4], f32[2])},
                                         where)
                             worst[name] = max(worst[name], *errs)
+                            _held_at(name, 1)
                             cases += 1
     print(f"backward vs plain: {cases} cases within tolerance (G/du/sum "
           f"d_out {TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv "
@@ -736,6 +792,7 @@ def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
                                         "d_kv", got["d_kv"], want["d_kv"],
                                         _dkv_tol(torch, want["d_kv"]), where))
                                 worst[name] = max(worst[name], *errs)
+                                _held_at(name, 1)
                                 near = _mask_rows(kv, want["ent"], seed,
                                                   0.6)
                                 near_rows += _hold_masks(
@@ -779,8 +836,9 @@ def check_fused_pool(torch, shapes=FUSED_SHAPES) -> float:
     """Phase 3f: the per-row-query kernel (``fused_pool_fwd``) against its
     plain version on the same CUDA tensors: eval and training, f32 and
     bf16 query and features, with and without padding (a fully padded row
-    included); every other feature batch comes with an expanded (stride 0)
-    query, the Quick start's idiom."""
+    included), H = 1 and 2 and the heads of ``FUSED_HEAD_GRID`` (4, 8);
+    every other feature batch comes with an expanded (stride 0) query, the
+    Quick start's idiom."""
     from aecf_tpu_torch.kernels import fused_pool_fwd, fused_pool_fwd_plain
     from aecf_tpu_torch.kernels.draws import draw_seed_words
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows
@@ -788,65 +846,64 @@ def check_fused_pool(torch, shapes=FUSED_SHAPES) -> float:
     rng = np.random.default_rng(31)
     gen = torch.Generator(device="cuda").manual_seed(31)
     worst, cases, near_rows, batches = 0.0, 0, 0, 0
-    for E in shapes["E"]:
+    for E, H, bms in _grid(shapes, FUSED_HEAD_GRID):
         p = _pool_params(torch, rng, E, "cuda")
         weights = (p.in_proj_weight, p.in_proj_bias, p.out_proj_weight,
                    p.out_proj_bias)
-        for H in shapes["H"]:
-            errs = {"out": 0.0, "w": 0.0, "ent": 0.0}
-            for dtype in (torch.float32, torch.bfloat16):
-                for padded in (False, True):
-                    for B in shapes["B"]:
-                        for M in shapes["M"]:
-                            q = torch.randn((B, E), generator=gen,
-                                            device="cuda").to(dtype)
-                            if batches % 2:
-                                q = q[:1].expand(B, E)
-                            batches += 1
-                            kv = torch.randn((B, M, E), generator=gen,
-                                             device="cuda").to(dtype)
-                            pad = None
-                            if padded:
-                                mask = torch.rand((B, M), generator=gen,
-                                                  device="cuda") < 0.3
-                                mask[0] = True
-                                pad = _pad_bias_rows(mask)
-                            for training in (False, True):
-                                seed = draw_seed_words(
-                                    torch.Generator().manual_seed(cases))
-                                kw = dict(num_heads=H, training=training,
-                                          seed=seed, mask_prob=0.6,
-                                          min_active=1 + cases % 2)
-                                with torch.inference_mode():
-                                    got = fused_pool_fwd(q, kv, pad, *weights,
-                                                         **kw)
-                                    want = fused_pool_fwd_plain(
-                                        q, kv, pad, *weights, **kw)
-                                torch.cuda.synchronize()
-                                where = (f"B={B} M={M} E={E} H={H} {dtype} "
-                                         f"padded={padded} training="
-                                         f"{training} q stride {q.stride(0)}")
-                                errs["out"] = max(errs["out"], _hold(
-                                    "out", got[0], want[0], _out_tol(want[0]),
-                                    where))
-                                errs["w"] = max(errs["w"], _hold(
-                                    "w", got[1], want[1], TOL_W, where))
-                                errs["ent"] = max(errs["ent"], _hold(
-                                    "ent", got[3], want[3], TOL_W, where))
-                                if training:
-                                    near = _mask_rows(kv, want[3], seed, 0.6)
-                                    near_rows += _hold_masks(
-                                        "per-row forward", got[2], got[4],
-                                        want[2], want[4], near, where)
-                                else:
-                                    check(torch.equal(got[2], got[1])
-                                          and bool((got[4] == 0).all()),
-                                          f"eval passthrough at {where}")
-                                cases += 1
-            worst = max(worst, *errs.values())
-            print(f"per-row kernel vs plain E={E} H={H} f32+bf16 padded+not "
-                  f"eval+training B={shapes['B']} M={shapes['M']}: "
-                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        errs = {"out": 0.0, "w": 0.0, "ent": 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            for padded in (False, True):
+                for B, M in bms:
+                    q = torch.randn((B, E), generator=gen,
+                                    device="cuda").to(dtype)
+                    if batches % 2:
+                        q = q[:1].expand(B, E)
+                    batches += 1
+                    kv = torch.randn((B, M, E), generator=gen,
+                                     device="cuda").to(dtype)
+                    pad = None
+                    if padded:
+                        mask = torch.rand((B, M), generator=gen,
+                                          device="cuda") < 0.3
+                        mask[0] = True
+                        pad = _pad_bias_rows(mask)
+                    for training in (False, True):
+                        seed = draw_seed_words(
+                            torch.Generator().manual_seed(cases))
+                        kw = dict(num_heads=H, training=training,
+                                  seed=seed, mask_prob=0.6,
+                                  min_active=1 + cases % 2)
+                        with torch.inference_mode():
+                            got = fused_pool_fwd(q, kv, pad, *weights,
+                                                 **kw)
+                            want = fused_pool_fwd_plain(
+                                q, kv, pad, *weights, **kw)
+                        torch.cuda.synchronize()
+                        where = (f"B={B} M={M} E={E} H={H} {dtype} "
+                                 f"padded={padded} training="
+                                 f"{training} q stride {q.stride(0)}")
+                        errs["out"] = max(errs["out"], _hold(
+                            "out", got[0], want[0], _out_tol(want[0]),
+                            where))
+                        errs["w"] = max(errs["w"], _hold(
+                            "w", got[1], want[1], TOL_W, where))
+                        errs["ent"] = max(errs["ent"], _hold(
+                            "ent", got[3], want[3], TOL_W, where))
+                        if training:
+                            near = _mask_rows(kv, want[3], seed, 0.6)
+                            near_rows += _hold_masks(
+                                "per-row forward", got[2], got[4],
+                                want[2], want[4], near, where)
+                        else:
+                            check(torch.equal(got[2], got[1])
+                                  and bool((got[4] == 0).all()),
+                                  f"eval passthrough at {where}")
+                        cases += 1
+        worst = max(worst, *errs.values())
+        _held_at("fused_pool_fwd", H)
+        print(f"per-row kernel vs plain E={E} H={H} f32+bf16 padded+not "
+              f"eval+training {_grid_label(bms)}: "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     print(f"per-row kernel vs plain: {cases} cases within tolerance (out "
           f"{TOL_OUT_REL:g}*max|out|+{TOL_OUT_ABS:g}, w/ent {TOL_W:g}; eval "
           f"mw == w, rate 0; training masks as the shared forward's, "
@@ -903,7 +960,7 @@ def _model_params(model, rng):
     flat = {}
     for key, value in model.state_dict().items():
         shape = tuple(value.shape)
-        if key == "fusion_query":
+        if key == "fusion_query" or key.startswith("queries."):
             a = math.sqrt(2.0 / shape[-1]) * rng.standard_normal(shape)
         else:
             bound = 1.0 / math.sqrt(shape[-1])
@@ -921,7 +978,7 @@ def serve_slice(torch) -> dict:
     from aecf_tpu_torch.serve import FusionPredictor, MicroBatcher
     from aecf_tpu_torch.serving_http import PredictionServer, predict_remote
 
-    cpu_model = VisionLanguageModel().eval()
+    cpu_model = VisionLanguageModel(device="cpu").eval()
     flat = _model_params(cpu_model, np.random.default_rng(2))
     params_from_numpy(cpu_model, flat)
     gpu_model = params_from_numpy(VisionLanguageModel(device="cuda"), flat).eval()
@@ -1087,7 +1144,7 @@ def _lockstep(torch, flat, kv, labels, impls, steps, opt, **builder):
         losses, ents = {}, {}
         for i in impls:
             states[i], loss, info = fns[i](states[i], kv, labels, gens[i])
-            losses[i] = float(loss)
+            losses[i] = loss.item()
             ents[i] = info["entropy"]
             check(math.isfinite(losses[i]), f"{i}: loss not finite at step {n}")
         for i in impls[1:]:
@@ -1290,14 +1347,29 @@ def large_config(torch) -> dict:
     """Phase 5e: the repo's large configuration (B=8192, M=4, E=1024, H=2)
     through the module: one eval call and one SGD(1e-2) gradient step,
     each held to the same pool forced to ``implementation='torch'``."""
+    return _module_vs_torch(torch, (LARGE_B, LARGE_M, LARGE_E, LARGE_H),
+                            "auto", "(e) large configuration")
+
+
+def heads8_module(torch) -> dict:
+    """Phase 5r: the module at the Quick start's width at H=8 (B=4096, M=3,
+    E=512), forced onto the per-row kernel, as ``large_config``."""
+    return _module_vs_torch(torch, (QS_B, QS_M, QS_E, 8), "kernel",
+                            "(r) Quick start width")
+
+
+def _module_vs_torch(torch, shape, impl, tag) -> dict:
+    """A ``MultimodalAttentionPool`` of ``shape`` = (B, M, E, H) through
+    ``impl``: one eval call and one SGD(1e-2) gradient step, each held to
+    the same pool forced to ``implementation='torch'``."""
     from aecf_tpu_torch import CurriculumMasking, MultimodalAttentionPool
 
-    B, M, E, H = LARGE_B, LARGE_M, LARGE_E, LARGE_H
+    B, M, E, H = shape
     pools = {}
-    for impl in ("auto", "torch"):
-        pools[impl] = MultimodalAttentionPool(
+    for name in (impl, "torch"):
+        pools[name] = MultimodalAttentionPool(
             E, num_heads=H, curriculum_masking=CurriculumMasking(),
-            generator=torch.Generator().manual_seed(51), implementation=impl,
+            generator=torch.Generator().manual_seed(51), implementation=name,
             device="cuda",
         )
     data = torch.Generator(device="cuda").manual_seed(52)
@@ -1317,7 +1389,7 @@ def large_config(torch) -> dict:
         opt.step()
     torch.cuda.synchronize()
     counts = _counts()
-    (out_k, info_k, g_k), (out_t, info_t, g_t) = got["auto"], got["torch"]
+    (out_k, info_k, g_k), (out_t, info_t, g_t) = got.values()
     errs = [
         _hold("eval out", out_k, out_t, _out_tol(out_t), where),
         _hold("eval weights", info_k["attention_weights"],
@@ -1327,13 +1399,13 @@ def large_config(torch) -> dict:
     ]
     errs += [_hold(f"grad {k}", g_k[k], v, _sum_tol(v), where)
              for k, v in g_t.items()]
-    params = {impl: dict(p.named_parameters()) for impl, p in pools.items()}
-    errs += [_hold(f"param {k}", params["auto"][k], v, TOL_PARAM, where)
-             for k, v in params["torch"].items()]
+    params = [dict(p.named_parameters()) for p in pools.values()]
+    errs += [_hold(f"param {k}", params[0][k], v, TOL_PARAM, where)
+             for k, v in params[1].items()]
     check(counts == _only(fused_pool_fwd=2),
-          f"large configuration launches {counts} != 2 per-row calls")
-    print(f"slice (e) large configuration {where}: eval and one SGD step "
-          f"through the module, 'auto' vs 'torch' within tolerance (out "
+          f"slice {tag} launches {counts} != 2 per-row calls")
+    print(f"slice {tag} {where}: eval and one SGD step through the module, "
+          f"{next(iter(pools))!r} vs 'torch' within tolerance (out "
           f"{TOL_OUT_REL:g}*max|out|, w/ent {TOL_W:g}, grads {TOL_SUM_REL:g}"
           f"*max|ref|, params {TOL_PARAM:g}); max abs err {max(errs):.3e}; "
           f"launches {counts}")
@@ -1441,6 +1513,7 @@ def check_stream_mix(torch, same, shapes=STREAM_SHAPES) -> dict:
                                         where)
                         cases += 1
             worst[name] = max(worst[name], *errs.values())
+            _held_at(name, H)
             print(f"stream_mix vs plain E={E} H={H} kv={str(dtype)[6:]} "
                   f"padded+not eval+training {_grid_label(bms)}: "
                   + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
@@ -1516,6 +1589,7 @@ def check_stream_bwd(torch, same, shapes=STREAM_SHAPES) -> dict:
                         group = max(group, *errs)
                         cases += 1
             worst[name] = max(worst[name], group)
+            _held_at(name, H)
             print(f"{name} vs plain E={E} H={H} kv={str(dtype)[6:]} "
                   f"padded+not d_kv{'' if q8 else '+not'} "
                   f"{_grid_label(bms)}: max abs err {group:.3e}")
@@ -1721,7 +1795,7 @@ def _q8_lockstep(torch, impl, flat, kv, scales, labels, steps, lr,
             for leaf, g in zip(param_leaves(p), grads):
                 leaf.grad = g
             opts[i].step()
-            losses[i] = float(loss)
+            losses[i] = loss.item()
             check(math.isfinite(losses[i]), f"{i}: loss not finite at {n}")
         rel = abs(losses[impl] - losses["torch"]) / abs(losses["torch"])
         check(rel <= TOL_LOSS_REL, f"int8 {impl} loss {losses[impl]!r} vs "
@@ -1752,7 +1826,8 @@ def q8_slices(torch) -> dict:
     through ``fused_pool_head_train_step``; (m) 3 SGD(1e-2) steps of
     ``fused_fusion_pool_shared(kv_scales=)`` under autograd at B=8192, M=4,
     E=1024, H=1 (``features_q8_ab_large``); (n) the same at B=4096, M=4,
-    E=2048, H=1 and H=2 (streamed).  Every int8 kernel's launches must
+    E=2048, H=1 and H=2 (streamed); (j8) one eval call at the medical
+    model's pool (B=4096, M=3, E=512, H=8) forced onto the kernel.  Every int8 kernel's launches must
     equal the calls that ran it."""
     from aecf_tpu_torch.kernels import quantize_features
     from aecf_tpu_torch.ops import fusion_pool
@@ -1766,8 +1841,12 @@ def q8_slices(torch) -> dict:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    for tag, (B, M, E), kernel in (("j", (H2_B, H2_M, H2_E), "shared_query_fwd_q8"),
-                                   ("k", (ST_B, ST_M, ST_E), "stream_mix_q8")):
+    # (j8): the medical model's pool (H=8) as an int8 feature store,
+    # forced onto the kernel ('auto' keeps H > 2 on the torch path)
+    for tag, (B, M, E), H, kernel in (
+            ("j", (H2_B, H2_M, H2_E), 1, "shared_query_fwd_q8"),
+            ("k", (ST_B, ST_M, ST_E), 1, "stream_mix_q8"),
+            ("j8", (MED_B, MED_M, MED_E), MED_H, "shared_query_fwd_q8")):
         params = _pool_params(torch, rng, E, "cuda")
         query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
         kv, scales = quantize_features(t(rng.standard_normal((B, M, E))))
@@ -1775,16 +1854,16 @@ def q8_slices(torch) -> dict:
         _reset_counts()
         got = {}
         with torch.no_grad():
-            for impl in ("auto", "torch"):
+            for impl in ("auto" if H <= 2 else "kernel", "torch"):
                 got[impl] = fusion_pool(params, query, kv, kv_scales=scales,
-                                        implementation=impl)
+                                        num_heads=H, implementation=impl)
         torch.cuda.synchronize()
         counts = _counts()
         check(counts == _only(**{kernel: 1}),
               f"slice ({tag}) launches {counts} != one {kernel}")
         add(counts)
-        (o_k, w_k, m_k, i_k), (o_t, w_t, _, i_t) = got["auto"], got["torch"]
-        where = f"slice ({tag}) B={B} M={M} E={E} H=1 int8 eval"
+        (o_k, w_k, m_k, i_k), (o_t, w_t, _, i_t) = got.values()
+        where = f"slice ({tag}) B={B} M={M} E={E} H={H} int8 eval"
         errs = [
             _hold("out", o_k, o_t, _out_tol(o_t), where),
             _hold("weights", w_k, w_t, TOL_W, where),
@@ -1792,7 +1871,8 @@ def q8_slices(torch) -> dict:
         ]
         check(torch.equal(m_k, w_k) and bool((i_k["mask_rate"] == 0).all()),
               f"eval passthrough at {where}")
-        print(f"{where}: ops.fusion_pool(kv_scales=) 'auto' vs 'torch' "
+        print(f"{where}: ops.fusion_pool(kv_scales=) {next(iter(got))!r} "
+              f"vs 'torch' "
               f"within tolerance (out {TOL_OUT_REL:g}*max|out|+"
               f"{TOL_OUT_ABS:g}, w/ent {TOL_W:g}); max abs err "
               f"{max(errs):.3e}; launches {counts}")
@@ -1838,6 +1918,406 @@ def q8_slices(torch) -> dict:
               f"{last:.6f}; launches {counts}")
     out["launches"] = {k: v for k, v in launches.items() if k.endswith("_q8")}
     return out
+
+
+@contextlib.contextmanager
+def _pool_route(impl):
+    """Within the block the models' fusion pool is
+    ``ops.fusion_pool(..., implementation=impl)`` on the model's own
+    encoded slots: each model module's ``fusion_pool`` is swapped for one
+    that passes ``impl`` on (``'auto'`` leaves them as they are)."""
+    import aecf_tpu_torch.models.medical as medical
+    import aecf_tpu_torch.models.multiscale as multiscale
+    import aecf_tpu_torch.models.xray as xray
+    from aecf_tpu_torch.ops import fusion_pool
+
+    def forced(*args, **kwargs):
+        return fusion_pool(*args, implementation=impl, **kwargs)
+
+    modules = (medical, multiscale, xray)
+    if impl != "auto":
+        for m in modules:
+            m.fusion_pool = forced
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.fusion_pool = fusion_pool
+
+
+def _models(torch, cls, seed, impls, **config):
+    """``cls`` at full width with one set of seeded numpy parameters
+    (``_model_params``), loaded through ``convert``: on the CPU, and on the
+    card once per pool route in ``impls`` (each run under
+    ``_pool_route``)."""
+    from aecf_tpu_torch.convert import params_from_numpy
+
+    cpu = cls(device="cpu", **config)
+    flat = _model_params(cpu, np.random.default_rng(seed))
+    params_from_numpy(cpu, flat)
+    return cpu, {impl: params_from_numpy(cls(device="cuda", **config), flat)
+                 for impl in impls}
+
+
+def _hold_eval(torch, tag, cpu, models, cpu_inputs, inputs, rows, **kw):
+    """Eval logits (or per-scale outputs) and info of each card model
+    against the CPU model on the first ``rows`` rows (rows are
+    independent), and of the card models against each other on all of
+    them; returns the largest error."""
+    with torch.no_grad():
+        want = cpu.eval()(**cpu_inputs, return_info=True, **kw)
+        got = {}
+        for impl, m in models.items():
+            with _pool_route(impl):
+                got[impl] = m.eval()(**inputs, return_info=True, **kw)
+    torch.cuda.synchronize()
+    outs = lambda r: r[0] if isinstance(r[0], list) else [r[0]]  # noqa: E731
+    infos = lambda r: r[1] if isinstance(r[1], list) else [r[1]]  # noqa: E731
+    errs = []
+    ref_impl = next(iter(got))
+    for impl, res in got.items():
+        for o, w, i, wi in zip(outs(res), outs(want), infos(res), infos(want)):
+            where = f"slice ({tag}) eval {impl} vs CPU"
+            errs.append(_hold("out", o[:rows].cpu(), w, _out_tol(w), where))
+            for k in ("attention_weights", "entropy"):
+                errs.append(_hold(k, i[k][:rows].cpu(), wi[k], TOL_W, where))
+        for o, r in zip(outs(res), outs(got[ref_impl])):
+            errs.append(_hold("out", o, r, _out_tol(r),
+                              f"slice ({tag}) eval {impl} vs {ref_impl}"))
+    return max(errs)
+
+
+def _adam_lockstep(torch, tag, models, step_inputs, loss_fn, steps, lr):
+    """``steps`` AdamW(``lr``) steps of each model, each drawing from its
+    own CPU generator of one seed, from the same parameters at every step:
+    the loss (rtol TOL_LOSS_REL) and every parameter's gradient
+    (TOL_SUM_REL of its largest entry) held to the first model's at each
+    step, then the others' parameters set to the first model's.  Without
+    that re-synchronisation the models drift apart by rounding, a ReLU
+    unit of an encoder flips on one row, and Adam's normalised step turns
+    that row's share of a small gradient into up to ``lr`` (1.7e-4 in 4
+    steps on the H100, against 4e-8 from the rounding alone).  Returns the
+    launch counts, the worst deviations and the last losses."""
+    opts = {i: torch.optim.AdamW(m.parameters(), lr=lr)
+            for i, m in models.items()}
+    gens = {i: torch.Generator().manual_seed(101) for i in models}
+    ref = next(iter(models))
+    params = {i: dict(m.named_parameters()) for i, m in models.items()}
+    worst_loss, worst_grad = 0.0, 0.0
+    _reset_counts()
+    for n in range(steps):
+        losses = {}
+        for i, m in models.items():
+            with _pool_route(i):
+                loss = loss_fn(m.train(), step_inputs(n), gens[i])
+            opts[i].zero_grad(set_to_none=True)
+            loss.backward()
+            losses[i] = loss.item()
+            check(math.isfinite(losses[i]), f"slice ({tag}) {i} loss at {n}")
+        for i in models:
+            rel = abs(losses[i] - losses[ref]) / abs(losses[ref])
+            check(rel <= TOL_LOSS_REL, f"slice ({tag}) {i} loss "
+                                       f"{losses[i]!r} vs {losses[ref]!r} "
+                                       f"at step {n}")
+            worst_loss = max(worst_loss, rel)
+            for k, p in params[ref].items():
+                if p.grad is not None:
+                    g = params[i][k].grad
+                    worst_grad = max(worst_grad, _hold(
+                        f"grad {k}", g, p.grad, _sum_tol(p.grad),
+                        f"slice ({tag}) {i} step {n}") / max(
+                            p.grad.abs().max().item(), 1e-30))
+        for i in models:
+            opts[i].step()
+        with torch.no_grad():
+            for i in models:
+                for k, p in params[ref].items():
+                    params[i][k].copy_(p)
+    torch.cuda.synchronize()
+    return _counts(), worst_loss, worst_grad, losses
+
+
+def model_slices(torch) -> dict:
+    """Phase 6f: the model families at full width through the entry points
+    a user calls, parameters seeded and loaded through ``convert``:
+    (o) ``MedicalDiagnosisModel`` (image 1024, lab 50, clinical 200 → 512,
+    H=8, 10 classes) at B=4096: eval logits against the same model on the
+    CPU path, with the lab slot absent (padded out); then 4 AdamW(1e-3)
+    steps through ``'auto'`` (the torch path at H=8) in lockstep with the
+    same model forced onto the kernel (``_pool_route``:
+    ``ops.fusion_pool(implementation='kernel')`` on its own encoded
+    slots), the lab slot absent on odd steps; (p) ``XrayAECFModel`` (512 /
+    512 → 256, H=4, 80 classes) at B=4096, the same with
+    ``curriculum_enabled=True`` and ``missing_modality_training=True`` and
+    rows without one modality in eval; (q) ``MultiScaleFusion`` (dims 256,
+    512, 1024, H=1) at B=4096, M=3: eval and 3 AdamW steps of ``'auto'``
+    (the shared-query kernels) against ``'torch'``, one
+    ``shared_query_fwd`` launch per scale per call.  Dropout and the
+    missing-modality draws come from the same generator seed on both
+    sides, so they are equal; the mask does not enter the logits (quirk
+    Q1) and the training entropy is detached (Q2)."""
+    import torch.nn.functional as F
+
+    from aecf_tpu_torch.core.masking import entropy_loss
+    from aecf_tpu_torch.models import (
+        MedicalDiagnosisModel,
+        MultiScaleFusion,
+        XrayAECFModel,
+    )
+
+    rng = np.random.default_rng(97)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device="cuda")  # noqa: E731
+    c = lambda a, rows: torch.tensor(np.asarray(a)[:rows], dtype=torch.float32)  # noqa: E731
+    rows = 512  # rows held against the CPU path
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (o) the medical model
+    B, E, H = MED_B, MED_E, MED_H
+    cpu, models = _models(torch, MedicalDiagnosisModel, 98, ("auto", "kernel"))
+    feats = {k: rng.standard_normal((B, n)).astype(np.float32)
+             for k, n in (("image", 1024), ("lab", 50), ("clinical", 200))}
+    labels = t(rng.integers(0, 10, B)).long()
+    ev = dict(feats, lab=None)
+    _reset_counts()
+    err = _hold_eval(torch, "o", cpu, models,
+                     {k: None if v is None else c(v, rows) for k, v in ev.items()},
+                     {k: None if v is None else t(v) for k, v in ev.items()},
+                     rows)
+    counts = _counts()
+    check(counts == _only(shared_query_fwd=1),
+          f"slice (o) eval launches {counts} != one shared_query_fwd")
+    add(counts)
+    gpu = {k: t(v) for k, v in feats.items()}
+
+    def med_inputs(n):
+        return dict(gpu, lab=None) if n % 2 else gpu
+
+    def med_loss(m, inputs, g):
+        logits, info = m(**inputs, generator=g, return_info=True)
+        return F.cross_entropy(logits, labels) + 0.01 * entropy_loss(
+            info["entropy"], seq_len=3)
+
+    steps = 4
+    counts, wl, wp, last = _adam_lockstep(
+        torch, "o", models, med_inputs, med_loss, steps, 1e-3)
+    check(counts == _only(shared_query_fwd=steps),
+          f"slice (o) launches {counts} != {steps} kernel steps")
+    add(counts)
+    print(f"slice (o) MedicalDiagnosisModel B={B} M=3 E={E} H={H}, 10 "
+          f"classes: eval 'auto' and 'kernel' vs the CPU path (lab absent, "
+          f"{rows} rows) and each other, max abs err {err:.3e}; {steps} "
+          f"AdamW(1e-3) steps, 'kernel' vs 'auto' (torch path) from the same "
+          f"parameters each step: loss rel err max {wl:.3e} (tol "
+          f"{TOL_LOSS_REL:g}), gradients max err {wp:.3e} of their largest "
+          f"entry (tol {TOL_SUM_REL:g}); last "
+          f"loss {last['kernel']:.6f}; launches {counts}")
+
+    # (p) the X-ray AECF model
+    B, E, H = XR_B, XR_E, XR_H
+    cpu, models = _models(torch, XrayAECFModel, 99, ("auto", "kernel"))
+    img = rng.standard_normal((B, 512)).astype(np.float32)
+    txt = rng.standard_normal((B, 512)).astype(np.float32)
+    img[1::7] = 0.0  # rows without an image, and without text
+    txt[3::11] = 0.0
+    labels = t((rng.random((B, 80)) < 0.1).astype(np.float32))
+    _reset_counts()
+    err = _hold_eval(torch, "p", cpu, models,
+                     dict(image_features=c(img, rows),
+                          text_features=c(txt, rows)),
+                     dict(image_features=t(img), text_features=t(txt)),
+                     rows, curriculum_enabled=True)
+    counts = _counts()
+    check(counts == _only(shared_query_fwd=1),
+          f"slice (p) eval launches {counts} != one shared_query_fwd")
+    add(counts)
+    img_t, txt_t = t(rng.standard_normal((B, 512))), t(rng.standard_normal((B, 512)))
+
+    def xray_loss(m, inputs, g):
+        logits, info = m(img_t, txt_t, generator=g, curriculum_enabled=True,
+                         missing_modality_training=True, return_info=True)
+        return F.binary_cross_entropy_with_logits(logits, labels) + (
+            0.01 * entropy_loss(info["entropy"], seq_len=2))
+
+    counts, wl, wp, last = _adam_lockstep(
+        torch, "p", models, lambda n: None, xray_loss, steps, 1e-3)
+    check(counts == _only(shared_query_fwd=steps),
+          f"slice (p) launches {counts} != {steps} kernel steps")
+    add(counts)
+    print(f"slice (p) XrayAECFModel B={B} M=2 E={E} H={H}, 80 classes, "
+          f"curriculum and missing-modality training: eval 'auto' and "
+          f"'kernel' vs the CPU path ({rows} rows, some without a "
+          f"modality) and each other, max abs err {err:.3e}; {steps} "
+          f"AdamW(1e-3) steps, 'kernel' vs 'auto': loss rel err max "
+          f"{wl:.3e}, gradients {wp:.3e} of their largest entry; last loss "
+          f"{last['kernel']:.6f}; launches {counts}")
+
+    # (q) the multi-scale model: 'auto' runs the shared-query kernels
+    B, M = MS_B, MS_M
+    cpu, models = _models(torch, MultiScaleFusion, 100, ("auto", "torch"),
+                          dims=MS_DIMS)
+    mods = [rng.standard_normal((B, M, d)).astype(np.float32) for d in MS_DIMS]
+    _reset_counts()
+    err = _hold_eval(torch, "q", cpu, models,
+                     dict(scale_modalities=[c(x, rows) for x in mods]),
+                     dict(scale_modalities=[t(x) for x in mods]), rows)
+    counts = _counts()
+    check(counts == _only(shared_query_fwd=len(MS_DIMS)),
+          f"slice (q) eval launches {counts} != one per scale")
+    add(counts)
+    gpu_mods = [t(x) for x in mods]
+
+    def ms_loss(m, inputs, g):
+        outs, infos = m(gpu_mods, generator=g, return_info=True)
+        return sum((o * o).mean() + 0.01 * entropy_loss(i["entropy"],
+                                                         seq_len=M)
+                   for o, i in zip(outs, infos))
+
+    steps_q = 3
+    counts, wl, wp, last = _adam_lockstep(
+        torch, "q", models, lambda n: None, ms_loss, steps_q, 1e-3)
+    n = steps_q * len(MS_DIMS)
+    check(counts == _only(shared_query_fwd=n, shared_query_bwd=n),
+          f"slice (q) launches {counts} != one forward and one backward "
+          f"per scale per step")
+    add(counts)
+    print(f"slice (q) MultiScaleFusion dims={MS_DIMS} B={B} M={M} H=1: eval "
+          f"'auto' and 'torch' vs the CPU path ({rows} rows) and each "
+          f"other, max abs err {err:.3e}; {steps_q} AdamW(1e-3) steps, "
+          f"'auto' (kernels) vs 'torch': loss rel err max {wl:.3e}, "
+          f"gradients {wp:.3e} of their largest entry; last loss "
+          f"{last['auto']:.6f}; launches "
+          f"{counts}")
+    return {"launches": launches}
+
+
+def time_heads(torch, smi: str) -> None:
+    """Phase 7f: the resident forwards above two heads at the models'
+    pool shapes, each beside its plain version (CUDA events, turns plain,
+    kernel, kernel, plain), its bound and the torch route's time at the
+    same shape — ``attention_pool_core``, what ``'auto'`` runs at H > 2,
+    on the dequantized features for int8: ``shared_query_fwd`` eval at the
+    medical pool (B=4096, M=3, E=512, H=8) and the X-ray pool (B=4096,
+    M=2, E=256, H=4), f32 and int8; ``fused_pool_fwd`` at H=8 at the Quick
+    start shape (B=4096, M=3, E=512, training); then a training step of
+    the medical and the X-ray model, ``'auto'`` against ``'kernel'`` (host
+    clock).  Prints one line a time."""
+    from aecf_tpu_torch.core.attention import attention_pool_core
+    from aecf_tpu_torch.kernels import (
+        fused_pool_fwd,
+        fused_pool_fwd_plain,
+        quantize_features,
+        shared_query_fwd,
+        shared_query_fwd_plain,
+    )
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    rng = np.random.default_rng(96)
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    for tag, (B, M, E, H) in (("medical", (MED_B, MED_M, MED_E, MED_H)),
+                              ("X-ray", (XR_B, XR_M, XR_E, XR_H))):
+        params = _pool_params(torch, rng, E, "cuda")
+        query = torch.randn((1, 1, E), generator=gen, device="cuda")
+        query = query * math.sqrt(2.0 / E)
+        with torch.inference_mode():
+            pre = _prep(params, query[0, 0], H)
+        x = torch.randn((B, M, E), generator=gen, device="cuda")
+        for feats in ("f32", "int8"):
+            kv, s = (x, None) if feats == "f32" else quantize_features(x)
+            # kv (int8: 1 byte a feature, 4 a scale), u, c, Wv, bv, Wo, bo
+            # in; out, w, mw, ent, rate out; the per-head V projections
+            # and the output projection 2 B E^2 FLOPs each, scores and
+            # mixes 2 B M E a head each
+            work = (kv.numel() * kv.element_size()
+                    + 4 * ((B * M if s is not None else 0) + H * E + H
+                           + 2 * E * E + 2 * E + B * E + 2 * B * M + 2 * B),
+                    4 * B * E * E + 4 * B * M * E * H)
+            label = f"shared_query_fwd {tag} eval B={B} M={M} E={E} H={H}"
+            with torch.inference_mode():
+                pair = _time_pair(
+                    torch, label,
+                    lambda: shared_query_fwd(kv, *pre[:2], None, *pre[2:],
+                                             kv_scales=s),
+                    lambda: shared_query_fwd_plain(kv, *pre[:2], None,
+                                                   *pre[2:], kv_scales=s),
+                    work, smi, feats=feats)
+                qe = query.expand(B, 1, E)
+                route = cuda_ms(torch, lambda: attention_pool_core(
+                    params, qe, x if s is None else kv.float() * s[..., None],
+                    x if s is None else kv.float() * s[..., None],
+                    num_heads=H, need_weights=True), iters=50, warmup=5)
+            print(f"time {label} {feats}: torch route (attention_pool_core"
+                  f"{', dequantizing' if s is not None else ''}) {route:.5f} "
+                  f"ms; kernel/torch route {pair[0] / route:.3f} ({smi})")
+
+    B, M, E, H = QS_B, QS_M, QS_E, 8
+    p = _pool_params(torch, rng, E, "cuda")
+    q = torch.randn((1, E), generator=gen, device="cuda").expand(B, E)
+    kv = torch.randn((B, M, E), generator=gen, device="cuda")
+    args = (q, kv, None, p.in_proj_weight, p.in_proj_bias,
+            p.out_proj_weight, p.out_proj_bias)
+    kw = dict(num_heads=H, training=True, seed=(12345, 678))
+    # as time_module's: 8 E^2 FLOPs of projections a row, 4 M E a head
+    work = (4 * (E + B * M * E + 4 * E * E + 4 * E + B * E + 2 * B * M
+                 + 2 * B),
+            8 * B * E * E + 4 * B * M * E * H)
+    label = f"fused_pool_fwd Quick start training B={B} M={M} E={E} H={H}"
+    with torch.inference_mode():
+        pair = _time_pair(torch, label, lambda: fused_pool_fwd(*args, **kw),
+                          lambda: fused_pool_fwd_plain(*args, **kw), work,
+                          smi)
+        route = cuda_ms(torch, lambda: attention_pool_core(
+            p, q[:, None], kv, kv, num_heads=H, need_weights=True),
+            iters=50, warmup=5)
+    print(f"time {label}: torch route (attention_pool_core) {route:.5f} ms; "
+          f"kernel/torch route {pair[0] / route:.3f} ({smi})")
+
+    # End to end: a training step of each model family at H > 2 (forward,
+    # backward, AdamW), 'auto' (the torch path) against 'kernel' (the
+    # resident forward through _pool_route, its backward in torch), turns
+    # auto, kernel, kernel, auto.
+    import torch.nn.functional as F
+
+    from aecf_tpu_torch.models import MedicalDiagnosisModel, XrayAECFModel
+
+    B = MED_B
+    med = [torch.randn((B, n), generator=gen, device="cuda")
+           for n in (1024, 50, 200)]
+    med_y = torch.randint(0, 10, (B,), generator=gen, device="cuda")
+    xr = [torch.randn((B, 512), generator=gen, device="cuda")
+          for _ in range(2)]
+    xr_y = (torch.rand((B, 80), generator=gen, device="cuda") < 0.1).float()
+    losses = {
+        "medical": (MedicalDiagnosisModel, lambda m, g: F.cross_entropy(
+            m(*med, generator=g), med_y)),
+        "X-ray": (XrayAECFModel, lambda m, g: F.binary_cross_entropy_with_logits(
+            m(*xr, generator=g, curriculum_enabled=True,
+              missing_modality_training=True), xr_y)),
+    }
+    for tag, (cls, loss_fn) in losses.items():
+        ms = {"auto": [], "kernel": []}
+        for impl in ("auto", "kernel", "kernel", "auto"):
+            model = cls(device="cuda",
+                        generator=torch.Generator().manual_seed(3)).train()
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+            g = torch.Generator().manual_seed(4)
+
+            def run_step():
+                loss = loss_fn(model, g)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+
+            with _pool_route(impl):
+                ms[impl].append(_step_s(torch, run_step) * 1e3)
+        print(f"time {tag} model training step B={B} (forward, backward, "
+              f"AdamW): 'auto' (torch path) "
+              f"{ms['auto'][0]:.4f}/{ms['auto'][1]:.4f} ms, 'kernel' "
+              f"{ms['kernel'][0]:.4f}/{ms['kernel'][1]:.4f} ms (host clock "
+              f"over 20 synchronised steps; {smi})")
 
 
 def time_module(torch, smi: str) -> tuple:
@@ -2441,22 +2921,30 @@ def main() -> None:
     trained = train_slice(torch)
     module = module_slice(torch)
     large = large_config(torch)
+    heads8 = heads8_module(torch)
     sliced = stream_slices(torch)
     quantized = q8_slices(torch)
+    families = model_slices(torch)
     time_kernels(torch, smi, served["gpu_pred"])
     times = time_training(torch, smi, trained)
     times["fused_pool_fwd"] = time_module(torch, smi)
     times.update(time_streamed(torch, smi, sliced,
                                profiled="--profile" in sys.argv[1:]))
     times.update(time_q8(torch, smi, quantized))
+    time_heads(torch, smi)
     launches = dict(trained["launches"])
     launches["shared_query_fwd"] += served["launches"]
-    launches["fused_pool_fwd"] = module["launches"] + large["launches"]
+    launches["fused_pool_fwd"] = (module["launches"] + large["launches"]
+                                  + heads8["launches"])
     launches.update(sliced["launches"])
     launches.update(quantized["launches"])
+    for name, n in families["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was not launched on the main path")
+        check(bool(HELD_AT.get(name)),
+              f"{name} was not held to its plain version")
     # No single PyTorch call computes any of these functions (each fuses a
     # softmax over M with its entropy, mask or gradient sums), so there is
     # no library time.
@@ -2473,6 +2961,7 @@ def main() -> None:
             "bound_ms": times[name][2],
             "bound_by": times[name][3],
             "library_ms": None,
+            "heads": sorted(HELD_AT[name]),
         }
         for name, source, replaces in KERNELS
     ]}))

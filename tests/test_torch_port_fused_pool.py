@@ -275,7 +275,7 @@ def test_info_contract_and_detached_masking_outputs():
 @pytest.mark.parametrize(
     "kwargs,exc,match",
     [
-        ({"H": 4}, ValueError, "ROADMAP"),
+        ({"H": 4, "E": 24}, ValueError, "ROADMAP"),  # E % 4H != 0
         ({"M": 9}, ValueError, "ROADMAP"),
         ({"E": 18}, ValueError, "multiple of 4"),
         ({"E": 2048}, ValueError, "E <= 1024"),
@@ -328,13 +328,14 @@ def test_plain_version_matches_the_torch_oracle():
 
 def test_auto_gate_for_per_row_queries():
     """``'auto'`` takes the torch path for CPU tensors; the per-row
-    kernel's widths: H <= 2, 1 <= M <= 8, E <= 1024 a multiple of 4 H."""
+    kernel's widths: any H, 1 <= M <= 8, E <= 1024 a multiple of 4 H."""
     arrs, q, kv, _ = _inputs(80, 4, 3, 16)
     assert not _wants_kernel(_torch_params(arrs), _t(q), _t(kv), num_heads=1,
                              precision="highest")
     assert _kernel_takes(3, 512, 1) and _kernel_takes(8, 1024, 2)
     assert _kernel_takes(1, 16, 2)
-    for M, E, H in ((9, 512, 1), (3, 2048, 1), (3, 512, 4), (3, 1020, 2),
+    assert _kernel_takes(3, 512, 8) and _kernel_takes(2, 256, 4)
+    for M, E, H in ((9, 512, 1), (3, 2048, 1), (3, 520, 4), (3, 1020, 2),
                     (3, 18, 1)):
         assert not _kernel_takes(M, E, H), (M, E, H)
 

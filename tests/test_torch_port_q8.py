@@ -449,22 +449,26 @@ def test_cpu_runs_count_no_launch():
     assert after == before
 
 
-# ---- H > 2 on the resident shared-query kernels ------------------------------
+# ---- the head limits that remain --------------------------------------------
 
 
 @pytest.mark.parametrize("q8", [False, True])
 def test_h_above_2_names_its_roadmap_item(q8):
-    """The resident kernels keep per-row arrays for H <= 2: a forced call
-    with H > 2 raises a ValueError naming the ROADMAP.md item, on any
-    device (``'auto'`` takes the torch path there)."""
-    B, M, E = 4, 3, 64
-    arrs, q, kq, s, _ = _inputs(80, B, M, E)
-    kv = torch.from_numpy(kq) if q8 else torch.from_numpy(kq).float()
-    scales = torch.from_numpy(s) if q8 else None
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        fused_fusion_pool_shared(_torch_params(arrs), torch.from_numpy(q), kv,
+    """The resident kernels take any H dividing E up to E = 1024; what
+    still raises, on any device and for int8 features too: H > 2 above the
+    resident cap (only the streamed split, H <= 2, runs there — JAX's rule)
+    and H not dividing E."""
+    B, M, E = 2, 3, 1152
+    rng = np.random.default_rng(80)
+    x = torch.from_numpy(rng.standard_normal((B, M, E)).astype(np.float32))
+    kv, scales = quantize_features(x) if q8 else (x, None)
+    params = AttentionPoolParams(torch.zeros(3 * E, E), torch.zeros(E, E))
+    with pytest.raises(ValueError, match="needs num_heads<=2"):
+        fused_fusion_pool_shared(params, torch.zeros(1, 1, E), kv,
                                  kv_scales=scales, num_heads=4)
-    with pytest.raises(ValueError, match="H > 2 is not ported"):
-        shared_query_fwd(kv, torch.zeros(4, E), torch.zeros(4), None,
+    E = 64
+    kv, scales = kv[..., :E].contiguous(), scales
+    with pytest.raises(ValueError, match="H dividing E"):
+        shared_query_fwd(kv, torch.zeros(3, E), torch.zeros(3), None,
                          torch.zeros(E, E), torch.zeros(E),
                          torch.zeros(E, E), torch.zeros(E), kv_scales=scales)

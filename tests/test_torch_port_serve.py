@@ -41,7 +41,8 @@ def _flat(params):
 def _pair(seed=0, **cfg):
     jm = JaxVLM(**cfg)
     jparams = jm.init(jax.random.key(seed))
-    tm = params_from_numpy(VisionLanguageModel(**cfg), _flat(jparams)).eval()
+    tm = params_from_numpy(VisionLanguageModel(**cfg, device="cpu"),
+                           _flat(jparams)).eval()
     return jm, jparams, tm
 
 

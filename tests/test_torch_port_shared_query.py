@@ -159,7 +159,7 @@ def test_auto_dispatch_picks_torch_for_cpu_tensors(training):
         ({"E": 2048, "H": 4}, ValueError, "num_heads<=2"),
         ({"E": 16384}, ValueError, "cap"),
         ({"M": 9}, ValueError, "M <= 8"),
-        ({"H": 4}, ValueError, "H <="),
+        ({"H": 3}, ValueError, "H <="),  # H does not divide E
         ({"dtype": torch.float16}, TypeError, "float32 or bfloat16"),
     ],
 )
