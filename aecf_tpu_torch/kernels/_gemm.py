@@ -1,0 +1,147 @@
+"""The f32 GEMM of ``csrc/gemm_f32.cuh`` on its own, for its checks and its
+cuBLAS yardstick (``chip_smoke.py``); the port's kernels call it from
+inside their C chains, never through this module.
+
+``C[g] = scale · A[g] · W[g] + bias[g]`` with ``a`` ``(G, rows, K)`` or,
+``a_trans=True``, ``(G, K, rows)``; ``w`` ``(G, K, N)`` (``w_kmajor=True``)
+or ``(G, N, K)``, an ``nn.Linear`` weight read as ``x · Wᵀ``; ``bias``
+``(G, N)`` or None.  The kernel takes the layouts the chains run: a
+transposed ``a`` only with a k-major ``w``.  Both operands are read in
+place, any strides whose last is 1, rows 16-byte aligned.  Built into the
+``train_step`` library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ._build import load_library
+from .shared_query import _ptr, _raise_on_error
+
+__all__ = ["gemm_f32", "gemm_f32_plain"]
+
+
+def gemm_f32_plain(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: float = 1.0,
+    a_trans: bool = False,
+    w_kmajor: bool = True,
+) -> torch.Tensor:
+    """The GEMM's function in plain PyTorch: ``(G, rows, N)``."""
+    A = a.transpose(1, 2) if a_trans else a
+    W = w if w_kmajor else w.transpose(1, 2)
+    out = torch.matmul(A, W) * scale
+    return out if bias is None else out + bias[:, None, :]
+
+
+def _dims(a, w, a_trans, w_kmajor):
+    if a.ndim != 3 or w.ndim != 3 or a.shape[0] != w.shape[0]:
+        raise ValueError(
+            f"a and w must be (G, ., .) with one G, got {tuple(a.shape)} and "
+            f"{tuple(w.shape)}"
+        )
+    G = a.shape[0]
+    rows, K = (a.shape[2], a.shape[1]) if a_trans else (a.shape[1], a.shape[2])
+    Kw, N = (w.shape[1], w.shape[2]) if w_kmajor else (w.shape[2], w.shape[1])
+    if K != Kw or min(G, rows, K, N) < 1:
+        raise ValueError(
+            f"a {tuple(a.shape)} (a_trans={a_trans}) and w {tuple(w.shape)} "
+            f"(w_kmajor={w_kmajor}) do not chain"
+        )
+    return G, rows, K, N
+
+
+class _GemmCall(ctypes.Structure):
+    """``GemmCall`` of ``csrc/train_step.cu``, field for field."""
+
+    _fields_ = [
+        ("A", ctypes.c_void_p), ("lda", ctypes.c_longlong),
+        ("a_gstride", ctypes.c_longlong),
+        ("W", ctypes.c_void_p), ("ldw", ctypes.c_longlong),
+        ("w_gstride", ctypes.c_longlong),
+        ("bias", ctypes.c_void_p), ("bias_gstride", ctypes.c_longlong),
+        ("C", ctypes.c_void_p), ("ldc", ctypes.c_longlong),
+        ("c_gstride", ctypes.c_longlong),
+        ("partials", ctypes.c_void_p),
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("rows", "N", "K", "groups", "a_trans", "w_kmajor")
+    ] + [("scale", ctypes.c_float)]
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("train_step")
+    lib.aecf_gemm_f32_scratch.argtypes = [ctypes.c_int] * 5
+    lib.aecf_gemm_f32_scratch.restype = ctypes.c_size_t
+    lib.aecf_gemm_f32.argtypes = [ctypes.POINTER(_GemmCall), ctypes.c_void_p]
+    lib.aecf_gemm_f32.restype = ctypes.c_int
+    lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.aecf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gemm_f32(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: float = 1.0,
+    a_trans: bool = False,
+    w_kmajor: bool = True,
+) -> torch.Tensor:
+    """Launches the GEMM on CUDA tensors, or raises (a CPU tensor, a dtype
+    other than f32, shapes that do not chain, strides it cannot read);
+    operands and result as in :func:`gemm_f32_plain`.
+    ``gemm_f32.launches`` counts calls."""
+    G, rows, K, N = _dims(a, w, a_trans, w_kmajor)
+    if a_trans and not w_kmajor:
+        raise ValueError("a transposed a takes a k-major w (w_kmajor=True)")
+    named = {"a": a, "w": w, "bias": bias}
+    for name, t in named.items():
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if bias is not None and (tuple(bias.shape) != (G, N)
+                             or bias.stride(1) != 1):
+        raise ValueError(f"bias must be ({G}, {N}) with unit last stride")
+    for t in named.values():
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"no kernel for device {t.device}")
+    gstride = {"a": a.stride(0) if G > 1 else 0,
+               "w": w.stride(0) if G > 1 else 0}
+    for name, t in (("a", a), ("w", w)):
+        if (t.stride(2) != 1 or t.stride(1) % 4 or gstride[name] % 4
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{name} must have unit last stride, the others multiples "
+                "of 4, and a 16-byte aligned start"
+            )
+    out = torch.empty((G, rows, N), dtype=torch.float32, device=a.device)
+    lib = _library()
+    scratch = torch.empty((lib.aecf_gemm_f32_scratch(rows, N, K, G,
+                                                     int(w_kmajor)),),
+                          dtype=torch.float32, device=a.device)
+    call = _GemmCall(
+        _ptr(a), a.stride(1), gstride["a"], _ptr(w), w.stride(1),
+        gstride["w"],
+        _ptr(bias), 0 if bias is None else bias.stride(0), _ptr(out), N,
+        rows * N, _ptr(scratch), rows, N, K, G, int(a_trans), int(w_kmajor),
+        float(scale),
+    )
+    with torch.cuda.device(a.device):
+        err = lib.aecf_gemm_f32(
+            ctypes.byref(call), torch.cuda.current_stream(a.device).cuda_stream
+        )
+    _raise_on_error(lib, err, "gemm_f32")
+    gemm_f32.launches += 1
+    return out
+
+
+gemm_f32.launches = 0

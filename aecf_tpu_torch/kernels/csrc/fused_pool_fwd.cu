@@ -1,4 +1,5 @@
-// Per-row-query fusion-pool forward (eval and training) for Hopper (sm_90a).
+// Per-row-query fusion-pool forward (eval and training) for Hopper
+// (sm_90a): a chain of kernels behind the one aecf_fused_pool_fwd call.
 //
 // Replaces aecf_tpu/kernels/fused_pool.py::_fusion_kernel (launched by
 // _forward_pallas under fused_fusion_pool): the pool of the README's
@@ -17,55 +18,68 @@
 //             the rows of a_h sum to 1, so bv passes through)
 //   out     = ctx Wo^T + bo
 //
-// What bounds it on the H100: the four E x E products of each row — qp,
-// u (over the heads), ctx and out: 4 B E^2 FMAs, where the TPU kernel
-// projects K and V for every (b, m) and does (2M + 2) B E^2.  They run on
-// the SIMT pipes in f32 (gemm_rows_wide, 4 x 4 outputs a thread), with the
-// weights streamed from L2 through a 16 KB staging tile; the kv stream (B M
-// E) is read once from device memory and re-read from L1/L2 per head and
-// for the mix.  Projecting K and V per (b, m) would need a 16 M x E tile of
-// each (512 KB at M = 8, E = 1024); the u / c rewrite of the shared-query
-// kernels, with u and c per row, needs none.  A block holds kRows = 16
-// rows and takes the heads one after another, first every head's scores
-// and softmax, then every head's mix and context, so two 16 x E f32 tiles
-// are enough (q -> u_h -> mix_h, and qp -> ctx): 82 KB of shared memory
-// with the staging tile at E = 512 (two blocks an SM; a third q tile would
-// have left one), 146 KB at E = 1024 (one); the heads' weights (kRows x H
-// x M floats, sized by the call) add 4 KB at most, H = 8 and M = 8, so any
-// H with E a multiple of 4 H runs, one head a pass.  Rows past B are
-// masked here and nothing is padded on the host.  The query may have any
-// row stride, 0 included (the expanded (1, 1, E) fusion query), and may be
-// bf16, as kv may.  Tensor cores, TMA and wgmma are later work.
+// What bounds it on the H100: the E x E products — qp, u (over the
+// heads), ctx and out, 8 B E^2 operations, where the TPU kernel projects K
+// and V for every (b, m) and does 4 (M + 1) B E^2 — on the SIMT f32 pipes
+// (the pool runs IEEE f32 whatever its precision setting, as the TPU kernel
+// runs HIGHEST).  With the README's expanded query (row stride 0) qp and u
+// are one row's: 4 B E^2 + 4 E^2, and the chain computes them once.  The
+// products run over the whole batch in gemm_f32.cuh (128-row tiles, a
+// 3-stage cp.async ring, the weights read as stored); the row-local chain
+// runs a warp a row; no tile of the batch stays resident in shared memory.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): the Quick
+// start (B = 4096, M = 3, E = 512, training) 0.206 ms with the expanded
+// query (bound 0.064 ms by operations) and 0.306 ms with distinct query
+// rows (bound 0.129); B = 8192, M = 4, E = 1024, H = 2, eval, 1.204 ms
+// (bound 0.517).
 //
-// Numerics: f32 FMAs throughout, whatever the pool's precision setting
-// (the TPU kernel runs HIGHEST always).  Scores are kv . (Wk^T qp) where
-// the plain version computes (kv Wk^T + bk) . qp: the sums run in another
+//   Q0  (bf16 or unaligned query only) the query rows in f32
+//   G1  QP = q Wq^T + bq, for one row when the query's row stride is 0
+//   G2  U[b, h, :] = scale QP[b, h Dh:(h+1) Dh] Wk[h Dh:(h+1) Dh, :], a
+//       grouped GEMM over the heads with K = Dh (one row when stride 0)
+//   R   a warp a row: c_h, every head's scores against its U row and
+//       softmax (row_softmax_heads4, float4 reads), head mean, entropy,
+//       eval passthrough or training mask (row_side_outputs), MIX[b, h, :]
+//       = sum_m a_h[m] kv[b, m] with the unmasked a_h (quirk Q1)
+//   G3  CTX[:, h Dh:(h+1) Dh] = MIX[:, h, :] Wv_h^T + bv_h, grouped, N = Dh
+//   G4  out = CTX Wo^T + bo
+//
+// QP, U, MIX and CTX live in a workspace the wrapper allocates
+// (aecf_fused_pool_fwd_workspace).  Any H with E a multiple of 4 H runs;
+// the query and kv may be bf16.  Rows past B are masked in the kernels and
+// nothing is padded on the host.
+//
+// Numerics: f32 FMAs throughout.  Scores are kv . (Wk^T qp) where the
+// plain version computes (kv Wk^T + bk) . qp: the sums run in another
 // order, ~1e-6 apart.  Built without fast-math and without flush-to-zero
 // (the entropy's subnormal floor).
 
+#include "gemm_f32.cuh"
 #include "pool_common.cuh"
 
 using namespace aecf;
+using gemm::cdiv;
 
 // Also declared, field for field, by kernels/fused_pool.py (ctypes).
 struct FusedParams {
-  const void* q;      // (B, E) f32 or bf16, rows ldq elements apart
-  const void* kv;     // (B, M, E) f32 or bf16, contiguous
-  const float* pad;   // (B, M) additive score bias, or null
-  const float* wq_t;  // (E, E): Wq transposed
-  const float* bq;    // (E,)
-  const float* wk;    // (E, E): Wk as stored (row = output feature)
-  const float* bk;    // (E,)
-  const float* wv_t;  // (E, E): Wv transposed
-  const float* bv;    // (E,)
-  const float* wo_t;  // (E, E): Wo transposed
-  const float* bo;    // (E,)
-  float* out;         // (B, E)
-  float* w;           // (B, M)
-  float* mw;          // (B, M)
-  float* ent;         // (B,)
-  float* rate;        // (B,)
-  long long ldq;      // query row stride in elements (0: one shared row)
+  const void* q;     // (B, E) f32 or bf16, rows ldq elements apart
+  const void* kv;    // (B, M, E) f32 or bf16, contiguous
+  const float* pad;  // (B, M) additive score bias, or null
+  const float* wq;   // (E, E) as stored (row = output feature), and so on
+  const float* bq;   // (E,)
+  const float* wk;   // (E, E)
+  const float* bk;   // (E,)
+  const float* wv;   // (E, E)
+  const float* bv;   // (E,)
+  const float* wo;   // (E, E)
+  const float* bo;   // (E,)
+  float* out;        // (B, E)
+  float* w;          // (B, M)
+  float* mw;         // (B, M)
+  float* ent;        // (B,)
+  float* rate;       // (B,)
+  float* ws;         // aecf_fused_pool_fwd_workspace floats
+  long long ldq;     // query row stride in elements (0: one shared row)
   int B, M, E, H, q_bf16, kv_bf16, training, min_active;
   unsigned int seed0, seed1;
   float max_entropy, mask_prob, scale;
@@ -73,91 +87,256 @@ struct FusedParams {
 
 namespace {
 
-// Floats of shared memory before the staging tile; a_s is sized by the
-// call's H and M.
-__host__ __device__ inline int tile_floats(int E, int H, int M) {
-  return align4(2 * kRows * E + kRows * H * M + kRows * kMaxM + kRows);
-}
+struct Workspace {
+  float* q;        // qrows x E: the query in f32 (Q0)
+  float* qp;       // qrows x E
+  float* u;        // qrows x H x E
+  float* mix;      // B x H x E
+  float* ctx;      // B x E
+  float* scratch;  // split partials, the largest of G1 .. G4's
+};
 
-size_t smem_bytes(int E, int H, int M) {
-  return sizeof(float) * ((size_t)tile_floats(E, H, M) + kStageFloats);
-}
+constexpr int kPieces = 6;
 
-template <typename T, bool kTraining>
-AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
-  extern __shared__ float smem[];
-  const int E = p.E;
-  const int M = p.M;
-  const int B = p.B;
-  const int H = p.H;
+size_t scratch_floats(int B, int E, int H, int qrows) {
   const int Dh = E / H;
-  float* xs = smem;                           // kRows x E: q, u_h, mix_h
-  float* ys = xs + kRows * E;                 // kRows x E: qp, then ctx
-  float* a_s = ys + kRows * E;                // kRows x H x M
-  float* wsum = a_s + kRows * H * M;          // kRows x kMaxM: sum_h a_h
-  float* c_s = wsum + kRows * kMaxM;          // kRows: c_h
-  float* wt = smem + tile_floats(E, H, M);    // kStageFloats
+  const size_t n[4] = {
+      gemm::gemm_scratch_floats(qrows, E, E, 1, false, true),
+      gemm::gemm_scratch_floats(qrows, E, Dh, H, true, true),
+      gemm::gemm_scratch_floats(B, Dh, E, H, false, true),
+      gemm::gemm_scratch_floats(B, E, E, 1, false, true),
+  };
+  size_t m = 0;
+  for (size_t x : n) m = x > m ? x : m;
+  return m;
+}
 
-  const T* kv = static_cast<const T*>(p.kv);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, B - row0);
+// Floats of each workspace piece, in carve order, each rounded up to 64
+// (256-byte aligned starts).  qrows: 1 for a stride-0 query, else B.
+void workspace_sizes(int B, int E, int H, int qrows, size_t n[kPieces]) {
+  n[0] = (size_t)qrows * E;
+  n[1] = (size_t)qrows * E;
+  n[2] = (size_t)qrows * H * E;
+  n[3] = (size_t)B * H * E;
+  n[4] = (size_t)B * E;
+  n[5] = scratch_floats(B, E, H, qrows);
+  for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
+}
 
-  // ---- the block's query rows in f32 (zero past B) ------------------------
-  for (int i = threadIdx.x; i < kRows * E; i += kThreads) {
-    const int r = i / E;
-    const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < B) {
-      const size_t off = (size_t)gr * p.ldq + (i - r * E);
-      v = p.q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p.q)[off])
-                   : static_cast<const float*>(p.q)[off];
-    }
-    xs[i] = v;
+Workspace carve(float* ws, int B, int E, int H, int qrows) {
+  size_t n[kPieces];
+  workspace_sizes(B, E, H, qrows, n);
+  float* at[kPieces];
+  for (int i = 0; i < kPieces; ++i) {
+    at[i] = ws;
+    ws += n[i];
   }
-  for (int i = threadIdx.x; i < kRows * kMaxM; i += kThreads) wsum[i] = 0.f;
-  __syncthreads();
-  // qp[r, n] = sum_k q[r, k] Wq[n, k] + bq[n]
-  gemm_rows_wide(xs, E, E, p.wq_t, E, p.bq, E, wt, ys, E, kRows);
-  __syncthreads();
+  return Workspace{at[0], at[1], at[2], at[3], at[4], at[5]};
+}
 
-  // ---- per head: u_h, c_h, scores, softmax (a warp a row) -----------------
-  for (int h = 0; h < H; ++h) {
-    // u_h[r, e] = sum_d qp[r, h Dh + d] Wk[h Dh + d, e] (scaled below)
-    gemm_rows_wide(ys + h * Dh, E, Dh, p.wk + (size_t)h * Dh * E, E, nullptr,
-                   E, wt, xs, E, kRows);
-    __syncthreads();
-    for (int r = warp; r < rows_valid; r += kWarps) {
-      const int gr = row0 + r;
-      float* ur = xs + r * E;
-      // each lane scales the entries row_softmax has it read
-      for (int e = lane; e < E; e += 32) ur[e] *= p.scale;
-      float cd = 0.f;
-      for (int d = lane; d < Dh; d += 32)
-        cd = fmaf(ys[r * E + h * Dh + d], p.bk[h * Dh + d], cd);
-      cd = warp_sum(cd) * p.scale;
-      if (lane == 0) c_s[r] = cd;
-      __syncwarp();
-      float a[kMaxH][kMaxM];
-      float w[kMaxM];
-      row_softmax(KvRow<T>(kv, nullptr, gr, M, E), ur, c_s + r,
-                  p.pad != nullptr ? p.pad + (size_t)gr * M : nullptr, M, E,
-                  1, a, w);
-      if (lane == 0) {
+// Q0: dst[r, e] = f32(q[r ldq + e]) for the qrows rows.
+__global__ void query_f32_kernel(FusedParams p, float* __restrict__ dst,
+                                 int qrows) {
+  const size_t n = (size_t)qrows * p.E;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t off = (i / p.E) * p.ldq + i % p.E;
+  dst[i] = p.q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p.q)[off])
+                    : static_cast<const float*>(p.q)[off];
+}
+
+// Every head's scores s_h[m] = (kv[m] . u_h + c_h) + pad[m] and softmax over
+// M, the heads in passes of kMaxH, into a_row (H x M, shared), and the head
+// mean w = (sum_h a_h) (1 / H): row_softmax_heads with the kv row read four
+// features a lane a pass (float4; the scalar reads of row_softmax left the
+// row kernel at three times its bytes' time at B = 8192, E = 1024).
+template <typename T>
+__device__ __forceinline__ void row_softmax_heads4(
+    const KvRow<T>& kvr, const float* __restrict__ u,
+    const float* __restrict__ c, const float* pad_row, int M, int E, int H,
+    float* a_row, float w[kMaxM]) {
+  const int lane = threadIdx.x & 31;
+  for (int h0 = 0; h0 < H; h0 += kMaxH) {
+    const int nh = min(kMaxH, H - h0);
+    float s[kMaxH][kMaxM];
 #pragma unroll
-        for (int m = 0; m < kMaxM; ++m) {
-          if (m < M) {
-            a_s[(r * H + h) * M + m] = a[0][m];
-            wsum[r * kMaxM + m] += a[0][m];
-          }
+    for (int h = 0; h < kMaxH; ++h)
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) s[h][m] = 0.f;
+    for (int j = 4 * lane; j < E; j += 128) {
+      float4 uh[kMaxH];
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        uh[h] = h < nh ? load4(u + (size_t)(h0 + h) * E + j)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const float4 x = kvr.at4(m, j);
+#pragma unroll
+          for (int h = 0; h < kMaxH; ++h) s[h][m] = dot4(x, uh[h], s[h][m]);
         }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      if (h >= nh) break;
+      float smax = -INFINITY;
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const float bias = pad_row != nullptr ? pad_row[m] : 0.f;
+          s[h][m] = (warp_sum(s[h][m]) + c[h0 + h]) + bias;
+          smax = fmaxf(smax, s[h][m]);
+        }
+      }
+      float denom = 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          s[h][m] = expf(s[h][m] - smax);
+          denom += s[h][m];
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+          if (m < M) a_row[(h0 + h) * M + m] = s[h][m] / denom;
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) {
+    float t = 0.f;
+    if (m < M)
+      for (int h = 0; h < H; ++h) t += a_row[h * M + m];
+    w[m] = t;
+  }
+  const float inv_h = 1.0f / (float)H;
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) w[m] *= inv_h;
+}
+
+// R: a warp a row.  Shared memory: per warp the heads' weights (H x M) and
+// offsets c_h (H).  Two blocks an SM: at three (80 registers) the bf16
+// eval instance spilled.
+template <typename T, bool kTraining>
+AECF_ROW_KERNEL(2) fused_rows_kernel(FusedParams p, Workspace ws,
+                                     MaskParams mp) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= p.B) return;  // warp-uniform; no block barrier below
+  const int E = p.E;
+  const int M = p.M;
+  const int H = p.H;
+  const int Dh = E / H;
+  float* a_row = smem + warp * (H * M + H);  // H x M
+  float* c_w = a_row + H * M;                // H
+  const int qb = p.ldq == 0 ? 0 : b;
+  const float* qp = ws.qp + (size_t)qb * E;
+  const float* u = ws.u + (size_t)qb * H * E;
+  // c_h = scale qp_h . bk_h (Dh a multiple of 4)
+  for (int h = 0; h < H; ++h) {
+    float cd = 0.f;
+    for (int d = 4 * lane; d < Dh; d += 128)
+      cd = dot4(load4(qp + h * Dh + d), load4(p.bk + h * Dh + d), cd);
+    cd = warp_sum(cd) * p.scale;
+    if (lane == 0) c_w[h] = cd;
+  }
+  __syncwarp();
+  const T* kv = static_cast<const T*>(p.kv);
+  const KvRow<T> kvr(kv, nullptr, b, M, E);
+  float w[kMaxM];
+  row_softmax_heads4(kvr, u, c_w,
+                     p.pad != nullptr ? p.pad + (size_t)b * M : nullptr, M,
+                     E, H, a_row, w);
+  row_side_outputs<kTraining>(w, b, M, mp, p.w, p.mw, p.ent, p.rate);
+  // MIX[b, h, e] = sum_m a_h[m] kv[b, m, e], four features a lane a pass
+  for (int h = 0; h < H; ++h) {
+    float a[kMaxM];
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) a[m] = m < M ? a_row[h * M + m] : 0.f;
+    float* mix = ws.mix + ((size_t)b * H + h) * E;
+    for (int j = 4 * lane; j < E; j += 128) {
+      float4 acc = kvr.at4(0, j);
+      acc = make_float4(a[0] * acc.x, a[0] * acc.y, a[0] * acc.z,
+                        a[0] * acc.w);
+#pragma unroll
+      for (int m = 1; m < kMaxM; ++m)
+        if (m < M) acc = axpy4(a[m], kvr.at4(m, j), acc);
+      store4(mix + j, acc);
+    }
+  }
+}
+
+size_t rows_smem_bytes(int H, int M) {
+  return sizeof(float) * kWarps * ((size_t)H * M + H);
+}
+
+template <typename T, bool kTraining>
+cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
+  const int B = p.B;
+  const int E = p.E;
+  const int H = p.H;
+  const int Dh = E / H;
+  const int qrows = p.ldq == 0 ? 1 : B;
+  const Workspace ws = carve(p.ws, B, E, H, qrows);
+  cudaError_t err;
+
+  // the query as GEMM rows: in place when f32 with 16-byte aligned rows
+  const float* qa = static_cast<const float*>(p.q);
+  long long lda = p.ldq;
+  if (p.q_bf16 || p.ldq % 4 != 0 || !gemm::aligned16(p.q)) {
+    const size_t n = (size_t)qrows * E;
+    query_f32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        p, ws.q, qrows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    qa = ws.q;
+    lda = E;
   }
 
-  // ---- head mean -> entropy -> eval passthrough or training mask ----------
+  // G1: QP[r, n] = sum_k q[r, k] Wq[n, k] + bq[n]
+  gemm::GemmArgs g1{};
+  g1.A = qa;
+  g1.lda = lda;
+  g1.W = p.wq;
+  g1.ldw = E;
+  g1.C = ws.qp;
+  g1.ldc = E;
+  g1.rows = qrows;
+  g1.N = E;
+  g1.K = E;
+  g1.groups = 1;
+  gemm::EpiAffine e1;
+  e1.bias = p.bq;
+  if ((err = gemm::gemm_f32<false, false>(g1, e1, ws.scratch, stream)) !=
+      cudaSuccess)
+    return err;
+
+  // G2: U[r, h, e] = scale sum_d QP[r, h Dh + d] Wk[h Dh + d, e]
+  gemm::GemmArgs g2{};
+  g2.A = ws.qp;
+  g2.lda = E;
+  g2.a_gstride = Dh;
+  g2.W = p.wk;
+  g2.ldw = E;
+  g2.w_gstride = (long long)Dh * E;
+  g2.C = ws.u;
+  g2.ldc = (long long)H * E;
+  g2.c_gstride = E;
+  g2.rows = qrows;
+  g2.N = E;
+  g2.K = Dh;
+  g2.groups = H;
+  gemm::EpiAffine e2;
+  e2.scale = p.scale;
+  if ((err = gemm::gemm_f32<false, true>(g2, e2, ws.scratch, stream)) !=
+      cudaSuccess)
+    return err;
+
   MaskParams mp;
   mp.max_entropy = p.max_entropy;
   mp.mask_prob = p.mask_prob;
@@ -165,61 +344,89 @@ AECF_ROW_KERNEL(2) fused_pool_fwd_kernel(FusedParams p) {
   mp.training = p.training;
   mp.seed0 = p.seed0;
   mp.seed1 = p.seed1;
-  const float inv_h = 1.0f / (float)H;
-  for (int r = warp; r < rows_valid; r += kWarps) {
-    float w[kMaxM];
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m)
-      w[m] = m < M ? wsum[r * kMaxM + m] * inv_h : 0.f;
-    row_side_outputs<kTraining>(w, row0 + r, M, mp, p.w, p.mw, p.ent,
-                                p.rate);
-  }
+  const size_t smem = rows_smem_bytes(H, p.M);
+  if ((err = allow_smem(fused_rows_kernel<T, kTraining>, smem)) != cudaSuccess)
+    return err;
+  fused_rows_kernel<T, kTraining>
+      <<<cdiv(B, kWarps), kThreads, smem, stream>>>(p, ws, mp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // ---- per head: mix_h, ctx_h (quirk Q1: the unmasked a_h); qp is spent ---
-  for (int h = 0; h < H; ++h) {
-    build_mix(kv, (const float*)nullptr, a_s, xs, (float*)nullptr, row0, B,
-              M, E, H, h);
-    __syncthreads();
-    // ctx[r, h Dh + n] = sum_k mix_h[r, k] Wv[h Dh + n, k] + bv[h Dh + n]
-    gemm_rows_wide(xs, E, E, p.wv_t + h * Dh, E, p.bv + h * Dh, Dh, wt,
-                   ys + h * Dh, E, kRows);
-    __syncthreads();
-  }
+  // G3: CTX[b, h Dh + n] = sum_k MIX[b, h, k] Wv[h Dh + n, k] + bv[h Dh + n]
+  gemm::GemmArgs g3{};
+  g3.A = ws.mix;
+  g3.lda = (long long)H * E;
+  g3.a_gstride = E;
+  g3.W = p.wv;
+  g3.ldw = E;
+  g3.w_gstride = (long long)Dh * E;
+  g3.C = ws.ctx;
+  g3.ldc = E;
+  g3.c_gstride = Dh;
+  g3.rows = B;
+  g3.N = Dh;
+  g3.K = E;
+  g3.groups = H;
+  gemm::EpiAffine e3;
+  e3.bias = p.bv;
+  e3.bias_gstride = Dh;
+  if ((err = gemm::gemm_f32<false, false>(g3, e3, ws.scratch, stream)) !=
+      cudaSuccess)
+    return err;
 
-  // ---- out[r, n] = sum_k ctx[r, k] Wo[n, k] + bo[n] -----------------------
-  gemm_rows_wide(ys, E, E, p.wo_t, E, p.bo, E, wt, p.out + (size_t)row0 * E,
-                 E, rows_valid);
-}
-
-template <typename T, bool kTraining>
-cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.E, p.H, p.M);
-  const cudaError_t err = allow_smem(fused_pool_fwd_kernel<T, kTraining>, smem);
-  if (err != cudaSuccess) return err;
-  fused_pool_fwd_kernel<T, kTraining>
-      <<<row_blocks(p.B), kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  // G4: out[b, n] = sum_k CTX[b, k] Wo[n, k] + bo[n]
+  gemm::GemmArgs g4{};
+  g4.A = ws.ctx;
+  g4.lda = E;
+  g4.W = p.wo;
+  g4.ldw = E;
+  g4.C = p.out;
+  g4.ldc = E;
+  g4.rows = B;
+  g4.N = E;
+  g4.K = E;
+  g4.groups = 1;
+  gemm::EpiAffine e4;
+  e4.bias = p.bo;
+  return gemm::gemm_f32<false, false>(g4, e4, ws.scratch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory in bytes one block asks for at width E with H heads and M
-// modalities.
-size_t aecf_fused_pool_fwd_smem(int E, int H, int M) {
-  return smem_bytes(E, H, M);
+// Floats of workspace one call needs: shared_q = 1 for a query of row
+// stride 0, else 0.
+size_t aecf_fused_pool_fwd_workspace(int B, int E, int H, int shared_q) {
+  size_t n[kPieces];
+  workspace_sizes(B, E, H, shared_q ? 1 : B, n);
+  size_t total = 0;
+  for (int i = 0; i < kPieces; ++i) total += n[i];
+  return total;
 }
 
-// Returns a cudaError_t; 0 means the launch was accepted.  Pointers are
-// device buffers as listed in FusedParams; any H with E a multiple of 4 H
-// (the GEMMs read float4 rows of each head's slice).  training = 0 is the
-// eval branch (seed words, mask_prob and min_active unread).
+// The most shared memory in bytes one block of the chain asks for at width
+// E with H heads and M modalities.
+size_t aecf_fused_pool_fwd_smem(int E, int H, int M) {
+  (void)E;
+  const size_t rows = rows_smem_bytes(H, M);
+  return rows > gemm::kMaxSmemBytes ? rows : gemm::kMaxSmemBytes;
+}
+
+// Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
+// device buffers as listed in FusedParams (kv aligned to four features,
+// the weights, out and ws to 16 bytes); any H with E a multiple of 4 H
+// (the GEMMs read 16-byte chunks of each head's slice).  training = 0 is
+// the eval branch (seed words, mask_prob and min_active unread).
 int aecf_fused_pool_fwd(const FusedParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->H < 1 || p->E < 1 ||
       p->E % (4 * p->H) != 0 || p->ldq < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const void* aligned[] = {p->wq, p->wk, p->wv, p->wo, p->bk, p->out, p->ws};
+  for (const void* ptr : aligned)
+    if (!gemm::aligned16(ptr)) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(p->kv) % (p->kv_bf16 ? 8 : 16) != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (p->kv_bf16)

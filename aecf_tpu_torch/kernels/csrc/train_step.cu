@@ -1,11 +1,10 @@
 // One-pass fused train step of the H == 1 shared-query pool, for Hopper
-// (sm_90a).
+// (sm_90a): a chain of kernels behind the one aecf_train_step call.
 //
 // Replaces aecf_tpu/kernels/train_step.py::_step_kernel (launched by
 // fused_pool_train_step), f32/bf16 features and its quantized=True branch
 // (int8 with per-(row, modality) scales, read through KvRow; frozen, so
-// no d_kv).  One read of each row's features does the whole step, with
-// u (E), c, W_vo = Wo Wv and b_ctx computed outside:
+// no d_kv).  With u (E), c, W_vo = Wo Wv and b_ctx computed outside:
 //
 //   forward:  scores -> softmax a -> w, entropy, training mask chain
 //             (side outputs w, mw, ent, rate);  mix = sum_m a kv;
@@ -23,32 +22,51 @@
 //             sum d_s, sum loss_b, and with the head
 //             dW_head = out^T d_logits (E x C), db_head = sum d_logits.
 //
-// What bounds it on the H100: at the north-star shape (B = 4096, M = 3,
-// E = 512) the three GEMMs over the batch (out, d_mix, G: 3 B E^2 FMAs)
-// run on the SIMT pipes; the kv stream (25 MB in f32) is read once from
-// device memory and re-read from L2 for d_a and du.  The TPU kernel
-// carries G, du and the head gradient in VMEM across its sequential grid.
-// Blocks on the GPU run in parallel: a block holds 16 whole rows (the row
-// loss, the logits and d_mix all need the whole out row), writes mix and
-// d_out (and, with the head, out and d_logits) to a workspace and one row
-// of partial sums, and the reductions of pool_common.cuh finish G and
-// dW_head (gemm_tn over the batch) and the small sums (colsum) in a fixed
-// order: no atomics, and a run is bit for bit repeatable.  Shared memory:
-// two 16 x E f32 tiles (mix -> d_mix, out -> d_out), 128 KB at E = 1024,
-// and a 16 KB weight staging tile.  The two E x E products run in
-// gemm_rows_wide (4 x 4 outputs a thread), reading W_vo^T for out and W_vo
-// for d_mix, both row-contiguous along the output columns.
+// What bounds it on the H100: the three E x E products over the batch
+// (out, d_mix, G: 6 B E^2 of the step's 6.67 GFLOP at the north star B =
+// 4096, M = 3, E = 512, C = 14) on the SIMT f32 pipes — precision
+// 'highest' is IEEE f32, which the tensor cores cannot give — with a bound
+// of 0.0995 ms by operations; the kv stream (25 MB in f32) is the bytes.
+// A kernel that runs the products 16 batch rows a block loads each weight
+// for 16 FMAs and idles its FMA pipes while the weights load.  The chain
+// runs them over the whole batch in gemm_f32.cuh (128-row tiles, 8 x 8 or
+// 8 x 4 accumulators a thread, a 3-stage cp.async ring; W_vo read in its
+// stored layout by both out and d_mix; G split over the batch) and the
+// row-local phases in row kernels of their own.  Measured (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md section 6): 0.324 ms a call at the north star,
+// 0.315 ms with int8 features; the three products run at 28-34 TFLOP/s,
+// 0.7-0.9 of cuBLAS's SGEMM on the same operands.
+//
+//   R1  a warp a row: scores, softmax, entropy, mask chain, side outputs
+//       (row_softmax, row_side_outputs: the training forward's masks, bit
+//       for bit); a -> ws.a, mix -> ws.mix
+//   G1  out = mix W_vo^T + b_ctx; quadratic loss: the epilogue stores
+//       d_out and a partial of sum out^2 per (row, column tile); head: out
+//   HD  (head only) a warp a row: logits, BCE, d_logits, the row loss,
+//       d_out = d_logits W_head^T (E C a row, C = 14; W_head staged in
+//       shared memory a block)
+//   G2  d_mix = d_out W_vo
+//   R2  a warp a row: softmax backward and d_kv, then one row of partial
+//       sums a block of eight rows (du, sum d_out, sum d_s, the loss from
+//       the row partials, db_head)
+//   G3  G = d_out^T mix and dW_head = out^T d_logits (transposed A, split
+//       over the batch, splits summed in order); then part_sum of the
+//       partial rows into du | sum d_out | sum d_s | loss | db_head.
+//
+// kv is read by R1 and again by R2; int8 changes only R1 and R2 (the GEMMs
+// see f32 mix, d_out and d_mix), so the int8 step equals the f32 step on
+// q.float() * s bit for bit.  No atomics: a run is bit for bit repeatable.
 // Rows past B write nothing and add nothing to any sum; nothing is padded
-// on the host.  Tensor cores are later work.  int8 features: 0.585 ms
-// against 0.637 ms for f32 at the north star with the C = 14 head, no
-// d_kv (bound 0.0995 ms, by operations; H100 SXM, 700 W).
+// on the host.
 //
 // Numerics: f32 throughout; built without fast-math or flush-to-zero
 // (the entropy's subnormal floor).
 
+#include "gemm_f32.cuh"
 #include "pool_common.cuh"
 
 using namespace aecf;
+using gemm::cdiv;
 
 // Also declared, field for field, by kernels/train_step.py (ctypes).
 struct StepParams {
@@ -57,8 +75,7 @@ struct StepParams {
   const float* u;        // (E,)
   const float* c;        // (1,)
   const float* pad;      // (B, M) or null
-  const float* wvo;      // (E, E)
-  const float* wvo_t;    // (E, E): W_vo transposed, for the out GEMM
+  const float* wvo;      // (E, E), read as stored by both products
   const float* bctx;     // (E,)
   const float* head_w;   // (E, C), or null: the quadratic loss
   const float* head_b;   // (C,)
@@ -80,69 +97,82 @@ struct StepParams {
 namespace {
 
 struct Workspace {
+  float* a;        // B x M: the softmax weights
   float* mix;      // B x E
-  float* dout;     // B x E
   float* out;      // B x E (head)
-  float* dlogits;  // B x C (head)
-  float* part;     // blocks x P
-  float* gscr;     // G splits
-  float* hscr;     // dW_head splits
+  float* dout;     // B x E
+  float* dmix;     // B x E
+  float* sq;       // B x tiles: sum out^2 per (row, G1 column tile)
+  float* lrow;     // B: row loss (head)
+  float* dlogits;  // B x ldl (head)
+  float* part;     // cdiv(B, kWarps) x P: R2's partial rows
+  float* scr;      // split partials, the largest GEMM's (one at a time)
+  int sq_ld;       // G1's column tiles
 };
 
 __host__ __device__ inline int part_width(int E, int C) { return 2 * E + 2 + C; }
+// Row stride of d_logits: a multiple of 4 floats, for G3's 16-byte loads.
+__host__ __device__ inline int logits_ld(int C) { return align4(C); }
+// Column tiles of G1 (the quadratic loss's partials a row).
+inline int out_tiles(int B, int E) {
+  return cdiv(E, gemm::gemm_plan(B, E, E, 1, false, false).bn);
+}
 
-// Floats of each workspace piece, in carve order.
-void workspace_sizes(int B, int E, int C, size_t n[7]) {
-  n[0] = (size_t)B * E;
-  n[1] = (size_t)B * E;
-  n[2] = C > 0 ? (size_t)B * E : 0;
-  n[3] = (size_t)B * C;
-  n[4] = (size_t)row_blocks(B) * part_width(E, C);
-  n[5] = gemm_tn_scratch(E, E, B);
-  n[6] = C > 0 ? gemm_tn_scratch(E, C, B) : 0;
+constexpr int kPieces = 10;
+
+// Floats of split partials the chain's GEMMs need, the largest of them:
+// they run one after another on one stream.
+size_t scratch_floats(int B, int E, int C) {
+  const size_t n[4] = {
+      // G1 (head), G2, G, dW_head (head)
+      C > 0 ? gemm::gemm_scratch_floats(B, E, E, 1, false, true) : 0,
+      gemm::gemm_scratch_floats(B, E, E, 1, true, true),
+      gemm::gemm_scratch_floats(E, E, B, 1, true, true),
+      C > 0 ? gemm::gemm_scratch_floats(E, C, B, 1, true, true) : 0,
+  };
+  size_t m = 0;
+  for (size_t x : n) m = x > m ? x : m;
+  return m;
+}
+
+// Floats of each workspace piece, in carve order; each rounded up to 64
+// floats, so every piece starts 256-byte aligned.
+void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
+  const size_t be = (size_t)B * E;
+  n[0] = (size_t)B * kMaxM;  // a: B x M used (the size takes no M)
+  n[1] = be;
+  n[2] = C > 0 ? be : 0;
+  n[3] = be;
+  n[4] = be;
+  n[5] = C > 0 ? 0 : (size_t)B * out_tiles(B, E);
+  n[6] = B;
+  n[7] = C > 0 ? (size_t)B * logits_ld(C) : 0;
+  n[8] = (size_t)cdiv(B, kWarps) * part_width(E, C);
+  n[9] = scratch_floats(B, E, C);
+  for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
 size_t workspace_floats(int B, int E, int C) {
-  size_t n[7];
+  size_t n[kPieces];
   workspace_sizes(B, E, C, n);
   size_t total = 0;
-  for (int i = 0; i < 7; ++i) total += n[i];
+  for (int i = 0; i < kPieces; ++i) total += n[i];
   return total;
 }
 
 Workspace carve(float* ws, int B, int E, int C) {
-  size_t n[7];
+  size_t n[kPieces];
   workspace_sizes(B, E, C, n);
-  float* at[7];
-  for (int i = 0; i < 7; ++i) {
+  float* at[kPieces];
+  for (int i = 0; i < kPieces; ++i) {
     at[i] = ws;
     ws += n[i];
   }
-  return Workspace{at[0], at[1], at[2], at[3], at[4], at[5], at[6]};
+  return Workspace{at[0], at[1], at[2], at[3], at[4],
+                   at[5], at[6], at[7], at[8], at[9], out_tiles(B, E)};
 }
 
-template <typename T>
-AECF_ROW_KERNEL(2) step_rows_kernel(StepParams p, Workspace ws) {
-  extern __shared__ float smem[];
-  const int E = p.E;
-  const int M = p.M;
-  const int B = p.B;
-  const int C = p.head_w != nullptr ? p.C : 0;
-  const int P = part_width(E, C);
-  float* bufA = smem;                  // kRows x E: mix, then d_mix
-  float* bufB = bufA + kRows * E;      // kRows x E: out, then d_out
-  float* a_s = bufB + kRows * E;       // kRows x M
-  float* ds_s = a_s + kRows * kMaxM;   // kRows x kMaxM
-  float* lrow = ds_s + kRows * kMaxM;  // kRows: row loss
-  float* lg = lrow + kRows;            // kRows x C: logits, then d_logits
-  float* wt = smem + align4(2 * kRows * E + 2 * kRows * kMaxM + kRows +
-                            kRows * C);  // kStageFloats
-
-  const T* kv = static_cast<const T*>(p.kv);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, B - row0);
+MaskParams mask_params(const StepParams& p) {
   MaskParams mp;
   mp.max_entropy = p.max_entropy;
   mp.mask_prob = p.mask_prob;
@@ -150,120 +180,334 @@ AECF_ROW_KERNEL(2) step_rows_kernel(StepParams p, Workspace ws) {
   mp.training = p.training;
   mp.seed0 = p.seed0;
   mp.seed1 = p.seed1;
+  return mp;
+}
 
-  // ---- forward chain and side outputs: a warp a row ----------------------
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= B) continue;  // warp-uniform
-    float a[kMaxH][kMaxM];
-    float w[kMaxM];
-    row_softmax(KvRow<T>(kv, p.scales, gr, M, E), p.u, p.c,
-                p.pad != nullptr ? p.pad + (size_t)gr * M : nullptr, M, E, 1,
-                a, w);
-    if (lane == 0) {
+// R1: a warp a row — the forward chain, the side outputs, a and mix.
+template <typename T>
+AECF_ROW_KERNEL(3) step_fwd_rows_kernel(StepParams p, Workspace ws,
+                                        MaskParams mp) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= p.B) return;  // warp-uniform
+  const int M = p.M;
+  const int E = p.E;
+  const KvRow<T> kvr(static_cast<const T*>(p.kv), p.scales, b, M, E);
+  float a[kMaxH][kMaxM];
+  float w[kMaxM];
+  row_softmax(kvr, p.u, p.c,
+              p.pad != nullptr ? p.pad + (size_t)b * M : nullptr, M, E, 1, a,
+              w);
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m)
+      if (m < M) ws.a[(size_t)b * M + m] = a[0][m];
+  }
+  row_side_outputs<true>(w, b, M, mp, p.w, p.mw, p.ent, p.rate);
+  // mix[e] = sum_m a[m] kv[m, e], four features a lane a pass
+  float* mix = ws.mix + (size_t)b * E;
+  for (int j = 4 * lane; j < E; j += 128) {
+    float4 acc = kvr.at4(0, j);
+    acc = make_float4(a[0][0] * acc.x, a[0][0] * acc.y, a[0][0] * acc.z,
+                      a[0][0] * acc.w);
+#pragma unroll
+    for (int m = 1; m < kMaxM; ++m)
+      if (m < M) acc = axpy4(a[0][m], kvr.at4(m, j), acc);
+    store4(mix + j, acc);
+  }
+}
+
+// HD (head only): a warp a row — logits = out W_head + b_head, BCE,
+// d_logits and the row loss, then d_out = d_logits W_head^T.  Shared
+// memory: W_head (E x C) when it fits in kHeadStageFloats (the lanes of a
+// warp read 32 of its rows at a time, 56 bytes apart at C = 14: from device
+// memory that is one cache line a lane), then the warp's C logits.
+constexpr int kHeadChunk = 16;             // logits a lane accumulates at once
+constexpr int kHeadStageFloats = 24576;    // 96 KB: E = 1024 at C = 24
+
+__global__ void __launch_bounds__(kThreads)
+    step_head_kernel(StepParams p, Workspace ws, int staged) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int E = p.E;
+  const int C = p.C;
+  const float* W = p.head_w;
+  float* lg = smem;
+  if (staged) {
+    float* Ws = smem;
+    for (int i = threadIdx.x; i < E * C; i += kThreads) Ws[i] = W[i];
+    W = Ws;
+    lg = smem + E * C;
+    __syncthreads();
+  }
+  lg += warp * C;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= p.B) return;  // warp-uniform; no block barrier below
+  const float* o = ws.out + (size_t)b * E;
+  for (int c0 = 0; c0 < C; c0 += kHeadChunk) {
+    float acc[kHeadChunk];
+#pragma unroll
+    for (int j = 0; j < kHeadChunk; ++j) acc[j] = 0.f;
+    for (int e = lane; e < E; e += 32) {
+      const float x = o[e];
+      const float* wr = W + (size_t)e * C + c0;
+#pragma unroll
+      for (int j = 0; j < kHeadChunk; ++j)
+        if (c0 + j < C) acc[j] = fmaf(x, wr[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kHeadChunk; ++j) {
+      const float v = warp_sum(acc[j]);
+      if (lane == 0 && c0 + j < C) lg[c0 + j] = v + p.head_b[c0 + j];
+    }
+  }
+  __syncwarp();
+  const int ldl = logits_ld(C);
+  float s = 0.f;
+  for (int j = lane; j < C; j += 32) {
+    const float x = lg[j];
+    const float y = p.labels[(size_t)b * C + j];
+    s += fmaxf(x, 0.f) - x * y + log1pf(expf(-fabsf(x)));
+    const float d = (1.f / (1.f + expf(-x)) - y) * p.inv;
+    ws.dlogits[(size_t)b * ldl + j] = d;
+    lg[j] = d;
+  }
+  s = warp_sum(s);
+  if (lane == 0) ws.lrow[b] = s * p.inv;
+  __syncwarp();
+  // d_out[e] = sum_c d_logits[c] W_head[e, c]
+  float* dout = ws.dout + (size_t)b * E;
+  for (int e = lane; e < E; e += 32) {
+    const float* wr = W + (size_t)e * C;
+    float acc = 0.f;
+    for (int c = 0; c < C; ++c) acc = fmaf(lg[c], wr[c], acc);
+    dout[e] = acc;
+  }
+}
+
+bool head_staged(int E, int C) { return (size_t)E * C <= kHeadStageFloats; }
+
+size_t head_smem_bytes(int E, int C) {
+  return sizeof(float) *
+         ((head_staged(E, C) ? (size_t)E * C : 0) + (size_t)kWarps * C);
+}
+
+// R2: a warp a row (kWarps rows a block) — the softmax backward (and d_kv)
+// — then the block's row of partial sums: du | sum d_out | sum d_s | loss |
+// db_head, each column summed over the block's rows in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    step_bwd_rows_kernel(StepParams p, Workspace ws) {
+  __shared__ float ds_s[kWarps * kMaxM];
+  const int E = p.E;
+  const int M = p.M;
+  const int B = p.B;
+  const int C = p.head_w != nullptr ? p.C : 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kWarps;
+  const int rows_valid = min(kWarps, B - row0);
+  const T* kv = static_cast<const T*>(p.kv);
+  const int b = row0 + warp;
+  if (b < B) {
+    // d_a[m] = d_mix . kv[m];  d_s = a (d_a - sum_m a d_a)
+    const KvRow<T> kvr(kv, p.scales, b, M, E);
+    const float* dmix = ws.dmix + (size_t)b * E;
+    float da[kMaxM];
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) da[m] = 0.f;
+    for (int j = 4 * lane; j < E; j += 128) {
+      const float4 dm = load4(dmix + j);
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m)
-        if (m < M) a_s[r * M + m] = a[0][m];
+        if (m < M) da[m] = dot4(dm, kvr.at4(m, j), da[m]);
     }
-    row_side_outputs<true>(w, gr, M, mp, p.w, p.mw, p.ent, p.rate);
-  }
-  __syncthreads();
-  build_mix(kv, p.scales, a_s, bufA, ws.mix, row0, B, M, E, 1, 0);
-  __syncthreads();
-  // out[r, n] = sum_k mix[r, k] W_vo[n, k] + b_ctx[n]
-  gemm_rows_wide(bufA, E, E, p.wvo_t, E, p.bctx, E, wt, bufB, E, kRows);
-  __syncthreads();
-
-  // ---- row loss and d_out (rows past B: zero loss, zero d_out) -----------
-  if (C == 0) {
-    for (int r = warp; r < kRows; r += kWarps) {
-      const bool valid = row0 + r < B;
-      float s = 0.f;
-      for (int e = lane; e < E; e += 32) {
-        const float o = bufB[r * E + e];
-        s = fmaf(o, o, s);
-        bufB[r * E + e] = valid ? o * p.two_inv : 0.f;
+    float a[kMaxM];
+    float dot = 0.f;
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) {
+      a[m] = 0.f;
+      if (m < M) {
+        da[m] = warp_sum(da[m]);
+        a[m] = ws.a[(size_t)b * M + m];
+        dot += a[m] * da[m];
       }
-      s = warp_sum(s);
-      if (lane == 0) lrow[r] = valid ? s * p.inv : 0.f;
     }
-  } else {
-    for (int r = warp; r < rows_valid; r += kWarps)
-      for (int e = lane; e < E; e += 32)
-        ws.out[(size_t)(row0 + r) * E + e] = bufB[r * E + e];
-    // logits[r, c] = sum_e out[r, e] W_head[e, c] + b_head[c]
-    gemm_rows<true>(bufB, E, E, p.head_w, C, p.head_b, 0, C, wt, lg, C,
-                    kRows);
-    __syncthreads();
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int gr = row0 + r;
-      const bool valid = gr < B;
-      float s = 0.f;
-      for (int j = lane; j < C; j += 32) {
-        float d = 0.f;
-        if (valid) {
-          const float x = lg[r * C + j];
-          const float y = p.labels[(size_t)gr * C + j];
-          s += fmaxf(x, 0.f) - x * y + log1pf(expf(-fabsf(x)));
-          d = (1.f / (1.f + expf(-x)) - y) * p.inv;
-          ws.dlogits[(size_t)gr * C + j] = d;
+    float ds[kMaxM];
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) {
+      ds[m] = m < M ? a[m] * (da[m] - dot) : 0.f;
+      if (lane == 0) ds_s[warp * kMaxM + m] = ds[m];
+    }
+    if constexpr (!kQuantized<T>) {
+      if (p.dkv != nullptr) {  // d_kv[m] = a[m] d_mix + d_s[m] u
+        T* dkv = static_cast<T*>(p.dkv) + (size_t)b * M * E;
+        for (int j = 4 * lane; j < E; j += 128) {
+          const float4 dm = load4(dmix + j);
+          const float4 ue = load4(p.u + j);
+#pragma unroll
+          for (int m = 0; m < kMaxM; ++m)
+            if (m < M)
+              store4(dkv + (size_t)m * E + j,
+                     make_float4(a[m] * dm.x + ds[m] * ue.x,
+                                 a[m] * dm.y + ds[m] * ue.y,
+                                 a[m] * dm.z + ds[m] * ue.z,
+                                 a[m] * dm.w + ds[m] * ue.w));
         }
-        lg[r * C + j] = d;
       }
-      s = warp_sum(s);
-      if (lane == 0) lrow[r] = valid ? s * p.inv : 0.f;
     }
-    __syncthreads();
-    // d_out[r, e] = sum_c d_logits[r, c] W_head[e, c]
-    gemm_rows<false>(lg, C, C, p.head_w, C, nullptr, 0, E, wt, bufB, E,
-                     kRows);
   }
   __syncthreads();
-  for (int r = warp; r < rows_valid; r += kWarps)
-    for (int e = lane; e < E; e += 32)
-      ws.dout[(size_t)(row0 + r) * E + e] = bufB[r * E + e];
-
-  // ---- backward: d_mix = d_out W_vo, softmax backward, partial sums ------
-  // d_mix[r, k] = sum_n d_out[r, n] W_vo[n, k]
-  gemm_rows_wide(bufB, E, E, p.wvo, E, nullptr, E, wt, bufA, E, kRows);
-  __syncthreads();
-  softmax_bwd_rows(kv, p.scales, p.u, bufA, a_s, (const float*)nullptr,
-                   ds_s, static_cast<T*>(p.dkv), row0, B, M, E);
-  __syncthreads();
-  float* part = ws.part + (size_t)blockIdx.x * P;
-  block_partials(kv, p.scales, ds_s, bufB, part, row0, B, M, E);
+  float* part = ws.part + (size_t)blockIdx.x * part_width(E, C);
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    float du = 0.f;
+    float dsum = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < rows_valid; ++r) {
+      const KvRow<T> kvr(kv, p.scales, row0 + r, M, E);
+      for (int m = 0; m < M; ++m)
+        du = fmaf(ds_s[r * kMaxM + m], kvr.at(m, e), du);
+      dsum += ws.dout[(size_t)(row0 + r) * E + e];
+    }
+    part[e] = du;
+    part[E + e] = dsum;
+  }
   if (threadIdx.x == 0) {
+    float sd = 0.f;
+    for (int r = 0; r < rows_valid; ++r)
+      for (int m = 0; m < M; ++m) sd += ds_s[r * kMaxM + m];
+    part[2 * E] = sd;
     float s = 0.f;
-    for (int r = 0; r < rows_valid; ++r) s += lrow[r];
+    if (C == 0) {
+      for (int r = 0; r < rows_valid; ++r) {
+        const float* sq = ws.sq + (size_t)(row0 + r) * ws.sq_ld;
+        float o2 = 0.f;
+        for (int t = 0; t < ws.sq_ld; ++t) o2 += sq[t];
+        s += o2 * p.inv;
+      }
+    } else {
+      for (int r = 0; r < rows_valid; ++r) s += ws.lrow[row0 + r];
+    }
     part[2 * E + 1] = s;
   }
+  const int ldl = logits_ld(C);
   for (int j = threadIdx.x; j < C; j += kThreads) {
     float s = 0.f;
-    for (int r = 0; r < rows_valid; ++r) s += lg[r * C + j];
+    for (int r = 0; r < rows_valid; ++r)
+      s += ws.dlogits[(size_t)(row0 + r) * ldl + j];
     part[2 * E + 2 + j] = s;
   }
 }
 
-size_t smem_bytes(int E, int C) {
-  return sizeof(float) *
-         ((size_t)align4(2 * kRows * E + 2 * kRows * kMaxM + kRows + kRows * C) +
-          kStageFloats);
+// out[j] = sum_r part[r cols + j]: in a block, 16 row groups each sum rows
+// g, g + 16, ... in order, then the 16 group sums add in group order.
+constexpr int kSumCols = 16;
+constexpr int kSumGroups = kThreads / kSumCols;
+
+__global__ void __launch_bounds__(kThreads)
+    part_sum_kernel(const float* __restrict__ part, int rows, int cols,
+                    float* __restrict__ out) {
+  __shared__ float s[kSumGroups][kSumCols];
+  const int tx = threadIdx.x % kSumCols;
+  const int g = threadIdx.x / kSumCols;
+  const int j = blockIdx.x * kSumCols + tx;
+  float acc = 0.f;
+  if (j < cols)
+    for (int r = g; r < rows; r += kSumGroups)
+      acc += part[(size_t)r * cols + j];
+  s[g][tx] = acc;
+  __syncthreads();
+  if (g == 0 && j < cols) {
+    float t = s[0][tx];
+    for (int k = 1; k < kSumGroups; ++k) t += s[k][tx];
+    out[j] = t;
+  }
 }
 
 template <typename T>
 cudaError_t launch(const StepParams& p, cudaStream_t stream) {
+  const int B = p.B;
+  const int E = p.E;
   const int C = p.head_w != nullptr ? p.C : 0;
-  const size_t smem = smem_bytes(p.E, C);
-  cudaError_t err = allow_smem(step_rows_kernel<T>, smem);
+  const Workspace ws = carve(p.ws, B, E, C);
+  cudaError_t err;
+
+  step_fwd_rows_kernel<T>
+      <<<cdiv(B, kWarps), kThreads, 0, stream>>>(p, ws, mask_params(p));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // G1: out[b, n] = sum_k mix[b, k] W_vo[n, k] (+ b_ctx): W_vo n-major
+  gemm::GemmArgs g1{};
+  g1.A = ws.mix;
+  g1.lda = E;
+  g1.W = p.wvo;
+  g1.ldw = E;
+  g1.ldc = E;
+  g1.rows = B;
+  g1.N = E;
+  g1.K = E;
+  g1.groups = 1;
+  if (C == 0) {
+    g1.C = ws.dout;
+    err = gemm::gemm_f32<false, false>(
+        g1, gemm::EpiQuadLoss{p.bctx, p.two_inv, ws.sq, ws.sq_ld},
+        nullptr, stream);
+  } else {
+    g1.C = ws.out;
+    gemm::EpiAffine bias;
+    bias.bias = p.bctx;
+    err = gemm::gemm_f32<false, false>(g1, bias, ws.scr, stream);
+  }
   if (err != cudaSuccess) return err;
-  const Workspace ws = carve(p.ws, p.B, p.E, C);
-  const int blocks = row_blocks(p.B);
-  step_rows_kernel<T><<<blocks, kThreads, smem, stream>>>(p, ws);
-  err = cudaGetLastError();
+
+  if (C > 0) {
+    const size_t smem = head_smem_bytes(E, C);
+    if ((err = allow_smem(step_head_kernel, smem)) != cudaSuccess) return err;
+    step_head_kernel<<<cdiv(B, kWarps), kThreads, smem, stream>>>(
+        p, ws, head_staged(E, C));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  // G2: d_mix[b, k] = sum_n d_out[b, n] W_vo[n, k]: W_vo k-major
+  gemm::GemmArgs g2 = g1;
+  g2.A = ws.dout;
+  g2.C = ws.dmix;
+  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, ws.scr, stream);
   if (err != cudaSuccess) return err;
-  gemm_tn(ws.dout, ws.mix, p.g, ws.gscr, p.E, p.E, p.B, stream);
-  if (C > 0) gemm_tn(ws.out, ws.dlogits, p.dhead_w, ws.hscr, p.E, C, p.B, stream);
-  colsum(ws.part, blocks, part_width(p.E, C), p.sums, stream);
+
+  step_bwd_rows_kernel<T><<<cdiv(B, kWarps), kThreads, 0, stream>>>(p, ws);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // G3: G[i, j] = sum_b d_out[b, i] mix[b, j] (A transposed, K = B)
+  gemm::GemmArgs g3{};
+  g3.A = ws.dout;
+  g3.lda = E;
+  g3.W = ws.mix;
+  g3.ldw = E;
+  g3.C = p.g;
+  g3.ldc = E;
+  g3.rows = E;
+  g3.N = E;
+  g3.K = B;
+  g3.groups = 1;
+  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, ws.scr, stream);
+  if (err != cudaSuccess) return err;
+  if (C > 0) {
+    // dW_head[i, c] = sum_b out[b, i] d_logits[b, c]
+    gemm::GemmArgs gh = g3;
+    gh.A = ws.out;
+    gh.W = ws.dlogits;
+    gh.ldw = logits_ld(C);
+    gh.C = p.dhead_w;
+    gh.ldc = C;
+    gh.N = C;
+    err = gemm::gemm_f32<true, true>(gh, gemm::EpiAffine{}, ws.scr, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const int P = part_width(E, C);
+  part_sum_kernel<<<cdiv(P, kSumCols), kThreads, 0, stream>>>(
+      ws.part, cdiv(B, kWarps), P, p.sums);
   return cudaGetLastError();
 }
 
@@ -277,16 +521,24 @@ size_t aecf_train_step_workspace(int B, int E, int C) {
   return workspace_floats(B, E, C);
 }
 
-// Shared memory in bytes one block of the row kernel asks for.
-size_t aecf_train_step_smem(int E, int C) { return smem_bytes(E, C); }
+// The most shared memory in bytes one block of the chain asks for: the
+// GEMM's ring, or the head kernel's W_head and logits.
+size_t aecf_train_step_smem(int E, int C) {
+  const size_t head = C > 0 ? head_smem_bytes(E, C) : 0;
+  return head > gemm::kMaxSmemBytes ? head : gemm::kMaxSmemBytes;
+}
 
 // Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
-// contiguous device buffers as listed in StepParams; int8 needs scales and
-// takes no dkv.
+// contiguous device buffers as listed in StepParams (kv aligned to four
+// features, wvo and ws to 16 bytes); int8 needs scales and takes no dkv.
 int aecf_train_step(const StepParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 || p->E % 4 != 0 ||
       (p->head_w != nullptr && p->C < 1) ||
-      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr))) {
+      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
+      reinterpret_cast<uintptr_t>(p->kv) %
+              (p->kv_dtype == kKvF32 ? 16 : p->kv_dtype == kKvBf16 ? 8 : 4) !=
+          0 ||
+      !gemm::aligned16(p->wvo) || !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -296,6 +548,67 @@ int aecf_train_step(const StepParams* p, void* stream) {
     case kKvInt8: return (int)launch<int8_t>(*p, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The GEMM of gemm_f32.cuh alone, with the affine epilogue, for its checks
+// and its cuBLAS yardstick (kernels/gemm.py).  Also declared by
+// kernels/gemm.py (ctypes).
+struct GemmCall {
+  const float* A;
+  long long lda, a_gstride;
+  const float* W;
+  long long ldw, w_gstride;
+  const float* bias;  // or null
+  long long bias_gstride;
+  float* C;
+  long long ldc, c_gstride;
+  float* partials;  // aecf_gemm_f32_scratch floats
+  int rows, N, K, groups, a_trans, w_kmajor;
+  float scale;
+};
+
+size_t aecf_gemm_f32_scratch(int rows, int N, int K, int groups,
+                             int w_kmajor) {
+  return gemm::gemm_scratch_floats(rows, N, K, groups, w_kmajor != 0, true);
+}
+
+// Returns a cudaError_t; 0 means every launch was accepted.  A, W and C
+// 16-byte aligned, lda, ldw and the group strides of A and W multiples of 4;
+// the layouts the chains run (a transposed A with a k-major W only).
+int aecf_gemm_f32(const GemmCall* c, void* stream) {
+  if (c->rows < 1 || c->N < 1 || c->K < 1 || c->groups < 1 ||
+      (c->a_trans && !c->w_kmajor) ||
+      !gemm::aligned16(c->A) || !gemm::aligned16(c->W) ||
+      !gemm::aligned16(c->C) || c->lda % 4 || c->ldw % 4 ||
+      c->a_gstride % 4 || c->w_gstride % 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  gemm::GemmArgs a{};
+  a.A = c->A;
+  a.lda = c->lda;
+  a.a_gstride = c->a_gstride;
+  a.W = c->W;
+  a.ldw = c->ldw;
+  a.w_gstride = c->w_gstride;
+  a.C = c->C;
+  a.ldc = c->ldc;
+  a.c_gstride = c->c_gstride;
+  a.rows = c->rows;
+  a.N = c->N;
+  a.K = c->K;
+  a.groups = c->groups;
+  gemm::EpiAffine e;
+  e.bias = c->bias;
+  e.bias_gstride = c->bias_gstride;
+  e.scale = c->scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (c->a_trans)
+    err = gemm::gemm_f32<true, true>(a, e, c->partials, s);
+  else
+    err = c->w_kmajor ? gemm::gemm_f32<false, true>(a, e, c->partials, s)
+                      : gemm::gemm_f32<false, false>(a, e, c->partials, s);
+  return (int)err;
 }
 
 const char* aecf_cuda_error_string(int err) {

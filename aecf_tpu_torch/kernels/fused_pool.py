@@ -3,12 +3,17 @@ the capability and preference gates of the fused kernels.
 
 Port of :mod:`aecf_tpu.kernels.fused_pool`.  The query is ``(B, 1, E)``,
 one row per sample (the README Quick start broadcasts the fusion query per
-row), so nothing is shared across the batch.  The forward is one CUDA
-kernel, ``csrc/fused_pool_fwd.cu`` behind :func:`fused_pool_fwd` (the
-TPU's ``_fusion_kernel``): Q projection, per-head scores through the
+row, a row stride of 0).  The forward is one call into
+``csrc/fused_pool_fwd.cu`` behind :func:`fused_pool_fwd` (the TPU's
+``_fusion_kernel``), a chain of kernels on the caller's stream: the Q
+projection and the per-head ``u = scale·Wk_hᵀ·qp_h`` as GEMMs (for one row
+when the query's row stride is 0), a row kernel for the scores through the
 per-row ``u``/``c`` rewrite, softmax, head mean, entropy, the training
-mask chain (Philox draw, ``min_active``, renormalisation; :mod:`.draws`),
-context and output projection.  Its plain PyTorch version,
+mask chain (Philox draw, ``min_active``, renormalisation; :mod:`.draws`)
+and the per-head mixes, then the context and output projections as GEMMs
+(``csrc/gemm_f32.cuh``, a pipelined SIMT f32 GEMM over the whole batch,
+reading the weights as stored), through a workspace this wrapper
+allocates.  Its plain PyTorch version,
 :func:`fused_pool_fwd_plain`, follows the JAX kernel's op order (project
 Q, K and V, then scores), so the two agree to ~1e-6, not bitwise.
 
@@ -51,6 +56,7 @@ from .shared_query import (
     _pad_bias_rows,
     _ptr,
     _raise_on_error,
+    _require_aligned,
     _require_cuda,
     _side_outputs,
     _split_params,
@@ -197,8 +203,8 @@ class _FusedParams(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "q", "kv", "pad", "wq_t", "bq", "wk", "bk", "wv_t", "bv", "wo_t",
-            "bo", "out", "w", "mw", "ent", "rate",
+            "q", "kv", "pad", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
+            "bo", "out", "w", "mw", "ent", "rate", "ws",
         )
     ] + [("ldq", ctypes.c_longlong)] + [
         (name, ctypes.c_int)
@@ -219,6 +225,8 @@ def _library() -> ctypes.CDLL:
     lib.aecf_fused_pool_fwd.restype = ctypes.c_int
     lib.aecf_fused_pool_fwd_smem.argtypes = [ctypes.c_int] * 3
     lib.aecf_fused_pool_fwd_smem.restype = ctypes.c_size_t
+    lib.aecf_fused_pool_fwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.aecf_fused_pool_fwd_workspace.restype = ctypes.c_size_t
     lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aecf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -242,41 +250,45 @@ def fused_pool_fwd(
     """Wrapper of ``csrc/fused_pool_fwd.cu``; operands and results as in
     :func:`fused_pool_fwd_plain`.
 
-    CUDA tensors only: it launches the kernel or raises (a CPU tensor, a
-    width or dtype the kernel does not take, a failed build or launch) and
-    never runs the plain version.  ``q`` may have any row stride, 0
-    included (an expanded query); its rows must be contiguous.
-    ``fused_pool_fwd.launches`` counts kernel launches.  The outputs carry
-    no autograd graph: :func:`fused_fusion_pool` is the differentiable
-    entry.
+    CUDA tensors only: it launches the kernel chain or raises (a CPU
+    tensor, a width or dtype the kernel does not take, unaligned ``kv`` or
+    weights, a failed build or launch) and never runs the plain version.
+    ``q`` may have any row stride, 0 included (an expanded query: the Q
+    and ``u`` projections then run for one row); its rows must be
+    contiguous.  ``fused_pool_fwd.launches`` counts calls (one a call,
+    whatever the chain launches).  The outputs carry no autograd graph:
+    :func:`fused_fusion_pool` is the differentiable entry.
     """
     _check_operands(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads)
     if q.stride(1) != 1:
         raise ValueError("q's rows must be contiguous (stride 1 along E)")
     _require_cuda(kv, dict(kv=kv, pad_bias=pad_bias, in_w=in_w, in_b=in_b,
                            out_w=out_w, out_b=out_b))
+    _require_aligned(dict(kv=kv, in_w=in_w, in_b=in_b, out_w=out_w))
     B, M, E = kv.shape
     H = num_heads
     wq, wk, wv, bq, bk, bv = _split_params(in_w, in_b, out_w)
     bo = out_b if out_b is not None else out_w.new_zeros(E)
-    # the kernel's GEMMs read each weight along its output columns
-    wq_t, wv_t, wo_t = (t.T.contiguous() for t in (wq, wv, out_w))
     dev = kv.device
     out = torch.empty((B, E), dtype=torch.float32, device=dev)
     w = torch.empty((B, M), dtype=torch.float32, device=dev)
     mw = torch.empty_like(w)
     ent = torch.empty((B,), dtype=torch.float32, device=dev)
     rate = torch.empty_like(ent)
+    lib = _library()
+    ws = torch.empty(
+        (lib.aecf_fused_pool_fwd_workspace(B, E, H, int(q.stride(0) == 0)),),
+        dtype=torch.float32, device=dev,
+    )
     p = _FusedParams(
-        _ptr(q), _ptr(kv), _ptr(pad_bias), _ptr(wq_t), _ptr(bq), _ptr(wk),
-        _ptr(bk), _ptr(wv_t), _ptr(bv), _ptr(wo_t), _ptr(bo), _ptr(out),
-        _ptr(w), _ptr(mw), _ptr(ent), _ptr(rate), q.stride(0),
+        _ptr(q), _ptr(kv), _ptr(pad_bias), _ptr(wq), _ptr(bq), _ptr(wk),
+        _ptr(bk), _ptr(wv), _ptr(bv), _ptr(out_w), _ptr(bo), _ptr(out),
+        _ptr(w), _ptr(mw), _ptr(ent), _ptr(rate), _ptr(ws), q.stride(0),
         B, M, E, H, int(q.dtype == torch.bfloat16),
         int(kv.dtype == torch.bfloat16), int(bool(training)), int(min_active),
         seed[0], seed[1], math.log(M) if M > 1 else 0.0, float(mask_prob),
         (E // H) ** -0.5,
     )
-    lib = _library()
     with torch.cuda.device(dev):
         err = lib.aecf_fused_pool_fwd(
             ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream

@@ -14,13 +14,18 @@ reference's own semantics:
 
 For the two built-in row-local losses — the benchmark protocol's
 quadratic ``(out²).mean()·loss_scale`` and the X3 linear head with mean
-BCE-with-logits — the whole step is one kernel, ``csrc/train_step.cu``
-behind :func:`train_step` (plain version :func:`train_step_plain`):
-scores → softmax → entropy → mask chain (side outputs) → mix → out GEMM →
-loss and ``d_out`` → ``d_mix`` → softmax backward → the batch sums G, du,
-Σd_out, Σd_s, Σloss (and dW_head, db_head) [→ ``d_kv``].  The E×E
-weight-gradient reconstruction (``_g_epilogue`` / ``_query_path_grads``)
-stays in torch, as the JAX package leaves it to XLA.
+BCE-with-logits — the whole step is one call into ``csrc/train_step.cu``
+behind :func:`train_step` (plain version :func:`train_step_plain`), a
+chain of kernels on the caller's stream: a row kernel (scores → softmax →
+entropy → mask chain, side outputs, mix), the out GEMM with the loss in
+its epilogue (or a head kernel for logits, BCE and ``d_out``), the
+``d_mix`` GEMM, a row kernel for the softmax backward [→ ``d_kv``] and the
+per-block partial sums, and the batch reductions G (and dW_head) as split
+GEMMs, then du, Σd_out, Σd_s, Σloss (and db_head).  The E×E products run
+in ``csrc/gemm_f32.cuh``, a pipelined SIMT f32 GEMM over the whole batch.
+The E×E weight-gradient reconstruction (``_g_epilogue`` /
+``_query_path_grads``) stays in torch, as the JAX package leaves it to
+XLA.
 
 Draws are Philox (:mod:`.draws`) with tile-independent counters, so the
 step draws the same mask as the training forward kernel for the same seed
@@ -63,6 +68,7 @@ from .shared_query import (
     _ptr,
     _query_path_grads,
     _raise_on_error,
+    _require_aligned,
     _require_cuda,
     _side_outputs,
     _split_params,
@@ -77,15 +83,16 @@ __all__ = [
     "train_step_plain",
 ]
 
-# Batch rows one block of the step kernel holds (kRows in the source).
-_STEP_ROWS = 16
+# Batch rows one block tile of the step's GEMMs covers (kBM in
+# csrc/gemm_f32.cuh); its row kernels take one row a warp.
+_STEP_ROWS = 128
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1, item 1: {})"
 
 
 def supports_fused_step(num_heads: int, embed_dim: int) -> bool:
     """True when :func:`fused_pool_train_step` covers the config: H == 1
-    and the resident E cap (the step kernel keeps two 16×E f32 tiles in
-    shared memory)."""
+    and the resident E cap (the cap of the resident kernels; the step's
+    chain itself keeps no batch tile resident)."""
     return num_heads == 1 and embed_dim <= _RESIDENT_E_CAP
 
 
@@ -97,9 +104,10 @@ def step_tile(
     kv_dtype: str = "float32",
     kv_grad: bool = False,
 ) -> int:
-    """The batch rows one block of the step kernel takes: a constant (16)
-    for now — the per-device tile table is ROADMAP.md, queue 1, item 8.
-    The kernel masks a ragged last block itself, so any batch size runs."""
+    """The batch rows one block tile of the step's GEMMs covers: a
+    constant (128; the row kernels take a row a warp) — the per-device
+    tile table is ROADMAP.md, queue 1, item 8.  The kernels mask a ragged
+    last tile themselves, so any batch size runs."""
     return _STEP_ROWS
 
 
@@ -219,9 +227,11 @@ def train_step(
     """Wrapper of ``csrc/train_step.cu`` (``_step_kernel``, and its
     ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
     and results as in :func:`train_step_plain`.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise (a custom ``row_loss``
-    raises).  ``train_step.launches`` counts f32/bf16 launches,
-    ``train_step.launches_q8`` int8 ones."""
+    version; CUDA tensors launch the kernel chain or raise (a custom
+    ``row_loss`` raises; ``kv`` must be aligned to four features and
+    ``wvo`` to 16 bytes).
+    ``train_step.launches`` counts f32/bf16 calls, ``train_step.launches_q8``
+    int8 ones: one a call, whatever the chain launches."""
     if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
             f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
@@ -263,6 +273,7 @@ def train_step(
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias, wvo=wvo, bctx=bctx,
                            head_w=head_w, head_b=head_b, labels=labels))
+    _require_aligned(dict(kv=kv, wvo=wvo))
     lib = _library()
     dev = kv.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -283,10 +294,9 @@ def train_step(
     dhead_w = torch.empty((E, C), **f32) if C else None
     sums = torch.empty((2 * E + 2 + C,), **f32)
     ws = torch.empty((lib.aecf_train_step_workspace(B, E, C),), **f32)
-    wvo_t = wvo.T.contiguous()  # the out GEMM reads W_vo row-contiguous in n
     params = _StepParams(
         _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
-        _ptr(wvo), _ptr(wvo_t), _ptr(bctx),
+        _ptr(wvo), _ptr(bctx),
         _ptr(head_w), _ptr(head_b), _ptr(labels), _ptr(res["w"]),
         _ptr(res["mw"]), _ptr(res["ent"]), _ptr(res["rate"]),
         _ptr(res["d_kv"]), _ptr(res["G"]), _ptr(dhead_w), _ptr(sums),
@@ -318,7 +328,7 @@ class _StepParams(ctypes.Structure):
         [
             (name, ctypes.c_void_p)
             for name in (
-                "kv", "scales", "u", "c", "pad", "wvo", "wvo_t", "bctx",
+                "kv", "scales", "u", "c", "pad", "wvo", "bctx",
                 "head_w", "head_b",
                 "labels", "w", "mw", "ent", "rate", "dkv", "g", "dhead_w",
                 "sums", "ws",

@@ -18,9 +18,13 @@ plain version and to the f32 kernel on ``q.float() * s``):
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its callers give it, with the tolerances stated below: the eval
    forward, the Philox generator's known answers, the training forward
-   (mask chain), the H=1 backward, the one-pass train step and the
-   per-row-query forward (eval and training, then gradients through its
-   autograd function with the kernel forward against the plain forward);
+   (mask chain), the H=1 backward, the one-pass train step (also at widths
+   that are not multiples of its GEMMs' tiles, and two calls on the same
+   inputs equal bit for bit) and the per-row-query forward (eval and
+   training, distinct and expanded query rows, ragged widths, then
+   gradients through its autograd function with the kernel forward against
+   the plain forward), and the f32 GEMM building block of those two
+   (``csrc/gemm_f32.cuh``) at their products and at ragged shapes;
    the shared-query forward at H in {1, 2, 3, 4, 8} and the per-row one at
    H in {1, 2, 4, 8}, the medical (B=4096, M=3, E=512, H=8, padded) and
    X-ray (B=4096, M=2, E=256, H=4) pools among the shapes;
@@ -71,13 +75,16 @@ plain version and to the f32 kernel on ``q.float() * s``):
    ``MultiScaleFusion`` (256/512/1024, H=1), eval and AdamW steps of
    ``'auto'`` (the kernels) against ``'torch'``;
 7. times (CUDA events) of each kernel and its plain version at the slice
-   shapes (each int8 kernel beside the f32 kernel at its shape), of one
+   shapes (each int8 kernel beside the f32 kernel at its shape; the
+   per-row forward also with distinct query rows; with the CUDA kernels one
+   call of the step and of the per-row forward launches), of one
    predictor call per bucket, samples/s of one training step, ms per
    Quick start module step, ``'auto'`` against ``'torch'``, samples/s of
    slice (f), ``'auto'`` against ``'torch'``, and of slice (l), int8
    against f32; the resident forwards at H > 2 at the models' pool shapes
    beside their plain versions, bounds and the torch route
-   (``attention_pool_core``, what ``'auto'`` runs there);
+   (``attention_pool_core``, what ``'auto'`` runs there); the GEMM
+   building block against one ``torch.matmul`` at the chains' products;
 8. a JSON line of the kernels, the int8 instantiations as entries of
    their own (``*_q8``; with each one's bound: the larger of its bytes —
    int8 features 1 byte each, 4 a scale — over the card's memory rate and
@@ -142,6 +149,12 @@ TRAIN_SHAPES = {
 }
 # The north-star training step.
 NS_B, NS_M, NS_E, NS_C = 4096, 3, 512, 14
+# The step check's widths that are not multiples of its GEMMs' tiles (128
+# rows, 64 or 128 columns, k-depth 32), each (E, its (B, M) rows, head
+# width C), and a head too wide for the head kernel to stage W_head in
+# shared memory (E C above 24576 floats).
+STEP_EDGE = ((260, [(300, 3), (129, 2)], NS_C), (36, [(130, 4)], NS_C),
+             (1024, [(300, 3)], 40))
 # The per-row-query kernel's grid; the README Quick start at full width
 # (H=1); the repo's large configuration.
 FUSED_SHAPES = {
@@ -168,12 +181,15 @@ HEAD_GRID = (
     (MED_E, MED_H, [(MED_B, MED_M)]),
     (XR_E, XR_H, [(XR_B, XR_M)]),
 )
-# The per-row kernel's (E a multiple of 4 H), the Quick start's width at H=8.
+# The per-row kernel's (E a multiple of 4 H), the Quick start's width at H=8,
+# and widths that are not multiples of its GEMMs' tiles.
 FUSED_HEAD_GRID = (
     (512, 4, HEAD_BMS),
     (512, 8, HEAD_BMS),
     (1024, 8, [(300, 8)]),
     (QS_E, 8, [(QS_B, QS_M)]),
+    (264, 2, [(300, 3), (129, 8)]),
+    (260, 1, [(300, 3), (129, 2)]),
 )
 # The multi-scale model's scales (H=1 each) and its rows.
 MS_DIMS, MS_B, MS_M = (256, 512, 1024), 4096, 3
@@ -702,12 +718,13 @@ def check_backward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     return worst
 
 
-def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
+def check_step(torch, same, shapes=TRAIN_SHAPES, extra=STEP_EDGE) -> dict:
     """Phase 3e: the one-pass train-step kernel against its plain version
     on the same CUDA tensors — quadratic loss and the C=14 head, d_kv on
     and off (f32 and bf16; int8: off, and also against the f32 kernel on
-    the dequantized features) — and, for one seed, its mask against the
-    forward kernel's."""
+    the dequantized features), at ``shapes`` and at the ragged widths of
+    ``extra`` — and, for one seed, its mask against the forward
+    kernel's."""
     from aecf_tpu_torch.kernels import (
         shared_query_fwd,
         train_step,
@@ -719,8 +736,9 @@ def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
     rng = np.random.default_rng(13)
     worst = {"train_step": 0.0, "train_step_q8": 0.0}
     cases, near_rows, same_mask = 0, 0, 0
-    C = NS_C
-    for E in shapes["E"]:
+    groups = [(E, [(B, M) for B in shapes["B"] for M in shapes["M"]], NS_C)
+              for E in shapes["E"]] + list(extra)
+    for E, bms, C in groups:
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
             math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
@@ -735,93 +753,92 @@ def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
             q8 = dtype == torch.int8
             name = "train_step_q8" if q8 else "train_step"
             for padded in (False, True):
-                for B in shapes["B"]:
-                    for M in shapes["M"]:
-                        kv, scales = _features(
-                            torch, t(rng.standard_normal((B, M, E))), dtype)
-                        labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
-                        pad = None
-                        if padded:
-                            mask = rng.random((B, M)) < 0.3
-                            mask[0, :] = True
-                            pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
-                        seed = draw_seed_words(torch.Generator().manual_seed(cases))
-                        for head in (False, True):
-                            for want_dkv in (False,) if q8 else (False, True):
-                                kw = dict(
-                                    inv=1.0 / (B * (C if head else E)),
-                                    want_dkv=want_dkv, training=True,
-                                    seed=seed, mask_prob=0.6, min_active=1,
-                                )
-                                if head:
-                                    kw.update(head_w=head_w, head_b=head_b,
-                                              labels=labels)
-                                args = (kv, u[0], c, pad, wvo, bctx)
-                                with torch.inference_mode():
-                                    got = train_step(*args, kv_scales=scales,
-                                                     **kw)
-                                    want = train_step_plain(
-                                        *args, kv_scales=scales, **kw)
-                                    if q8:
-                                        f32 = train_step(
-                                            kv.float() * scales[..., None],
-                                            *args[1:], **kw)
-                                torch.cuda.synchronize()
-                                where = (f"B={B} M={M} E={E} {dtype} "
-                                         f"padded={padded} head={head} "
-                                         f"d_kv={want_dkv}")
-                                errs = [
-                                    _hold("w", got["w"], want["w"], TOL_W, where),
-                                    _hold("ent", got["ent"], want["ent"], TOL_W,
-                                          where),
-                                    _hold("loss", got["loss"], want["loss"],
-                                          _sum_tol(want["loss"]), where),
-                                ]
-                                for k in ("G", "du", "dsum_out") + (
-                                    ("dW_head", "db_head") if head else ()
-                                ):
-                                    errs.append(_hold(k, got[k], want[k],
-                                                      _sum_tol(want[k]), where))
-                                errs.append(_hold("dc", got["dc"], want["dc"],
-                                                  _sum_tol(want["dc"], want["du"]),
-                                                  where))
-                                if want_dkv:
-                                    check(got["d_kv"].dtype == kv.dtype,
-                                          "d_kv dtype")
-                                    errs.append(_hold(
-                                        "d_kv", got["d_kv"], want["d_kv"],
-                                        _dkv_tol(torch, want["d_kv"]), where))
-                                worst[name] = max(worst[name], *errs)
-                                _held_at(name, 1)
-                                near = _mask_rows(kv, want["ent"], seed,
-                                                  0.6)
-                                near_rows += _hold_masks(
-                                    "step", got["mw"], got["rate"],
-                                    want["mw"], want["rate"], near, where)
-                                if q8:
-                                    tols = {k: _sum_tol(f32[k]) for k in (
-                                        "loss", "G", "du", "dsum_out") + (
-                                        ("dW_head", "db_head") if head else ())}
-                                    tols.update(w=TOL_W, ent=TOL_W, mw=None,
-                                                rate=None,
-                                                dc=_sum_tol(f32["dc"], f32["du"]))
-                                    _vs_f32(torch, same, name, got, f32, tols, where)
-                                    _hold_masks("int8 vs f32 step", got["mw"],
-                                                got["rate"], f32["mw"],
-                                                f32["rate"], near, where)
-                                cases += 1
-                        # the one-pass step and the training forward draw
-                        # the same mask for the same seed
-                        with torch.inference_mode():
-                            fwd = shared_query_fwd(
-                                kv, u, c, pad, wvo, bctx, training=True,
+                for B, M in bms:
+                    kv, scales = _features(
+                        torch, t(rng.standard_normal((B, M, E))), dtype)
+                    labels = t((rng.random((B, C)) < 0.3).astype(np.float32))
+                    pad = None
+                    if padded:
+                        mask = rng.random((B, M)) < 0.3
+                        mask[0, :] = True
+                        pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
+                    seed = draw_seed_words(torch.Generator().manual_seed(cases))
+                    for head in (False, True):
+                        for want_dkv in (False,) if q8 else (False, True):
+                            kw = dict(
+                                inv=1.0 / (B * (C if head else E)),
+                                want_dkv=want_dkv, training=True,
                                 seed=seed, mask_prob=0.6, min_active=1,
-                                kv_scales=scales)
-                        torch.cuda.synchronize()
-                        check(torch.equal(fwd[4], got["rate"])
-                              and torch.equal(fwd[2], got["mw"]),
-                              f"step mask != forward mask at B={B} M={M} E={E}")
-                        same_mask += 1
+                            )
+                            if head:
+                                kw.update(head_w=head_w, head_b=head_b,
+                                          labels=labels)
+                            args = (kv, u[0], c, pad, wvo, bctx)
+                            with torch.inference_mode():
+                                got = train_step(*args, kv_scales=scales,
+                                                 **kw)
+                                want = train_step_plain(
+                                    *args, kv_scales=scales, **kw)
+                                if q8:
+                                    f32 = train_step(
+                                        kv.float() * scales[..., None],
+                                        *args[1:], **kw)
+                            torch.cuda.synchronize()
+                            where = (f"B={B} M={M} E={E} {dtype} "
+                                     f"padded={padded} head={head} "
+                                     f"d_kv={want_dkv}")
+                            errs = [
+                                _hold("w", got["w"], want["w"], TOL_W, where),
+                                _hold("ent", got["ent"], want["ent"], TOL_W,
+                                      where),
+                                _hold("loss", got["loss"], want["loss"],
+                                      _sum_tol(want["loss"]), where),
+                            ]
+                            for k in ("G", "du", "dsum_out") + (
+                                ("dW_head", "db_head") if head else ()
+                            ):
+                                errs.append(_hold(k, got[k], want[k],
+                                                  _sum_tol(want[k]), where))
+                            errs.append(_hold("dc", got["dc"], want["dc"],
+                                              _sum_tol(want["dc"], want["du"]),
+                                              where))
+                            if want_dkv:
+                                check(got["d_kv"].dtype == kv.dtype,
+                                      "d_kv dtype")
+                                errs.append(_hold(
+                                    "d_kv", got["d_kv"], want["d_kv"],
+                                    _dkv_tol(torch, want["d_kv"]), where))
+                            worst[name] = max(worst[name], *errs)
+                            _held_at(name, 1)
+                            near = _mask_rows(kv, want["ent"], seed,
+                                              0.6)
+                            near_rows += _hold_masks(
+                                "step", got["mw"], got["rate"],
+                                want["mw"], want["rate"], near, where)
+                            if q8:
+                                tols = {k: _sum_tol(f32[k]) for k in (
+                                    "loss", "G", "du", "dsum_out") + (
+                                    ("dW_head", "db_head") if head else ())}
+                                tols.update(w=TOL_W, ent=TOL_W, mw=None,
+                                            rate=None,
+                                            dc=_sum_tol(f32["dc"], f32["du"]))
+                                _vs_f32(torch, same, name, got, f32, tols, where)
+                                _hold_masks("int8 vs f32 step", got["mw"],
+                                            got["rate"], f32["mw"],
+                                            f32["rate"], near, where)
+                            cases += 1
+                    # the one-pass step and the training forward draw
+                    # the same mask for the same seed
+                    with torch.inference_mode():
+                        fwd = shared_query_fwd(
+                            kv, u, c, pad, wvo, bctx, training=True,
+                            seed=seed, mask_prob=0.6, min_active=1,
+                            kv_scales=scales)
+                    torch.cuda.synchronize()
+                    check(torch.equal(fwd[4], got["rate"])
+                          and torch.equal(fwd[2], got["mw"]),
+                          f"step mask != forward mask at B={B} M={M} E={E}")
+                    same_mask += 1
     print(f"train step vs plain: {cases} cases within tolerance (w/ent "
           f"{TOL_W:g}, loss/G/du/sum d_out/dW_head/db_head "
           f"{TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv as "
@@ -829,6 +846,106 @@ def check_step(torch, same, shapes=TRAIN_SHAPES) -> dict:
           f"keep); max abs err f32/bf16 {worst['train_step']:.3e}, int8 "
           f"{worst['train_step_q8']:.3e}; step mask == forward mask "
           f"bit for bit in {same_mask} of {same_mask} seeds")
+    return worst
+
+
+def check_step_repeatable(torch) -> None:
+    """Phase 3e': two ``train_step`` calls on the same inputs give the same
+    outputs bit for bit (no atomics; the batch sums G, du and dW_head in a
+    fixed order), with the C=14 head and the quadratic loss, f32 and int8,
+    at the north star and at a ragged width."""
+    from aecf_tpu_torch.kernels import train_step
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    rng = np.random.default_rng(14)
+    cases = 0
+    for B, M, E in ((NS_B, NS_M, NS_E), (300, 3, 260)):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+        params = _pool_params(torch, rng, E, "cuda")
+        query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
+        with torch.inference_mode():
+            u, c, wvo, bctx, _, _ = _prep(params, query[0, 0], 1)
+        x = t(rng.standard_normal((B, M, E)))
+        labels = t((rng.random((B, NS_C)) < 0.3).astype(np.float32))
+        head_kw = dict(head_w=t(rng.uniform(-0.04, 0.04, (E, NS_C))),
+                       head_b=t(rng.uniform(-0.04, 0.04, NS_C)),
+                       labels=labels)
+        for dtype in (torch.float32, torch.int8):
+            kv, scales = _features(torch, x, dtype)
+            for head in (True, False):
+                kw = dict(inv=1.0 / (B * (NS_C if head else E)),
+                          want_dkv=False, training=True, seed=(12345, 678),
+                          **(head_kw if head else {}))
+                with torch.inference_mode():
+                    one, two = (train_step(kv, u[0], c, None, wvo, bctx,
+                                           kv_scales=scales, **kw)
+                                for _ in range(2))
+                torch.cuda.synchronize()
+                for k, v in one.items():
+                    check(v is None or torch.equal(v, two[k]),
+                          f"train_step {k} differs between two calls at "
+                          f"B={B} M={M} E={E} {dtype} head={head}")
+                cases += 1
+    print(f"train step repeatable: {cases} pairs of calls equal bit for bit "
+          "in every output (G, du, dW_head included)")
+
+
+# The products the two chains run, each (label, G, rows, N, K, a_trans,
+# w_kmajor): the north-star step's three (out = mix W_vo^T, d_mix = d_out
+# W_vo, G = d_out^T mix) and the large configuration's per-row forward
+# (ctx_h = MIX_h Wv_h^T over two heads, out = ctx Wo^T) — timed against
+# one torch.matmul — then ragged shapes, held to the plain version only.
+GEMM_SHAPES = (
+    ("north-star out = mix W_vo^T", 1, NS_B, NS_E, NS_E, False, False),
+    ("north-star d_mix = d_out W_vo", 1, NS_B, NS_E, NS_E, False, True),
+    ("north-star G = d_out^T mix", 1, NS_E, NS_E, NS_B, True, True),
+    ("large ctx_h = MIX_h Wv_h^T", LARGE_H, LARGE_B, LARGE_E // LARGE_H,
+     LARGE_E, False, False),
+    ("large out = ctx Wo^T", 1, LARGE_B, LARGE_E, LARGE_E, False, False),
+)
+GEMM_RAGGED = (
+    ("ragged", 3, 300, 260, 132, False, False),
+    ("ragged", 1, 260, 260, 300, True, True),
+    ("ragged", 2, 1, 264, 132, False, True),
+    ("ragged", 1, 129, 14, 4100, True, True),
+)
+
+
+def _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor):
+    """Random operands in the given layouts, each a view whose rows are
+    padded to a multiple of 4 floats (the GEMM's 16-byte chunks)."""
+    def view(d0, d1):
+        pad = -d1 % 4
+        return torch.randn((G, d0, d1 + pad), generator=gen,
+                           device="cuda")[:, :, :d1]
+    a = view(K, rows) if a_trans else view(rows, K)
+    w = view(K, N) if w_kmajor else view(N, K)
+    return a, w
+
+
+def check_gemm(torch) -> float:
+    """Phase 3h: the GEMM building block (``csrc/gemm_f32.cuh``, through
+    ``kernels._gemm``) against its plain version at the chains' shapes and
+    at ragged ones, with a bias and a scale, within the per-row
+    forward's output tolerance."""
+    from aecf_tpu_torch.kernels._gemm import gemm_f32, gemm_f32_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    for label, G, rows, N, K, a_trans, w_kmajor in GEMM_SHAPES + GEMM_RAGGED:
+        a, w = _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor)
+        bias = torch.randn((G, N), generator=gen, device="cuda")
+        kw = dict(scale=0.5, a_trans=a_trans, w_kmajor=w_kmajor)
+        got = gemm_f32(a, w, bias, **kw)
+        want = gemm_f32_plain(a, w, bias, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _hold(
+            "gemm_f32", got, want, _out_tol(want),
+            f"{label} G={G} rows={rows} N={N} K={K} a_trans={a_trans} "
+            f"w_kmajor={w_kmajor}"))
+    print(f"gemm_f32 vs plain: {len(GEMM_SHAPES) + len(GEMM_RAGGED)} shapes "
+          f"(both A and W layouts, groups, split K, ragged edges) within "
+          f"{TOL_OUT_REL:g}*max|ref|+{TOL_OUT_ABS:g}; max abs err {worst:.3e}")
     return worst
 
 
@@ -2260,10 +2377,7 @@ def time_heads(torch, smi: str) -> None:
     args = (q, kv, None, p.in_proj_weight, p.in_proj_bias,
             p.out_proj_weight, p.out_proj_bias)
     kw = dict(num_heads=H, training=True, seed=(12345, 678))
-    # as time_module's: 8 E^2 FLOPs of projections a row, 4 M E a head
-    work = (4 * (E + B * M * E + 4 * E * E + 4 * E + B * E + 2 * B * M
-                 + 2 * B),
-            8 * B * E * E + 4 * B * M * E * H)
+    work = _fused_work(B, M, E, H, expanded=True)  # as time_module's
     label = f"fused_pool_fwd Quick start training B={B} M={M} E={E} H={H}"
     with torch.inference_mode():
         pair = _time_pair(torch, label, lambda: fused_pool_fwd(*args, **kw),
@@ -2320,37 +2434,81 @@ def time_heads(torch, smi: str) -> None:
               f"over 20 synchronised steps; {smi})")
 
 
+def _fused_work(B, M, E, H, expanded):
+    """(bytes, f32 operations) of one per-row forward: q, kv, in/out
+    weights and biases in; out, w, mw, ent, rate out; the projections qp,
+    u, ctx and out 2 B E^2 each — qp and u for one row with an expanded
+    query (row stride 0), 2 E^2 each — and 4 M E of scores and mix a row
+    and head."""
+    q_rows = 1 if expanded else B
+    return (4 * (q_rows * E + B * M * E + 4 * E * E + 4 * E + B * E
+                 + 2 * B * M + 2 * B),
+            4 * q_rows * E * E + 4 * B * E * E + 4 * B * M * E * H)
+
+
+def _launches_per_call(torch, fn, calls=20) -> str:
+    """The CUDA kernels one call of ``fn`` launches, by name, each with its
+    launches and device time a call (``torch.profiler`` over ``calls``
+    calls), as "n: name xk ms, ...; total ms"; "not measured" where the
+    profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key.replace("(anonymous namespace)::", "")
+             .replace("void ", "").split("(")[0], e.count / calls,
+             e.self_device_time_total / calls / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    if not rows:
+        return "not measured"
+    return (f"{sum(r[1] for r in rows):g}: "
+            + ", ".join(f"{k} x{n:g} {ms:.5f} ms" for k, n, ms in rows)
+            + f"; total {sum(r[2] for r in rows):.5f} ms (device time a "
+            f"call, torch.profiler over {calls} calls)")
+
+
 def time_module(torch, smi: str) -> tuple:
     """Phase 7c: the per-row kernel and its plain version (CUDA events,
-    turns plain, kernel, kernel, plain) at the Quick start (training) and
-    the large configuration (eval), then ms per Quick start module step
-    (forward, backward, AdamW; host clock over 20 synchronised steps),
-    ``'auto'`` against ``'torch'``.  Returns the Quick start pair."""
+    turns plain, kernel, kernel, plain) at the Quick start (training) with
+    the expanded query (row stride 0, the README's) and with distinct
+    query rows, and at the large configuration (eval, expanded), each
+    beside the bound of the work its query needs and with the kernels one
+    call launches; then ms per Quick start module step (forward, backward,
+    AdamW; host clock over 20 synchronised steps), ``'auto'`` against
+    ``'torch'``.  Returns the expanded Quick start pair."""
     from aecf_tpu_torch.kernels import fused_pool_fwd, fused_pool_fwd_plain
 
     rng = np.random.default_rng(61)
     gen = torch.Generator(device="cuda").manual_seed(61)
     times = {}
-    for B, M, E, H, training in ((QS_B, QS_M, QS_E, 1, True),
-                                 (LARGE_B, LARGE_M, LARGE_E, LARGE_H, False)):
+    for B, M, E, H, training, expanded in (
+        (QS_B, QS_M, QS_E, 1, True, True),
+        (QS_B, QS_M, QS_E, 1, True, False),
+        (LARGE_B, LARGE_M, LARGE_E, LARGE_H, False, True),
+    ):
         p = _pool_params(torch, rng, E, "cuda")
-        q = torch.randn((1, E), generator=gen, device="cuda").expand(B, E)
+        q = torch.randn((1 if expanded else B, E), generator=gen,
+                        device="cuda").expand(B, E)
         kv = torch.randn((B, M, E), generator=gen, device="cuda")
         args = (q, kv, None, p.in_proj_weight, p.in_proj_bias,
                 p.out_proj_weight, p.out_proj_bias)
         kw = dict(num_heads=H, training=training, seed=(12345, 678))
-        # q, kv, in/out weights and biases in; out, w, mw, ent, rate out;
-        # per row 8 E^2 FLOPs of projections (qp, u, ctx, out) and 4 M E
-        # of scores and mix per head
-        work = (4 * (E + B * M * E + 4 * E * E + 4 * E + B * E + 2 * B * M
-                     + 2 * B),
-                8 * B * E * E + 4 * B * M * E * H)
+        label = (f"fused_pool_fwd B={B} M={M} E={E} H={H} "
+                 f"{'training' if training else 'eval'} "
+                 f"{'expanded query' if expanded else 'distinct query rows'}")
         with torch.inference_mode():
-            times[(B, M, E, H)] = _time_pair(
-                torch, f"fused_pool_fwd B={B} M={M} E={E} H={H} "
-                f"{'training' if training else 'eval'}",
-                lambda: fused_pool_fwd(*args, **kw),
-                lambda: fused_pool_fwd_plain(*args, **kw), work, smi)
+            times[(B, M, E, H, expanded)] = _time_pair(
+                torch, label, lambda: fused_pool_fwd(*args, **kw),
+                lambda: fused_pool_fwd_plain(*args, **kw),
+                _fused_work(B, M, E, H, expanded), smi)
+            print(f"launches {label}: CUDA kernels a call "
+                  f"{_launches_per_call(torch, lambda: fused_pool_fwd(*args, **kw))}")
 
     for impl in ("auto", "torch"):
         run = _quick_start(torch, impl, seed=71)
@@ -2362,7 +2520,39 @@ def time_module(torch, smi: str) -> tuple:
               f"M={QS_M} E={QS_E} H=1 training: {dt * 1e3:.4f} ms/step, "
               f"{QS_B / dt:.1f} samples/s (host clock over 20 "
               f"synchronised steps: forward, backward, AdamW; {smi})")
-    return times[(QS_B, QS_M, QS_E, 1)]
+    return times[(QS_B, QS_M, QS_E, 1, True)]
+
+
+def time_gemm(torch, smi: str) -> None:
+    """Phase 7g: the GEMM building block against one ``torch.matmul``
+    (cuBLAS) on the same operands at the chains' products
+    (``GEMM_SHAPES``): the building block's library yardstick (the port
+    never calls ``torch.matmul`` for these products).  Device time a call
+    from ``torch.profiler`` (every kernel the call launches; the GEMM's
+    ctypes wrapper is slower on the host than the device at the smaller
+    products), and CUDA-event means of back-to-back calls, turns matmul,
+    GEMM, GEMM, matmul."""
+    from aecf_tpu_torch.kernels._gemm import gemm_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for label, G, rows, N, K, a_trans, w_kmajor in GEMM_SHAPES:
+        a, w = _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor)
+        A = a.transpose(1, 2) if a_trans else a
+        W = w if w_kmajor else w.transpose(1, 2)
+        ours = lambda: gemm_f32(a, w, a_trans=a_trans, w_kmajor=w_kmajor)  # noqa: E731
+        lib = lambda: torch.matmul(A, W)  # noqa: E731
+        m1, g1, g2, m2 = (cuda_ms(torch, f, iters=50, warmup=5)
+                          for f in (lib, ours, ours, lib))
+        dev = {k: _device_ms(torch, f, "") for k, f in (("gemm", ours),
+                                                         ("matmul", lib))}
+        flops = 2.0 * G * rows * N * K
+        rate = {k: (f"{flops / float(v) / 1e9:.1f} TFLOP/s"
+                    if v != "not measured" else "") for k, v in dev.items()}
+        print(f"time gemm_f32 {label} G={G} rows={rows} N={N} K={K}: device "
+              f"{dev['gemm']} ms ({rate['gemm']}), torch.matmul device "
+              f"{dev['matmul']} ms ({rate['matmul']}) (torch.profiler over "
+              f"200 calls); events {g1:.5f}/{g2:.5f} ms, torch.matmul "
+              f"{m1:.5f}/{m2:.5f} ms ({smi})")
 
 
 def time_training(torch, smi: str, trained: dict) -> dict:
@@ -2435,6 +2625,16 @@ def time_training(torch, smi: str, trained: dict) -> dict:
             times[name] = _time_pair(
                 torch, f"{name} ({what}) B={B} M={M} E={E} H=1", kernel,
                 plain, work[name], smi)
+        for head in (True, False):
+            kw = dict(step_kw)
+            if not head:
+                kw.update(inv=1.0 / (B * E), head_w=None, head_b=None,
+                          labels=None)
+            print(f"launches train_step B={B} M={M} E={E} "
+                  f"{'C=' + str(C) + ' head' if head else 'quadratic loss'}: "
+                  "CUDA kernels a call " + _launches_per_call(
+                      torch, lambda: train_step(kv, u[0], c, None, wvo, bctx,
+                                                **kw)))
 
     sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
     for impl in ("fused-step", "kernel", "torch"):
@@ -2909,7 +3109,9 @@ def main() -> None:
         errs[name] = max(errs[name], err)
     errs.update(check_backward(torch, same))
     errs.update(check_step(torch, same))
+    check_step_repeatable(torch)
     errs["fused_pool_fwd"] = check_fused_pool(torch)
+    check_gemm(torch)
     check_fused_pool_grads(torch)
     errs.update(check_stream_mix(torch, same))
     errs.update(check_stream_bwd(torch, same))
@@ -2917,6 +3119,8 @@ def main() -> None:
     print("int8 kernel vs f32 kernel on q.float() * s, within the f32 "
           "kernel-vs-plain tolerances; bit for bit equal in: "
           + ", ".join(f"{k} {a} of {n}" for k, (a, n) in same.items()))
+    check(same["train_step_q8"][0] == same["train_step_q8"][1],
+          "an int8 train step differs from the f32 step on q.float() * s")
     served = serve_slice(torch)
     trained = train_slice(torch)
     module = module_slice(torch)
@@ -2932,6 +3136,7 @@ def main() -> None:
                                profiled="--profile" in sys.argv[1:]))
     times.update(time_q8(torch, smi, quantized))
     time_heads(torch, smi)
+    time_gemm(torch, smi)
     launches = dict(trained["launches"])
     launches["shared_query_fwd"] += served["launches"]
     launches["fused_pool_fwd"] = (module["launches"] + large["launches"]

@@ -125,6 +125,35 @@ def test_eval_matches_jax_interpret(E, M, B, H, padded):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
 
 
+# Widths that are not multiples of the forward GEMMs' tiles (128 rows, 64
+# or 128 columns, k-depth 16), with a distinct query row per sample and
+# with the README's expanded query (row stride 0: the kernel projects one
+# row), at one and two heads.
+@pytest.mark.parametrize("query", ["expanded", "distinct"])
+@pytest.mark.parametrize("E,H", [(40, 1), (40, 2), (72, 1), (72, 2)])
+def test_ragged_widths_match_jax(E, H, query):
+    B, M = 130, 3
+    arrs, q, kv, kpm = _inputs(90 + E + H, B, M, E, padded=True)
+    if query == "expanded":
+        q = np.repeat(q[:1], B, axis=0)
+    j_out, j_w, _, j_info = jax_fused(
+        _jax_params(arrs), jnp.asarray(q), jnp.asarray(kv), num_heads=H,
+        training=False, key_padding_mask=_j(kpm), interpret=True,
+    )
+    tq = _t(q[:1]).expand(B, 1, E) if query == "expanded" else _t(q)
+    assert (tq.stride(0) == 0) == (query == "expanded")
+    with torch.no_grad():
+        out, w, mw, info = fused_fusion_pool(
+            _torch_params(arrs), tq, _t(kv), num_heads=H,
+            key_padding_mask=_t(kpm),
+        )
+    np.testing.assert_allclose(out.numpy(), j_out, atol=ATOL)
+    np.testing.assert_allclose(w.numpy(), j_w, atol=ATOL)
+    np.testing.assert_array_equal(mw.numpy(), w.numpy())
+    np.testing.assert_allclose(info["entropy"].numpy(), j_info["entropy"],
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize("E,M,B,H", [(64, 3, 7, 1), (16, 5, 33, 2)])
 def test_bf16_query_and_features_match_jax(E, M, B, H):
     arrs, q, kv, _ = _inputs(5 + H, B, M, E)

@@ -1,0 +1,115 @@
+"""The f32 GEMM building block of the port (``csrc/gemm_f32.cuh``), through
+its private entry ``aecf_tpu_torch.kernels._gemm``.
+
+On the CPU only the plain version runs: it is held to numpy in float64
+(atol 1e-5; f32 sums of at most 300 terms of size ~1) at ragged shapes
+that are not multiples of the GEMM's tiles (128 rows, 64 or 128 columns,
+k-depth 16), in both A layouts and both W layouts, with groups, a bias and
+a scale, and at shapes the card splits over K (few tiles, long K).  The
+wrapper launches on CUDA tensors or raises; ``chip_smoke.py`` holds the
+kernel to the plain version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from aecf_tpu_torch.kernels import _build
+from aecf_tpu_torch.kernels._gemm import gemm_f32, gemm_f32_plain
+
+# (G, rows, N, K): ragged in every axis; the last two split over K on the
+# card (one or two column tiles, K of 300).
+SHAPES = [(1, 130, 37, 45), (3, 7, 68, 20), (1, 1, 70, 300), (2, 5, 14, 300)]
+
+
+def _operands(rng, G, rows, N, K, a_trans, w_kmajor):
+    a = rng.standard_normal((G, K, rows) if a_trans else (G, rows, K))
+    w = rng.standard_normal((G, K, N) if w_kmajor else (G, N, K))
+    return a.astype(np.float32), w.astype(np.float32)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("w_kmajor", [True, False])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("G,rows,N,K", SHAPES)
+def test_plain_matches_numpy(G, rows, N, K, a_trans, w_kmajor, bias):
+    rng = np.random.default_rng(G * 1000 + rows + N + K)
+    a, w = _operands(rng, G, rows, N, K, a_trans, w_kmajor)
+    b = rng.standard_normal((G, N)).astype(np.float32) if bias else None
+    got = gemm_f32_plain(
+        torch.from_numpy(a), torch.from_numpy(w),
+        None if b is None else torch.from_numpy(b), scale=0.5,
+        a_trans=a_trans, w_kmajor=w_kmajor,
+    )
+    A, W = a.astype(np.float64), w.astype(np.float64)
+    A = A.transpose(0, 2, 1) if a_trans else A
+    W = W if w_kmajor else W.transpose(0, 2, 1)
+    want = 0.5 * (A @ W)
+    if b is not None:
+        want = want + b[:, None, :]
+    assert tuple(got.shape) == (G, rows, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_plain_reads_strided_views_in_place():
+    """A transposed view and a per-head slice (the chains' operands) give
+    the products of their dense copies."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((6, 2, 12)).astype(np.float32))
+    wv = torch.from_numpy(rng.standard_normal((2, 8, 12)).astype(np.float32))
+    heads = x.permute(1, 0, 2)  # (G=2, rows=6, K=12), strides (12, 24, 1)
+    got = gemm_f32_plain(heads, wv, w_kmajor=False)
+    want = gemm_f32_plain(heads.contiguous(), wv.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "case,exc,match",
+    [
+        ("cpu", ValueError, "no kernel for device cpu"),
+        ("float64", TypeError, "float32"),
+        ("2-d", ValueError, r"\(G, \., \.\)"),
+        ("k mismatch", ValueError, "do not chain"),
+        ("layouts", ValueError, "k-major w"),
+        ("bias shape", ValueError, r"bias must be \(1, 4\)"),
+    ],
+)
+def test_wrapper_launches_or_raises(case, exc, match):
+    a = torch.zeros(1, 8, 16)
+    w = torch.zeros(1, 16, 4)
+    kw = {}
+    if case == "float64":
+        a = a.double()
+    elif case == "2-d":
+        a = a[0]
+    elif case == "k mismatch":
+        w = torch.zeros(1, 12, 4)
+    elif case == "bias shape":
+        kw["bias"] = torch.zeros(1, 5)
+    elif case == "layouts":
+        a = a.transpose(1, 2)
+        w = w.transpose(1, 2)
+        kw.update(a_trans=True, w_kmajor=False)
+    before = gemm_f32.launches
+    with pytest.raises(exc, match=match):
+        gemm_f32(a, w, **kw)
+    assert gemm_f32.launches == before  # the CPU never launches
+
+
+def test_header_ships_and_rebuilds_its_users(tmp_path, monkeypatch):
+    """train_step.cu and fused_pool_fwd.cu include gemm_f32.cuh: an edit
+    to it must move both libraries to new build directories."""
+    import shutil
+
+    assert (_build._CSRC / "gemm_f32.cuh").exists()
+    for f in _build._CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    names = ("train_step", "fused_pool_fwd")
+    before = {n: _build.library_path(n) for n in names}
+    header = tmp_path / "gemm_f32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(_build.library_path(n) != before[n] for n in names)
+    for name in names:
+        source = (tmp_path / f"{name}.cu").read_text()
+        assert '#include "gemm_f32.cuh"' in source

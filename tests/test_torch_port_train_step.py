@@ -35,7 +35,7 @@ POOL = ("in_proj_weight", "out_proj_weight", "in_proj_bias", "out_proj_bias")
 
 
 def _inputs(seed, B=100, bias=True, dtype=np.float32, head=False,
-            head_bias=True):
+            head_bias=True, E=E):
     rng = np.random.default_rng(seed)
     arrs = {
         "in_proj_weight": rng.uniform(-0.2, 0.2, (3 * E, E)),
@@ -94,7 +94,7 @@ def _run_both(x, *, kv_grad=False, kpm=None, loss_scale=1.0):
     return j, t
 
 
-def _assert_step_close(j, t, *, kv_grad):
+def _assert_step_close(j, t, *, kv_grad, E=E):
     loss_j, dp_j, dq_j, dkv_j, info_j = j
     loss_t, dp_t, dq_t, dkv_t, info_t = t
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-6)
@@ -138,9 +138,7 @@ def test_step_matches_jax_options(case):
     )
 
 
-@pytest.mark.parametrize("head_bias", [True, False])
-def test_head_step_matches_jax(head_bias):
-    x = _inputs(20, head=True, head_bias=head_bias)
+def _head_step_both(x, head_bias):
     jhead = {"w": jnp.asarray(x["hw"])}
     thead = {"w": torch.from_numpy(x["hw"])}
     if head_bias:
@@ -154,6 +152,12 @@ def test_head_step_matches_jax(head_bias):
         x["tp"], torch.from_numpy(x["q"]), thead, x["tkv"],
         torch.from_numpy(x["labels"]), training=False, precision="highest",
     )
+    return (loss_j, g_j, info_j), (loss_t, g_t, dkv_t, info_t)
+
+
+def _assert_head_step_close(j, t):
+    loss_j, g_j, info_j = j
+    loss_t, g_t, dkv_t, info_t = t
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-6)
     _assert_pool_grads(g_t["pool"], g_j["pool"])
     np.testing.assert_allclose(g_t["query"].numpy(), np.asarray(g_j["query"]),
@@ -164,6 +168,25 @@ def test_head_step_matches_jax(head_bias):
                                    np.asarray(g_j["head"][k]), atol=1e-5)
     assert dkv_t is None
     assert set(info_t) == set(info_j)
+
+
+@pytest.mark.parametrize("head_bias", [True, False])
+def test_head_step_matches_jax(head_bias):
+    x = _inputs(20, head=True, head_bias=head_bias)
+    _assert_head_step_close(*_head_step_both(x, head_bias))
+
+
+# Widths that are not multiples of the step GEMMs' tiles (128 rows, 64 or
+# 128 columns, k-depth 16): the kernels mask the ragged edges on the card,
+# and the plain version must agree with JAX there too.
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("width", [36, 132])
+def test_step_matches_jax_at_ragged_widths(width, head):
+    x = _inputs(70 + width + head, B=130, head=head, E=width)
+    if head:
+        _assert_head_step_close(*_head_step_both(x, True))
+    else:
+        _assert_step_close(*_run_both(x), kv_grad=False, E=width)
 
 
 def test_training_info_contract_and_q1():
@@ -236,7 +259,7 @@ def test_non_cpu_tensors_launch_or_raise():
 def test_gates_and_plain_is_the_cpu_path():
     assert supports_fused_step(1, 512) and supports_fused_step(1, 1024)
     assert not supports_fused_step(2, 512) and not supports_fused_step(1, 2048)
-    assert step_tile(4096, 3, 512) == 16
+    assert step_tile(4096, 3, 512) == 128  # the GEMMs' block tile rows
     x = _inputs(60, B=20)
     kv = x["tkv"]
     u, c = torch.randn(E), torch.randn(1)
