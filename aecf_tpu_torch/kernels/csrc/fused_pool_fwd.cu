@@ -145,79 +145,6 @@ __global__ void query_f32_kernel(FusedParams p, float* __restrict__ dst,
                     : static_cast<const float*>(p.q)[off];
 }
 
-// Every head's scores s_h[m] = (kv[m] . u_h + c_h) + pad[m] and softmax over
-// M, the heads in passes of kMaxH, into a_row (H x M, shared), and the head
-// mean w = (sum_h a_h) (1 / H): row_softmax_heads with the kv row read four
-// features a lane a pass (float4; the scalar reads of row_softmax left the
-// row kernel at three times its bytes' time at B = 8192, E = 1024).
-template <typename T>
-__device__ __forceinline__ void row_softmax_heads4(
-    const KvRow<T>& kvr, const float* __restrict__ u,
-    const float* __restrict__ c, const float* pad_row, int M, int E, int H,
-    float* a_row, float w[kMaxM]) {
-  const int lane = threadIdx.x & 31;
-  for (int h0 = 0; h0 < H; h0 += kMaxH) {
-    const int nh = min(kMaxH, H - h0);
-    float s[kMaxH][kMaxM];
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h)
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) s[h][m] = 0.f;
-    for (int j = 4 * lane; j < E; j += 128) {
-      float4 uh[kMaxH];
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h)
-        uh[h] = h < nh ? load4(u + (size_t)(h0 + h) * E + j)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float4 x = kvr.at4(m, j);
-#pragma unroll
-          for (int h = 0; h < kMaxH; ++h) s[h][m] = dot4(x, uh[h], s[h][m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      if (h >= nh) break;
-      float smax = -INFINITY;
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float bias = pad_row != nullptr ? pad_row[m] : 0.f;
-          s[h][m] = (warp_sum(s[h][m]) + c[h0 + h]) + bias;
-          smax = fmaxf(smax, s[h][m]);
-        }
-      }
-      float denom = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          s[h][m] = expf(s[h][m] - smax);
-          denom += s[h][m];
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int m = 0; m < kMaxM; ++m)
-          if (m < M) a_row[(h0 + h) * M + m] = s[h][m] / denom;
-      }
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) {
-    float t = 0.f;
-    if (m < M)
-      for (int h = 0; h < H; ++h) t += a_row[h * M + m];
-    w[m] = t;
-  }
-  const float inv_h = 1.0f / (float)H;
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) w[m] *= inv_h;
-}
-
 // R: a warp a row.  Shared memory: per warp the heads' weights (H x M) and
 // offsets c_h (H).  Two blocks an SM: at three (80 registers) the bf16
 // eval instance spilled.

@@ -1,10 +1,11 @@
-// Shared-query fusion-pool backward, H == 1, for Hopper (sm_90a).
+// Shared-query fusion-pool backward, H == 1, for Hopper (sm_90a): a chain
+// of kernels behind the one aecf_shared_query_bwd call.
 //
 // Replaces aecf_tpu/kernels/shared_query.py::_bwd_kernel (launched by
 // _bwd_pallas), f32/bf16 features and its quantized=True branch (int8
 // features with per-(row, modality) scales, read through KvRow; frozen,
 // so no d_kv): the two-pass training step's backward.  Per batch row b,
-// with u (E), c and W_vo = Wo Wv computed outside the kernel:
+// with u (E), c and W_vo = Wo Wv computed outside the chain:
 //
 //   recompute  a = softmax_m(kv[b, m] . u + c + pad[b, m]);  mix = sum a kv
 //   d_mix    = d_out W_vo                        (out = mix W_vo^T + b)
@@ -17,21 +18,32 @@
 // torch (_g_epilogue, _query_path_grads), as the JAX package leaves them
 // to XLA.
 //
-// What bounds it on the H100: at the north-star shape (B = 4096, E = 512)
-// the two per-row GEMMs (d_mix, and G) are 2 B E^2 FMAs on the SIMT
-// pipes; the kv stream (B M E) is read twice (scores, then d_a and du),
-// the second time mostly from L2.  The TPU kernel adds G into one VMEM
-// block across its sequential grid; blocks on the GPU run in parallel, so
-// the row kernel writes mix (B x E) to a workspace and one row of partial
-// sums per 16-row block, and the reductions of pool_common.cuh finish G
-// (gemm_tn over the batch) and the small sums (colsum) in a fixed order:
-// no atomics, and a run is bit for bit repeatable.  Padded rows (>= B)
-// write nothing and add nothing.  Tensor cores are later work.  int8
-// features change the bytes, not the operations: 3.990 ms against 4.105
-// ms for f32 at B = 8192, M = 4, E = 1024, no d_kv (bound 0.517 ms, by
-// operations; H100 SXM, 700 W).
+// What bounds it on the H100: the two E x E products over the batch
+// (d_mix and G, 4 B E^2 operations) on the SIMT f32 pipes; the kv stream
+// (B M E) is read twice, by R1 and by R2.  It is the one-pass step's chain
+// (train_step.cu) without the loss, with the same row kernels
+// (pool_rows.cuh) and products (gemm_f32.cuh):
+//
+//   R1  a warp a row: the softmax recomputed (row_softmax, as the forward)
+//       a -> ws.a and mix -> ws.mix; JAX's recompute, nothing saved from
+//       the forward
+//   G2  d_mix = d_out W_vo, W_vo read k-major as stored
+//   R2  a warp a row: d_a with the weights' cotangent d_w, d_s, optional
+//       d_kv; one row of partial sums a block of eight rows: du | sum d_out
+//       | sum d_s
+//   G3  G = d_out^T mix: transposed A, split over the batch, the splits
+//       summed in order
+//   part_sum  the partial rows into du | sum d_out | sum d_s.
+//
+// Widths: any E (E <= 1024 at the wrapper, the gate's cap): the workspace
+// rows are E4 = 4 ceil(E / 4) floats apart, and at E % 4 != 0 d_out and
+// W_vo are first copied to rows of E4 floats (pad_rows), for the GEMM's
+// 16-byte chunks.  Rows past B write nothing and add nothing.  int8
+// changes only R1 and R2, so the int8 backward equals the f32 backward on
+// q.float() * s bit for bit.  No atomics: a run is bit for bit repeatable.
 
-#include "pool_common.cuh"
+#include "gemm_f32.cuh"
+#include "pool_rows.cuh"
 
 using namespace aecf;
 
@@ -54,82 +66,133 @@ struct BwdParams {
 
 namespace {
 
-template <typename T>
-AECF_ROW_KERNEL(2) bwd_rows_kernel(BwdParams p, float* __restrict__ mix_ws,
-                    float* __restrict__ part) {
-  extern __shared__ float smem[];
-  const int E = p.E;
-  const int M = p.M;
-  const int B = p.B;
-  float* bufA = smem;                     // kRows x E: mix, then d_mix
-  float* bufB = bufA + kRows * E;         // kRows x E: d_out
-  float* a_s = bufB + kRows * E;          // kRows x M
-  float* ds_s = a_s + kRows * kMaxM;      // kRows x kMaxM
-  float* wt = ds_s + kRows * kMaxM;       // kStageFloats
+struct Workspace {
+  float* a;     // B x kMaxM (B x M used): the softmax weights
+  float* mix;   // B x E4
+  float* dmix;  // B x E4
+  float* dout;  // B x E4: d_out in rows of E4 (E % 4 != 0)
+  float* wvo;   // E x E4: W_vo in rows of E4 (E % 4 != 0)
+  float* part;  // warp_blocks(B) x (2E + 1): R2's partial rows
+  float* scr;   // split partials, the larger of G2's and G3's
+};
 
-  const T* kv = static_cast<const T*>(p.kv);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
+constexpr int kPieces = 7;
 
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= B) {
-      for (int e = lane; e < E; e += 32) bufB[r * E + e] = 0.f;
-      continue;
-    }
-    float a[kMaxH][kMaxM];
-    float w[kMaxM];
-    row_softmax(KvRow<T>(kv, p.scales, gr, M, E), p.u, p.c,
-                p.pad != nullptr ? p.pad + (size_t)gr * M : nullptr, M, E, 1,
-                a, w);
-    if (lane == 0) {
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) a_s[r * M + m] = a[0][m];
-    }
-    for (int e = lane; e < E; e += 32)
-      bufB[r * E + e] = p.dout[(size_t)gr * E + e];
+void workspace_sizes(int B, int E, size_t n[kPieces]) {
+  const size_t E4 = align4(E);
+  const bool ragged = E % 4 != 0;
+  const size_t g2 = gemm::gemm_scratch_floats(B, E, E, 1, true, true);
+  const size_t g3 = gemm::gemm_scratch_floats(E, E, B, 1, true, true);
+  n[0] = (size_t)B * kMaxM;
+  n[1] = B * E4;
+  n[2] = B * E4;
+  n[3] = ragged ? B * E4 : 0;
+  n[4] = ragged ? E * E4 : 0;
+  n[5] = (size_t)warp_blocks(B) * part_cols(E, 0, false);
+  n[6] = g2 > g3 ? g2 : g3;
+  for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
+}
+
+Workspace carve(float* ws, int B, int E) {
+  size_t n[kPieces];
+  workspace_sizes(B, E, n);
+  float* at[kPieces];
+  for (int i = 0; i < kPieces; ++i) {
+    at[i] = ws;
+    ws += n[i];
   }
-  __syncthreads();
-  build_mix(kv, p.scales, a_s, bufA, mix_ws, row0, B, M, E, 1, 0);
-  __syncthreads();
-  // d_mix[r, k] = sum_n d_out[r, n] W_vo[n, k]: W(k, n) read k-major
-  gemm_rows_wide(bufB, E, E, p.wvo, E, nullptr, E, wt, bufA, E, kRows);
-  __syncthreads();
-  softmax_bwd_rows(kv, p.scales, p.u, bufA, a_s, p.dw, ds_s,
-                   static_cast<T*>(p.dkv), row0, B, M, E);
-  __syncthreads();
-  block_partials(kv, p.scales, ds_s, bufB,
-                 part + (size_t)blockIdx.x * (2 * E + 1), row0, B, M, E);
-}
-
-size_t smem_bytes(int E) {
-  return sizeof(float) *
-         ((size_t)2 * kRows * E + 2 * kRows * kMaxM + kStageFloats);
-}
-
-// Workspace carve: mix (B x E) | partials (blocks x (2E + 1)) | G splits.
-size_t workspace_floats(int B, int E) {
-  return (size_t)B * E + (size_t)row_blocks(B) * (2 * E + 1) +
-         gemm_tn_scratch(E, E, B);
+  return Workspace{at[0], at[1], at[2], at[3], at[4], at[5], at[6]};
 }
 
 template <typename T>
-cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.E);
-  cudaError_t err = allow_smem(bwd_rows_kernel<T>, smem);
+cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
+  const int B = p.B;
+  const int E = p.E;
+  const int E4 = align4(E);
+  const Workspace ws = carve(p.ws, B, E);
+  cudaError_t err;
+
+  // the GEMM operands d_out and W_vo: rows of E4 floats
+  const float* dout = p.dout;
+  const float* wvo = p.wvo;
+  if (E % 4 != 0) {
+    if ((err = pad_rows(p.dout, B, E, E4, ws.dout, stream)) != cudaSuccess)
+      return err;
+    if ((err = pad_rows(p.wvo, E, E, E4, ws.wvo, stream)) != cudaSuccess)
+      return err;
+    dout = ws.dout;
+    wvo = ws.wvo;
+  }
+
+  // R1: a and mix, no side outputs
+  FwdRows r1{};
+  r1.kv = p.kv;
+  r1.scales = p.scales;
+  r1.u = p.u;
+  r1.c = p.c;
+  r1.pad = p.pad;
+  r1.a = ws.a;
+  r1.mix = ws.mix;
+  r1.B = B;
+  r1.M = p.M;
+  r1.E = E;
+  r1.H = 1;
+  r1.ld = E4;
+  r1.vec = vec;
+  rows_fwd_kernel<T, false, 1>
+      <<<warp_blocks(B), kThreads, 0, stream>>>(r1, MaskParams{});
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // G2: d_mix[b, k] = sum_n d_out[b, n] W_vo[n, k]: W_vo k-major
+  gemm::GemmArgs g2{};
+  g2.A = dout;
+  g2.lda = E4;
+  g2.W = wvo;
+  g2.ldw = E4;
+  g2.C = ws.dmix;
+  g2.ldc = E4;
+  g2.rows = B;
+  g2.N = E;
+  g2.K = E;
+  g2.groups = 1;
+  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, ws.scr, stream);
   if (err != cudaSuccess) return err;
-  const int blocks = row_blocks(p.B);
-  float* mix_ws = p.ws;
-  float* part = mix_ws + (size_t)p.B * p.E;
-  float* gscratch = part + (size_t)blocks * (2 * p.E + 1);
-  bwd_rows_kernel<T><<<blocks, kThreads, smem, stream>>>(p, mix_ws, part);
-  err = cudaGetLastError();
+
+  // R2 with the weights' cotangent
+  BwdRows r2{};
+  r2.kv = p.kv;
+  r2.scales = p.scales;
+  r2.u = p.u;
+  r2.a = ws.a;
+  r2.dmix = ws.dmix;
+  r2.dout = dout;
+  r2.dw = p.dw;
+  r2.dkv = p.dkv;
+  r2.part = ws.part;
+  r2.B = B;
+  r2.M = p.M;
+  r2.E = E;
+  r2.ld = E4;
+  r2.vec = vec;
+  rows_bwd_kernel<T, false><<<warp_blocks(B), kThreads, 0, stream>>>(r2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // G3: G[i, j] = sum_b d_out[b, i] mix[b, j] (A transposed, K = B)
+  gemm::GemmArgs g3{};
+  g3.A = dout;
+  g3.lda = E4;
+  g3.W = ws.mix;
+  g3.ldw = E4;
+  g3.C = p.g;
+  g3.ldc = E;
+  g3.rows = E;
+  g3.N = E;
+  g3.K = B;
+  g3.groups = 1;
+  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, ws.scr, stream);
   if (err != cudaSuccess) return err;
-  gemm_tn(p.dout, mix_ws, p.g, gscratch, p.E, p.E, p.B, stream);
-  colsum(part, blocks, 2 * p.E + 1, p.sums, stream);
-  return cudaGetLastError();
+  return part_sum(ws.part, warp_blocks(B), part_cols(E, 0, false), p.sums,
+                  stream);
 }
 
 }  // namespace
@@ -138,22 +201,36 @@ extern "C" {
 
 // Floats of workspace aecf_shared_query_bwd needs for (B, E).
 size_t aecf_shared_query_bwd_workspace(int B, int E) {
-  return workspace_floats(B, E);
+  size_t n[kPieces];
+  workspace_sizes(B, E, n);
+  size_t total = 0;
+  for (int i = 0; i < kPieces; ++i) total += n[i];
+  return total;
 }
 
 // Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
-// contiguous device buffers as listed in BwdParams; int8 needs scales and
-// takes no dkv.
+// contiguous device buffers as listed in BwdParams, dout, wvo and ws 16-byte
+// aligned; int8 needs scales and takes no dkv.
 int aecf_shared_query_bwd(const BwdParams* p, void* stream) {
-  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 || p->E % 4 != 0 ||
-      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr))) {
+  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 ||
+      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
+      !gemm::aligned16(p->dout) || !gemm::aligned16(p->wvo) ||
+      !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
+  // the four-feature accesses of kv, u and d_kv (16 bytes f32, 8 bf16, 4
+  // int8)
+  const uintptr_t size =
+      p->kv_dtype == kKvF32 ? 16 : p->kv_dtype == kKvBf16 ? 8 : 4;
+  const int vec = p->E % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(p->kv) % size == 0 &&
+                  reinterpret_cast<uintptr_t>(p->dkv) % size == 0 &&
+                  gemm::aligned16(p->u);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p->kv_dtype) {
-    case kKvF32: return (int)launch<float>(*p, s);
-    case kKvBf16: return (int)launch<__nv_bfloat16>(*p, s);
-    case kKvInt8: return (int)launch<int8_t>(*p, s);
+    case kKvF32: return (int)launch<float>(*p, vec, s);
+    case kKvBf16: return (int)launch<__nv_bfloat16>(*p, vec, s);
+    case kKvInt8: return (int)launch<int8_t>(*p, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

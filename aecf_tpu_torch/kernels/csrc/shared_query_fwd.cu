@@ -1,11 +1,12 @@
-// Shared-query fusion-pool forward (eval and training) for Hopper (sm_90a).
+// Shared-query fusion-pool forward (eval and training) for Hopper
+// (sm_90a): a chain of kernels behind the one aecf_shared_query_fwd call.
 //
 // Replaces aecf_tpu/kernels/shared_query.py::_shared_kernel (f32/bf16
 // features) and ::_shared_kernel_q8 (int8 features with per-(row,
 // modality) f32 scales, dequantized per element by KvRow): _shared_body
 // -> _weights_entropy_mask (with the training branch, _mask_and_renorm),
 // then the context GEMM.  Per batch row b, with the per-call vectors u
-// (H, E), c (H,) and the fused context weights computed outside the kernel:
+// (H, E), c (H,) and the fused context weights computed outside the chain:
 //
 //   s_h[m]  = kv[b, m] . u_h + c_h + pad[b, m]        (pad: 0 or -1e30)
 //   a_h     = softmax_m(s_h)
@@ -17,193 +18,247 @@
 //   H == 1: out = mix_0 W_vo^T + b_ctx            (W_vo = Wo Wv)
 //   H  > 1: ctx = concat_h(mix_h Wv_h^T) + bv;  out = ctx Wo^T + bo
 //
-// What bounds it on the H100: bytes.  Each block reads its kv tile
-// (kRows x M x E) and, for the context GEMM, a kCols-wide slice of W_vo
-// (E x kCols floats) from L2; the arithmetic is B x E^2 FMAs, far below
-// the SIMT rate at serving batch sizes.  The design keeps every
-// intermediate (scores, softmax, mix) on chip: one block takes kRows rows
-// and, for H == 1, one kCols-wide tile of output columns, so a bucket of
-// 32 rows at E = 512 still launches 16 blocks.  The mix tile lives in
-// dynamic shared memory; the GEMM is a plain SIMT f32 loop over k-chunks
-// of W staged through shared memory.  The tail rows of a ragged batch are
-// masked here; nothing is padded on the host.  Only the blockIdx.y == 0
-// blocks of a row tile write the side outputs and make the draw.  wgmma
-// and TMA are for later work on this kernel.
+// What bounds it on the H100: the context products, 2 B E^2 operations at
+// H == 1 and 4 B E^2 at H > 1 on the SIMT f32 pipes (IEEE f32, which the
+// tensor cores cannot give), and at small B the kv stream and the weights'
+// bytes.  A kernel that runs those products 16 batch rows a block loads
+// each weight for 16 FMAs and, split over column tiles, reads the row chain
+// again for every tile.  The chain runs the row-local phases once, a warp a
+// row, and the products over the whole batch in gemm_f32.cuh (128-row
+// tiles, a 3-stage cp.async ring, the weights read as stored, split K where
+// the tiles leave SMs idle); nothing stays resident in shared memory:
 //
-// Measured on an H100 SXM (700 W), eval: 0.041-0.042 ms at B = 32 and
-// B = 256 (M = 2, E = 512, H = 1), flat in B, so it does not reach the
-// byte bound yet: each block walks the k-chunks of W serially, with a
-// global load and two barriers per chunk, and up to B = 256 there are
-// fewer blocks (128) than SMs (132).
+//   R   a warp a row (pool_rows.cuh rows_fwd_kernel): scores, softmax (the
+//       one-pass step's row_softmax up to two heads: the same masks bit for
+//       bit; row_softmax_heads[4] above), head mean, entropy, the eval
+//       passthrough or the training mask, MIX[b, h, :] = sum_m a_h[m] kv[b,
+//       m] with the unmasked a_h
+//   H == 1:  G1  out = MIX W_vo^T + b_ctx
+//   H  > 1:  G2  CTX[:, h Dh:(h+1) Dh] = MIX[:, h, :] Wv_h^T + bv_h, a
+//                grouped GEMM over the heads (N = Dh)
+//            G3  out = CTX Wo^T + bo
 //
-// Heads: any H dividing E (E <= 1024), as the TPU kernel when forced.  Up
-// to kMaxH = 2 heads the scores live in one register array a[kMaxH][kMaxM]
-// (the eval instance runs at 64 registers, no spill); above it,
-// row_softmax_heads takes the heads in passes of two, re-reading the warp's
-// kv row from L1 once a pass, and keeps every head's weights in a_s
-// (kRows x H x M floats, sized by the call); these are instances of their
-// own (kManyHeads), which leaves the H <= 2 instances' code and registers
-// as they were.  The H > 1 epilogue then runs one head at a time: mix_h,
-// its Dh = E / H columns of ctx, and after the last head the output GEMM —
-// 2 B E^2 FMAs whatever H.  Measured at the medical model's pool (B = 4096,
-// M = 3, E = 512, H = 8, eval): 0.63 ms, against 0.80 ms for the torch
-// route and a 0.067 ms bound (operations; H100 SXM, 700 W).
-//
-// int8 features (the _shared_kernel_q8 instance): every column block of a
-// row tile reads the tile's kv again for the scores and the mix (E / 64
-// times, mostly from L2), so the quarter-size int8 rows show even in this
-// GEMM-heavy kernel: 2.865 ms against 4.074 ms for f32 features holding
-// the same dequantized values, at B = 8192, M = 4, E = 1024, H = 1, eval
-// (bound 0.258 ms, by operations; H100 SXM, 700 W).
+// Widths: any H dividing E (E <= 1024 at the wrapper, the gate's cap), any
+// E: MIX and CTX rows are E4 = 4 ceil(E / 4) floats apart in the workspace,
+// and at E % 4 != 0 the (E, E) weights are first copied to rows of E4
+// floats (pad_rows), for the GEMM's 16-byte chunks.  Rows past B are masked
+// in the kernels; nothing is padded on the host.  int8 changes only R, so
+// the int8 forward equals the f32 forward on q.float() * s bit for bit.  No
+// atomics: a run is bit for bit repeatable.
 //
 // Numerics: full f32 FMAs for every precision mode.  Entropy uses logf on
 // max(w, 1e-38) — a subnormal floor — so this file must be built without
 // --use_fast_math and without -ftz=true.
 
-#include "pool_common.cuh"
+#include "gemm_f32.cuh"
+#include "pool_rows.cuh"
 
 using namespace aecf;
 
 namespace {
 
-// kManyHeads: H > kMaxH, the scores in passes (its own instance, so the
-// H <= 2 instances compile as before: 64 registers, no spill).
-template <typename T, bool kTraining, bool kManyHeads>
-AECF_ROW_KERNEL(4) shared_query_fwd_kernel(
-    const T* __restrict__ kv, const float* __restrict__ scales,
-    const float* __restrict__ u,
-    const float* __restrict__ c, const float* __restrict__ pad,
-    const float* __restrict__ wctx, const float* __restrict__ wo,
-    const float* __restrict__ bctx, const float* __restrict__ bo,
-    float* __restrict__ out, float* __restrict__ w_out,
-    float* __restrict__ mw_out, float* __restrict__ ent_out,
-    float* __restrict__ rate_out, int B, int M, int E, int H,
-    MaskParams mp) {
-  extern __shared__ float smem[];
-  float* mix = smem;                                   // kRows x E
-  float* ctx = mix + kRows * E;                        // kRows x E (H > 1)
-  float* a_s = ctx + (H > 1 ? kRows * E : 0);          // kRows x H x M
-  float* wt = a_s + (kManyHeads ? align4(kRows * H * M)  // kChunk x kWtStride
-                                : kRows * kMaxH * kMaxM);
+struct FwdCall {
+  const void* kv;
+  const float* scales;
+  const float* u;
+  const float* c;
+  const float* pad;
+  const float* wctx;  // W_vo (H == 1) or Wv (H > 1), (E, E)
+  const float* wo;    // (E, E), H > 1
+  const float* bctx;  // b_ctx (H == 1) or bv (H > 1), (E,)
+  const float* bo;    // (E,), H > 1
+  float* out;
+  float* w;
+  float* mw;
+  float* ent;
+  float* rate;
+  float* ws;
+  int B, M, E, H;
+};
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, B - row0);
+struct Workspace {
+  float* mix;      // B x H x E4
+  float* ctx;      // B x E4 (H > 1)
+  float* a;        // B x H x M: the heads' weights (H > kMaxH)
+  float* wctx;     // E x E4: wctx in rows of E4 (E % 4 != 0)
+  float* wo;       // E x E4: wo in rows of E4 (E % 4 != 0, H > 1)
+  float* scratch;  // split partials, the larger of the products'
+};
 
-  // ---- scores -> softmax -> head mean -> entropy -> mask: a warp a row --
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= B) continue;  // warp-uniform
-    float w[kMaxM];
-    if constexpr (!kManyHeads) {
-      float a[kMaxH][kMaxM];
-      row_softmax(KvRow<T>(kv, scales, gr, M, E), u, c,
-                  pad != nullptr ? pad + (size_t)gr * M : nullptr, M, E, H, a,
-                  w);
-      if (lane == 0) {
-#pragma unroll
-        for (int h = 0; h < kMaxH; ++h)
-#pragma unroll
-          for (int m = 0; m < kMaxM; ++m)
-            if (h < H && m < M) a_s[(r * H + h) * M + m] = a[h][m];
-      }
-    } else {
-      row_softmax_heads(KvRow<T>(kv, scales, gr, M, E), u, c,
-                        pad != nullptr ? pad + (size_t)gr * M : nullptr, M, E,
-                        H, a_s + r * H * M, w);
-    }
-    if (blockIdx.y == 0)
-      row_side_outputs<kTraining>(w, gr, M, mp, w_out, mw_out, ent_out,
-                                  rate_out);
-  }
-  __syncthreads();
+constexpr int kPieces = 6;
 
-  // ---- mix -> context GEMM(s) (quirk Q1: unmasked per-head attention) ----
-  if (H == 1) {
-    build_mix(kv, scales, a_s, mix, (float*)nullptr, row0, B, M, E, H, 0);
-    __syncthreads();
-    const int n0 = blockIdx.y * kCols;
-    gemm_rows<false>(mix, E, E, wctx, E, bctx, n0, min(E, n0 + kCols), wt,
-                     out + (size_t)row0 * E, E, rows_valid);
-    return;
-  }
-  const int Dh = E / H;
-  for (int h = 0; h < H; ++h) {
-    build_mix(kv, scales, a_s, mix, (float*)nullptr, row0, B, M, E, H, h);
-    __syncthreads();
-    // Rows h*Dh.. of Wv are head h's value projection.
-    gemm_rows<false>(mix, E, E, wctx, E, bctx, h * Dh, (h + 1) * Dh, wt, ctx,
-                     E, kRows);
-    __syncthreads();
-  }
-  gemm_rows<false>(ctx, E, E, wo, E, bo, 0, E, wt, out + (size_t)row0 * E, E,
-                   rows_valid);
+size_t scratch_floats(int B, int E, int H) {
+  const size_t out = gemm::gemm_scratch_floats(B, E, E, 1, false, true);
+  const size_t ctx =
+      H > 1 ? gemm::gemm_scratch_floats(B, E / H, E, H, false, true) : 0;
+  return out > ctx ? out : ctx;
 }
 
-// mix (and ctx for H > 1), a_s (kRows x kMaxH x kMaxM floats, or sized by
-// the call's H and M above two heads), the staging tile: 73 KB at E = 1024,
-// H = 1; 137-141 KB at E = 1024, H > 1.
-size_t smem_bytes(int E, int H, int M) {
-  return sizeof(float) * ((size_t)kRows * E * (H > 1 ? 2 : 1) +
-                          align4(kRows * max(H * M, kMaxH * kMaxM)) +
-                          kChunk * kWtStride);
+// Floats of each workspace piece, in carve order, each rounded up to 64
+// (256-byte aligned starts).
+void workspace_sizes(int B, int M, int E, int H, size_t n[kPieces]) {
+  const size_t E4 = align4(E);
+  const bool ragged = E % 4 != 0;
+  n[0] = (size_t)B * H * E4;
+  n[1] = H > 1 ? (size_t)B * E4 : 0;
+  n[2] = H > kMaxH ? (size_t)B * H * M : 0;
+  n[3] = ragged ? E * E4 : 0;
+  n[4] = ragged && H > 1 ? E * E4 : 0;
+  n[5] = scratch_floats(B, E, H);
+  for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
-template <typename T, bool kTraining, bool kManyHeads>
-cudaError_t launch_heads(const void* kv, const float* scales, const float* u,
-                         const float* c, const float* pad, const float* wctx,
-                         const float* wo, const float* bctx, const float* bo,
-                         float* out, float* w, float* mw, float* ent,
-                         float* rate, int B, int M, int E, int H,
-                         const MaskParams& mp, cudaStream_t stream) {
-  const auto kernel = shared_query_fwd_kernel<T, kTraining, kManyHeads>;
-  const size_t smem = smem_bytes(E, H, M);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  // H > 1 keeps every output column in one block: its second GEMM needs
-  // the block's whole ctx tile, which a column split would recompute.
-  const dim3 grid(row_blocks(B), H == 1 ? (E + kCols - 1) / kCols : 1);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(kv), scales, u, c, pad, wctx, wo, bctx, bo, out,
-      w, mw, ent, rate, B, M, E, H, mp);
-  return cudaGetLastError();
+Workspace carve(float* ws, int B, int M, int E, int H) {
+  size_t n[kPieces];
+  workspace_sizes(B, M, E, H, n);
+  float* at[kPieces];
+  for (int i = 0; i < kPieces; ++i) {
+    at[i] = ws;
+    ws += n[i];
+  }
+  return Workspace{at[0], at[1], at[2], at[3], at[4], at[5]};
+}
+
+// Whether kv's rows take the four-feature accesses: E % 4 == 0 and kv
+// aligned to 16 (f32), 8 (bf16) or 4 (int8) bytes, u to 16.
+bool kv_vec(const void* kv, int kv_dtype, const float* u, int E) {
+  const uintptr_t size = kv_dtype == kKvF32 ? 16 : kv_dtype == kKvBf16 ? 8 : 4;
+  return E % 4 == 0 && reinterpret_cast<uintptr_t>(kv) % size == 0 &&
+         gemm::aligned16(u);
 }
 
 template <typename T, bool kTraining>
-cudaError_t launch(const void* kv, const float* scales, const float* u,
-                   const float* c,
-                   const float* pad, const float* wctx, const float* wo,
-                   const float* bctx, const float* bo, float* out, float* w,
-                   float* mw, float* ent, float* rate, int B, int M, int E,
-                   int H, const MaskParams& mp, cudaStream_t stream) {
-  return (H > kMaxH ? launch_heads<T, kTraining, true>
-                    : launch_heads<T, kTraining, false>)(
-      kv, scales, u, c, pad, wctx, wo, bctx, bo, out, w, mw, ent, rate, B, M,
-      E, H, mp, stream);
+cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
+                   cudaStream_t stream) {
+  const int B = p.B;
+  const int E = p.E;
+  const int H = p.H;
+  const int E4 = align4(E);
+  const Workspace ws = carve(p.ws, B, p.M, E, H);
+  cudaError_t err;
+
+  // the weights as GEMM operands: rows of E4 floats
+  const float* wctx = p.wctx;
+  const float* wo = p.wo;
+  if (E % 4 != 0) {
+    if ((err = pad_rows(p.wctx, E, E, E4, ws.wctx, stream)) != cudaSuccess)
+      return err;
+    wctx = ws.wctx;
+    if (H > 1) {
+      if ((err = pad_rows(p.wo, E, E, E4, ws.wo, stream)) != cudaSuccess)
+        return err;
+      wo = ws.wo;
+    }
+  }
+
+  // R
+  FwdRows r{};
+  r.kv = p.kv;
+  r.scales = p.scales;
+  r.u = p.u;
+  r.c = p.c;
+  r.pad = p.pad;
+  r.w = p.w;
+  r.mw = p.mw;
+  r.ent = p.ent;
+  r.rate = p.rate;
+  r.a = H > kMaxH ? ws.a : nullptr;
+  r.mix = ws.mix;
+  r.B = B;
+  r.M = p.M;
+  r.E = E;
+  r.H = H;
+  r.ld = E4;
+  r.vec = vec;
+  const auto rows = H == 1   ? rows_fwd_kernel<T, kTraining, 1>
+                    : H == 2 ? rows_fwd_kernel<T, kTraining, 2>
+                             : rows_fwd_kernel<T, kTraining, 0>;
+  rows<<<warp_blocks(B), kThreads, 0, stream>>>(r, mp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // out[b, n] = sum_k A[b, k] W[n, k] + bias[n]: W_vo and MIX (H == 1), or
+  // Wo and CTX (H > 1), W n-major
+  gemm::GemmArgs go{};
+  go.lda = E4;
+  go.ldw = E4;
+  go.C = p.out;
+  go.ldc = E;
+  go.rows = B;
+  go.N = E;
+  go.K = E;
+  go.groups = 1;
+  gemm::EpiAffine eo;
+  if (H == 1) {
+    go.A = ws.mix;
+    go.W = wctx;
+    eo.bias = p.bctx;
+    return gemm::gemm_f32<false, false>(go, eo, ws.scratch, stream);
+  }
+
+  // G2: CTX[b, h Dh + n] = sum_k MIX[b, h, k] Wv[h Dh + n, k] + bv[h Dh + n]
+  const int Dh = E / H;
+  gemm::GemmArgs gc{};
+  gc.A = ws.mix;
+  gc.lda = (long long)H * E4;
+  gc.a_gstride = E4;
+  gc.W = wctx;
+  gc.ldw = E4;
+  gc.w_gstride = (long long)Dh * E4;
+  gc.C = ws.ctx;
+  gc.ldc = E4;
+  gc.c_gstride = Dh;
+  gc.rows = B;
+  gc.N = Dh;
+  gc.K = E;
+  gc.groups = H;
+  gemm::EpiAffine ec;
+  ec.bias = p.bctx;
+  ec.bias_gstride = Dh;
+  if ((err = gemm::gemm_f32<false, false>(gc, ec, ws.scratch, stream)) !=
+      cudaSuccess)
+    return err;
+
+  // G3: out = CTX Wo^T + bo
+  go.A = ws.ctx;
+  go.W = wo;
+  eo.bias = p.bo;
+  return gemm::gemm_f32<false, false>(go, eo, ws.scratch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t; 0 means the launch was accepted.  kv is (B, M, E)
-// f32 (kv_dtype = 0), bf16 (1) or int8 (2, with scales (B, M) f32; scales
-// is read for int8 only); pad may be null (no padding); wo and bo are read
-// only when H > 1.  All other pointers are f32 device buffers of the
-// shapes in the header comment, contiguous.  training = 0 is the eval
-// branch (seed words, mask_prob and min_active unread).
+// Floats of workspace one call needs.
+size_t aecf_shared_query_fwd_workspace(int B, int M, int E, int H) {
+  size_t n[kPieces];
+  workspace_sizes(B, M, E, H, n);
+  size_t total = 0;
+  for (int i = 0; i < kPieces; ++i) total += n[i];
+  return total;
+}
+
+// Returns a cudaError_t; 0 means every launch was accepted.  kv is (B, M,
+// E) f32 (kv_dtype = 0), bf16 (1) or int8 (2, with scales (B, M) f32;
+// scales is read for int8 only); pad may be null (no padding); wo and bo
+// are read only when H > 1.  All other pointers are f32 device buffers of
+// the shapes in the header comment, contiguous; wctx, wo and ws 16-byte
+// aligned; ws holds aecf_shared_query_fwd_workspace(B, M, E, H) floats.
+// training = 0 is the eval branch (seed words, mask_prob and min_active
+// unread).
 int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           const float* u, const float* c, const float* pad,
-                          const float* wctx,
-                          const float* wo, const float* bctx, const float* bo,
-                          float* out, float* w, float* mw, float* ent,
-                          float* rate, int B, int M, int E, int H,
+                          const float* wctx, const float* wo,
+                          const float* bctx, const float* bo, float* out,
+                          float* w, float* mw, float* ent, float* rate,
+                          float* ws, int B, int M, int E, int H,
                           float max_entropy, int training, unsigned int seed0,
                           unsigned int seed1, float mask_prob, int min_active,
                           void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || E < 1 || E % H != 0 ||
-      (kv_dtype == kKvInt8 && scales == nullptr)) {
+      (kv_dtype == kKvInt8 && scales == nullptr) ||
+      (H > 1 && (wo == nullptr || bo == nullptr)) || !gemm::aligned16(wctx) ||
+      (H > 1 && !gemm::aligned16(wo)) || !gemm::aligned16(ws)) {
     return (int)cudaErrorInvalidValue;
   }
   MaskParams mp;
@@ -213,22 +268,21 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
+  const FwdCall p{kv, scales, u,  c,   pad,  wctx, wo, bctx, bo,
+                  out, w,     mw, ent, rate, ws,   B,  M,    E, H};
+  const int vec = kv_vec(kv, kv_dtype, u, E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // eval and training are separate instances (see row_side_outputs)
-  auto run = [&](auto launcher) {
-    return launcher(kv, scales, u, c, pad, wctx, wo, bctx, bo, out, w, mw,
-                    ent, rate, B, M, E, H, mp, s);
-  };
   switch (kv_dtype) {
     case kKvF32:
-      return (int)(training ? run(launch<float, true>)
-                            : run(launch<float, false>));
+      return (int)(training ? launch<float, true>(p, vec, mp, s)
+                            : launch<float, false>(p, vec, mp, s));
     case kKvBf16:
-      return (int)(training ? run(launch<__nv_bfloat16, true>)
-                            : run(launch<__nv_bfloat16, false>));
+      return (int)(training ? launch<__nv_bfloat16, true>(p, vec, mp, s)
+                            : launch<__nv_bfloat16, false>(p, vec, mp, s));
     case kKvInt8:
-      return (int)(training ? run(launch<int8_t, true>)
-                            : run(launch<int8_t, false>));
+      return (int)(training ? launch<int8_t, true>(p, vec, mp, s)
+                            : launch<int8_t, false>(p, vec, mp, s));
   }
   return (int)cudaErrorInvalidValue;
 }

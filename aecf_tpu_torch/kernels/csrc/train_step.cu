@@ -39,7 +39,7 @@
 //
 //   R1  a warp a row: scores, softmax, entropy, mask chain, side outputs
 //       (row_softmax, row_side_outputs: the training forward's masks, bit
-//       for bit); a -> ws.a, mix -> ws.mix
+//       for bit); a -> ws.a, mix -> ws.mix (pool_rows.cuh)
 //   G1  out = mix W_vo^T + b_ctx; quadratic loss: the epilogue stores
 //       d_out and a partial of sum out^2 per (row, column tile); head: out
 //   HD  (head only) a warp a row: logits, BCE, d_logits, the row loss,
@@ -48,7 +48,8 @@
 //   G2  d_mix = d_out W_vo
 //   R2  a warp a row: softmax backward and d_kv, then one row of partial
 //       sums a block of eight rows (du, sum d_out, sum d_s, the loss from
-//       the row partials, db_head)
+//       the row partials, db_head; pool_rows.cuh, with the backward's R1
+//       and R2 and the forward's R)
 //   G3  G = d_out^T mix and dW_head = out^T d_logits (transposed A, split
 //       over the batch, splits summed in order); then part_sum of the
 //       partial rows into du | sum d_out | sum d_s | loss | db_head.
@@ -63,7 +64,7 @@
 // (the entropy's subnormal floor).
 
 #include "gemm_f32.cuh"
-#include "pool_common.cuh"
+#include "pool_rows.cuh"
 
 using namespace aecf;
 using gemm::cdiv;
@@ -105,12 +106,11 @@ struct Workspace {
   float* sq;       // B x tiles: sum out^2 per (row, G1 column tile)
   float* lrow;     // B: row loss (head)
   float* dlogits;  // B x ldl (head)
-  float* part;     // cdiv(B, kWarps) x P: R2's partial rows
+  float* part;     // warp_blocks(B) x part_cols(E, C, true): R2's rows
   float* scr;      // split partials, the largest GEMM's (one at a time)
   int sq_ld;       // G1's column tiles
 };
 
-__host__ __device__ inline int part_width(int E, int C) { return 2 * E + 2 + C; }
 // Row stride of d_logits: a multiple of 4 floats, for G3's 16-byte loads.
 __host__ __device__ inline int logits_ld(int C) { return align4(C); }
 // Column tiles of G1 (the quadratic loss's partials a row).
@@ -147,7 +147,7 @@ void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
   n[5] = C > 0 ? 0 : (size_t)B * out_tiles(B, E);
   n[6] = B;
   n[7] = C > 0 ? (size_t)B * logits_ld(C) : 0;
-  n[8] = (size_t)cdiv(B, kWarps) * part_width(E, C);
+  n[8] = (size_t)warp_blocks(B) * part_cols(E, C, true);
   n[9] = scratch_floats(B, E, C);
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
@@ -181,40 +181,6 @@ MaskParams mask_params(const StepParams& p) {
   mp.seed0 = p.seed0;
   mp.seed1 = p.seed1;
   return mp;
-}
-
-// R1: a warp a row — the forward chain, the side outputs, a and mix.
-template <typename T>
-AECF_ROW_KERNEL(3) step_fwd_rows_kernel(StepParams p, Workspace ws,
-                                        MaskParams mp) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= p.B) return;  // warp-uniform
-  const int M = p.M;
-  const int E = p.E;
-  const KvRow<T> kvr(static_cast<const T*>(p.kv), p.scales, b, M, E);
-  float a[kMaxH][kMaxM];
-  float w[kMaxM];
-  row_softmax(kvr, p.u, p.c,
-              p.pad != nullptr ? p.pad + (size_t)b * M : nullptr, M, E, 1, a,
-              w);
-  if (lane == 0) {
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m)
-      if (m < M) ws.a[(size_t)b * M + m] = a[0][m];
-  }
-  row_side_outputs<true>(w, b, M, mp, p.w, p.mw, p.ent, p.rate);
-  // mix[e] = sum_m a[m] kv[m, e], four features a lane a pass
-  float* mix = ws.mix + (size_t)b * E;
-  for (int j = 4 * lane; j < E; j += 128) {
-    float4 acc = kvr.at4(0, j);
-    acc = make_float4(a[0][0] * acc.x, a[0][0] * acc.y, a[0][0] * acc.z,
-                      a[0][0] * acc.w);
-#pragma unroll
-    for (int m = 1; m < kMaxM; ++m)
-      if (m < M) acc = axpy4(a[0][m], kvr.at4(m, j), acc);
-    store4(mix + j, acc);
-  }
 }
 
 // HD (head only): a warp a row — logits = out W_head + b_head, BCE,
@@ -293,138 +259,6 @@ size_t head_smem_bytes(int E, int C) {
          ((head_staged(E, C) ? (size_t)E * C : 0) + (size_t)kWarps * C);
 }
 
-// R2: a warp a row (kWarps rows a block) — the softmax backward (and d_kv)
-// — then the block's row of partial sums: du | sum d_out | sum d_s | loss |
-// db_head, each column summed over the block's rows in order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    step_bwd_rows_kernel(StepParams p, Workspace ws) {
-  __shared__ float ds_s[kWarps * kMaxM];
-  const int E = p.E;
-  const int M = p.M;
-  const int B = p.B;
-  const int C = p.head_w != nullptr ? p.C : 0;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kWarps;
-  const int rows_valid = min(kWarps, B - row0);
-  const T* kv = static_cast<const T*>(p.kv);
-  const int b = row0 + warp;
-  if (b < B) {
-    // d_a[m] = d_mix . kv[m];  d_s = a (d_a - sum_m a d_a)
-    const KvRow<T> kvr(kv, p.scales, b, M, E);
-    const float* dmix = ws.dmix + (size_t)b * E;
-    float da[kMaxM];
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) da[m] = 0.f;
-    for (int j = 4 * lane; j < E; j += 128) {
-      const float4 dm = load4(dmix + j);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) da[m] = dot4(dm, kvr.at4(m, j), da[m]);
-    }
-    float a[kMaxM];
-    float dot = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      a[m] = 0.f;
-      if (m < M) {
-        da[m] = warp_sum(da[m]);
-        a[m] = ws.a[(size_t)b * M + m];
-        dot += a[m] * da[m];
-      }
-    }
-    float ds[kMaxM];
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      ds[m] = m < M ? a[m] * (da[m] - dot) : 0.f;
-      if (lane == 0) ds_s[warp * kMaxM + m] = ds[m];
-    }
-    if constexpr (!kQuantized<T>) {
-      if (p.dkv != nullptr) {  // d_kv[m] = a[m] d_mix + d_s[m] u
-        T* dkv = static_cast<T*>(p.dkv) + (size_t)b * M * E;
-        for (int j = 4 * lane; j < E; j += 128) {
-          const float4 dm = load4(dmix + j);
-          const float4 ue = load4(p.u + j);
-#pragma unroll
-          for (int m = 0; m < kMaxM; ++m)
-            if (m < M)
-              store4(dkv + (size_t)m * E + j,
-                     make_float4(a[m] * dm.x + ds[m] * ue.x,
-                                 a[m] * dm.y + ds[m] * ue.y,
-                                 a[m] * dm.z + ds[m] * ue.z,
-                                 a[m] * dm.w + ds[m] * ue.w));
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* part = ws.part + (size_t)blockIdx.x * part_width(E, C);
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    float du = 0.f;
-    float dsum = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < rows_valid; ++r) {
-      const KvRow<T> kvr(kv, p.scales, row0 + r, M, E);
-      for (int m = 0; m < M; ++m)
-        du = fmaf(ds_s[r * kMaxM + m], kvr.at(m, e), du);
-      dsum += ws.dout[(size_t)(row0 + r) * E + e];
-    }
-    part[e] = du;
-    part[E + e] = dsum;
-  }
-  if (threadIdx.x == 0) {
-    float sd = 0.f;
-    for (int r = 0; r < rows_valid; ++r)
-      for (int m = 0; m < M; ++m) sd += ds_s[r * kMaxM + m];
-    part[2 * E] = sd;
-    float s = 0.f;
-    if (C == 0) {
-      for (int r = 0; r < rows_valid; ++r) {
-        const float* sq = ws.sq + (size_t)(row0 + r) * ws.sq_ld;
-        float o2 = 0.f;
-        for (int t = 0; t < ws.sq_ld; ++t) o2 += sq[t];
-        s += o2 * p.inv;
-      }
-    } else {
-      for (int r = 0; r < rows_valid; ++r) s += ws.lrow[row0 + r];
-    }
-    part[2 * E + 1] = s;
-  }
-  const int ldl = logits_ld(C);
-  for (int j = threadIdx.x; j < C; j += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows_valid; ++r)
-      s += ws.dlogits[(size_t)(row0 + r) * ldl + j];
-    part[2 * E + 2 + j] = s;
-  }
-}
-
-// out[j] = sum_r part[r cols + j]: in a block, 16 row groups each sum rows
-// g, g + 16, ... in order, then the 16 group sums add in group order.
-constexpr int kSumCols = 16;
-constexpr int kSumGroups = kThreads / kSumCols;
-
-__global__ void __launch_bounds__(kThreads)
-    part_sum_kernel(const float* __restrict__ part, int rows, int cols,
-                    float* __restrict__ out) {
-  __shared__ float s[kSumGroups][kSumCols];
-  const int tx = threadIdx.x % kSumCols;
-  const int g = threadIdx.x / kSumCols;
-  const int j = blockIdx.x * kSumCols + tx;
-  float acc = 0.f;
-  if (j < cols)
-    for (int r = g; r < rows; r += kSumGroups)
-      acc += part[(size_t)r * cols + j];
-  s[g][tx] = acc;
-  __syncthreads();
-  if (g == 0 && j < cols) {
-    float t = s[0][tx];
-    for (int k = 1; k < kSumGroups; ++k) t += s[k][tx];
-    out[j] = t;
-  }
-}
-
 template <typename T>
 cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   const int B = p.B;
@@ -433,8 +267,27 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   const Workspace ws = carve(p.ws, B, E, C);
   cudaError_t err;
 
-  step_fwd_rows_kernel<T>
-      <<<cdiv(B, kWarps), kThreads, 0, stream>>>(p, ws, mask_params(p));
+  // R1 (the training instance: the forward's masks, bit for bit)
+  FwdRows r1{};
+  r1.kv = p.kv;
+  r1.scales = p.scales;
+  r1.u = p.u;
+  r1.c = p.c;
+  r1.pad = p.pad;
+  r1.w = p.w;
+  r1.mw = p.mw;
+  r1.ent = p.ent;
+  r1.rate = p.rate;
+  r1.a = ws.a;
+  r1.mix = ws.mix;
+  r1.B = B;
+  r1.M = p.M;
+  r1.E = E;
+  r1.H = 1;
+  r1.ld = E;
+  r1.vec = 1;
+  rows_fwd_kernel<T, true, 1>
+      <<<warp_blocks(B), kThreads, 0, stream>>>(r1, mask_params(p));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // G1: out[b, n] = sum_k mix[b, k] W_vo[n, k] (+ b_ctx): W_vo n-major
@@ -476,7 +329,29 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, ws.scr, stream);
   if (err != cudaSuccess) return err;
 
-  step_bwd_rows_kernel<T><<<cdiv(B, kWarps), kThreads, 0, stream>>>(p, ws);
+  // R2 with the loss partials
+  BwdRows r2{};
+  r2.kv = p.kv;
+  r2.scales = p.scales;
+  r2.u = p.u;
+  r2.a = ws.a;
+  r2.dmix = ws.dmix;
+  r2.dout = ws.dout;
+  r2.dkv = p.dkv;
+  r2.part = ws.part;
+  r2.B = B;
+  r2.M = p.M;
+  r2.E = E;
+  r2.ld = E;
+  r2.vec = 1;
+  r2.sq = ws.sq;
+  r2.lrow = ws.lrow;
+  r2.dlogits = ws.dlogits;
+  r2.sq_ld = ws.sq_ld;
+  r2.ldl = logits_ld(C);
+  r2.C = C;
+  r2.inv = p.inv;
+  rows_bwd_kernel<T, true><<<warp_blocks(B), kThreads, 0, stream>>>(r2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // G3: G[i, j] = sum_b d_out[b, i] mix[b, j] (A transposed, K = B)
@@ -505,10 +380,8 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
     err = gemm::gemm_f32<true, true>(gh, gemm::EpiAffine{}, ws.scr, stream);
     if (err != cudaSuccess) return err;
   }
-  const int P = part_width(E, C);
-  part_sum_kernel<<<cdiv(P, kSumCols), kThreads, 0, stream>>>(
-      ws.part, cdiv(B, kWarps), P, p.sums);
-  return cudaGetLastError();
+  return part_sum(ws.part, warp_blocks(B), part_cols(E, C, true), p.sums,
+                  stream);
 }
 
 }  // namespace

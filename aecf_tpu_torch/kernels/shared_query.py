@@ -18,14 +18,16 @@ algebraically:
 :func:`_prep` (the per-call GEMVs and the ``W_vo`` product) is plain
 PyTorch, as the JAX package leaves it to XLA.  Four kernels:
 
-* ``csrc/shared_query_fwd.cu`` behind :func:`shared_query_fwd` — scores,
-  softmax, head mean, entropy, the training mask chain (Philox draw,
-  ``min_active``, renormalisation; :mod:`.draws`), mix and the context
-  GEMM(s), with the ``(E, E)`` weights read by every block (E ≤ 1024);
+* ``csrc/shared_query_fwd.cu`` behind :func:`shared_query_fwd` — a chain:
+  a row kernel (scores, softmax, head mean, entropy, the training mask
+  chain — Philox draw, ``min_active``, renormalisation; :mod:`.draws` —
+  and the per-head mixes), then the context GEMM(s) over the whole batch
+  (``csrc/gemm_f32.cuh``), E ≤ 1024;
 * ``csrc/shared_query_bwd.cu`` behind :func:`shared_query_bwd` — the H == 1
-  backward of that forward (softmax recompute, ``d_mix = d_out·W_vo``,
-  softmax backward with a weights cotangent, G / du / Σd_out / Σd_s,
-  optional ``d_kv``);
+  backward of that forward, a chain on the same row kernels
+  (``csrc/pool_rows.cuh``, shared with the one-pass step) and GEMM:
+  softmax recompute, ``d_mix = d_out·W_vo``, softmax backward with a
+  weights cotangent, G / du / Σd_out / Σd_s, optional ``d_kv``;
 * ``csrc/stream_mix.cu`` behind :func:`stream_mix` — the streamed forward:
   the same chain, writing the per-head mixes ``(B, H·E)``; the context
   GEMMs run in cuBLAS (:func:`_context`), so no ``(E, E)`` matrix is in a
@@ -54,8 +56,10 @@ slots get a ``-1e30`` score bias (a fully padded row comes out uniform),
 where the oracle's ``-inf`` gives NaN.
 
 The resident forward takes any H dividing E (E ≤ 1024), as JAX's kernel
-does when forced: above H = 2 it takes the heads in passes of two
-(``row_softmax_heads`` in ``csrc/pool_common.cuh``), and its gradients
+does when forced, and its H == 1 backward any E ≤ 1024 (the chains'
+workspace rows run at a multiple of four floats): above H = 2 the row
+kernel takes the heads in passes of two (``row_softmax_heads`` in
+``csrc/pool_common.cuh``), and its gradients
 run through ``_bwd_heads`` in torch, as JAX's XLA backward.  ``'auto'``
 keeps H > 2 on the torch path (``prefers_fused``, the JAX package's rule)
 until the card's times at H > 2 (PERF.md §6) decide the gate, ROADMAP.md
@@ -89,9 +93,9 @@ __all__ = [
     "stream_mix_plain",
 ]
 
-# E cap of the resident kernels: their (kRows, E) mix tile — two of them
-# for H > 1 — lives in shared memory (140 KB at H=2, E=1024 of the 227 KB
-# a block may use).  Above it, H ≤ 2 takes the streamed split.
+# E cap of the resident chains, the JAX package's: no kernel of theirs
+# holds an E-sized tile, so what keeps it is the gate (ROADMAP.md queue 2,
+# item 7).  Above it, H ≤ 2 takes the streamed split.
 _RESIDENT_E_CAP = 1024
 # The streamed split's cap, the JAX package's (its kv tile floors at the
 # TPU's (8, 128) tile there); the CUDA kernels hold no E-sized tile.
@@ -372,6 +376,12 @@ def _require_cuda(kv, operands: Dict[str, Optional[torch.Tensor]]) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it that starts on 16 bytes: the chains' GEMMs
+    read their operands in 16-byte chunks."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _require_aligned(operands: Dict[str, Optional[torch.Tensor]]) -> None:
     """The streamed kernels access these four elements at a time: 16 bytes
     of f32, 8 of bf16."""
@@ -421,12 +431,13 @@ def shared_query_fwd(
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/shared_query_fwd.cu`` (``_shared_kernel``, and
     ``_shared_kernel_q8`` for int8 ``kv`` with ``kv_scales``); operands as
-    in :func:`shared_query_fwd_plain`.
+    in :func:`shared_query_fwd_plain`, any E ≤ 1024 that H divides.
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel or
-    raise — there is no fallback.  ``shared_query_fwd.launches`` counts
-    f32/bf16 launches and ``shared_query_fwd.launches_q8`` int8 ones (the
-    plain version does not count).  The outputs carry no autograd graph:
+    CPU tensors run the plain version.  CUDA tensors launch the kernel
+    chain or raise — there is no fallback.  ``shared_query_fwd.launches``
+    counts f32/bf16 calls and ``shared_query_fwd.launches_q8`` int8 ones,
+    one a call whatever the chain launches (the plain version does not
+    count).  The outputs carry no autograd graph:
     :func:`fused_fusion_pool_shared` is the differentiable entry.
     """
     _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales)
@@ -446,12 +457,16 @@ def shared_query_fwd(
     ent = torch.empty((B,), dtype=torch.float32, device=kv.device)
     rate = torch.empty_like(ent)
     lib = _fwd_library()
+    ws = torch.empty((lib.aecf_shared_query_fwd_workspace(B, M, E, H),),
+                     dtype=torch.float32, device=kv.device)
+    wctx, wo = _aligned16(wctx), _aligned16(wo)
     with torch.cuda.device(kv.device):
         err = lib.aecf_shared_query_fwd(
             _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales),
             _ptr(u), _ptr(c), _ptr(pad_bias), _ptr(wctx), _ptr(wo),
             _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
-            _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
+            _ptr(rate), _ptr(ws), B, M, E, H,
+            math.log(M) if M > 1 else 0.0,
             int(bool(training)), seed[0], seed[1], float(mask_prob),
             int(min_active),
             torch.cuda.current_stream(kv.device).cuda_stream,
@@ -501,7 +516,9 @@ def _fwd_argtypes(pointers: int):
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
     lib = load_library("shared_query_fwd")
-    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(12)
+    lib.aecf_shared_query_fwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.aecf_shared_query_fwd_workspace.restype = ctypes.c_size_t
+    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(13)
     lib.aecf_shared_query_fwd.restype = ctypes.c_int
     lib.aecf_philox4x32_10.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_void_p,
@@ -773,20 +790,22 @@ def shared_query_bwd(
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """Wrapper of ``csrc/shared_query_bwd.cu`` (``_bwd_kernel``, and its
     ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
-    and results as in :func:`shared_query_bwd_plain`.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise.
-    ``shared_query_bwd.launches`` counts f32/bf16 launches,
-    ``shared_query_bwd.launches_q8`` int8 ones."""
+    and results as in :func:`shared_query_bwd_plain`, every width the
+    forward takes at H == 1 (any E ≤ 1024).  Every limit is checked before
+    the dispatch: CPU tensors run the plain version; CUDA tensors launch
+    the kernel chain or raise.  ``shared_query_bwd.launches`` counts
+    f32/bf16 calls, ``shared_query_bwd.launches_q8`` int8 ones, one a
+    call."""
     if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
             f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
             f"{tuple(kv.shape)}"
         )
     B, M, E = kv.shape
-    if not 1 <= M <= _MAX_M or E > _RESIDENT_E_CAP:
+    if B < 1 or not 1 <= M <= _MAX_M or E > _RESIDENT_E_CAP:
         raise ValueError(
-            f"kernel takes 1 <= M <= {_MAX_M} and E <= {_RESIDENT_E_CAP}, "
-            f"got M={M}, E={E}"
+            f"kernel takes B >= 1, 1 <= M <= {_MAX_M} and E <= "
+            f"{_RESIDENT_E_CAP}, got B={B}, M={M}, E={E}"
         )
     _check_f32(kv, {
         "u": (u, (E,)), "c": (c, (1,)), "pad_bias": (pad_bias, (B, M)),
@@ -799,8 +818,7 @@ def shared_query_bwd(
                                       want_dkv=want_dkv, kv_scales=kv_scales)
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias, d_out=d_out, d_w=d_w, wvo=wvo))
-    if E % 4:
-        raise ValueError(f"the backward kernel takes E divisible by 4, got E={E}")
+    d_out, wvo = _aligned16(d_out), _aligned16(wvo)
     lib = _bwd_library()
     dev = kv.device
     d_kv = torch.empty_like(kv) if want_dkv else None

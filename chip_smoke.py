@@ -9,7 +9,8 @@ Run from the root of a checkout, on a machine with one CUDA card::
 phase 7.)  Phases (any failure raises and the exit code is not 0; every
 shared-query kernel check of phases 3 and 6 runs f32, bf16 and int8
 features — int8 from ``quantize_features``, each int8 case held to its
-plain version and to the f32 kernel on ``q.float() * s``):
+plain version and to the f32 kernel on ``q.float() * s``, bit for bit for
+the resident forward, backward and step):
 
 1. no CUDA device: stop before printing any result;
 2. the card (name, power limit) and the build of every CUDA kernel from
@@ -18,7 +19,11 @@ plain version and to the f32 kernel on ``q.float() * s``):
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its callers give it, with the tolerances stated below: the eval
    forward, the Philox generator's known answers, the training forward
-   (mask chain), the H=1 backward, the one-pass train step (also at widths
+   (mask chain), the H=1 backward (the forward and the backward chains
+   also at the ``SQ_EDGE`` widths — not multiples of their GEMMs' tiles,
+   not divisible by 4 — two calls on the same inputs equal bit for bit,
+   and gradients through ``fused_fusion_pool_shared`` at E=30 against the
+   same call on the CPU), the one-pass train step (also at widths
    that are not multiples of its GEMMs' tiles, and two calls on the same
    inputs equal bit for bit) and the per-row-query forward (eval and
    training, distinct and expanded query rows, ragged widths, then
@@ -77,7 +82,7 @@ plain version and to the f32 kernel on ``q.float() * s``):
 7. times (CUDA events) of each kernel and its plain version at the slice
    shapes (each int8 kernel beside the f32 kernel at its shape; the
    per-row forward also with distinct query rows; with the CUDA kernels one
-   call of the step and of the per-row forward launches), of one
+   call of each chain launches and their device time, ``_chain_line``), of one
    predictor call per bucket, samples/s of one training step, ms per
    Quick start module step, ``'auto'`` against ``'torch'``, samples/s of
    slice (f), ``'auto'`` against ``'torch'``, and of slice (l), int8
@@ -155,6 +160,19 @@ NS_B, NS_M, NS_E, NS_C = 4096, 3, 512, 14
 # shared memory (E C above 24576 floats).
 STEP_EDGE = ((260, [(300, 3), (129, 2)], NS_C), (36, [(130, 4)], NS_C),
              (1024, [(300, 3)], 40))
+# The shared-query chains' widths that are not multiples of their GEMMs'
+# tiles, and widths not divisible by 4 (workspace rows of a multiple of
+# four floats, the weights copied to them), each (E, H, its (B, M) rows):
+# the forward's and, at H = 1, the backward's.
+SQ_EDGE = (
+    (260, 1, [(300, 3), (129, 2)]),
+    (260, 2, [(300, 3)]),
+    (36, 1, [(130, 4)]),
+    (36, 3, [(130, 4)]),
+    (30, 1, [(300, 3)]),
+    (30, 2, [(300, 3)]),
+    (30, 3, [(300, 3)]),
+)
 # The per-row-query kernel's grid; the README Quick start at full width
 # (H=1); the repo's large configuration.
 FUSED_SHAPES = {
@@ -368,7 +386,7 @@ def check_kernel_vs_plain(torch, same, shapes=KERNEL_SHAPES) -> dict:
     rng = np.random.default_rng(1)
     worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
     cases = 0
-    for E, H, bms in _grid(shapes, HEAD_GRID):
+    for E, H, bms in _grid(shapes, HEAD_GRID + SQ_EDGE):
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
             math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
@@ -556,7 +574,7 @@ def check_training_forward(torch, same, shapes=TRAIN_SHAPES) -> dict:
     rng = np.random.default_rng(11)
     worst = {"shared_query_fwd": 0.0, "shared_query_fwd_q8": 0.0}
     cases, near_rows = 0, 0
-    for E, H, bms in _grid({**shapes, "H": (1, 2)}, HEAD_GRID):
+    for E, H, bms in _grid({**shapes, "H": (1, 2)}, HEAD_GRID + SQ_EDGE):
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
             math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
@@ -631,17 +649,21 @@ def check_training_forward(torch, same, shapes=TRAIN_SHAPES) -> dict:
 
 
 def check_backward(torch, same, shapes=TRAIN_SHAPES) -> dict:
-    """Phase 3d: the H=1 backward kernel against its plain version on the
+    """Phase 3d: the H=1 backward chain against its plain version on the
     same CUDA tensors, with a weights cotangent, d_kv on and off (f32 and
-    bf16; int8 features are frozen: off, and also against the f32 kernel
-    on the dequantized features)."""
+    bf16; int8 features are frozen: off, and also against the f32 chain
+    on the dequantized features), at ``shapes`` and at the H=1 widths of
+    ``SQ_EDGE``."""
     from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_bwd_plain
     from aecf_tpu_torch.kernels.shared_query import _pad_bias_rows, _prep
 
     rng = np.random.default_rng(12)
     worst = {"shared_query_bwd": 0.0, "shared_query_bwd_q8": 0.0}
     cases = 0
-    for E in shapes["E"]:
+    groups = ([(E, [(B, M) for B in shapes["B"] for M in shapes["M"]])
+               for E in shapes["E"]]
+              + [(E, bms) for E, H, bms in SQ_EDGE if H == 1])
+    for E, bms in groups:
         params = _pool_params(torch, rng, E, "cuda")
         query = torch.tensor(
             math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
@@ -653,63 +675,62 @@ def check_backward(torch, same, shapes=TRAIN_SHAPES) -> dict:
             q8 = dtype == torch.int8
             name = "shared_query_bwd_q8" if q8 else "shared_query_bwd"
             for padded in (False, True):
-                for B in shapes["B"]:
-                    for M in shapes["M"]:
-                        t = lambda a: torch.tensor(  # noqa: E731
-                            a, dtype=torch.float32, device="cuda")
-                        kv, scales = _features(
-                            torch, t(rng.standard_normal((B, M, E))), dtype)
-                        d_out = t(rng.standard_normal((B, E)) / (B * E))
-                        d_w = t(rng.standard_normal((B, M)) / B)
-                        pad = None
-                        if padded:
-                            mask = rng.random((B, M)) < 0.3
-                            mask[:, 0] = False
-                            pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
-                        for want_dkv in (False,) if q8 else (False, True):
-                            args = (kv, u[0], c, pad, d_out, d_w, wvo)
-                            with torch.inference_mode():
-                                got = shared_query_bwd(
-                                    *args, want_dkv=want_dkv, kv_scales=scales)
-                                want = shared_query_bwd_plain(
-                                    *args, want_dkv=want_dkv, kv_scales=scales)
-                                if q8:
-                                    f32 = shared_query_bwd(
-                                        kv.float() * scales[..., None],
-                                        *args[1:], want_dkv=False)
-                            torch.cuda.synchronize()
-                            where = (f"B={B} M={M} E={E} {dtype} "
-                                     f"padded={padded} d_kv={want_dkv}")
-                            errs = [
-                                _hold("G", got[1], want[1],
-                                      _sum_tol(want[1]), where),
-                                _hold("du", got[2], want[2],
-                                      _sum_tol(want[2]), where),
-                                _hold("sum d_out", got[3], want[3],
-                                      _sum_tol(want[3]), where),
-                                _hold("dc", got[4], want[4],
-                                      _sum_tol(want[4], want[2]), where),
-                            ]
-                            if want_dkv:
-                                check(got[0].dtype == kv.dtype,
-                                      f"d_kv dtype {got[0].dtype}")
-                                errs.append(_hold("d_kv", got[0], want[0],
-                                                  _dkv_tol(torch, want[0]),
-                                                  where))
-                            else:
-                                check(got[0] is None, "d_kv without kv_grad")
+                for B, M in bms:
+                    t = lambda a: torch.tensor(  # noqa: E731
+                        a, dtype=torch.float32, device="cuda")
+                    kv, scales = _features(
+                        torch, t(rng.standard_normal((B, M, E))), dtype)
+                    d_out = t(rng.standard_normal((B, E)) / (B * E))
+                    d_w = t(rng.standard_normal((B, M)) / B)
+                    pad = None
+                    if padded:
+                        mask = rng.random((B, M)) < 0.3
+                        mask[:, 0] = False
+                        pad = _pad_bias_rows(torch.tensor(mask, device="cuda"))
+                    for want_dkv in (False,) if q8 else (False, True):
+                        args = (kv, u[0], c, pad, d_out, d_w, wvo)
+                        with torch.inference_mode():
+                            got = shared_query_bwd(
+                                *args, want_dkv=want_dkv, kv_scales=scales)
+                            want = shared_query_bwd_plain(
+                                *args, want_dkv=want_dkv, kv_scales=scales)
                             if q8:
-                                keys = ("G", "du", "sum d_out", "dc")
-                                _vs_f32(torch, same, name, dict(zip(keys, got[1:])),
-                                        dict(zip(keys, f32[1:])),
-                                        {"G": _sum_tol(f32[1]),
-                                         "du": _sum_tol(f32[2]),
-                                         "sum d_out": _sum_tol(f32[3]),
-                                         "dc": _sum_tol(f32[4], f32[2])},
-                                        where)
-                            worst[name] = max(worst[name], *errs)
-                            _held_at(name, 1)
-                            cases += 1
+                                f32 = shared_query_bwd(
+                                    kv.float() * scales[..., None],
+                                    *args[1:], want_dkv=False)
+                        torch.cuda.synchronize()
+                        where = (f"B={B} M={M} E={E} {dtype} "
+                                 f"padded={padded} d_kv={want_dkv}")
+                        errs = [
+                            _hold("G", got[1], want[1],
+                                  _sum_tol(want[1]), where),
+                            _hold("du", got[2], want[2],
+                                  _sum_tol(want[2]), where),
+                            _hold("sum d_out", got[3], want[3],
+                                  _sum_tol(want[3]), where),
+                            _hold("dc", got[4], want[4],
+                                  _sum_tol(want[4], want[2]), where),
+                        ]
+                        if want_dkv:
+                            check(got[0].dtype == kv.dtype,
+                                  f"d_kv dtype {got[0].dtype}")
+                            errs.append(_hold("d_kv", got[0], want[0],
+                                              _dkv_tol(torch, want[0]),
+                                              where))
+                        else:
+                            check(got[0] is None, "d_kv without kv_grad")
+                        if q8:
+                            keys = ("G", "du", "sum d_out", "dc")
+                            _vs_f32(torch, same, name, dict(zip(keys, got[1:])),
+                                    dict(zip(keys, f32[1:])),
+                                    {"G": _sum_tol(f32[1]),
+                                     "du": _sum_tol(f32[2]),
+                                     "sum d_out": _sum_tol(f32[3]),
+                                     "dc": _sum_tol(f32[4], f32[2])},
+                                    where)
+                        worst[name] = max(worst[name], *errs)
+                        _held_at(name, 1)
+                        cases += 1
     print(f"backward vs plain: {cases} cases within tolerance (G/du/sum "
           f"d_out {TOL_SUM_REL:g}*max|ref|, dc {TOL_SUM_REL:g}*max|du|, d_kv "
           f"as out, bf16 d_kv +{TOL_BF16_REL:g}*|ref|); max abs err f32/bf16 "
@@ -890,8 +911,123 @@ def check_step_repeatable(torch) -> None:
           "in every output (G, du, dW_head included)")
 
 
-# The products the two chains run, each (label, G, rows, N, K, a_trans,
-# w_kmajor): the north-star step's three (out = mix W_vo^T, d_mix = d_out
+def check_sq_repeatable(torch) -> None:
+    """Phase 3e'': two calls of each shared-query chain on the same inputs
+    give the same outputs bit for bit (no atomics; G, du and the partial
+    sums in a fixed order): the forward, eval and training, at three head
+    counts, and the backward with d_kv on and off, f32 and int8 features,
+    at the north star and at a width not divisible by 4."""
+    from aecf_tpu_torch.kernels import shared_query_bwd, shared_query_fwd
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    rng = np.random.default_rng(17)
+    cases = 0
+    for B, M, E in ((NS_B, NS_M, NS_E), (300, 3, 30)):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+        params = _pool_params(torch, rng, E, "cuda")
+        query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
+        x = t(rng.standard_normal((B, M, E)))
+        d_out = t(rng.standard_normal((B, E)) / (B * E))
+        d_w = t(rng.standard_normal((B, M)) / B)
+        for dtype in (torch.float32, torch.int8):
+            kv, scales = _features(torch, x, dtype)
+            where = f"B={B} M={M} E={E} {dtype}"
+            with torch.inference_mode():
+                for H in [H for H in (1, 2, 3, 8) if E % H == 0]:
+                    pre = _prep(params, query[0, 0], H)
+                    for training in (False, True):
+                        one, two = (shared_query_fwd(
+                            kv, *pre[:2], None, *pre[2:], kv_scales=scales,
+                            training=training, seed=(12345, 678))
+                            for _ in range(2))
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(a, b) for a, b in zip(one, two)),
+                              f"shared_query_fwd differs between two calls at "
+                              f"{where} H={H} training={training}")
+                        cases += 1
+                u, c, wvo = _prep(params, query[0, 0], 1)[:3]
+                for want_dkv in (False,) if scales is not None else (False, True):
+                    one, two = (shared_query_bwd(
+                        kv, u[0], c, None, d_out, d_w, wvo, want_dkv=want_dkv,
+                        kv_scales=scales) for _ in range(2))
+                    torch.cuda.synchronize()
+                    check(all(a is b or torch.equal(a, b)
+                              for a, b in zip(one, two)),
+                          f"shared_query_bwd differs between two calls at "
+                          f"{where} d_kv={want_dkv}")
+                    cases += 1
+    print(f"shared-query chains repeatable: {cases} pairs of calls equal bit "
+          "for bit in every output (forward eval and training at H in {1, 2, "
+          "8} and {1, 2, 3}; backward G, du, sum d_out, dc, d_kv)")
+
+
+def check_sq_grads(torch) -> None:
+    """Phase 3i: gradients through ``fused_fusion_pool_shared`` on the card
+    (the resident forward chain and, at H = 1, the backward chain) against
+    the same call on CPU copies of the same inputs (its plain versions),
+    for the loss ``(out²).mean() + (w_0 w_1).sum() + (entropy²).mean()``
+    with padded slots: at E = 30, H in {1, 2, 3} (H = 1 also with int8
+    features, frozen) — widths not divisible by 4, where the backward
+    chain raised before it took every width the forward takes — and at
+    E = 260, H = 1."""
+    from aecf_tpu_torch.core import AttentionPoolParams
+    from aecf_tpu_torch.kernels import (
+        fused_fusion_pool_shared,
+        quantize_features,
+        shared_query_bwd,
+    )
+
+    rng = np.random.default_rng(33)
+    worst, launched = 0.0, 0
+    for B, M, E, H, q8 in ((300, 3, 30, 1, False), (300, 3, 30, 1, True),
+                           (300, 3, 30, 2, False), (300, 3, 30, 3, False),
+                           (129, 2, 260, 1, False)):
+        cpu = _pool_params(torch, rng, E, "cpu")
+        q = torch.tensor(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)),
+                         dtype=torch.float32)
+        x = torch.tensor(rng.standard_normal((B, M, E)), dtype=torch.float32)
+        kv, scales = quantize_features(x) if q8 else (x, None)
+        mask = rng.random((B, M)) < 0.3
+        mask[:, 0] = False
+        grads = {}
+        before = shared_query_bwd.launches + shared_query_bwd.launches_q8
+        for dev in ("cuda", "cpu"):
+            params = AttentionPoolParams(**{
+                k: getattr(cpu, k).to(dev).requires_grad_()
+                for k in ("in_proj_weight", "out_proj_weight",
+                          "in_proj_bias", "out_proj_bias")})
+            tq = q.to(dev).requires_grad_()
+            tkv = kv.to(dev)
+            if not q8:
+                tkv.requires_grad_()
+            out, w, _, info = fused_fusion_pool_shared(
+                params, tq, tkv, num_heads=H,
+                key_padding_mask=torch.tensor(mask, device=dev),
+                kv_scales=None if scales is None else scales.to(dev))
+            loss = ((out ** 2).mean() + (w[:, 0, 0] * w[:, 0, 1]).sum()
+                    + (info["entropy"] ** 2).mean())
+            loss.backward()
+            grads[dev] = {n: t.grad.cpu() for n, t in params.named_parameters()}
+            grads[dev].update(query=tq.grad.cpu(), loss=loss.detach().cpu())
+            if not q8:
+                grads[dev]["kv"] = tkv.grad.cpu()
+        torch.cuda.synchronize()
+        n = shared_query_bwd.launches + shared_query_bwd.launches_q8 - before
+        check(n == (H == 1), f"{n} backward chain launches at B={B} M={M} "
+                             f"E={E} H={H}")
+        launched += n
+        where = f"B={B} M={M} E={E} H={H} int8={q8} padded"
+        worst = max(worst, *(
+            _hold(k, grads["cuda"][k], v, _sum_tol(v), where)
+            for k, v in grads["cpu"].items()))
+    print(f"shared-query gradients, card vs CPU plain path: 5 cases at E=30 "
+          f"(H 1, 2, 3; int8 at H=1) and E=260 within {TOL_SUM_REL:g}*max|ref| "
+          f"for the loss, every parameter, the query and kv; {launched} "
+          f"backward chain launches; max abs err {worst:.3e}")
+
+
+# The products the step and per-row chains run, each (label, G, rows, N,
+# K, a_trans, w_kmajor): the north-star step's three (out = mix W_vo^T, d_mix = d_out
 # W_vo, G = d_out^T mix) and the large configuration's per-row forward
 # (ctx_h = MIX_h Wv_h^T over two heads, out = ctx Wo^T) — timed against
 # one torch.matmul — then ragged shapes, held to the plain version only.
@@ -2361,6 +2497,8 @@ def time_heads(torch, smi: str) -> None:
                     lambda: shared_query_fwd_plain(kv, *pre[:2], None,
                                                    *pre[2:], kv_scales=s),
                     work, smi, feats=feats)
+                _chain_line(torch, f"{label} {feats}", lambda: shared_query_fwd(
+                    kv, *pre[:2], None, *pre[2:], kv_scales=s), smi)
                 qe = query.expand(B, 1, E)
                 route = cuda_ms(torch, lambda: attention_pool_core(
                     params, qe, x if s is None else kv.float() * s[..., None],
@@ -2444,6 +2582,13 @@ def _fused_work(B, M, E, H, expanded):
     return (4 * (q_rows * E + B * M * E + 4 * E * E + 4 * E + B * E
                  + 2 * B * M + 2 * B),
             4 * q_rows * E * E + 4 * B * E * E + 4 * B * M * E * H)
+
+
+def _chain_line(torch, label, fn, smi, calls=20) -> None:
+    """Prints the CUDA kernels one call of ``fn`` launches, with the
+    device time a call summed over them (``_launches_per_call``)."""
+    print(f"launches {label}: CUDA kernels a call "
+          f"{_launches_per_call(torch, fn, calls)} ({smi})")
 
 
 def _launches_per_call(torch, fn, calls=20) -> str:
@@ -2622,9 +2767,11 @@ def time_training(torch, smi: str, trained: dict) -> dict:
     times = {}
     with torch.inference_mode():
         for name, (kernel, plain, what) in pairs.items():
-            times[name] = _time_pair(
-                torch, f"{name} ({what}) B={B} M={M} E={E} H=1", kernel,
-                plain, work[name], smi)
+            label = f"{name} ({what}) B={B} M={M} E={E} H=1"
+            times[name] = _time_pair(torch, label, kernel, plain, work[name],
+                                     smi)
+            if name != "train_step":
+                _chain_line(torch, label, kernel, smi)
         for head in (True, False):
             kw = dict(step_kw)
             if not head:
@@ -2894,6 +3041,10 @@ def time_q8(torch, smi: str, q8: dict) -> dict:
             print(f"time {name} {what}: f32 kernel on the dequantized "
                   f"features {f1:.5f}/{f2:.5f} ms; int8/f32 "
                   f"{pair[0] / ((f1 + f2) / 2):.3f} ({smi})")
+            if name.startswith("shared_query"):
+                _chain_line(torch, f"{name} {what} int8", kernel, smi)
+                _chain_line(torch, f"{name} {what} f32 on the same values",
+                            f32, smi)
 
     flat = _classifier_flat(rng, El)
     rates = {"int8": [], "f32": []}
@@ -3047,12 +3198,10 @@ def time_kernels(torch, smi: str, gpu_pred) -> dict:
                 lambda: shared_query_fwd_plain(*args), work, smi,
                 iters=200, warmup=20)
             # back to back, these calls are bound by the wrapper's host
-            # time; the kernel's own device time:
-            dev = _device_ms(torch, lambda: shared_query_fwd(*args),
-                             "shared_query_fwd_kernel")
-            print(f"time shared_query_fwd B={B} M={M} E={E} H={H} f32: "
-                  f"device {dev} ms a launch (torch.profiler over 200 "
-                  f"calls; {smi})")
+            # time; the chain's own device time, summed over its kernels:
+            _chain_line(torch, f"shared_query_fwd B={B} M={M} E={E} H={H} "
+                        "eval f32", lambda: shared_query_fwd(*args), smi,
+                        calls=200)
 
     feats = np.random.default_rng(5)
     for b in BUCKETS:
@@ -3110,6 +3259,8 @@ def main() -> None:
     errs.update(check_backward(torch, same))
     errs.update(check_step(torch, same))
     check_step_repeatable(torch)
+    check_sq_repeatable(torch)
+    check_sq_grads(torch)
     errs["fused_pool_fwd"] = check_fused_pool(torch)
     check_gemm(torch)
     check_fused_pool_grads(torch)
@@ -3119,8 +3270,11 @@ def main() -> None:
     print("int8 kernel vs f32 kernel on q.float() * s, within the f32 "
           "kernel-vs-plain tolerances; bit for bit equal in: "
           + ", ".join(f"{k} {a} of {n}" for k, (a, n) in same.items()))
-    check(same["train_step_q8"][0] == same["train_step_q8"][1],
-          "an int8 train step differs from the f32 step on q.float() * s")
+    for name in ("shared_query_fwd_q8", "shared_query_bwd_q8",
+                 "train_step_q8"):
+        check(same[name][0] == same[name][1],
+              f"an int8 {name[:-3]} call differs from the f32 call on "
+              "q.float() * s")
     served = serve_slice(torch)
     trained = train_slice(torch)
     module = module_slice(torch)

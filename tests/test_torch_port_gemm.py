@@ -96,20 +96,35 @@ def test_wrapper_launches_or_raises(case, exc, match):
     assert gemm_f32.launches == before  # the CPU never launches
 
 
-def test_header_ships_and_rebuilds_its_users(tmp_path, monkeypatch):
-    """train_step.cu and fused_pool_fwd.cu include gemm_f32.cuh: an edit
-    to it must move both libraries to new build directories."""
+# Each shared header and the sources that include it: the GEMM building
+# block and the chains' row kernels (pool_rows.cuh).
+INCLUDERS = {
+    "gemm_f32.cuh": ("fused_pool_fwd", "shared_query_bwd", "shared_query_fwd",
+                     "train_step"),
+    "pool_rows.cuh": ("shared_query_bwd", "shared_query_fwd", "train_step"),
+}
+
+
+@pytest.mark.parametrize("header,name", [
+    (h, n) for h, names in INCLUDERS.items() for n in names
+])
+def test_header_ships_and_rebuilds_its_users(tmp_path, monkeypatch, header,
+                                             name):
+    """Every source that includes a shared header is listed in INCLUDERS,
+    and an edit to the header moves that source's library to a new build
+    directory."""
     import shutil
 
-    assert (_build._CSRC / "gemm_f32.cuh").exists()
+    assert (_build._CSRC / header).exists()
+    includes = sorted(
+        f.stem for f in _build._CSRC.glob("*.cu")
+        if f'#include "{header}"' in f.read_text()
+    )
+    assert includes == sorted(INCLUDERS[header])
     for f in _build._CSRC.iterdir():
         shutil.copy(f, tmp_path / f.name)
     monkeypatch.setattr(_build, "_CSRC", tmp_path)
-    names = ("train_step", "fused_pool_fwd")
-    before = {n: _build.library_path(n) for n in names}
-    header = tmp_path / "gemm_f32.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    assert all(_build.library_path(n) != before[n] for n in names)
-    for name in names:
-        source = (tmp_path / f"{name}.cu").read_text()
-        assert '#include "gemm_f32.cuh"' in source
+    before = _build.library_path(name)
+    edited = tmp_path / header
+    edited.write_text(edited.read_text() + "\n// edited\n")
+    assert _build.library_path(name) != before

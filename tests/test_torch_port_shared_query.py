@@ -3,14 +3,20 @@
 On the CPU the port's ``fused_fusion_pool_shared`` runs the plain PyTorch
 version of its CUDA kernel; the JAX reference runs its Pallas kernel in
 interpret mode at ``precision="highest"``, as ``test_kernels_interpret.py``
-does.  Same numpy inputs, made from a seed.  Tolerances: out and weights
-1e-5 (f32 sums in other orders), ``mw == w`` exactly (eval passthrough).
+does (training: JAX's XLA path, which has the Pallas training branch's
+outputs; the masks against the port's ``mask_and_renorm`` on the call's
+Philox uniforms).  Same numpy inputs, made from a seed.  Tolerances: out
+and weights 1e-5 (f32 sums in other orders), ``mw == w`` exactly (eval
+passthrough), masks 1e-6.  The chains take every width the forward takes:
+``EDGE`` holds widths that are not multiples of their GEMMs' tiles and not
+divisible by 4.
 
 The CUDA kernel itself runs only on the card, where ``chip_smoke.py``
 holds it to the plain version at the serving shapes (this directory's
 ``conftest.py`` imports JAX, which the card's machine does not have).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,17 +24,27 @@ import torch
 
 from aecf_tpu.core.attention import AttentionPoolParams as JaxParams
 from aecf_tpu.kernels import fused_fusion_pool_shared as jax_shared
+from aecf_tpu.ops import fusion_pool as jax_fusion_pool
 from aecf_tpu_torch.core import AttentionPoolParams
 from aecf_tpu_torch.kernels import (
     fused_fusion_pool_shared,
     shared_query_fwd,
     shared_query_fwd_plain,
 )
+from aecf_tpu_torch.kernels.draws import (
+    draw_seed_words,
+    mask_and_renorm,
+    mask_uniforms,
+)
 from aecf_tpu_torch.kernels.shared_query import _prep
 from aecf_tpu_torch.ops import _wants_kernel, fusion_pool
 
 ATOL = 1e-5
 E = 64
+# (E, H, B, M): widths that are not multiples of the chains' GEMM tiles and
+# widths not divisible by 4, as chip_smoke.SQ_EDGE holds them on the card
+EDGE = [(30, 1, 300, 3), (30, 2, 300, 3), (30, 3, 300, 3), (36, 1, 130, 4),
+        (36, 3, 130, 4), (260, 1, 129, 2), (260, 2, 130, 3)]
 
 
 def _params(rng, E=E):
@@ -83,6 +99,72 @@ def test_eval_matches_jax_interpret(M, B, H, padded):
     assert (info["mask_rate"] == 0).all()
     if padded:
         np.testing.assert_allclose(w[0, 0].numpy(), 1.0 / M, atol=1e-7)
+
+
+def _close_out(got, want):
+    """Outputs at the wider edge widths reach |out| ~ 3: 2e-5 of the
+    largest entry, the heads tests' tolerance (f32 sums in other orders)."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=2e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("E,H,B,M", EDGE)
+def test_eval_at_edge_widths_matches_jax_interpret(E, H, B, M):
+    """Eval at the edge widths, padded (a fully padded row included):
+    out, weights and entropy against JAX's Pallas kernel."""
+    jp, tp, q, kv, kpm = _inputs(E + 10 * H + B, B, M, H, True, E=E)
+    j_out, j_w, _, j_info = jax_shared(
+        jp, jnp.asarray(q), jnp.asarray(kv), num_heads=H, training=False,
+        key_padding_mask=jnp.asarray(kpm), interpret=True,
+        precision="highest",
+    )
+    with torch.no_grad():
+        out, w, mw, info = fused_fusion_pool_shared(
+            tp, torch.from_numpy(q), torch.from_numpy(kv), num_heads=H,
+            key_padding_mask=torch.from_numpy(kpm), precision="highest",
+        )
+    assert tuple(out.shape) == (B, 1, E) and tuple(w.shape) == (B, 1, M)
+    _close_out(out.numpy(), j_out)
+    np.testing.assert_allclose(w.numpy(), j_w, atol=ATOL)
+    np.testing.assert_array_equal(mw.numpy(), w.numpy())
+    np.testing.assert_allclose(info["entropy"].numpy(), j_info["entropy"],
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("E,H,B,M", EDGE)
+def test_training_at_edge_widths_matches_xla_and_the_mask_chain(E, H, B, M):
+    """Training at the edge widths: out, weights and entropy against JAX's
+    XLA path (the mask does not enter them, quirk Q1), the masks against
+    ``mask_and_renorm`` on the Philox uniforms of the call's seed words."""
+    seed = E + H + B
+    min_active = min(2, M - 1)  # M = 2 with min_active 2 keeps every slot
+    jp, tp, q, kv, kpm = _inputs(seed, B, M, H, True, E=E)
+    kpm[:, 0] = False  # the XLA path's -inf pad: NaN on a fully padded row
+    j_out, j_w, _, j_info = jax_fusion_pool(
+        jp, jnp.asarray(q), jnp.asarray(kv), num_heads=H, training=True,
+        rng=jax.random.key(seed), key_padding_mask=jnp.asarray(kpm),
+        base_mask_prob=0.6, min_active=min_active,
+        implementation="xla",
+    )
+    words = draw_seed_words(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        out, w, mw, info = fused_fusion_pool_shared(
+            tp, torch.from_numpy(q), torch.from_numpy(kv), num_heads=H,
+            training=True, generator=torch.Generator().manual_seed(seed),
+            base_mask_prob=0.6, min_active=min_active,
+            key_padding_mask=torch.from_numpy(kpm), precision="highest",
+        )
+    _close_out(out.numpy(), j_out)
+    np.testing.assert_allclose(w.numpy(), j_w, atol=ATOL)
+    np.testing.assert_allclose(info["entropy"].numpy(), j_info["entropy"],
+                               atol=ATOL)
+    want_mw, want_rate, mask = mask_and_renorm(
+        w[:, 0], info["entropy"][:, 0], mask_uniforms(words, B, M),
+        mask_prob=0.6, min_active=min_active)
+    np.testing.assert_allclose(mw[:, 0].numpy(), want_mw.numpy(), atol=1e-6)
+    np.testing.assert_allclose(info["mask_rate"][:, 0].numpy(),
+                               want_rate.numpy(), atol=1e-6)
+    assert 0.0 < float(mask.mean()) < 1.0
 
 
 def test_plain_version_matches_the_torch_oracle():
@@ -206,7 +288,7 @@ def test_cuda_source_ships_and_builds_outside_git():
     }
     pkg = os.path.join(root, "aecf_tpu_torch")
     for src in ("shared_query_fwd.cu", "shared_query_bwd.cu", "train_step.cu",
-                "pool_common.cuh"):
+                "pool_common.cuh", "pool_rows.cuh", "gemm_f32.cuh"):
         assert os.path.exists(os.path.join(pkg, "kernels", "csrc", src)), src
     for dirpath, dirnames, filenames in os.walk(pkg):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]

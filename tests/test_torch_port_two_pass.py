@@ -6,7 +6,9 @@
   function (Pallas interpret mode, ``precision="highest"``), for a loss on
   the output, on the attention weights (the ``d_w`` path) and on the eval
   entropy (``_fold_entropy_cotangent``); atol 1e-5.  Training gradients
-  equal eval gradients exactly (quirk Q1).
+  equal eval gradients exactly (quirk Q1).  At the widths the chains take
+  beyond the GEMM tiles and E % 4 (E = 30, 36, 260; B = 130, 300; H in
+  {1, 2, 3}) the same, for the three losses summed.
 * The mask chain: the port's training forward against the JAX
   ``core.masking.curriculum_mask`` fed the port's own Bernoulli draw
   through ``mask_override``, 1e-6.
@@ -51,7 +53,7 @@ LOSSES = {
 }
 
 
-def _inputs(seed, B=50, padded=False):
+def _inputs(seed, B=50, padded=False, E=E):
     rng = np.random.default_rng(seed)
     arrs = {
         "in_proj_weight": rng.uniform(-0.2, 0.2, (3 * E, E)),
@@ -67,6 +69,21 @@ def _inputs(seed, B=50, padded=False):
         kpm = rng.random((B, M)) < 0.3
         kpm[:, 0] = False
     return arrs, q, kv, kpm
+
+
+def _jax_grads(arrs, q, kv, kpm, loss_fn, num_heads):
+    def jax_loss(p, qq, feats):
+        out, w, mw, info = jax_shared(
+            p, qq, feats, num_heads=num_heads, training=False, interpret=True,
+            precision="highest",
+            key_padding_mask=None if kpm is None else jnp.asarray(kpm),
+        )
+        return loss_fn(out, w, info)
+
+    jp = JaxParams(**{k: jnp.asarray(v) for k, v in arrs.items()})
+    return jax.value_and_grad(jax_loss, (0, 1, 2))(
+        jp, jnp.asarray(q), jnp.asarray(kv)
+    )
 
 
 def _torch_grads(arrs, q, kv, kpm, loss_fn, num_heads, **kw):
@@ -87,19 +104,8 @@ def _torch_grads(arrs, q, kv, kpm, loss_fn, num_heads, **kw):
 @pytest.mark.parametrize("loss", sorted(LOSSES))
 def test_two_pass_grads_match_jax(loss, num_heads):
     arrs, q, kv, kpm = _inputs(7 + num_heads, padded=loss == "weights")
-
-    def jax_loss(p, qq, feats):
-        out, w, mw, info = jax_shared(
-            p, qq, feats, num_heads=num_heads, training=False, interpret=True,
-            precision="highest",
-            key_padding_mask=None if kpm is None else jnp.asarray(kpm),
-        )
-        return LOSSES[loss](out, w, info)
-
-    jp = JaxParams(**{k: jnp.asarray(v) for k, v in arrs.items()})
-    loss_j, (dp_j, dq_j, dkv_j) = jax.value_and_grad(jax_loss, (0, 1, 2))(
-        jp, jnp.asarray(q), jnp.asarray(kv)
-    )
+    loss_j, (dp_j, dq_j, dkv_j) = _jax_grads(arrs, q, kv, kpm, LOSSES[loss],
+                                             num_heads)
     loss_t, dp_t, dq_t, dkv_t = _torch_grads(
         arrs, q, kv, kpm, LOSSES[loss], num_heads
     )
@@ -109,6 +115,32 @@ def test_two_pass_grads_match_jax(loss, num_heads):
                                    atol=1e-5, err_msg=k)
     np.testing.assert_allclose(dq_t.numpy(), np.asarray(dq_j), atol=1e-5)
     np.testing.assert_allclose(dkv_t.numpy(), np.asarray(dkv_j), atol=1e-5)
+
+
+def _all_losses(out, w, info):
+    return sum(f(out, w, info) for f in LOSSES.values())
+
+
+@pytest.mark.parametrize("E_,num_heads,B", [(30, 1, 300), (30, 2, 130),
+                                             (30, 3, 130), (36, 1, 130),
+                                             (260, 1, 130)])
+def test_two_pass_grads_at_edge_widths_match_jax(E_, num_heads, B):
+    """The backward at widths that are not multiples of the chains' GEMM
+    tiles and not divisible by 4 (at H = 1 the backward kernel's plain
+    version, which raised for E % 4 on the card before it took every width
+    the forward takes), padded slots, every loss at once."""
+    arrs, q, kv, kpm = _inputs(E_ + num_heads, B=B, padded=True, E=E_)
+    loss_j, (dp_j, dq_j, dkv_j) = _jax_grads(arrs, q, kv, kpm, _all_losses,
+                                             num_heads)
+    loss_t, dp_t, dq_t, dkv_t = _torch_grads(arrs, q, kv, kpm, _all_losses,
+                                             num_heads)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-6)
+    pairs = [(dp_t[k], getattr(dp_j, k), k) for k in POOL]
+    pairs += [(dq_t, dq_j, "query"), (dkv_t, dkv_j, "kv")]
+    for got, want, name in pairs:
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("num_heads", [1, 2])
@@ -153,6 +185,62 @@ def test_backward_wrapper_is_its_plain_version_on_cpu():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert got[0].shape == (50, M, E) and got[1].shape == (E, E)
+
+
+def _bwd_args(B=6, M=3, E_=30, dtype=torch.float32):
+    g = torch.Generator().manual_seed(B + M + E_)
+    kv = torch.randn(B, M, E_, generator=g).to(dtype)
+    return (kv, torch.randn(E_, generator=g), torch.randn(1, generator=g),
+            None, torch.randn(B, E_, generator=g), None,
+            torch.randn(E_, E_, generator=g))
+
+
+def test_backward_takes_every_width_the_forward_takes():
+    """E = 30 (not divisible by 4): the wrapper accepts it as the forward
+    does and returns its plain version's results."""
+    args = _bwd_args()
+    got = shared_query_bwd(*args, want_dkv=True)
+    want = shared_query_bwd_plain(*args, want_dkv=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].shape == (6, 3, 30) and got[1].shape == (30, 30)
+
+
+@pytest.mark.parametrize(
+    "case,match",
+    [
+        ("no rows", "B >= 1"),
+        ("M above 8", "M <= 8"),
+        ("E above the cap", "E <= 1024"),
+        ("f16 kv", "float32/bfloat16/int8"),
+        ("d_out shape", "d_out must be float32"),
+        ("u shape", "u must be float32"),
+        ("f64 wvo", "wvo must be float32"),
+        ("kv_scales on f32", "kv_scales passed"),
+    ],
+)
+def test_backward_wrapper_limits_raise_before_dispatch(case, match):
+    """What the backward still rejects, checked before the CPU dispatch,
+    so the plain version never sees it (and a CUDA tensor never reaches
+    the kernel with it)."""
+    B, M, E_ = {"no rows": (0, 3, 30), "M above 8": (4, 9, 30),
+                "E above the cap": (2, 2, 1028)}.get(case, (4, 3, 30))
+    args = list(_bwd_args(B, M, E_))
+    kw = {}
+    if case == "f16 kv":
+        args[0] = args[0].half()
+    elif case == "d_out shape":
+        args[4] = args[4][:, :-1]
+    elif case == "u shape":
+        args[1] = args[1][None]
+    elif case == "f64 wvo":
+        args[6] = args[6].double()
+    elif case == "kv_scales on f32":
+        kw["kv_scales"] = torch.ones(B, M)
+    before = shared_query_bwd.launches
+    with pytest.raises(ValueError, match=match):
+        shared_query_bwd(*args, want_dkv=False, **kw)
+    assert shared_query_bwd.launches == before
 
 
 def test_auto_takes_the_kernel_gate_for_training_and_grads():
