@@ -9,12 +9,9 @@
 //     training mask chain (Philox draw -> min_active -> renorm), i.e. the
 //     bodies of aecf_tpu/kernels/shared_query.py::_weights_entropy_mask
 //     and ::_mask_and_renorm;
-//   * colsum, the fixed-order cross-block sum of the streamed backward.
-//     The TPU kernels add their batch sums into one VMEM block across a
-//     sequential grid; blocks on the GPU run in parallel and in no order, so
-//     each block writes a row of partials and a second kernel sums them in
-//     order.  No atomics: a run is bit for bit repeatable.
-// The chains' row kernels are in pool_rows.cuh, their GEMM in gemm_f32.cuh.
+// The chains' row kernels and the fixed-order cross-block sum (part_sum)
+// are in pool_rows.cuh, their GEMM in gemm_f32.cuh, the streamed kernels'
+// staging in stream_stage.cuh.
 //
 // Random bits: Philox4x32-10 (Salmon et al., Random123), keyed by the two
 // 32-bit seed words of the call; the counter of batch row b and modality m
@@ -44,7 +41,6 @@ namespace aecf {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;   // batch rows per block of the streamed backward
 constexpr int kMaxM = 8;
 constexpr int kMaxH = 2;
 constexpr int kSms = 132;   // H100 SXM
@@ -240,8 +236,12 @@ struct MaskParams {
 
 // One warp per row: per-head softmax weights a[h][m] (every lane holds
 // them) and the head mean w[m].  s_h[m] = (kv[m] . u_h + c_h) + pad[m].
-template <typename T>
-__device__ __forceinline__ void row_softmax(const KvRow<T>& kvr,
+// Lane l sums the features e = l, l + 32, ... in that order.  Row is the
+// row's reader: KvRow<T> (device memory) or StagedRow<T> (the streamed
+// forward's copy in shared memory, stream_stage.cuh), which give the same
+// values, so both give the same bits.
+template <typename Row>
+__device__ __forceinline__ void row_softmax(const Row& kvr,
                                             const float* __restrict__ u,
                                             const float* __restrict__ c,
                                             const float* pad_row, int M,
@@ -508,28 +508,8 @@ __device__ __forceinline__ void row_side_outputs(
   }
 }
 
-// ---- cross-block reductions (the streamed backward) -------------------------
-
-// out[j] = sum_r part[r * cols + j], r in order.
-__global__ void colsum_kernel(const float* __restrict__ part, int rows,
-                              int cols, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cols) return;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + j];
-  out[j] = s;
-}
-
-inline void colsum(const float* part, int rows, int cols, float* out,
-                   cudaStream_t stream) {
-  colsum_kernel<<<(cols + 255) / 256, 256, 0, stream>>>(part, rows, cols,
-                                                        out);
-}
-
 // Rounds a count of floats up to a multiple of 4 (16 bytes).
 __host__ __device__ inline int align4(int floats) { return (floats + 3) & ~3; }
-
-inline int row_blocks(int B) { return (B + kRows - 1) / kRows; }
 
 // Launch bounds of a row kernel: 256 threads and `min_blocks` blocks an
 // SM, which caps ptxas at 65536 / (256 min_blocks) registers: occupancy to

@@ -4,11 +4,11 @@
 // launched by _bwd_streamed) and ::_bwd_kernel_streamed_mh (H >= 2, by
 // _bwd_streamed_mh; here H == 2, the streamed split's widest), f32/bf16
 // features and their quantized=True branches (int8 with per-(row,
-// modality) scales, read through KvRow in 4-byte loads; frozen, so no
-// d_kv): the backward of the streamed split.  The GEMMs that need an
-// E x E matrix (d_mix = d_out W_vo and G = d_out^T mix for H == 1; the
-// per-head output/V-projection backward for H == 2) run in cuBLAS before
-// this kernel, as the JAX package runs them in XLA.  Per batch row b, with the
+// modality) scales, dequantised on read; frozen, so no d_kv): the
+// backward of the streamed split.  The GEMMs that need an E x E matrix
+// (d_mix = d_out W_vo and G = d_out^T mix for H == 1; the per-head
+// output/V-projection backward for H == 2) run in cuBLAS before this
+// kernel, as the JAX package runs them in XLA.  Per batch row b, with the
 // score vectors u (H, E) and offsets c (H,):
 //
 //   recompute  a_h = softmax_m(kv[b, m] . u_h + c_h + pad[b, m])
@@ -18,26 +18,36 @@
 //
 // What bounds it on the H100: bytes.  It must read kv (B M E) and d_mix
 // (B H E f32), and write d_kv when asked; the arithmetic, about (8 + 6H)
-// B M E flops, is far below the SIMT rate.  A block takes kRows rows.
-// Phase A, a warp a row: one pass over the row takes the scores and d_a
-// together (kv read once with u and d_mix beside it, 16-byte loads), then
-// the softmax backward; a and d_s go to shared memory.  Phase B, a thread
-// a 4-column chunk: it walks the block's rows in order, reading kv again
-// (from L2 while the block's rows fit there) for du, and d_mix again for
-// d_kv, which it sums over the heads in registers and stores once.  The
-// TPU kernel adds du/dc into one VMEM block across its sequential grid;
-// here each block writes one row of du and one of dc partials, and colsum
-// (pool_common.cuh) adds the rows in a fixed order: no atomics, and a run
-// repeats bit for bit.  Padded rows (>= B) write nothing and add nothing.
-// Needs E % 4 == 0.
+// B M E flops, is far below the SIMT rate.  So each kv row and each d_mix
+// row crosses from device memory once, into shared memory
+// (stream_stage.cuh: TMA bulk copies where the pieces are 16-byte
+// multiples, cp.async otherwise; two stages, the next row's copy in flight
+// while the current one is computed), and both phases read it there.  A
+// fixed grid of persistent clusters — as many blocks an SM as the f32
+// call's registers and shared memory let run at once, whatever B — each
+// walks a contiguous range of rows; a row wider than a block's stage
+// (above 48 KB of kv and d_mix in f32, e.g. M = 8, E = 8192) is cut along
+// E across a cluster of up to 8 blocks, the row's sums meeting through
+// distributed shared memory in rank order.  du stays in shared memory and
+// dc in a register across the cluster's rows; each cluster then writes one
+// partial row, and part_sum (pool_rows.cuh) adds the partial rows in a
+// fixed order — the TPU kernel adds du/dc into one VMEM block across its
+// sequential grid.  No atomics: two calls agree bit for bit.  int8 and
+// bf16 calls take the f32 call's cut and grid, so an int8 call sums in the
+// f32 call's order.  Needs E % 4 == 0.
 //
-// Measured on an H100 SXM (700 W), f32, no d_kv: 0.134 ms at B = 4096,
-// M = 4, E = 2048, H = 1 (bound 0.050 ms; with d_kv 0.209 ms, bound 0.090);
-// 0.198 ms at B = 8192, M = 4, E = 1024, H = 2 (bound 0.060 ms).  int8, no
-// d_kv: 0.114 ms (bound 0.020 ms) and 0.156 ms (bound 0.030 ms) at the same
-// shapes; d_mix, read in f32, is then most of the bytes.
+// Measured on an H100 SXM (700 W), f32, no d_kv: 0.069 ms at B = 4096,
+// M = 4, E = 2048, H = 1 (bound 0.050 ms; with d_kv 0.122 ms, bound
+// 0.090); 0.085 ms at B = 8192, M = 4, E = 1024, H = 2 (bound 0.060 ms).
+// int8, no d_kv: 0.065 ms (bound 0.020 ms) and 0.089 ms (bound 0.030 ms)
+// at the same shapes: the int8 call keeps the f32 call's grid and per-row
+// chain (so it sums in its order), and that chain, not the bytes, bounds
+// it.  The kernel this design replaced (16 rows a block, kv read twice,
+// a column sum over B / 16 partial rows) took 0.134, 0.209, 0.198, 0.114
+// and 0.156 ms there.
 
-#include "pool_common.cuh"
+#include "pool_rows.cuh"
+#include "stream_stage.cuh"
 
 using namespace aecf;
 
@@ -58,38 +68,133 @@ struct StreamBwdParams {
 
 namespace {
 
+// The schedule of a call: the cut of a row (C blocks a row, a cluster) and
+// the routes of kv's and d_mix's pieces (stream_stage.cuh).
+struct BwdPlan {
+  Slices sl;
+  int kv_g, dm_g;  // route_of kv's and d_mix's pieces
+};
+
+// Shared memory of a block: du and u's slice (H ld f32 each), then kStages
+// stages of kv (M ld elements) and d_mix (H ld f32).
+size_t bwd_smem(const Slices& sl, int M, int H, size_t kv_size) {
+  return 128 + 2 * (size_t)H * sl.ld * 4 +
+         kStages * (align16((size_t)M * sl.ld * kv_size) +
+                    (size_t)H * sl.ld * 4);
+}
+Slices bwd_slices(int M, int E, int H) {
+  return slices_of(E, (size_t)(M + H) * E * 4);  // a stage: kv and d_mix
+}
+
+// A cluster of C blocks walks a contiguous range of rows, rank k owning the
+// features [k es, k es + es) of each.  Per row, staged once (kv's M pieces
+// and d_mix's H pieces, two stages): phase A takes the scores and d_a =
+// d_mix_h . kv[m] in one pass (a thread's four-feature chunks, warp_sums,
+// warps in order, ranks in order), then every warp runs the softmax and
+// its backward lane-parallel on the sums (lane_softmax) and keeps a and
+// d_s in shared memory for its lanes; phase B adds d_s kv into the block's
+// du slice (shared memory, each thread its own chunks, rows in order) and
+// writes d_kv.  After its last row the cluster writes one partial row,
+// du | dc.
 template <typename T, int kH>
-AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
-  __shared__ float a_s[kRows][kH][kMaxM];
-  __shared__ float ds_s[kRows][kH][kMaxM];
-  const int E = p.E;
-  const int M = p.M;
-  const int B = p.B;
-  const T* kv = static_cast<const T*>(p.kv);
-  T* dkv = static_cast<T*>(p.dkv);
+__global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
+    StreamBwdParams p, BwdPlan pl) {
+  constexpr int kN = 2 * kH * kMaxM;  // s_h[m] | d_a_h[m]
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[kWarps][kN];
+  __shared__ float part[2][kN];
+  __shared__ float fin[kN];
+  __shared__ float aw[kWarps][32];   // a_h[m] at h kMaxM + m, a warp's copy
+  __shared__ float dsw[kWarps][32];  // d_s_h[m], likewise
+  const int E = p.E, M = p.M;
+  const int C = pl.sl.C, ld = pl.sl.ld;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, B - row0);
-
-  // ---- phase A: scores and d_a in one pass, then the softmax backward ----
-  for (int r = warp; r < rows_valid; r += kWarps) {
-    const int gr = row0 + r;
-    const KvRow<T> kvr(kv, p.scales, gr, M, E);
-    const float* dmr = p.dmix + (size_t)gr * kH * E;
-    float s[kH][kMaxM];
-    float da[kH][kMaxM];
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int q = blockIdx.x / C;
+  const int e0 = rank * pl.sl.es;
+  const int ne = max(0, min(pl.sl.es, E - e0));
+  int first, end;
+  row_range(p.B, q, gridDim.x / C, first, end);
+  const int n = end - first;
+  const T* kv = static_cast<const T*>(p.kv);
+  T* dkv = static_cast<T*>(p.dkv);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* du = reinterpret_cast<float*>(smem + 128);  // kH x ld
+  float* us = du + kH * ld;                           // u's slice, kH x ld
+  unsigned char* buf = smem + 128 + (size_t)2 * kH * ld * 4;
+  const size_t kv_bytes = align16((size_t)M * ld * sizeof(T));
+  const size_t stage = kv_bytes + (size_t)kH * ld * 4;
+  const uint32_t kv_piece = (uint32_t)(ne * sizeof(T));
+  const uint32_t dm_piece = (uint32_t)(ne * 4);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+  fence_barrier_init();
+  for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads)
 #pragma unroll
     for (int h = 0; h < kH; ++h)
+      store4(du + h * ld + j, make_float4(0.f, 0.f, 0.f, 0.f));
+  load_slice(us, p.u, kH, E, e0, ne, ld);
+  const LaneRow lr = lane_row(lane, M, kH);
+  const float cl = lr.valid ? p.c[lr.h] : 0.f;
+  __syncthreads();
+
+  auto issue = [&](int k) {
+    if (k < n) {
+      const int s = k % kStages;
+      const size_t row = first + k;
+      unsigned char* st = buf + s * stage;
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        mbar_arrive_expect(bar + s, (pl.kv_g == 16 ? M * kv_piece : 0u) +
+                                        (pl.dm_g == 16 ? kH * dm_piece : 0u));
+      }
+      for (int m = 0; m < M; ++m)
+        stage_piece(st + (size_t)m * ld * sizeof(T),
+                    kv + (row * M + m) * E + e0, kv_piece, pl.kv_g, bar + s,
+                    threadIdx.x, kThreads);
+      for (int h = 0; h < kH; ++h)
+        stage_piece(st + kv_bytes + (size_t)h * ld * 4,
+                    p.dmix + (row * kH + h) * E + e0, dm_piece, pl.dm_g,
+                    bar + s, threadIdx.x, kThreads);
+    }
+    cp_async_commit();
+  };
+
+  float dc[kH];
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) s[h][m] = da[h][m] = 0.f;
-    for (int j = 4 * lane; j < E; j += 4 * 32) {
+  for (int h = 0; h < kH; ++h) dc[h] = 0.f;
+  const float inv_h = 1.0f / (float)kH;
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < n; ++k) {
+    issue(k + kStages - 1);
+    const int s = k % kStages;
+    const int row = first + k;
+    const size_t slot = (size_t)row * M + lr.m;
+    const float padl = lr.valid && p.pad != nullptr ? p.pad[slot] : 0.f;
+    const float dwl = lr.valid && p.dw != nullptr ? p.dw[slot] : 0.f;
+    cp_async_wait_stage();
+    mbar_wait(bar + s, (k / kStages) & 1);
+    __syncthreads();
+    const StagedRow<T> kvr(reinterpret_cast<const T*>(buf + s * stage),
+                           p.scales, row, M, ld);
+    const float* dms =
+        reinterpret_cast<const float*>(buf + s * stage + kv_bytes);
+
+    // ---- phase A: scores and d_a, summed over the cluster ----------------
+    float sc[kMaxH][kMaxM];
+    float da[kMaxH][kMaxM];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) sc[h][m] = da[h][m] = 0.f;
+    for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads) {
       float4 uh[kH];
       float4 dm[kH];
 #pragma unroll
       for (int h = 0; h < kH; ++h) {
-        uh[h] = load4(p.u + (size_t)h * E + j);
-        dm[h] = load4(dmr + (size_t)h * E + j);
+        uh[h] = load4(us + h * ld + j);
+        dm[h] = load4(dms + h * ld + j);
       }
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
@@ -97,123 +202,133 @@ AECF_ROW_KERNEL(2) stream_bwd_kernel(StreamBwdParams p) {
           const float4 x = kvr.at4(m, j);
 #pragma unroll
           for (int h = 0; h < kH; ++h) {
-            s[h][m] = dot4(x, uh[h], s[h][m]);
+            sc[h][m] = dot4(x, uh[h], sc[h][m]);
             da[h][m] = dot4(x, dm[h], da[h][m]);
           }
         }
       }
     }
-    const float inv_h = 1.0f / (float)kH;
+    float v[kN];
 #pragma unroll
-    for (int h = 0; h < kH; ++h) {
-      float smax = -INFINITY;
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float bias = p.pad != nullptr ? p.pad[(size_t)gr * M + m] : 0.f;
-          s[h][m] = (warp_sum(s[h][m]) + p.c[h]) + bias;
-          smax = fmaxf(smax, s[h][m]);
-          da[h][m] = warp_sum(da[h][m]) +
-                     (p.dw != nullptr ? p.dw[(size_t)gr * M + m] * inv_h : 0.f);
-        }
-      }
-      float denom = 0.f;
+    for (int h = 0; h < kH; ++h)
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          s[h][m] = expf(s[h][m] - smax);
-          denom += s[h][m];
-        }
+        v[h * kMaxM + m] = sc[h][m];
+        v[(kH + h) * kMaxM + m] = da[h][m];
       }
-      float dot = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          s[h][m] = s[h][m] / denom;  // a_h[m]
-          dot += s[h][m] * da[h][m];
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int m = 0; m < kMaxM; ++m) {
-          if (m < M) {
-            a_s[r][h][m] = s[h][m];
-            ds_s[r][h][m] = s[h][m] * (da[h][m] - dot);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
+    int idx;
+    const float t = warp_sums<kN>(v, lane, idx);
+    if (warp_sums_writer<kN>(lane)) red[warp][idx] = t;
+    __syncthreads();
+    reduce_rows<kN>(red, part[k & 1], fin, C);
 
-  // ---- phase B: du partials and d_kv, a thread a 4-column chunk ----------
-  float* pb = p.ws + (size_t)blockIdx.x * kH * E;  // 16-byte aligned rows
-  for (int j = 4 * threadIdx.x; j < E; j += 4 * kThreads) {
-    float4 uh[kH];
-    float4 du[kH];
+    // ---- the softmax and its backward: lane-parallel, in every warp --------
+    const float al = lane_softmax(lr, lr.valid ? fin[lane] : 0.f, cl, padl);
+    const float dal =
+        lr.valid ? fin[kH * kMaxM + lane] + dwl * inv_h : 0.f;  // d_a
+    const float dsl = al * (dal - group8_sum(al * dal));         // d_s
+    // the warp's copy of a and d_s, read by its lanes in phase B
+    aw[warp][lane] = al;
+    dsw[warp][lane] = dsl;
+    __syncwarp();
+    const float dcl = group8_sum(dsl);  // sum_m d_s_h, in lane 8 h
 #pragma unroll
     for (int h = 0; h < kH; ++h) {
-      uh[h] = load4(p.u + (size_t)h * E + j);
-      du[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float t = __shfl_sync(0xffffffffu, dcl, h * kMaxM);
+      if (threadIdx.x == 0 && rank == 0) dc[h] += t;
     }
-    for (int r = 0; r < rows_valid; ++r) {
-      const int gr = row0 + r;
-      const KvRow<T> kvr(kv, p.scales, gr, M, E);
+    // ---- phase B: du into the block's slice, d_kv --------------------------
+    for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads) {
+      float4 acc[kH];
+#pragma unroll
+      for (int h = 0; h < kH; ++h) acc[h] = load4(du + h * ld + j);
+      float4 uh[kH];
       float4 dm[kH];
       if (dkv != nullptr) {
 #pragma unroll
-        for (int h = 0; h < kH; ++h)
-          dm[h] = load4(p.dmix + ((size_t)gr * kH + h) * E + j);
+        for (int h = 0; h < kH; ++h) {
+          uh[h] = load4(us + h * ld + j);
+          dm[h] = load4(dms + h * ld + j);
+        }
       }
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
         if (m < M) {
           const float4 x = kvr.at4(m, j);
 #pragma unroll
-          for (int h = 0; h < kH; ++h) du[h] = axpy4(ds_s[r][h][m], x, du[h]);
+          for (int h = 0; h < kH; ++h)
+            acc[h] = axpy4(dsw[warp][h * kMaxM + m], x, acc[h]);
           if constexpr (!kQuantized<T>) {
             if (dkv != nullptr) {
               float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
               for (int h = 0; h < kH; ++h) {
-                g = axpy4(a_s[r][h][m], dm[h], g);
-                g = axpy4(ds_s[r][h][m], uh[h], g);
+                g = axpy4(aw[warp][h * kMaxM + m], dm[h], g);
+                g = axpy4(dsw[warp][h * kMaxM + m], uh[h], g);
               }
-              // the load's offset: d_kv is laid out as kv
-              store4(dkv + (kvr.p - kv) + (size_t)m * E + j, g);
+              store4(dkv + ((size_t)row * M + m) * E + e0 + j, g);
             }
           }
         }
       }
-    }
 #pragma unroll
-    for (int h = 0; h < kH; ++h) store4(pb + (size_t)h * E + j, du[h]);
+      for (int h = 0; h < kH; ++h) store4(du + h * ld + j, acc[h]);
+    }
+    __syncthreads();  // the stage is free for row k + 2
   }
-  if (threadIdx.x < kH) {
-    const int h = threadIdx.x;
-    float dc = 0.f;
-    for (int r = 0; r < rows_valid; ++r)
-      for (int m = 0; m < M; ++m) dc += ds_s[r][h][m];
-    p.ws[(size_t)gridDim.x * kH * E + (size_t)blockIdx.x * kH + h] = dc;
-  }
+
+  // ---- the cluster's partial row: du | dc ----------------------------------
+  float* prow = p.ws + (size_t)q * (kH * E + kH);
+  for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads)
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const float4 v = load4(du + h * ld + j);
+      float* o = prow + (size_t)h * E + e0 + j;
+      o[0] = v.x;
+      o[1] = v.y;
+      o[2] = v.z;
+      o[3] = v.w;
+    }
+  if (threadIdx.x == 0 && rank == 0)
+#pragma unroll
+    for (int h = 0; h < kH; ++h) prow[kH * E + h] = dc[h];
+  if (C > 1) cg::this_cluster().sync();  // ranks read each other's part
 }
 
-// Workspace: one row of du partials (H E) per block, then one row of dc
-// partials (H) per block.
-size_t workspace_floats(int B, int E, int H) {
-  return (size_t)row_blocks(B) * (H * E + H);
+// Clusters of the persistent grid: as many blocks an SM as the f32 call's
+// registers and shared memory let run at once, at most one row a cluster.
+// It depends on (B, M, E, H) alone — the workspace does too, and an int8
+// or bf16 call splits the batch as the f32 call does, so sums in its
+// order.
+int bwd_clusters(int B, int M, int E, int H) {
+  const Slices sl = bwd_slices(M, E, H);
+  const size_t smem = bwd_smem(sl, M, H, 4);
+  return clusters_of(B, sl.C,
+                     H == 1 ? blocks_per_sm(stream_bwd_kernel<float, 1>,
+                                            kThreads, smem)
+                            : blocks_per_sm(stream_bwd_kernel<float, 2>,
+                                            kThreads, smem));
+}
+
+// Workspace: one partial row (H E + H floats) a cluster.
+size_t workspace_floats(int B, int M, int E, int H) {
+  return (size_t)bwd_clusters(B, M, E, H) * (H * E + H);
 }
 
 template <typename T, int kH>
 cudaError_t launch(const StreamBwdParams& p, cudaStream_t stream) {
-  const int blocks = row_blocks(p.B);
-  stream_bwd_kernel<T, kH><<<blocks, kThreads, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  BwdPlan pl;
+  pl.sl = bwd_slices(p.M, p.E, kH);
+  pl.kv_g = route_of(p.kv, (size_t)pl.sl.es * sizeof(T) |
+                               (size_t)p.E * sizeof(T));
+  pl.dm_g = route_of(p.dmix, (size_t)pl.sl.es * 4 | (size_t)p.E * 4);
+  const size_t smem = bwd_smem(pl.sl, p.M, kH, sizeof(T));
+  const int clusters = bwd_clusters(p.B, p.M, p.E, kH);
+  cudaError_t err = launch_clusters(stream_bwd_kernel<T, kH>,
+                                    clusters * pl.sl.C, kThreads, smem,
+                                    pl.sl.C, stream, p, pl);
   if (err != cudaSuccess) return err;
-  colsum(p.ws, blocks, kH * p.E, p.acc, stream);
-  colsum(p.ws + (size_t)blocks * kH * p.E, blocks, kH, p.acc + kH * p.E,
-         stream);
-  return cudaGetLastError();
+  return part_sum(p.ws, clusters, kH * p.E + kH, p.acc, stream);
 }
 
 template <int kH>
@@ -236,9 +351,9 @@ int run(const StreamBwdParams* p, void* stream) {
 extern "C" {
 
 // Floats of workspace aecf_stream_bwd (H = 1) or aecf_stream_bwd_mh
-// (H = 2) needs for (B, E).
-size_t aecf_stream_bwd_workspace(int B, int E, int H) {
-  return workspace_floats(B, E, H);
+// (H = 2) needs for (B, M, E).
+size_t aecf_stream_bwd_workspace(int B, int M, int E, int H) {
+  return workspace_floats(B, M, E, H);
 }
 
 // The H == 1 backward (_bwd_kernel_streamed).  Returns a cudaError_t; 0

@@ -2,10 +2,10 @@
 //
 // Replaces aecf_tpu/kernels/shared_query.py::_mix_kernel (launched by
 // _forward_streamed), f32/bf16 features and its quantized=True branch
-// (int8 with per-(row, modality) scales, read through KvRow in 4-byte
-// loads): the forward of the streamed split, which takes the
-// shared-query pools with H <= 2 above the resident kernel's cap
-// (1024 < E <= 8192) and H == 2 training from E = 512.  Per batch row b,
+// (int8 with per-(row, modality) scales, dequantised on read): the
+// forward of the streamed split, which takes the shared-query pools with
+// H <= 2 above the resident kernel's cap (1024 < E <= 8192) and H == 2
+// training from E = 512.  Per batch row b,
 // with u (H, E) and c (H,) computed outside the kernel:
 //
 //   s_h[m] = kv[b, m] . u_h + c_h + pad[b, m]      (pad: 0 or -1e30)
@@ -20,80 +20,311 @@
 //
 // What bounds it on the H100: bytes.  It must read kv (B M E) and write
 // mix (B H E f32); its arithmetic, about (6 + 2H) B M E flops, is far
-// below the SIMT rate.  One warp takes one row: row_softmax and
-// row_side_outputs run the resident forward's chain in the same order, so
-// the two kernels give the same weights, entropy and mask bit for bit for
-// the same seed words; then a second pass over the row reads kv in 16-byte
-// (f32), 8-byte (bf16) or 4-byte (int8) loads and writes mix in 16-byte
-// stores.  That second read comes from L2 only while the rows in flight
-// fit in it (32 KB a row at M = 4, E = 2048 in f32), so at large B M E it
-// goes to device memory again.  Needs E % 4 == 0.  Tensor cores have
-// nothing to do here.
+// below the SIMT rate.  So each kv row crosses from device memory once,
+// into shared memory (stream_stage.cuh: TMA bulk copies where the row is a
+// 16-byte multiple, cp.async otherwise), and the score pass and the mix
+// both read it there; the copy of a warp's next row is in flight while
+// its current row is computed (two buffers a warp).
+//   * E <= 1024 (the resident widths; slice (h)): a warp a row, persistent
+//     warps walking rows with a stride.  row_softmax and row_side_outputs
+//     run the resident forward's chain in its order over the staged row,
+//     so the two kernels give the same weights, entropy and mask bit for
+//     bit for the same seed words; the mix reads four features a lane.
+//   * E > 1024 (slices (f), (g), (i), (k)): a block a row, persistent
+//     blocks walking contiguous rows, the scores summed in a fixed order
+//     (four-feature chunks, warp_sums, warps); a row above 48 KB in f32
+//     (up to M = 8, E = 8192: 256 KB) is cut along E across a cluster of
+//     up to 8 blocks, its sums meeting through distributed shared memory
+//     in rank order.
+// int8 and bf16 rows take the path and cut of the f32 row of their shape,
+// so they sum in its order.  Needs E % 4 == 0.  Tensor cores have nothing
+// to do here.
 //
-// Measured on an H100 SXM (700 W) at B = 4096, M = 4, E = 2048, H = 1, f32:
-// 0.141 ms in training and 0.139 ms in eval, against a bound of 0.050 ms
-// (168 MB at 3.35 TB/s); int8, eval: 0.085 ms against a bound of 0.020 ms
-// (67 MB).
+// Measured on an H100 SXM (700 W) at B = 4096, M = 4, E = 2048, H = 1
+// (bound 0.050 ms: 168 MB at 3.35 TB/s): 0.074 ms in training and 0.071
+// ms in eval, where the warp-a-row kernel reading kv twice took 0.141 and
+// 0.139; int8, eval, 0.054 ms (bound 0.020 ms: 67 MB; before, 0.085); at
+// B = 8192, M = 4, E = 1024, H = 2, training, 0.098 ms (before, 0.156).
 //
 // Numerics: f32 throughout; the entropy floors w at the subnormal 1e-38,
 // so this file is built without fast-math and without flush-to-zero.
 
-#include "pool_common.cuh"
+#include "stream_stage.cuh"
 
 using namespace aecf;
 
 namespace {
 
-template <typename T, bool kTraining>
-AECF_ROW_KERNEL(4) stream_mix_kernel(
-    const T* __restrict__ kv, const float* __restrict__ scales,
-    const float* __restrict__ u,
-    const float* __restrict__ c, const float* __restrict__ pad,
-    float* __restrict__ mix, float* __restrict__ w_out,
-    float* __restrict__ mw_out, float* __restrict__ ent_out,
-    float* __restrict__ rate_out, int B, int M, int E, int H,
-    MaskParams mp) {
-  const int lane = threadIdx.x & 31;
-  const int gr = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (gr >= B) return;  // warp-uniform; the kernel has no block barrier
-  const KvRow<T> kvr(kv, scales, gr, M, E);
-  float a[kMaxH][kMaxM];
-  float w[kMaxM];
-  row_softmax(kvr, u, c, pad != nullptr ? pad + (size_t)gr * M : nullptr, M,
-              E, H, a, w);
-  row_side_outputs<kTraining>(w, gr, M, mp, w_out, mw_out, ent_out, rate_out);
+// The widest E the resident forward takes: up to it the streamed forward
+// runs the resident kernel's row chain (a warp a row), above it the slices
+// path.
+constexpr int kResidentE = 1024;
 
-  float* mixr = mix + (size_t)gr * H * E;
-  for (int j = 4 * lane; j < E; j += 4 * 32) {
-    float4 acc[kMaxH];
+struct MixArgs {
+  const void* kv;       // (B, M, E) f32, bf16 or int8
+  const float* scales;  // (B, M), int8 only
+  const float* u;       // (H, E)
+  const float* c;       // (H,)
+  const float* pad;     // (B, M) or null
+  float* mix;           // (B, H E)
+  float *w, *mw, *ent, *rate;
+  int B, M, E, H;
+  int g;                // the route of kv's pieces (route_of)
+  int slot;             // bytes of a warp row buffer (rows path)
+  Slices sl;            // the cut of a row (slices path)
+};
+
+// Rows path: a warp a row, as the resident forward's R1.  Warp gw of n walks
+// the rows gw, gw + n, ... through its own two row buffers; lane 0 issues
+// the next row's copy before the current one is computed.  row_softmax
+// reads the staged row in the resident kernel's order (lane l: e = l, l +
+// 32, ...), so weights, entropy and mask equal R1's bit for bit; the mix
+// then reads it four features a lane.
+template <typename T, bool kTraining>
+__global__ void __launch_bounds__(kThreads) stream_mix_rows(MixArgs p,
+                                                            MaskParams mp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int M = p.M, E = p.E, H = p.H;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + kStages * warp;
+  float* us = reinterpret_cast<float*>(smem + 128);  // u (H, E)
+  unsigned char* buf =
+      smem + 128 + align16(H * E * 4) + (size_t)warp * kStages * p.slot;
+  const int gw = blockIdx.x * nw + warp;
+  const int stride = gridDim.x * nw;
+  const int n = gw < p.B ? (p.B - 1 - gw) / stride + 1 : 0;
+  const T* kv = static_cast<const T*>(p.kv);
+  const uint32_t bytes = (uint32_t)((size_t)M * E * sizeof(T));
+  if (lane == 0)
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+  fence_barrier_init();
+  for (int i = threadIdx.x; i < H * E; i += blockDim.x) us[i] = p.u[i];
+  float cr[kMaxH];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      if (m < M) {
-        const float4 x = kvr.at4(m, j);
-#pragma unroll
-        for (int h = 0; h < kMaxH; ++h)
-          if (h < H) acc[h] = axpy4(a[h][m], x, acc[h]);
+  for (int h = 0; h < kMaxH; ++h) cr[h] = h < H ? p.c[h] : 0.f;
+  __syncthreads();
+
+  auto issue = [&](int k) {  // row k of the warp's walk into buffer k % 2
+    if (k < n) {
+      const int s = k % kStages;
+      const int row = gw + k * stride;
+      if (lane == 0) {
+        fence_proxy_async();
+        mbar_arrive_expect(bar + s, p.g == 16 ? bytes : 0u);
       }
+      stage_piece(buf + (size_t)s * p.slot, kv + (size_t)row * M * E, bytes,
+                  p.g, bar + s, lane, 32);
     }
+    cp_async_commit();
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < n; ++k) {
+    issue(k + kStages - 1);
+    const int s = k % kStages;
+    const int row = gw + k * stride;
+    float padv[kMaxM];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h)
-      if (h < H) store4(mixr + (size_t)h * E + j, acc[h]);
+    for (int m = 0; m < kMaxM; ++m)
+      padv[m] = p.pad != nullptr && m < M ? p.pad[(size_t)row * M + m] : 0.f;
+    cp_async_wait_stage();
+    mbar_wait(bar + s, (k / kStages) & 1);
+    __syncwarp();
+    const StagedRow<T> kvr(
+        reinterpret_cast<const T*>(buf + (size_t)s * p.slot), p.scales, row,
+        M, E);
+    float a[kMaxH][kMaxM];
+    float w[kMaxM];
+    row_softmax(kvr, us, cr, p.pad != nullptr ? padv : nullptr, M, E, H, a,
+                w);
+    row_side_outputs<kTraining>(w, row, M, mp, p.w, p.mw, p.ent, p.rate);
+    float* mixr = p.mix + (size_t)row * H * E;
+    for (int j = 4 * lane; j < E; j += 4 * 32) {
+      float4 acc[kMaxH];
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const float4 x = kvr.at4(m, j);
+#pragma unroll
+          for (int h = 0; h < kMaxH; ++h)
+            if (h < H) acc[h] = axpy4(a[h][m], x, acc[h]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        if (h < H) store4(mixr + (size_t)h * E + j, acc[h]);
+    }
+    __syncwarp();  // the buffer is free for row k + 2
   }
 }
 
+// Slices path, for rows wider than the resident kernel takes (E > 1024): a
+// cluster of C blocks takes a row at a time (C = 1 up to 48 KB of f32 row),
+// rank k staging features [k es, k es + es) of every modality; the cluster
+// walks a contiguous range of rows.  Scores: a thread's four-feature
+// chunks in order, warp_sums, warps in order, ranks in order
+// (reduce_rows); every warp then runs the softmax lane-parallel on those
+// sums (lane_softmax), each rank mixes its slice, and one warp of rank 0
+// writes the side outputs.
 template <typename T, bool kTraining>
-cudaError_t launch(const void* kv, const float* scales, const float* u,
-                   const float* c, const float* pad, float* mix, float* w,
-                   float* mw,
-                   float* ent, float* rate, int B, int M, int E, int H,
-                   const MaskParams& mp, cudaStream_t stream) {
-  const int blocks = (B + kWarps - 1) / kWarps;
-  stream_mix_kernel<T, kTraining><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(kv), scales, u, c, pad, mix, w, mw, ent, rate, B,
-      M, E, H, mp);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads) stream_mix_slices(MixArgs p,
+                                                              MaskParams mp) {
+  constexpr int kN = kMaxH * kMaxM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[kWarps][kN];
+  __shared__ float part[2][kN];
+  __shared__ float fin[kN];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int M = p.M, E = p.E, H = p.H;
+  const int C = p.sl.C, ld = p.sl.ld;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* us = reinterpret_cast<float*>(smem + 128);  // u's slice (H, ld)
+  unsigned char* buf = smem + 128 + align16(H * ld * 4);
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int e0 = rank * p.sl.es;
+  const int ne = max(0, min(p.sl.es, E - e0));
+  int first, end;
+  row_range(p.B, blockIdx.x / C, gridDim.x / C, first, end);
+  const int n = end - first;
+  const T* kv = static_cast<const T*>(p.kv);
+  const size_t stage = (size_t)M * ld * sizeof(T);
+  const uint32_t bytes = (uint32_t)(ne * sizeof(T));
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+  fence_barrier_init();
+  load_slice(us, p.u, H, E, e0, ne, ld);
+  const LaneRow lr = lane_row(lane, M, H);
+  const float cl = lr.valid ? p.c[lr.h] : 0.f;
+  __syncthreads();
+
+  auto issue = [&](int k) {
+    if (k < n) {
+      const int s = k % kStages;
+      const size_t row = first + k;
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        mbar_arrive_expect(bar + s, p.g == 16 ? M * bytes : 0u);
+      }
+      for (int m = 0; m < M; ++m)
+        stage_piece(buf + s * stage + (size_t)m * ld * sizeof(T),
+                    kv + (row * M + m) * E + e0, bytes, p.g, bar + s,
+                    threadIdx.x, blockDim.x);
+    }
+    cp_async_commit();
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < n; ++k) {
+    issue(k + kStages - 1);
+    const int s = k % kStages;
+    const int row = first + k;
+    const float padl = lr.valid && p.pad != nullptr
+                           ? p.pad[(size_t)row * M + lr.m] : 0.f;
+    cp_async_wait_stage();
+    mbar_wait(bar + s, (k / kStages) & 1);
+    __syncthreads();
+    const StagedRow<T> kvr(reinterpret_cast<const T*>(buf + s * stage),
+                           p.scales, row, M, ld);
+    float sc[kMaxH][kMaxM];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) sc[h][m] = 0.f;
+    for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads) {
+      float4 uh[kMaxH];
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        uh[h] = h < H ? load4(us + h * ld + j)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const float4 x = kvr.at4(m, j);
+#pragma unroll
+          for (int h = 0; h < kMaxH; ++h) sc[h][m] = dot4(x, uh[h], sc[h][m]);
+        }
+      }
+    }
+    float v[kN];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) v[h * kMaxM + m] = sc[h][m];
+    int idx;
+    const float t = warp_sums<kN>(v, lane, idx);
+    if (warp_sums_writer<kN>(lane)) red[warp][idx] = t;
+    __syncthreads();
+    reduce_rows<kN>(red, part[k & 1], fin, C);
+    const float al = lane_softmax(lr, lr.valid ? fin[lane] : 0.f, cl, padl);
+    // the head mean, in lanes m < 8: (a_0 + a_1) / H
+    const float wl =
+        (H > 1 ? al + __shfl_down_sync(0xffffffffu, al, kMaxM) : al) *
+        (1.0f / (float)H);
+    float w[kMaxM];
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) {
+      w[m] = __shfl_sync(0xffffffffu, wl, m);
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        sc[h][m] = __shfl_sync(0xffffffffu, al, h * kMaxM + m);  // a_h[m]
+    }
+    float* mixr = p.mix + (size_t)row * H * E + e0;
+    for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads) {
+      float4 acc[kMaxH];
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const float4 x = kvr.at4(m, j);
+#pragma unroll
+          for (int h = 0; h < kMaxH; ++h)
+            if (h < H) acc[h] = axpy4(sc[h][m], x, acc[h]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        if (h < H) store4(mixr + (size_t)h * E + j, acc[h]);
+    }
+    __syncthreads();  // the stage is free for row k + kStages
+    // the side outputs need only w: one warp a row, in turn, writes them
+    // while the others go on to the next row
+    if (warp == k % kWarps && rank == 0)
+      row_side_outputs<kTraining>(w, row, M, mp, p.w, p.mw, p.ent, p.rate);
+  }
+  if (C > 1) cg::this_cluster().sync();  // ranks read each other's part
+}
+
+template <typename T, bool kTraining>
+cudaError_t launch(MixArgs a, const MaskParams& mp, cudaStream_t stream) {
+  if (a.E <= kResidentE) {
+    a.slot = (int)align16(a.M * a.E * sizeof(T));
+    a.g = route_of(a.kv, (size_t)a.M * a.E * sizeof(T));
+    const size_t head = 128 + align16(a.H * a.E * 4);
+    const int nw = max(1, min(kWarps, (int)((kBlockSmem - head) /
+                                            (kStages * a.slot))));
+    const size_t smem = head + (size_t)nw * kStages * a.slot;
+    const int per_sm =
+        blocks_per_sm(stream_mix_rows<T, kTraining>, 32 * nw, smem);
+    const int blocks = max(1, min((a.B + nw - 1) / nw, per_sm * kSms));
+    return launch_clusters(stream_mix_rows<T, kTraining>, blocks, 32 * nw,
+                           smem, 1, stream, a, mp);
+  }
+  a.sl = slices_of(a.E, (size_t)a.M * a.E * 4);
+  a.g = route_of(a.kv,
+                 (size_t)a.sl.es * sizeof(T) | (size_t)a.E * sizeof(T));
+  const size_t smem = 128 + align16(a.H * a.sl.ld * 4) +
+                      (size_t)kStages * a.M * a.sl.ld * sizeof(T);
+  const int per_sm =
+      blocks_per_sm(stream_mix_slices<T, kTraining>, kThreads, smem);
+  const int clusters = clusters_of(a.B, a.sl.C, per_sm);
+  return launch_clusters(stream_mix_slices<T, kTraining>, clusters * a.sl.C,
+                         kThreads, smem, a.sl.C, stream, a, mp);
 }
 
 }  // namespace
@@ -124,21 +355,32 @@ int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
+  MixArgs a = {};
+  a.kv = kv;
+  a.scales = scales;
+  a.u = u;
+  a.c = c;
+  a.pad = pad;
+  a.mix = mix;
+  a.w = w;
+  a.mw = mw;
+  a.ent = ent;
+  a.rate = rate;
+  a.B = B;
+  a.M = M;
+  a.E = E;
+  a.H = H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto launcher) {
-    return launcher(kv, scales, u, c, pad, mix, w, mw, ent, rate, B, M, E, H,
-                    mp, s);
-  };
   switch (kv_dtype) {
     case kKvF32:
-      return (int)(training ? run(launch<float, true>)
-                            : run(launch<float, false>));
+      return (int)(training ? launch<float, true>(a, mp, s)
+                            : launch<float, false>(a, mp, s));
     case kKvBf16:
-      return (int)(training ? run(launch<__nv_bfloat16, true>)
-                            : run(launch<__nv_bfloat16, false>));
+      return (int)(training ? launch<__nv_bfloat16, true>(a, mp, s)
+                            : launch<__nv_bfloat16, false>(a, mp, s));
     case kKvInt8:
-      return (int)(training ? run(launch<int8_t, true>)
-                            : run(launch<int8_t, false>));
+      return (int)(training ? launch<int8_t, true>(a, mp, s)
+                            : launch<int8_t, false>(a, mp, s));
   }
   return (int)cudaErrorInvalidValue;
 }

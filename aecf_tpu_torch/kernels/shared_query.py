@@ -34,8 +34,12 @@ PyTorch, as the JAX package leaves it to XLA.  Four kernels:
   kernel;
 * ``csrc/stream_bwd.cu`` behind :func:`stream_bwd` (H == 1) and
   :func:`stream_bwd_mh` (H == 2) — the streamed backward: softmax
-  recompute and backward, optional ``d_kv`` summed over heads, du/dc; its
-  E×E GEMMs run in cuBLAS first.
+  recompute and backward, optional ``d_kv`` summed over heads, du/dc from
+  one partial row per persistent cluster (``part_sum``); its E×E GEMMs run
+  in cuBLAS first.
+
+Both streamed kernels read each kv row (and ``d_mix`` row) from device
+memory once, staged in shared memory (``csrc/stream_stage.cuh``).
 
 Each takes f32, bf16 or int8 features; int8 comes with per-(row,
 modality) f32 scales ``kv_scales (B, M)`` (:func:`quantize_features`) and
@@ -677,7 +681,7 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
     dev = kv.device
     d_kv = torch.empty_like(kv) if want_dkv else None
     acc = torch.empty((H * E + H,), dtype=torch.float32, device=dev)
-    ws = torch.empty((lib.aecf_stream_bwd_workspace(B, E, H),),
+    ws = torch.empty((lib.aecf_stream_bwd_workspace(B, M, E, H),),
                      dtype=torch.float32, device=dev)
     params = _StreamBwdParams(
         _ptr(kv), _ptr(kv_scales), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias),
@@ -747,7 +751,7 @@ stream_bwd_mh.launches = stream_bwd_mh.launches_q8 = 0
 @functools.cache
 def _stream_bwd_library() -> ctypes.CDLL:
     lib = load_library("stream_bwd")
-    lib.aecf_stream_bwd_workspace.argtypes = [ctypes.c_int] * 3
+    lib.aecf_stream_bwd_workspace.argtypes = [ctypes.c_int] * 4
     lib.aecf_stream_bwd_workspace.restype = ctypes.c_size_t
     for entry in (lib.aecf_stream_bwd, lib.aecf_stream_bwd_mh):
         entry.argtypes = [ctypes.POINTER(_StreamBwdParams), ctypes.c_void_p]

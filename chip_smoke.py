@@ -56,9 +56,13 @@ the resident forward, backward and step):
    against their plain versions on the card (``stream_mix`` eval and
    training, ``stream_bwd`` at H=1 and H=2 with ``d_kv`` on and off, f32
    and bf16, with and without padding, at B in {1, 32, 300, 4096}, M in
-   {2, 3, 4, 8}, E in {1536, 2048, 4096, 8192}, and at slice (h)'s
-   B=8192, M=4, E=1024, H=2), its masks against the
-   resident forward's for the same seed words (bit for bit), and four
+   {2, 3, 4, 8}, E in {1536, 2048, 4096, 8192}, at slice (h)'s
+   B=8192, M=4, E=1024, H=2, and at ``STREAM_EDGE``: B around the
+   persistent grid (1, 131, 133, 264, 265, 8193) at M=3, E=1540 — rows
+   that are not 16-byte multiples in bf16 and int8 — and the widest rows,
+   M=8, E=8192), its masks against the resident forward's for the same
+   seed words (bit for bit), two calls of each streamed kernel equal bit
+   for bit (``check_stream_repeatable``), and four
    slices, each held to the torch path: (f) ``make_pool_train_step`` at
    B=4096, M=4, E=2048, H=1, 10 SGD steps of the quadratic loss with the
    entropy regularizer; (g) the same at H=2, 3 steps; (h) H=2 below the
@@ -223,6 +227,14 @@ STREAM_SHAPES = {
 }
 ST_B, ST_M, ST_E = 4096, 4, 2048
 H2_B, H2_M, H2_E = 8192, 4, 1024
+# The staged streamed kernels' edges, (E, (B, M) pairs), at H = 1 and 2:
+# B around the persistent grids (multiples of the 132 SMs), rows that are
+# not 16-byte multiples in bf16 and int8 (M=3, E=1540: cp.async, not TMA),
+# and the widest rows (M=8, E=8192: a cluster of blocks a row).
+STREAM_EDGE = (
+    (1540, [(B, 3) for B in (1, 131, 133, 264, 265, 8193)]),
+    (8192, [(1, 8), (3, 8)]),
+)
 SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
            "fused_pool_fwd", "stream_mix", "stream_bwd")
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): device
@@ -1689,10 +1701,11 @@ def _stream_grid(shapes):
     """``(E, H, [(B, M), ...])`` of the streamed kernels' checks: the grid
     of ``shapes``, then slice (h)'s shape (B=8192, M=4, E=1024, H=2), which
     the grid does not hold — (f), (g) and (i) (B=4096, M=4, E=2048) are in
-    it."""
+    it —, then ``STREAM_EDGE`` at H = 1 and 2."""
     bms = [(B, M) for B in shapes["B"] for M in shapes["M"]]
     return ([(E, H, bms) for E in shapes["E"] for H in shapes["H"]]
-            + [(H2_E, 2, [(H2_B, H2_M)])])
+            + [(H2_E, 2, [(H2_B, H2_M)])]
+            + [(E, H, bms) for E, bms in STREAM_EDGE for H in (1, 2)])
 
 
 def _grid_label(bms) -> str:
@@ -1852,6 +1865,53 @@ def check_stream_bwd(torch, same, shapes=STREAM_SHAPES) -> dict:
           f"d_kv +{TOL_BF16_REL:g}*|ref|); max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
+
+
+def check_stream_repeatable(torch) -> None:
+    """Phase 6c': two calls of each streamed kernel on the same inputs give
+    the same outputs bit for bit — ``stream_bwd`` and ``stream_bwd_mh`` (du,
+    dc and d_kv: the partial rows of the persistent clusters are summed by
+    ``part_sum`` in a fixed order, no atomics) and ``stream_mix`` (mix, w,
+    mw, ent, rate) — at the slices' shapes, the cp.async rows and the
+    widest rows, f32, bf16 and int8."""
+    from aecf_tpu_torch.kernels import stream_bwd, stream_bwd_mh, stream_mix
+
+    gen = torch.Generator(device="cuda").manual_seed(86)
+    cases = 0
+    for B, M, E in ((ST_B, ST_M, ST_E), (H2_B, H2_M, H2_E), (133, 3, 1540),
+                    (3, 8, 8192)):
+        for H in (1, 2):
+            u, c = _score_vectors(torch, gen, H, E)
+            bwd = stream_bwd if H == 1 else stream_bwd_mh
+            for dtype in _dtypes(torch):
+                kv, scales = _features(torch, torch.randn(
+                    (B, M, E), generator=gen, device="cuda"), dtype)
+                d_mix = torch.randn((B, H * E), generator=gen, device="cuda")
+                d_w = torch.randn((B, M), generator=gen, device="cuda")
+                pad = _pad_of(torch, gen, B, M, False)
+                dkv = dtype != torch.int8
+                with torch.inference_mode():
+                    runs = [(bwd(kv, d_mix, d_w, pad, u, c, want_dkv=dkv,
+                                 kv_scales=scales),
+                             stream_mix(kv, u, c, pad, kv_scales=scales,
+                                        training=True, seed=(cases, 7),
+                                        mask_prob=0.6))
+                            for _ in range(2)]
+                torch.cuda.synchronize()
+                (b1, m1), (b2, m2) = runs
+                where = f"B={B} M={M} E={E} H={H} {dtype}"
+                check((b1[0] is None) == (not dkv), f"d_kv at {where}")
+                for k, x, y in zip(("d_kv", "du", "dc"), b1, b2):
+                    check(x is None and y is None or torch.equal(x, y),
+                          f"two stream_bwd calls differ in {k} at {where}")
+                for k, x, y in zip(("mix", "w", "mw", "ent", "rate"), m1, m2):
+                    check(torch.equal(x, y),
+                          f"two stream_mix calls differ in {k} at {where}")
+                cases += 1
+    print(f"streamed kernels repeatable: two calls equal bit for bit in "
+          f"{cases} cases (stream_bwd/stream_bwd_mh du, dc, d_kv; stream_mix "
+          f"mix, w, mw, ent, rate; B 4096/8192/133/3, E 2048/1024/1540/8192, "
+          f"H 1/2, f32+bf16+int8)")
 
 
 def check_stream_masks(torch) -> None:
@@ -3267,6 +3327,7 @@ def main() -> None:
     errs.update(check_stream_mix(torch, same))
     errs.update(check_stream_bwd(torch, same))
     check_stream_masks(torch)
+    check_stream_repeatable(torch)
     print("int8 kernel vs f32 kernel on q.float() * s, within the f32 "
           "kernel-vs-plain tolerances; bit for bit equal in: "
           + ", ".join(f"{k} {a} of {n}" for k, (a, n) in same.items()))

@@ -97,11 +97,14 @@ def test_wrapper_launches_or_raises(case, exc, match):
 
 
 # Each shared header and the sources that include it: the GEMM building
-# block and the chains' row kernels (pool_rows.cuh).
+# block, the chains' row kernels and part_sum (pool_rows.cuh), and the
+# streamed kernels' staging (stream_stage.cuh).
 INCLUDERS = {
     "gemm_f32.cuh": ("fused_pool_fwd", "shared_query_bwd", "shared_query_fwd",
                      "train_step"),
-    "pool_rows.cuh": ("shared_query_bwd", "shared_query_fwd", "train_step"),
+    "pool_rows.cuh": ("shared_query_bwd", "shared_query_fwd", "stream_bwd",
+                      "train_step"),
+    "stream_stage.cuh": ("stream_bwd", "stream_mix"),
 }
 
 

@@ -433,7 +433,75 @@ def test_cuda_sources_ship():
 
     from aecf_tpu_torch.kernels import _build
 
+    csrc = os.path.join(os.path.dirname(sq.__file__), "csrc")
     for name in ("stream_mix", "stream_bwd"):
-        src = os.path.join(os.path.dirname(sq.__file__), "csrc", f"{name}.cu")
+        src = os.path.join(csrc, f"{name}.cu")
         assert os.path.exists(src), src
         assert _build.library_path(name).parent.parent == _build._BUILD_ROOT
+        # both stage their rows through the shared staging header
+        with open(src) as f:
+            assert '#include "stream_stage.cuh"' in f.read()
+    assert os.path.exists(os.path.join(csrc, "stream_stage.cuh"))
+    # the streamed backward sums its partial rows with part_sum; colsum is
+    # gone
+    with open(os.path.join(csrc, "stream_bwd.cu")) as f:
+        bwd = f.read()
+    with open(os.path.join(csrc, "pool_common.cuh")) as f:
+        common = f.read()
+    assert "part_sum(" in bwd and "colsum(" not in bwd + common
+
+
+# ---- the plain versions at the staged kernels' edge shapes -------------------
+
+
+@pytest.mark.parametrize("H", [1, 2])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_edge_rows_match_jax(dtype, H):
+    """The plain versions that ``chip_smoke.py`` holds the staged kernels
+    to, at rows that are not 16-byte multiples (M = 3, E = 1540: 9240 bytes
+    in bf16, 4620 in int8) and B = 133, against JAX's streamed Pallas
+    kernels in interpret mode: the eval forward (out, weights, entropy) and
+    the gradients of params and query through the streamed backward, with
+    padded slots and a fully padded row.  Both sides read the same bf16 (or
+    int8 and scales) values and sum in f32, so the f32 tolerances hold."""
+    B, M, E = 133, 3, 1540
+    arrs, q, kv, kpm = _inputs(100 + H, B, M, E, padded=True)
+    kpm[0] = True
+    if dtype == "bf16":
+        jkv, jscales = jnp.asarray(kv, jnp.bfloat16), None
+        tkv, tscales = torch.from_numpy(kv).bfloat16(), None
+    else:
+        jkv, jscales = jax_sq.quantize_features(jnp.asarray(kv))
+        tkv = torch.from_numpy(np.array(jkv))
+        tscales = torch.from_numpy(np.array(jscales))
+    mask_j, mask_t = jnp.asarray(kpm), torch.from_numpy(kpm)
+
+    def jax_loss(p, qq):
+        o, w, _, info = jax_shared(
+            p, qq, jkv, kv_scales=jscales, num_heads=H, training=False,
+            interpret=True, precision="highest", key_padding_mask=mask_j,
+        )
+        return _loss(o, w, info["entropy"]), (o, w, info["entropy"])
+
+    (loss_j, (j_out, j_w, j_ent)), grads_j = jax.value_and_grad(
+        jax_loss, (0, 1), has_aux=True)(_jax_params(arrs), jnp.asarray(q))
+    tp = _torch_params(arrs)
+    for k in POOL:
+        getattr(tp, k).requires_grad_()
+    tq = torch.from_numpy(q).requires_grad_()
+    out, w, mw, info = fused_fusion_pool_shared(
+        tp, tq, tkv, kv_scales=tscales, num_heads=H, precision="highest",
+        key_padding_mask=mask_t,
+    )
+    loss_t = _loss(out, w, info["entropy"])
+    loss_t.backward()
+    assert tuple(out.shape) == (B, 1, E)
+    np.testing.assert_allclose(out.detach().numpy(), j_out, atol=OUT_TOL)
+    np.testing.assert_allclose(w.detach().numpy(), j_w, atol=W_TOL)
+    np.testing.assert_allclose(info["entropy"].detach().numpy(), j_ent,
+                               atol=W_TOL)
+    np.testing.assert_allclose(w[0, 0].detach().numpy(), 1.0 / 3, atol=1e-7)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-6)
+    for k in POOL:
+        rel_close(getattr(tp, k).grad.numpy(), getattr(grads_j[0], k), name=k)
+    rel_close(tq.grad.numpy(), grads_j[1], name="query")
