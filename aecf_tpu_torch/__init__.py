@@ -4,8 +4,8 @@ The JAX package ``aecf_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Public API (the reference's
 ``aecf/__init__.py``): ``CurriculumMasking``, ``MultimodalAttentionPool``,
 ``multimodal_attention_pool``, ``create_fusion_pool``.  Ported so far —
-the module API, the model families, the serving path and the
-pool-protocol training step:
+the module API, the model families, the serving path and the training
+loop:
 
     aecf_tpu_torch.nn            — the four public symbols (nn.Modules)
     aecf_tpu_torch.core          — pure functions (the CPU oracle)
@@ -17,10 +17,18 @@ pool-protocol training step:
                                    XrayBaselineModel, MultiScaleFusion
     aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher
     aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
-    aecf_tpu_torch.train         — TrainState, make_pool_train_step,
-                                   init_pool_classifier_params
+    aecf_tpu_torch.train         — fit (checkpoint/resume),
+                                   make_pool_train_step and the K-step
+                                   chunk (a CUDA graph on the card),
+                                   checkpoints, metrics, evaluation and
+                                   the baseline-vs-AECF experiment
+    aecf_tpu_torch.data          — synthetic CLIP-like features
     aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
                                    into the port's modules
+
+Not ported yet (ROADMAP.md): the native batch loader and pathology mining
+(``data/``), ``parallel/`` and ``mesh=``, serving export, ``tune.py``,
+``kernels/tiles.py`` and ``utils/``.
 
 Importing the package touches no CUDA and builds nothing; a kernel is
 compiled at its first launch.

@@ -232,6 +232,10 @@ struct MaskParams {
   int min_active;
   int training;
   uint32_t seed0, seed1;
+  // The two seed words in device memory, read in place of seed0 and seed1
+  // when set (the one-pass step's, so that a replayed CUDA graph draws the
+  // words the host wrote for this replay); null for every other caller.
+  const uint32_t* seeds = nullptr;
 };
 
 // One warp per row: per-head softmax weights a[h][m] (every lane holds
@@ -444,7 +448,10 @@ __device__ __forceinline__ void row_side_outputs(
     const float keep = fminf(fmaxf(1.f - __fmul_rn(mp.mask_prob, norm), 0.f),
                              1.f);
     float uni[kMaxM];
-    row_uniforms(mp.seed0, mp.seed1, gr, M, uni);
+    if (mp.seeds != nullptr)
+      row_uniforms(mp.seeds[0], mp.seeds[1], gr, M, uni);
+    else
+      row_uniforms(mp.seed0, mp.seed1, gr, M, uni);
     float mask[kMaxM];
     float kept = 0.f;
 #pragma unroll

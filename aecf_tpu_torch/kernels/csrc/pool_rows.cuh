@@ -193,9 +193,7 @@ __global__ void __launch_bounds__(kThreads) rows_bwd_kernel(BwdRows p) {
   const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kWarps;
   const int rows_valid = min(kWarps, B - row0);
-  // the step (kLoss) takes only E % 4 == 0 and aligned kv, and has no d_w:
-  // its instance compiles the four-feature path alone
-  const bool vec = kLoss || p.vec != 0;
+  const bool vec = p.vec != 0;
   const T* kv = static_cast<const T*>(p.kv);
   const int b = row0 + warp;
   if (b < B) {

@@ -60,6 +60,21 @@
 // Rows past B write nothing and add nothing to any sum; nothing is padded
 // on the host.
 //
+// Widths: any E (E <= 1024 at the wrapper), as the backward chain: the
+// workspace rows (mix, out, d_out, d_mix) are E4 = 4 ceil(E / 4) floats
+// apart, and at E % 4 != 0 W_vo is first copied to rows of E4 floats
+// (pad_rows), for the GEMMs' 16-byte chunks.  kv is read four features a
+// lane when E % 4 == 0 and kv, d_kv and u are aligned to those accesses,
+// else one feature at a time (the same fmafs in the same order); so a kv
+// that is a view into a staged batch (row_offset) needs no alignment.  At
+// E % 4 == 0 with aligned operands the chain is the one it was before
+// these widths: the same kernels, layouts and bits.
+//
+// Seeds: the mask's two seed words come by value (seed0, seed1), or, when
+// `seeds` is set, from device memory, read by R1: a CUDA graph of K steps
+// (the training chunk) keeps a (K, 2) buffer that the host refills before
+// each replay, so each replay draws its own steps' masks.
+//
 // Numerics: f32 throughout; built without fast-math or flush-to-zero
 // (the entropy's subnormal floor).
 
@@ -90,6 +105,7 @@ struct StepParams {
   float* dhead_w;        // (E, C)
   float* sums;           // (2E + 2 + C): du | sum d_out | sum d_s | loss | db_head
   float* ws;             // aecf_train_step_workspace floats
+  const uint32_t* seeds;  // two seed words on the device, or null: seed0/1
   int B, M, E, C, kv_dtype, training, min_active;  // kv_dtype: KvDtype
   unsigned int seed0, seed1;
   float max_entropy, mask_prob, inv, two_inv;
@@ -99,15 +115,16 @@ namespace {
 
 struct Workspace {
   float* a;        // B x M: the softmax weights
-  float* mix;      // B x E
-  float* out;      // B x E (head)
-  float* dout;     // B x E
-  float* dmix;     // B x E
+  float* mix;      // B x E4
+  float* out;      // B x E4 (head)
+  float* dout;     // B x E4
+  float* dmix;     // B x E4
   float* sq;       // B x tiles: sum out^2 per (row, G1 column tile)
   float* lrow;     // B: row loss (head)
   float* dlogits;  // B x ldl (head)
   float* part;     // warp_blocks(B) x part_cols(E, C, true): R2's rows
   float* scr;      // split partials, the largest GEMM's (one at a time)
+  float* wvo;      // E x E4: W_vo in rows of E4 (E % 4 != 0)
   int sq_ld;       // G1's column tiles
 };
 
@@ -118,7 +135,7 @@ inline int out_tiles(int B, int E) {
   return cdiv(E, gemm::gemm_plan(B, E, E, 1, false, false).bn);
 }
 
-constexpr int kPieces = 10;
+constexpr int kPieces = 11;
 
 // Floats of split partials the chain's GEMMs need, the largest of them:
 // they run one after another on one stream.
@@ -138,7 +155,8 @@ size_t scratch_floats(int B, int E, int C) {
 // Floats of each workspace piece, in carve order; each rounded up to 64
 // floats, so every piece starts 256-byte aligned.
 void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
-  const size_t be = (size_t)B * E;
+  const size_t E4 = align4(E);
+  const size_t be = (size_t)B * E4;
   n[0] = (size_t)B * kMaxM;  // a: B x M used (the size takes no M)
   n[1] = be;
   n[2] = C > 0 ? be : 0;
@@ -149,6 +167,7 @@ void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
   n[7] = C > 0 ? (size_t)B * logits_ld(C) : 0;
   n[8] = (size_t)warp_blocks(B) * part_cols(E, C, true);
   n[9] = scratch_floats(B, E, C);
+  n[10] = E % 4 != 0 ? (size_t)E * E4 : 0;
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
@@ -168,8 +187,8 @@ Workspace carve(float* ws, int B, int E, int C) {
     at[i] = ws;
     ws += n[i];
   }
-  return Workspace{at[0], at[1], at[2], at[3], at[4],
-                   at[5], at[6], at[7], at[8], at[9], out_tiles(B, E)};
+  return Workspace{at[0], at[1], at[2], at[3], at[4], at[5],
+                   at[6], at[7], at[8], at[9], at[10], out_tiles(B, E)};
 }
 
 MaskParams mask_params(const StepParams& p) {
@@ -180,6 +199,7 @@ MaskParams mask_params(const StepParams& p) {
   mp.training = p.training;
   mp.seed0 = p.seed0;
   mp.seed1 = p.seed1;
+  mp.seeds = p.seeds;
   return mp;
 }
 
@@ -197,6 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int E = p.E;
+  const int E4 = align4(E);
   const int C = p.C;
   const float* W = p.head_w;
   float* lg = smem;
@@ -210,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
   lg += warp * C;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= p.B) return;  // warp-uniform; no block barrier below
-  const float* o = ws.out + (size_t)b * E;
+  const float* o = ws.out + (size_t)b * E4;
   for (int c0 = 0; c0 < C; c0 += kHeadChunk) {
     float acc[kHeadChunk];
 #pragma unroll
@@ -243,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) ws.lrow[b] = s * p.inv;
   __syncwarp();
   // d_out[e] = sum_c d_logits[c] W_head[e, c]
-  float* dout = ws.dout + (size_t)b * E;
+  float* dout = ws.dout + (size_t)b * E4;
   for (int e = lane; e < E; e += 32) {
     const float* wr = W + (size_t)e * C;
     float acc = 0.f;
@@ -260,12 +281,21 @@ size_t head_smem_bytes(int E, int C) {
 }
 
 template <typename T>
-cudaError_t launch(const StepParams& p, cudaStream_t stream) {
+cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   const int B = p.B;
   const int E = p.E;
+  const int E4 = align4(E);
   const int C = p.head_w != nullptr ? p.C : 0;
   const Workspace ws = carve(p.ws, B, E, C);
   cudaError_t err;
+
+  // the GEMM operand W_vo: rows of E4 floats
+  const float* wvo = p.wvo;
+  if (E % 4 != 0) {
+    if ((err = pad_rows(p.wvo, E, E, E4, ws.wvo, stream)) != cudaSuccess)
+      return err;
+    wvo = ws.wvo;
+  }
 
   // R1 (the training instance: the forward's masks, bit for bit)
   FwdRows r1{};
@@ -284,8 +314,8 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   r1.M = p.M;
   r1.E = E;
   r1.H = 1;
-  r1.ld = E;
-  r1.vec = 1;
+  r1.ld = E4;
+  r1.vec = vec;
   rows_fwd_kernel<T, true, 1>
       <<<warp_blocks(B), kThreads, 0, stream>>>(r1, mask_params(p));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -293,10 +323,10 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   // G1: out[b, n] = sum_k mix[b, k] W_vo[n, k] (+ b_ctx): W_vo n-major
   gemm::GemmArgs g1{};
   g1.A = ws.mix;
-  g1.lda = E;
-  g1.W = p.wvo;
-  g1.ldw = E;
-  g1.ldc = E;
+  g1.lda = E4;
+  g1.W = wvo;
+  g1.ldw = E4;
+  g1.ldc = E4;
   g1.rows = B;
   g1.N = E;
   g1.K = E;
@@ -342,8 +372,8 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   r2.B = B;
   r2.M = p.M;
   r2.E = E;
-  r2.ld = E;
-  r2.vec = 1;
+  r2.ld = E4;
+  r2.vec = vec;
   r2.sq = ws.sq;
   r2.lrow = ws.lrow;
   r2.dlogits = ws.dlogits;
@@ -357,9 +387,9 @@ cudaError_t launch(const StepParams& p, cudaStream_t stream) {
   // G3: G[i, j] = sum_b d_out[b, i] mix[b, j] (A transposed, K = B)
   gemm::GemmArgs g3{};
   g3.A = ws.dout;
-  g3.lda = E;
+  g3.lda = E4;
   g3.W = ws.mix;
-  g3.ldw = E;
+  g3.ldw = E4;
   g3.C = p.g;
   g3.ldc = E;
   g3.rows = E;
@@ -394,31 +424,41 @@ size_t aecf_train_step_workspace(int B, int E, int C) {
   return workspace_floats(B, E, C);
 }
 
-// The most shared memory in bytes one block of the chain asks for: the
-// GEMM's ring, or the head kernel's W_head and logits.
+// Bytes of shared memory a block of the chain asks for at (E, C), C = 0
+// for the quadratic loss: the larger of the GEMMs' ring and the head
+// kernel's.  The wrapper checks its own count (_step_smem) before it
+// launches; chip_smoke.py holds the two equal.
 size_t aecf_train_step_smem(int E, int C) {
   const size_t head = C > 0 ? head_smem_bytes(E, C) : 0;
   return head > gemm::kMaxSmemBytes ? head : gemm::kMaxSmemBytes;
 }
 
 // Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
-// contiguous device buffers as listed in StepParams (kv aligned to four
-// features, wvo and ws to 16 bytes); int8 needs scales and takes no dkv.
+// contiguous device buffers as listed in StepParams (wvo and ws 16-byte
+// aligned; kv at any element offset); int8 needs scales and takes no dkv.
+// The shared memory a block asks for, the larger of the GEMMs' ring
+// (gemm::kMaxSmemBytes) and head_smem_bytes(E, C), is checked against the
+// H100's 227 KB by the wrapper (kernels/train_step.py, _step_smem).
 int aecf_train_step(const StepParams* p, void* stream) {
-  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 || p->E % 4 != 0 ||
+  if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 ||
       (p->head_w != nullptr && p->C < 1) ||
       (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
-      reinterpret_cast<uintptr_t>(p->kv) %
-              (p->kv_dtype == kKvF32 ? 16 : p->kv_dtype == kKvBf16 ? 8 : 4) !=
-          0 ||
       !gemm::aligned16(p->wvo) || !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
+  // the four-feature accesses of kv, u and d_kv (16 bytes f32, 8 bf16, 4
+  // int8)
+  const uintptr_t size =
+      p->kv_dtype == kKvF32 ? 16 : p->kv_dtype == kKvBf16 ? 8 : 4;
+  const int vec = p->E % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(p->kv) % size == 0 &&
+                  reinterpret_cast<uintptr_t>(p->dkv) % size == 0 &&
+                  gemm::aligned16(p->u);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p->kv_dtype) {
-    case kKvF32: return (int)launch<float>(*p, s);
-    case kKvBf16: return (int)launch<__nv_bfloat16>(*p, s);
-    case kKvInt8: return (int)launch<int8_t>(*p, s);
+    case kKvF32: return (int)launch<float>(*p, vec, s);
+    case kKvBf16: return (int)launch<__nv_bfloat16>(*p, vec, s);
+    case kKvInt8: return (int)launch<int8_t>(*p, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

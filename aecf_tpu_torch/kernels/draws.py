@@ -22,17 +22,19 @@ with ``& 0xFFFFFFFF``.  The high word of a 32×32 product is
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 __all__ = [
     "device_generator",
     "draw_seed_words",
+    "fold_seed_words",
     "generator_on",
     "mask_and_renorm",
     "mask_uniforms",
     "philox4x32_10",
+    "seed_words_of",
 ]
 
 _WORD = 0xFFFFFFFF
@@ -42,12 +44,48 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _EPS = 1e-8
 
 
-def draw_seed_words(generator: Optional[torch.Generator]) -> Tuple[int, int]:
+# The third counter word of a fold: "FOLD", so a fold's draws never meet
+# the mask's counters (row, group, 0, 0).
+_FOLD = 0x464F4C44
+
+SeedLike = Union[int, Tuple[int, int]]
+
+
+def seed_words_of(rng: SeedLike) -> Tuple[int, int]:
+    """A run's seed as two 32-bit words: an int's low and high words, or a
+    pair of words as given."""
+    if isinstance(rng, tuple):
+        if len(rng) != 2:
+            raise ValueError(f"seed words are a pair, got {rng!r}")
+        return int(rng[0]) & _WORD, int(rng[1]) & _WORD
+    rng = int(rng)
+    return rng & _WORD, (rng >> 32) & _WORD
+
+
+def fold_seed_words(rng: SeedLike, step: int) -> Tuple[int, int]:
+    """The seed words of update ``step`` of a run seeded ``rng``: Philox
+    keyed by ``rng``'s words at counter ``(step low, step high, FOLD, 0)``,
+    its first two words — the port's ``jax.random.fold_in(rng, step)``.
+    A pure function of ``(rng, step)``, so a resumed run and every chunking
+    of a run draw the masks of the uninterrupted run."""
+    step = int(step)
+    words = philox4x32_10(
+        (step & _WORD, (step >> 32) & _WORD, _FOLD, 0), seed_words_of(rng)
+    )
+    return words[0], words[1]
+
+
+def draw_seed_words(
+    generator: Union[torch.Generator, Tuple[int, int], None],
+) -> Tuple[int, int]:
     """Two 32-bit seed words from a CPU ``torch.Generator`` as host ints
-    (no device sync); ``(0, 0)`` without a generator, as the JAX
+    (no device sync), or the pair of words itself when one is given (a
+    step's :func:`fold_seed_words`); ``(0, 0)`` without either, as the JAX
     ``_draw_seed_words`` gives zeros without a key."""
     if generator is None:
         return 0, 0
+    if isinstance(generator, tuple):
+        return seed_words_of(generator)
     if generator.device.type != "cpu":
         raise ValueError(
             "seed words come from a CPU torch.Generator, got one on "
@@ -67,11 +105,15 @@ def device_generator(seed: Tuple[int, int], device) -> torch.Generator:
 
 
 def generator_on(
-    generator: Optional[torch.Generator], device
+    generator: Union[torch.Generator, Tuple[int, int], None], device
 ) -> Optional[torch.Generator]:
     """``generator`` itself when it lives on ``device``'s kind, else a
-    generator on ``device`` seeded from two words drawn from it."""
-    if generator is None or generator.device.type == torch.device(device).type:
+    generator on ``device`` seeded from two words drawn from it (or from
+    the pair of seed words given in its place)."""
+    if generator is None or (
+        isinstance(generator, torch.Generator)
+        and generator.device.type == torch.device(device).type
+    ):
         return generator
     return device_generator(draw_seed_words(generator), device)
 

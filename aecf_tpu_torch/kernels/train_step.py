@@ -34,10 +34,17 @@ words — with no condition on tile sizes.
 int8 features (``kv_scales``, the kernel's ``quantized=True`` branch) are
 dequantized per element in the kernel and are frozen: no ``d_kv``.
 
-Not ported (each raises, naming its ROADMAP.md item): staged-batch
-addressing (``row_offset``/``batch_rows``, packed 2-D ``kv``) and a custom
-``row_loss`` on CUDA tensors (a Python callable cannot run inside a CUDA
-kernel; the plain version runs one on CPU tensors).
+The chain takes any E up to the resident cap (workspace rows of a multiple
+of four floats) and a ``kv`` at any element offset, so a staged batch —
+``row_offset``/``batch_rows`` into ``(S·B, M, E)`` or packed ``(S·B,
+M·E)`` features, JAX's in-kernel offset — is a zero-copy view.  The seed
+words come by value or, with ``seed_words=``, from a ``(2,)`` int32 device
+tensor that the kernel reads (a replayed CUDA graph's steps).  A custom
+``row_loss`` — a Python callable, which cannot run inside the chain — goes
+through the two-pass kernels: the forward (``shared_query_fwd.cu``), the
+callable in torch (with a head, the head's products on the GEMM block of
+``csrc/gemm_f32.cuh`` around it), the backward (``shared_query_bwd.cu``);
+the forward draws the step's mask for the same seed words.
 """
 
 from __future__ import annotations
@@ -51,11 +58,13 @@ import torch
 
 from ..core.attention import AttentionPoolParams
 from ._build import load_library
+from ._gemm import gemm_f32, gemm_f32_plain
 from .draws import draw_seed_words
 from .shared_query import (
     _KV_DTYPE,
     _MAX_M,
     _RESIDENT_E_CAP,
+    _aligned16,
     _assemble_d_params,
     _check_f32,
     _check_kv_scales,
@@ -68,10 +77,11 @@ from .shared_query import (
     _ptr,
     _query_path_grads,
     _raise_on_error,
-    _require_aligned,
     _require_cuda,
     _side_outputs,
     _split_params,
+    shared_query_bwd,
+    shared_query_fwd,
 )
 
 __all__ = [
@@ -86,7 +96,21 @@ __all__ = [
 # Batch rows one block tile of the step's GEMMs covers (kBM in
 # csrc/gemm_f32.cuh); its row kernels take one row a warp.
 _STEP_ROWS = 128
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1, item 1: {})"
+# Shared memory of a block of the chain (csrc/train_step.cu): the GEMMs'
+# ring (gemm::kMaxSmemBytes: 3 stages of 128 x 36 + 32 x 128 floats), or
+# the head kernel's W_head when E C <= kHeadStageFloats and 8 warps' C
+# logits (head_smem_bytes) — against the H100's 227 KB.  The sources hold
+# the same constants (a test reads them there) and the library reports its
+# own sum (aecf_train_step_smem, held to this one on the card).
+_GEMM_SMEM = 4 * 3 * (128 * 36 + 32 * 128)
+_HEAD_STAGE_FLOATS = 24576
+_HEAD_WARPS = 8
+_SMEM_CAP = 227 * 1024
+
+
+def _step_smem(E: int, C: int) -> int:
+    staged = E * C if E * C <= _HEAD_STAGE_FLOATS else 0
+    return max(_GEMM_SMEM, 4 * (staged + _HEAD_WARPS * C) if C else 0)
 
 
 def supports_fused_step(num_heads: int, embed_dim: int) -> bool:
@@ -223,15 +247,25 @@ def train_step(
     row_loss: Optional[Callable] = None,
     row_extras: Tuple[torch.Tensor, ...] = (),
     kv_scales: Optional[torch.Tensor] = None,
+    seed_words: Optional[torch.Tensor] = None,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """Wrapper of ``csrc/train_step.cu`` (``_step_kernel``, and its
     ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
-    and results as in :func:`train_step_plain`.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel chain or raise (a custom
-    ``row_loss`` raises; ``kv`` must be aligned to four features and
-    ``wvo`` to 16 bytes).
-    ``train_step.launches`` counts f32/bf16 calls, ``train_step.launches_q8``
-    int8 ones: one a call, whatever the chain launches."""
+    and results as in :func:`train_step_plain`, any E ≤ 1024, ``kv`` at any
+    element offset (a view into a staged batch).  ``seed_words``, a ``(2,)``
+    int32 tensor on kv's device, replaces ``seed``: the kernel reads the
+    words from it, so a captured CUDA graph draws what the tensor holds at
+    replay.
+
+    Every limit is checked first; then a custom ``row_loss`` (chosen by the
+    arguments, on any device) runs the two-pass route: the forward
+    (:func:`shared_query_fwd`), the callable in torch on ``out`` or the
+    logits, the backward (:func:`shared_query_bwd`), each counting its own
+    launches (with a head, its products on the GEMM block count in
+    ``gemm_f32.launches``).  Otherwise CPU tensors run the plain version,
+    and CUDA tensors launch the step's chain or raise.  ``train_step.launches``
+    counts f32/bf16 calls of the chain, ``train_step.launches_q8`` int8
+    ones: one a call, whatever the chain launches."""
     if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
         raise ValueError(
             f"kv must be float32/bfloat16/int8 (B, M, E), got {kv.dtype} "
@@ -254,35 +288,44 @@ def train_step(
             want["labels"] = (labels, (B, C))
     _check_f32(kv, want, optional=("pad_bias", "labels"), why="the step")
     _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
-    kw = dict(inv=inv, want_dkv=want_dkv, training=training, seed=seed,
+    if head_w is not None and labels is None and row_loss is None:
+        raise ValueError("the step kernel's head loss needs labels")
+    if _step_smem(E, C) > _SMEM_CAP:
+        raise ValueError(
+            f"E={E}, C={C} needs {_step_smem(E, C)} bytes of shared memory "
+            "a block, above the H100's 227 KB"
+        )
+    if seed_words is not None:
+        if (tuple(seed_words.shape) != (2,) or seed_words.dtype != torch.int32
+                or seed_words.device != kv.device):
+            raise ValueError(
+                f"seed_words must be a (2,) int32 tensor on {kv.device}, got "
+                f"{seed_words.dtype} {tuple(seed_words.shape)} on "
+                f"{seed_words.device}"
+            )
+        if row_loss is not None or kv.device.type == "cpu":
+            seed = tuple(int(x) & 0xFFFFFFFF for x in seed_words.tolist())
+    operands = dict(kv=kv, kv_scales=kv_scales, u=u, c=c, pad_bias=pad_bias,
+                    wvo=wvo, bctx=bctx, head_w=head_w, head_b=head_b,
+                    labels=labels)
+    for name, t in operands.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    kw = dict(want_dkv=want_dkv, training=training, seed=seed,
               mask_prob=mask_prob, min_active=min_active, head_w=head_w,
               head_b=head_b, labels=labels, kv_scales=kv_scales)
-    if kv.device.type == "cpu":
-        return train_step_plain(kv, u, c, pad_bias, wvo, bctx,
-                                row_loss=row_loss, row_extras=row_extras, **kw)
     if row_loss is not None or row_extras:
-        raise NotImplementedError(
-            "a custom row_loss on CUDA tensors is "
-            + _ROADMAP.format("custom row_loss in the step kernel")
-            + "; the kernel has the quadratic and the BCE-head losses"
-        )
-    if head_w is not None and labels is None:
-        raise ValueError("the step kernel's head loss needs labels")
-    if E % 4:
-        raise ValueError(f"the step kernel takes E divisible by 4, got E={E}")
-    _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
-                           pad_bias=pad_bias, wvo=wvo, bctx=bctx,
-                           head_w=head_w, head_b=head_b, labels=labels))
-    _require_aligned(dict(kv=kv, wvo=wvo))
+        if row_loss is None:
+            raise ValueError("row_extras without a row_loss")
+        return _row_loss_step(kv, u, c, pad_bias, wvo, bctx, row_loss=row_loss,
+                              row_extras=tuple(row_extras), **kw)
+    if kv.device.type == "cpu":
+        return train_step_plain(kv, u, c, pad_bias, wvo, bctx, inv=inv, **kw)
+    _require_cuda(kv, operands)
+    wvo = _aligned16(wvo)
     lib = _library()
     dev = kv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    smem = lib.aecf_train_step_smem(E, C)
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"E={E}, C={C} needs {smem} bytes of shared memory a block, "
-            "above the H100's 227 KB"
-        )
     res: Dict[str, Optional[torch.Tensor]] = {
         "w": torch.empty((B, M), **f32),
         "mw": torch.empty((B, M), **f32),
@@ -300,7 +343,7 @@ def train_step(
         _ptr(head_w), _ptr(head_b), _ptr(labels), _ptr(res["w"]),
         _ptr(res["mw"]), _ptr(res["ent"]), _ptr(res["rate"]),
         _ptr(res["d_kv"]), _ptr(res["G"]), _ptr(dhead_w), _ptr(sums),
-        _ptr(ws), B, M, E, C, _KV_DTYPE[kv.dtype],
+        _ptr(ws), _ptr(seed_words), B, M, E, C, _KV_DTYPE[kv.dtype],
         int(bool(training)), int(min_active), seed[0], seed[1],
         math.log(M) if M > 1 else 0.0, float(mask_prob), float(inv),
         float(2.0 * inv),
@@ -318,6 +361,69 @@ def train_step(
     return res
 
 
+def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
+                   seed, mask_prob, min_active, head_w, head_b, labels,
+                   row_loss, row_extras, kv_scales):
+    """:func:`train_step` with a custom ``row_loss``, through the two-pass
+    kernels (their plain versions on CPU tensors): the training forward
+    gives ``out`` and the side outputs (the step's mask for the same seed
+    words), ``row_loss`` gives the row losses and ``d_out`` (through the
+    head's logits when there is one: the head's products run on the GEMM
+    block, three launches of :func:`~._gemm.gemm_f32`), and the H=1
+    backward gives ``d_kv`` and the batch sums.  The same results as
+    :func:`train_step_plain`."""
+    B = kv.shape[0]
+    out, w, mw, ent, rate = shared_query_fwd(
+        kv, u[None], c, pad_bias, wvo, bctx, kv_scales=kv_scales,
+        training=training, seed=seed, mask_prob=mask_prob,
+        min_active=min_active,
+    )
+    res: Dict[str, Optional[torch.Tensor]] = {}
+    if head_w is not None:
+        # The head's three products on the GEMM block, its operands in
+        # rows of a multiple of four floats (zeros past the data).  A ones
+        # column after out's E makes the last product give db_head as row E
+        # of dW_head; head_w's zero rows there keep it out of the logits.
+        E, C = head_w.shape
+        E1, C4 = -(-(E + 1) // 4) * 4, -(-C // 4) * 4
+        out1 = _padded(out, B, E1)
+        out1[:, E] = 1.0
+        w4 = _padded(head_w, E1, C4)
+        logits = _head_gemm(out1, w4, _padded(head_b[None], 1, C4)[0])
+        extras = ((labels,) if labels is not None else ()) + row_extras
+        loss_rows, d_logits = row_loss(logits[:, :C].contiguous(), *extras)
+        d4 = _padded(d_logits.float(), B, C4)
+        d_out = _head_gemm(d4, w4[:E], w_kmajor=False)
+        dwb = _head_gemm(out1, d4, a_trans=True)
+        res["dW_head"] = dwb[:E, :C].contiguous()
+        res["db_head"] = dwb[E, :C].contiguous()
+    else:
+        loss_rows, d_out = row_loss(out, *row_extras)
+    d_kv, G, du, dsum_out, dc = shared_query_bwd(
+        kv, u, c, pad_bias, d_out.float().contiguous(), None, wvo,
+        want_dkv=want_dkv, kv_scales=kv_scales,
+    )
+    res.update(w=w, mw=mw, ent=ent, rate=rate, d_kv=d_kv, G=G, du=du,
+               dsum_out=dsum_out, dc=dc, loss=loss_rows.reshape(B).sum())
+    return res
+
+
+def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` (2-D) in the top left of a zero f32 ``(rows, cols)`` tensor."""
+    out = t.new_zeros((rows, cols), dtype=torch.float32)
+    out[: t.shape[0], : t.shape[1]] = t
+    return out
+
+
+def _head_gemm(a, w, bias=None, *, a_trans=False, w_kmajor=True):
+    """One product of the custom-``row_loss`` route's head on the GEMM
+    block (``csrc/gemm_f32.cuh``; its plain version on CPU tensors),
+    operands as :func:`~._gemm.gemm_f32` takes them, one group."""
+    gemm = gemm_f32_plain if a.device.type == "cpu" else gemm_f32
+    return gemm(a[None], w[None], None if bias is None else bias[None],
+                a_trans=a_trans, w_kmajor=w_kmajor)[0]
+
+
 train_step.launches = train_step.launches_q8 = 0
 
 
@@ -331,7 +437,7 @@ class _StepParams(ctypes.Structure):
                 "kv", "scales", "u", "c", "pad", "wvo", "bctx",
                 "head_w", "head_b",
                 "labels", "w", "mw", "ent", "rate", "dkv", "g", "dhead_w",
-                "sums", "ws",
+                "sums", "ws", "seeds",
             )
         ]
         + [
@@ -385,6 +491,7 @@ def fused_pool_train_step(
     loss_scale: float = 1.0,
     row_offset: Optional[int] = None,
     batch_rows: Optional[int] = None,
+    seed_words: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, ...]:
     """One-pass fused training step: loss and gradients in one kv read.
 
@@ -409,22 +516,67 @@ def fused_pool_train_step(
       ``target_entropy`` as (B, 1) values, plus ``attention_weights`` and
       ``masked_attention_weights`` (B, 1, M)); all detached (Q1/Q2).
 
-    ``generator`` (a CPU ``torch.Generator``) gives the two seed words of
-    the draw; ``training=False`` skips it (eval info contract; identical
-    gradients, Q1).  ``loss_scale`` multiplies the built-in losses' mean
-    normaliser.  ``precision`` is ``"default"`` or ``"highest"``; the
-    kernel runs full f32 FMAs for both.
+    ``generator`` (a CPU ``torch.Generator``, or the two seed words as a
+    tuple) gives the two seed words of the draw; ``seed_words``, a ``(2,)``
+    int32 tensor on kv's device, gives them instead, read by the kernel
+    (the CUDA-graph chunk's steps).  ``training=False`` skips the draw
+    (eval info contract; identical gradients, Q1).  ``loss_scale``
+    multiplies the built-in losses' mean normaliser.  ``precision`` is
+    ``"default"`` or ``"highest"``; the kernel runs full f32 FMAs for both.
+
+    ``row_offset``/``batch_rows`` — staged-batch addressing (JAX's
+    in-kernel tile offset): ``kv`` holds S steps' batches stacked on axis 0,
+    ``(S·B, M, E)`` or packed ``(S·B, M·E)``, as do ``labels``,
+    ``kv_scales``, ``key_padding_mask`` and ``row_extras``; the step runs on
+    rows ``row_offset .. row_offset + batch_rows`` of each, as zero-copy
+    views (a view whose start is not on 16 bytes takes the kernel's
+    one-feature reads).  Any ``batch_rows`` dividing the staged rows: the
+    chain masks a ragged last tile itself.
     """
-    if row_offset is not None or batch_rows is not None or kv.ndim == 2:
-        raise NotImplementedError(
-            "staged-batch addressing (row_offset/batch_rows, packed 2-D kv) "
-            "is " + _ROADMAP.format("staged row_offset in the step kernel")
-        )
     if query.shape[:2] != (1, 1):
         raise ValueError(
             f"shared-query step expects query (1, 1, E), got "
             f"{tuple(query.shape)}"
         )
+    if kv.ndim == 2:  # packed (rows, M·E): modalities side by side
+        E = query.shape[-1]
+        if kv.shape[1] % E:
+            raise ValueError(
+                f"2-D kv columns {kv.shape[1]} not a multiple of embed dim {E}"
+            )
+        kv = kv.view(kv.shape[0], kv.shape[1] // E, E)
+    if row_offset is not None:
+        if batch_rows is None:
+            raise ValueError("row_offset requires batch_rows")
+        S_rows = kv.shape[0]
+        if batch_rows < 1 or S_rows % batch_rows:
+            raise ValueError(
+                f"staged kv rows {S_rows} not a multiple of "
+                f"batch_rows={batch_rows}"
+            )
+        if not 0 <= row_offset <= S_rows - batch_rows:
+            raise ValueError(
+                f"row_offset={row_offset} outside the {S_rows} staged rows"
+            )
+        rows = slice(row_offset, row_offset + batch_rows)
+
+        def step_rows(name, t):
+            if t is None:
+                return None
+            if t.shape[0] != S_rows:
+                raise ValueError(
+                    f"staged {name} must hold the {S_rows} staged rows, got "
+                    f"{tuple(t.shape)}"
+                )
+            return t[rows]
+
+        kv = kv[rows]
+        labels = step_rows("labels", labels)
+        kv_scales = step_rows("kv_scales", kv_scales)
+        key_padding_mask = step_rows("key_padding_mask", key_padding_mask)
+        row_extras = tuple(step_rows("row_extras", t) for t in row_extras)
+    elif batch_rows is not None and batch_rows != kv.shape[0]:
+        raise ValueError("batch_rows without row_offset must match kv.shape[0]")
     B, M, E = kv.shape
     if E > _RESIDENT_E_CAP:
         raise ValueError(
@@ -437,7 +589,7 @@ def fused_pool_train_step(
             f"{precision!r} — use the torch path for other modes"
         )
     _check_kv_scales(kv, kv_scales, want_dkv=kv_grad)
-    if training and generator is None and M > 1:
+    if training and generator is None and seed_words is None and M > 1:
         raise ValueError(
             "fused_pool_train_step(training=True) needs a `generator=`"
         )
@@ -460,7 +612,8 @@ def fused_pool_train_step(
                 f"labels must be ({B}, {C}), got {tuple(labels.shape)}"
             )
 
-    seed = draw_seed_words(generator) if training else (0, 0)
+    seed = (draw_seed_words(generator)
+            if training and seed_words is None else (0, 0))
     qrow = query[0, 0, :]
     in_w, in_b = params.in_proj_weight, params.in_proj_bias
     out_w, out_b = params.out_proj_weight, params.out_proj_bias
@@ -483,6 +636,7 @@ def fused_pool_train_step(
             labels=labels.float().contiguous() if labels is not None else None,
             row_loss=row_loss, row_extras=tuple(row_extras),
             kv_scales=kv_scales,
+            seed_words=seed_words if training else None,
         )
         dWo, dWv, d_bv, dbo = _g_epilogue(
             res["G"], res["dsum_out"], wv, out_w, bv, out_b is not None

@@ -1,22 +1,68 @@
-"""Training: the pool-protocol train step and its state.
+"""Training: the elastic loop, the pool-protocol steps and chunks,
+checkpoints, metrics and the experiment harness.
 
-Port of the pool-step slice of :mod:`aecf_tpu.train`.  Not ported yet
-(ROADMAP.md): ``make_pool_scan_train_step`` / ``as_fit_chunk`` (a K-step
-chunk, to become a CUDA graph), ``fit``, checkpointing, metrics and the
-experiment harness.
+Port of :mod:`aecf_tpu.train`.  Not ported yet (ROADMAP.md): ``mesh=``
+data and tensor parallelism (``parallel/``).
 """
 
+from .checkpointing import CheckpointManager, load_params, save_params
+from .fit import fit, make_epoch_batch_fn
+from .metrics import (
+    average_precision,
+    brier_score,
+    calculate_metrics,
+    expected_calibration_error,
+    macro_map,
+    recall_at_k,
+)
 from .pool_step import (
+    as_fit_chunk,
     as_fit_step,
     init_pool_classifier_params,
+    make_pool_scan_train_step,
     make_pool_train_step,
 )
-from .trainer import TrainState, param_leaves
+from .sweeps import missing_modality_sweep, modality_subsets
+from .trainer import (
+    ExperimentConfig,
+    TrainState,
+    accumulate_grads,
+    bce_with_logits_loss,
+    evaluate_model,
+    make_scan_train_step,
+    make_train_step,
+    mask_modality,
+    param_leaves,
+    train_parallel_experiment,
+)
 
 __all__ = [
-    "TrainState",
-    "as_fit_step",
+    "fit",
+    "make_epoch_batch_fn",
+    "CheckpointManager",
+    "load_params",
+    "save_params",
+    "average_precision",
+    "calculate_metrics",
+    "expected_calibration_error",
+    "brier_score",
+    "recall_at_k",
+    "macro_map",
+    "missing_modality_sweep",
+    "modality_subsets",
     "init_pool_classifier_params",
     "make_pool_train_step",
+    "make_pool_scan_train_step",
+    "as_fit_step",
+    "as_fit_chunk",
+    "ExperimentConfig",
+    "TrainState",
+    "accumulate_grads",
+    "bce_with_logits_loss",
+    "evaluate_model",
+    "make_scan_train_step",
+    "make_train_step",
+    "mask_modality",
     "param_leaves",
+    "train_parallel_experiment",
 ]

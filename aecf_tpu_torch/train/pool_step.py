@@ -1,22 +1,29 @@
-"""Pool-protocol train-step builder: the product path to the one-pass
-train-step kernel.
+"""Pool-protocol train-step builders: the product path to the one-pass
+train-step kernel, one step a call or K steps a call.
 
-Port of :mod:`aecf_tpu.train.pool_step` (one step a call; the K-step chunk
-is a later item).  The reference's headline training protocol (X3) is
-frozen pre-extracted features → fusion pool → linear classifier → BCE.
+Port of :mod:`aecf_tpu.train.pool_step`.  The reference's headline
+training protocol (X3) is frozen pre-extracted features → fusion pool →
+linear classifier → BCE.
 For H == 1 resident configs on the card that whole step is one pass over
 the features (:func:`aecf_tpu_torch.kernels.fused_pool_train_step`);
 :func:`make_pool_train_step` makes it the path a library user's training
 runs, and autodiffs through :func:`aecf_tpu_torch.ops.fusion_pool`
 everywhere else.  All paths run the same protocol and give the same
 parameter trajectory to f32 tolerance.
+
+:func:`make_pool_scan_train_step` runs K updates a call (JAX's
+``lax.scan`` chunk).  On the one-pass route on the card the K steps are one
+CUDA graph — the steps' kernels, torch ops and optimizer updates captured
+once and replayed — so the host launches one graph where it launched tens
+of kernels a step; elsewhere the K steps run eagerly in one call.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,13 +34,16 @@ from ..kernels import (
     fused_pool_head_train_step,
     fused_pool_train_step,
     supports_fused_step,
+    train_step as _step_kernel,
 )
-from ..kernels.draws import device_generator, draw_seed_words
+from ..kernels.draws import device_generator, draw_seed_words, fold_seed_words
 from .trainer import TrainState, param_leaves
 
 __all__ = [
+    "as_fit_chunk",
     "as_fit_step",
     "init_pool_classifier_params",
+    "make_pool_scan_train_step",
     "make_pool_train_step",
 ]
 
@@ -85,8 +95,9 @@ def init_pool_classifier_params(
 
 def _resolve_impl(impl, num_heads, params, kv, precision):
     """``'auto'``: the one-pass step on CUDA tensors where
-    :func:`supports_fused_step` holds; else ``ops.fusion_pool``'s own gate
-    (the two-pass kernels on CUDA, the torch path on the CPU)."""
+    :func:`supports_fused_step` holds (H == 1, E <= 1024: the chain takes
+    every such width); else ``ops.fusion_pool``'s own gate (the two-pass
+    kernels on CUDA, the torch path on the CPU)."""
     if impl != "auto":
         return impl
     E = params["query"].shape[-1]
@@ -124,10 +135,15 @@ def _make_local_step(
 ):
     """``(params, kv, labels, generator, loss_scale) -> (loss, info,
     grads)`` with ``grads`` in :func:`param_leaves` order — the
-    impl-dispatched core of the builder."""
+    impl-dispatched core of the builders.  ``generator`` is a CPU
+    ``torch.Generator`` or a step's two seed words; the one-pass route
+    also takes ``seed_words`` (a device tensor) and the staged addressing
+    of :func:`fused_pool_train_step` (``row_offset``, ``batch_rows``, with
+    ``kv`` and ``labels`` holding the staged rows)."""
 
-    def local_step(params, kv, labels, generator, loss_scale):
-        M = kv.shape[1]
+    def local_step(params, kv, labels, generator, loss_scale, **staged):
+        E = params["query"].shape[-1]
+        M = kv.shape[1] if kv.ndim == 3 else kv.shape[1] // E
         use = _resolve_impl(impl, num_heads, params, kv, precision)
         head = params.get("head")
         if use == "fused-step":
@@ -142,6 +158,7 @@ def _make_local_step(
                 precision=precision,
                 kv_grad=False,
                 loss_scale=loss_scale,
+                **staged,
             )
             if head is not None:
                 loss, grads, _, info = fused_pool_head_train_step(
@@ -207,7 +224,8 @@ def _accumulate(local_step, params, kv, labels, generator, loss_scale,
     """Microbatch the local step over ``accum_steps`` equal slices and mean
     the loss and gradients (equal microbatches of a mean loss give the
     full-batch mean).  Each slice draws its own seed words from
-    ``generator`` (i.i.d. draws)."""
+    ``generator``, or folds its index into the step's seed words (i.i.d.
+    draws)."""
     B = kv.shape[0]
     if B % accum_steps:
         raise ValueError(
@@ -217,9 +235,12 @@ def _accumulate(local_step, params, kv, labels, generator, loss_scale,
     losses, infos, gsum = [], [], None
     for i in range(accum_steps):
         rows = slice(i * micro, (i + 1) * micro)
+        # seed words fold the microbatch index in (JAX's fold_in(rng, i))
+        gen = fold_seed_words(generator, i) if isinstance(generator, tuple) \
+            else generator
         loss, info, grads = local_step(
             params, kv[rows], None if labels is None else labels[rows],
-            generator, loss_scale,
+            gen, loss_scale,
         )
         losses.append(loss)
         infos.append(info)
@@ -276,6 +297,17 @@ def make_pool_train_step(
     calls ``optimizer.step()``.  ``accum_steps`` microbatches the batch.
     ``mesh=`` (data parallelism) is not ported yet.
     """
+    _validate(impl, accum_steps, mesh)
+    local_step = _make_local_step(
+        num_heads=num_heads, impl=impl, precision=precision,
+        base_mask_prob=base_mask_prob, entropy_target=entropy_target,
+        min_active=min_active, entropy_coeff=entropy_coeff,
+        training=training,
+    )
+    return _make_step(local_step, accum_steps)
+
+
+def _validate(impl, accum_steps, mesh) -> None:
     if impl not in _IMPLS:
         raise ValueError(
             f"unknown impl {impl!r} (expected one of {', '.join(_IMPLS)})"
@@ -287,12 +319,11 @@ def make_pool_train_step(
             "mesh= data-parallel training is not ported yet (ROADMAP.md, "
             "queue 1, item 6: parallel/)"
         )
-    local_step = _make_local_step(
-        num_heads=num_heads, impl=impl, precision=precision,
-        base_mask_prob=base_mask_prob, entropy_target=entropy_target,
-        min_active=min_active, entropy_coeff=entropy_coeff,
-        training=training,
-    )
+
+
+def _make_step(local_step, accum_steps):
+    """``(state, kv, labels, generator) -> (state, loss, info)``: one
+    update (microbatched when ``accum_steps > 1``)."""
 
     def step(state: TrainState, kv, labels, generator):
         if accum_steps == 1:
@@ -317,15 +348,308 @@ def _set_grads(leaves: List[torch.Tensor], grads) -> None:
         p.grad = None if g is None else g.detach().to(p.dtype)
 
 
+def _side_by_side(a: torch.Tensor, b: torch.Tensor) -> Optional[torch.Tensor]:
+    """The contiguous ``(…, Ea + Eb)`` tensor whose column blocks ``a`` and
+    ``b`` are, when they are such views of one buffer (as ``fit`` stages
+    them), else None."""
+    if (a.dtype != b.dtype or a.device != b.device or a.ndim < 1
+            or a.shape[:-1] != b.shape[:-1] or a.stride() != b.stride()
+            or a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+            or b.storage_offset() != a.storage_offset() + a.shape[-1]):
+        return None
+    whole = a.as_strided(a.shape[:-1] + (a.shape[-1] + b.shape[-1],),
+                         a.stride())
+    return whole if whole.is_contiguous() else None
+
+
 def as_fit_step(pool_step: Callable) -> Callable:
     """Adapt a :func:`make_pool_train_step` step to the ``(state, images,
     texts, labels, generator)`` batch protocol of ``fit``: the two
     ``(B, E)`` feature streams stack into the ``(B, 2, E)`` kv (the X3
-    shape — image and text features)."""
+    shape — image and text features) — a view when they lie side by side
+    in one buffer, as ``fit`` stages them."""
 
     def step(state, images, texts, labels, generator):
-        return pool_step(
-            state, torch.stack([images, texts], dim=1), labels, generator
-        )
+        packed = _side_by_side(images, texts)
+        kv = (packed.unflatten(-1, (2, -1))
+              if packed is not None and images.shape == texts.shape
+              else torch.stack([images, texts], dim=1))
+        return pool_step(state, kv, labels, generator)
 
     return step
+
+
+def as_fit_chunk(pool_chunk: Callable) -> Callable:
+    """:func:`as_fit_step` for the chunk form (leading K axis): the two
+    ``(K, B, E)`` streams concatenate on the last axis into the packed
+    ``(K, B, 2·E)`` staging — the bytes of stacked modalities, and what
+    the CUDA-graph chunk stages; no copy when they lie side by side in one
+    buffer, as ``fit`` stages them."""
+
+    def chunk(state, images, texts, labels, rng):
+        packed = _side_by_side(images, texts)
+        if packed is None:
+            packed = torch.cat([images, texts], dim=-1)
+        return pool_chunk(state, packed, labels, rng)
+
+    return chunk
+
+
+def make_pool_scan_train_step(
+    *,
+    num_heads: int = 1,
+    impl: str = "auto",
+    precision: str = "highest",
+    base_mask_prob: float = 0.15,
+    entropy_target: float = 0.7,
+    min_active: int = 1,
+    entropy_coeff: float = 0.0,
+    training: bool = True,
+    accum_steps: int = 1,
+    mesh: Optional[Any] = None,
+) -> Callable:
+    """Multi-step pool-protocol chunk: ``(state, kv, labels, rng) ->
+    (state, losses (K,), infos)`` — K updates a call.
+
+    ``kv`` is ``(K, B, M, E)`` or packed ``(K, B, M·E)`` (modalities side
+    by side: the two give the same steps), ``labels`` ``(K, B, C)`` (or
+    None without a head).  Step ``i`` draws its mask from
+    :func:`~aecf_tpu_torch.kernels.draws.fold_seed_words` of ``rng`` (an
+    int or two 32-bit words) and the global ``state.step + i`` — JAX's
+    ``fold_in(rng, state.step)`` — so chunks chain, and resume, like single
+    steps fed those words.  ``infos`` holds per-step means ``(K,)`` of every
+    info entry.  The builder's keywords are :func:`make_pool_train_step`'s.
+
+    Where the route is the one-pass step on CUDA tensors (``'fused-step'``,
+    or ``'auto'`` at H == 1, E <= 1024) and ``accum_steps == 1``, the K
+    steps run as ONE CUDA graph: static buffers for the staged kv and
+    labels, step ``i`` reading its rows at ``row_offset = i·B``; a
+    ``(K, 2)`` seed-word buffer that the host refills through
+    pinned memory before each replay, read by the kernel; the optimizer's
+    update inside the graph.  The graph is captured at the first call for
+    a shape (after one warm-up step on a side stream, whose effect on the
+    parameters and optimizer state is undone) and replayed after that; a
+    final partial chunk captures its own, as a partial JAX chunk compiles a
+    second program.  A call with other parameter or optimizer-state
+    tensors than the captured ones captures anew.  The graph needs an
+    optimizer that can update inside it: ``torch.optim.Adam`` / ``AdamW``
+    built with ``capturable=True``, or ``torch.optim.SGD``; any other
+    raises a ``ValueError`` (hyperparameters are read at capture).  Each
+    replay adds to ``train_step.launches`` what the capture counted: K
+    chains, or the capture raises.
+
+    Every other route — two-pass kernels, the torch path, H == 2, the
+    streamed split, ``accum_steps > 1``, CPU tensors — runs its K steps
+    eagerly in one call, as JAX's general per-step path does.  ``mesh=``
+    is not ported.
+    """
+    _validate(impl, accum_steps, mesh)
+    local_step = _make_local_step(
+        num_heads=num_heads, impl=impl, precision=precision,
+        base_mask_prob=base_mask_prob, entropy_target=entropy_target,
+        min_active=min_active, entropy_coeff=entropy_coeff,
+        training=training,
+    )
+    single = _make_step(local_step, accum_steps)
+    graphs: Dict[tuple, _ChunkGraph] = {}
+
+    def chunk(state: TrainState, kv, labels, rng):
+        kv4 = _steps_view(kv, state.params["query"].shape[-1])
+        K, B = kv4.shape[:2]
+        if labels is not None and tuple(labels.shape[:2]) != (K, B):
+            raise ValueError(
+                f"labels must be (K={K}, B={B}, C), got {tuple(labels.shape)}"
+            )
+        use = _resolve_impl(impl, num_heads, state.params, kv4, precision)
+        if use == "fused-step" and accum_steps == 1 and kv4.is_cuda:
+            key = (tuple(kv4.shape), kv4.dtype,
+                   None if labels is None else labels.shape[-1])
+            graph = graphs.get(key)
+            if graph is None or graph.signature != _signature(state):
+                graph = graphs[key] = _ChunkGraph(
+                    local_step, state, kv4, labels)
+            return graph.run(state, kv4, labels, rng)
+        losses, infos = [], {}
+        for i in range(K):
+            state, loss, info = single(
+                state, kv4[i], None if labels is None else labels[i],
+                fold_seed_words(rng, state.step),
+            )
+            losses.append(loss.detach().float())
+            for k, v in info.items():
+                infos.setdefault(k, []).append(v.detach().float().mean())
+        return (state, torch.stack(losses),
+                {k: torch.stack(v) for k, v in infos.items()})
+
+    chunk._graphs = graphs  # the captured graphs, for the card's checks
+    return chunk
+
+
+def _steps_view(kv: torch.Tensor, E: int) -> torch.Tensor:
+    """``(K, B, M, E)`` of a 4-D or packed ``(K, B, M·E)`` staging (a view
+    where the layout allows)."""
+    if kv.ndim == 3:
+        if kv.shape[2] % E:
+            raise ValueError(
+                f"packed kv columns {kv.shape[2]} not a multiple of embed "
+                f"dim {E}"
+            )
+        return kv.reshape(kv.shape[0], kv.shape[1], kv.shape[2] // E, E)
+    if kv.ndim != 4 or kv.shape[3] != E:
+        raise ValueError(
+            f"chunk kv must be (K, B, M, {E}) or (K, B, M*{E}), got "
+            f"{tuple(kv.shape)}"
+        )
+    return kv
+
+
+def _opt_tensors(optimizer) -> List[torch.Tensor]:
+    return [v for st in optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v)]
+
+
+def _signature(state: TrainState) -> tuple:
+    """The tensors a captured graph reads and writes, by address."""
+    return (id(state.optimizer),
+            tuple(p.data_ptr() for p in param_leaves(state.params)),
+            tuple(t.data_ptr() for t in _opt_tensors(state.optimizer)))
+
+
+def _check_graph_optimizer(optimizer) -> None:
+    """The optimizers whose ``step()`` can run inside a CUDA graph."""
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        if all(g.get("capturable") for g in optimizer.param_groups):
+            return
+    elif type(optimizer) is torch.optim.SGD:
+        for g in optimizer.param_groups:
+            fresh = any("momentum_buffer" not in optimizer.state.get(p, {})
+                        for p in g["params"])
+            if g["momentum"] and g["dampening"] and fresh:
+                # torch's first momentum step copies the gradient; a graph
+                # starts from a zero buffer, which equals it only without
+                # dampening
+                raise ValueError(
+                    "the CUDA-graph chunk takes SGD with momentum and "
+                    "dampening only once its momentum buffers exist"
+                )
+        return
+    raise ValueError(
+        "the CUDA-graph chunk runs optimizer.step() inside the graph: pass "
+        "torch.optim.Adam or AdamW built with capturable=True, or "
+        f"torch.optim.SGD (got {type(optimizer).__name__}"
+        + (" without capturable=True" if isinstance(
+            optimizer, (torch.optim.Adam, torch.optim.AdamW)) else "")
+        + ")"
+    )
+
+
+class _ChunkGraph:
+    """K one-pass steps captured as one CUDA graph, for one shape.
+
+    ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
+    per-step entries of the last replay, whose means the chunk returns."""
+
+    def __init__(self, local_step, state: TrainState, kv4: torch.Tensor,
+                 labels: Optional[torch.Tensor]):
+        dev = kv4.device
+        K, B, M, E = kv4.shape
+        self.local_step, self.K, self.B = local_step, K, B
+        self.kv = torch.empty((K * B, M * E), dtype=kv4.dtype, device=dev)
+        self.labels = None if labels is None else torch.empty(
+            (K * B, labels.shape[-1]), dtype=torch.float32, device=dev)
+        self.seeds = torch.zeros((K, 2), dtype=torch.int32, device=dev)
+        self.host_seeds = torch.zeros((K, 2), dtype=torch.int32).pin_memory()
+        self.copied: Optional[torch.cuda.Event] = None
+        self.losses = torch.empty((K,), dtype=torch.float32, device=dev)
+        self.info: Dict[str, torch.Tensor] = {}
+        self.step_info: List[Dict[str, torch.Tensor]] = []
+        self.launched = (0, 0)
+        self.graph = torch.cuda.CUDAGraph()
+        self._capture(state, kv4, labels)
+        self.signature = _signature(state)
+
+    def _step(self, state: TrainState, i: int) -> Dict[str, torch.Tensor]:
+        loss, info, grads = self.local_step(
+            state.params, self.kv, self.labels, None, 1.0,
+            seed_words=self.seeds[i], row_offset=i * self.B,
+            batch_rows=self.B,
+        )
+        _set_grads(param_leaves(state.params), grads)
+        state.optimizer.step()
+        if self.info:
+            self.losses[i].copy_(loss)
+            for k, v in info.items():
+                self.info[k][i].copy_(v.float().mean())
+        return info
+
+    def _capture(self, state: TrainState, kv4, labels) -> None:
+        opt = state.optimizer
+        leaves = param_leaves(state.params)
+        _check_graph_optimizer(opt)
+        self._stage(kv4, labels)
+        dev = self.kv.device
+        # One warm-up step on a side stream (lazy initialisation: the
+        # optimizer's state, the libraries, the kernels' modules), then the
+        # parameters and the optimizer's state are put back as they were:
+        # the graph's first replay is the run's next step.  A state the
+        # optimizer did not have yet goes back to zeros, the value torch
+        # initialises it to (Adam's moments and step; SGD's buffer, see
+        # _check_graph_optimizer).
+        params0 = [p.detach().clone() for p in leaves]
+        state0 = {p: {k: v.clone() for k, v in opt.state[p].items()
+                      if torch.is_tensor(v)} for p in leaves if p in opt.state}
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            info = self._step(state, 0)
+        current.wait_stream(side)
+        with torch.no_grad():
+            for p, p0 in zip(leaves, params0):
+                p.copy_(p0)
+                for k, v in opt.state.get(p, {}).items():
+                    if torch.is_tensor(v):
+                        saved = state0.get(p, {}).get(k)
+                        v.copy_(saved) if saved is not None else v.zero_()
+        self.info = {
+            k: torch.empty((self.K,), dtype=torch.float32, device=dev)
+            for k in info
+        }
+        # Capturing launches nothing: what the wrapper counted meanwhile is
+        # what each replay launches, and it must be K step chains.
+        counts = (_step_kernel.launches, _step_kernel.launches_q8)
+        with torch.cuda.graph(self.graph):
+            self.step_info = [self._step(state, i) for i in range(self.K)]
+        self.launched = (_step_kernel.launches - counts[0],
+                         _step_kernel.launches_q8 - counts[1])
+        _step_kernel.launches, _step_kernel.launches_q8 = counts
+        if sum(self.launched) != self.K:
+            raise RuntimeError(
+                f"the chunk's capture counted {self.launched} train_step "
+                f"chains (f32/bf16, int8), not one a step of {self.K}"
+            )
+
+    def _stage(self, kv4, labels) -> None:
+        src = kv4.reshape(self.kv.shape)
+        if src.data_ptr() != self.kv.data_ptr():
+            self.kv.copy_(src, non_blocking=True)
+        if labels is not None:
+            self.labels.copy_(labels.reshape(self.labels.shape),
+                              non_blocking=True)
+
+    def run(self, state: TrainState, kv4, labels, rng):
+        self._stage(kv4, labels)
+        if self.copied is not None:
+            self.copied.synchronize()  # the last replay's words are read
+        words = [fold_seed_words(rng, state.step + i) for i in range(self.K)]
+        self.host_seeds.numpy()[:] = np.asarray(
+            words, dtype=np.uint32).view(np.int32)
+        self.seeds.copy_(self.host_seeds, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        self.graph.replay()
+        _step_kernel.launches += self.launched[0]
+        _step_kernel.launches_q8 += self.launched[1]
+        state.step += self.K
+        return (state, self.losses.clone(),
+                {k: v.clone() for k, v in self.info.items()})

@@ -24,8 +24,11 @@ the resident forward, backward and step):
    not divisible by 4 — two calls on the same inputs equal bit for bit,
    and gradients through ``fused_fusion_pool_shared`` at E=30 against the
    same call on the CPU), the one-pass train step (also at widths
-   that are not multiples of its GEMMs' tiles, and two calls on the same
-   inputs equal bit for bit) and the per-row-query forward (eval and
+   that are not multiples of its GEMMs' tiles or of 4 — E=30, E=258 —
+   and two calls on the same inputs equal bit for bit; with a custom
+   ``row_loss``, the two-pass route with the head's products on the GEMM
+   block, held to the plain step) and the
+   per-row-query forward (eval and
    training, distinct and expanded query rows, ragged widths, then
    gradients through its autograd function with the kernel forward against
    the plain forward), and the f32 GEMM building block of those two
@@ -45,7 +48,19 @@ the resident forward, backward and step):
    lockstep of the one-pass step and of the two-pass kernels against the
    torch path, 30 AdamW steps of the X3 protocol whose loss must fall, and
    5 head-less quadratic steps with the entropy regularizer; each kernel's
-   launches must equal the steps that run it;
+   launches must equal the steps that run it; ``impl='auto'`` at E=30 and
+   E=258 (the one-pass step) in a 5-step lockstep with the torch path;
+   the K-step chunk (``make_pool_scan_train_step``) at the north star with
+   AdamW(capturable=True): 2 replays of a 16-step CUDA graph against 32
+   eager one-pass steps (masks equal bit for bit, the second replay
+   drawing the next steps' masks, losses and parameters held and their
+   bit equality reported), packed staging equal to 4-D, each replay
+   counting the 16 ``train_step`` launches its capture counted; the
+   elastic loop at the X3 width
+   (B=4096, M=2, E=512, C=14): ``fit`` for 40 steps, stopped at 25 and
+   resumed from its checkpoints, against the uninterrupted run, with
+   ``scan_chunk`` 1 and 8 (a misaligned resume), then ``evaluate_model``
+   against the same parameters on the CPU;
    then the module API at the README Quick start's width (B=4096, M=3,
    E=512, H=1): ``create_fusion_pool`` with the fusion query expanded per
    row, 30 AdamW steps under a warmup-then-ramp mask schedule, the first 10
@@ -88,6 +103,10 @@ the resident forward, backward and step):
    per-row forward also with distinct query rows; with the CUDA kernels one
    call of each chain launches and their device time, ``_chain_line``), of one
    predictor call per bucket, samples/s of one training step, ms per
+   update of single one-pass steps and of 8- and 32-step CUDA-graph
+   chunks at the north star (AdamW), the CUDA kernels and device time of
+   a step, host ms per ``fit`` step with ``scan_chunk`` 1 and 8 and
+   where that host time goes (cProfile, by phase), ms per
    Quick start module step, ``'auto'`` against ``'torch'``, samples/s of
    slice (f), ``'auto'`` against ``'torch'``, and of slice (l), int8
    against f32; the resident forwards at H > 2 at the models' pool shapes
@@ -108,6 +127,7 @@ and cuDNN), so the plain versions are full float32 references.
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import itertools
 import json
 import math
@@ -160,10 +180,13 @@ TRAIN_SHAPES = {
 NS_B, NS_M, NS_E, NS_C = 4096, 3, 512, 14
 # The step check's widths that are not multiples of its GEMMs' tiles (128
 # rows, 64 or 128 columns, k-depth 32), each (E, its (B, M) rows, head
-# width C), and a head too wide for the head kernel to stage W_head in
-# shared memory (E C above 24576 floats).
+# width C), a head too wide for the head kernel to stage W_head in shared
+# memory (E C above 24576 floats), and widths not divisible by 4 (E=30,
+# E=258: workspace rows of a multiple of four floats, W_vo copied to them,
+# kv read one feature at a time).
 STEP_EDGE = ((260, [(300, 3), (129, 2)], NS_C), (36, [(130, 4)], NS_C),
-             (1024, [(300, 3)], 40))
+             (1024, [(300, 3)], 40), (30, [(300, 3), (129, 2)], NS_C),
+             (258, [(131, 3), (300, 2)], NS_C))
 # The shared-query chains' widths that are not multiples of their GEMMs'
 # tiles, and widths not divisible by 4 (workspace rows of a multiple of
 # four floats, the weights copied to them), each (E, H, its (B, M) rows):
@@ -886,13 +909,15 @@ def check_step_repeatable(torch) -> None:
     """Phase 3e': two ``train_step`` calls on the same inputs give the same
     outputs bit for bit (no atomics; the batch sums G, du and dW_head in a
     fixed order), with the C=14 head and the quadratic loss, f32 and int8,
-    at the north star and at a ragged width."""
+    at the north star, at a ragged width and at widths not divisible by 4
+    (E=30, E=258)."""
     from aecf_tpu_torch.kernels import train_step
     from aecf_tpu_torch.kernels.shared_query import _prep
 
     rng = np.random.default_rng(14)
     cases = 0
-    for B, M, E in ((NS_B, NS_M, NS_E), (300, 3, 260)):
+    for B, M, E in ((NS_B, NS_M, NS_E), (300, 3, 260), (300, 3, 30),
+                    (131, 2, 258)):
         t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
         params = _pool_params(torch, rng, E, "cuda")
         query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
@@ -2350,6 +2375,499 @@ def _adam_lockstep(torch, tag, models, step_inputs, loss_fn, steps, lr):
     return _counts(), worst_loss, worst_grad, losses
 
 
+
+# ---- the training loop: the step at every width, a custom row_loss, the
+# K-step chunk as a CUDA graph, fit with checkpoint/resume ------------------
+
+# The X3 protocol of the elastic loop (image and text features, 14 labels)
+# and the chunk lengths timed beside single steps.
+X3_B, X3_M, X3_E, X3_C = 4096, 2, 512, 14
+CHUNK_K = 16
+TIME_CHUNKS = (8, 32)
+
+
+def _adamw_graph(ps):
+    import torch
+
+    return torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01, capturable=True)
+
+
+def check_step_auto(torch) -> dict:
+    """Phase 5d: ``make_pool_train_step(impl='auto')`` at widths that are
+    not multiples of 4 (E=30, E=258, ragged B): the one-pass step on the
+    card in a 5-step SGD lockstep against the torch path, as slice (a)."""
+    rng = np.random.default_rng(31)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    launched = 0
+    for B, M, E in ((300, 3, 30), (131, 2, 258)):
+        kv = torch.tensor(rng.standard_normal((B, M, E)), dtype=torch.float32,
+                          device="cuda")
+        labels = torch.tensor((rng.random((B, NS_C)) < 0.3).astype(np.float32),
+                              device="cuda")
+        counts, wl, wp, we, _ = _lockstep(
+            torch, _classifier_flat(rng, E, NS_C), kv, labels,
+            ("torch", "auto"), 5, sgd)
+        check(counts["train_step"] == 5,
+              f"impl='auto' at E={E}: launches {counts} != 5 one-pass steps")
+        launched += counts["train_step"]
+        print(f"step at E={E} (B={B} M={M} C={NS_C}), impl='auto' vs torch, "
+              f"5 SGD steps: loss rel err {wl:.3e} (tol {TOL_LOSS_REL:g}), "
+              f"params {wp:.3e} (tol {TOL_PARAM:g}), entropy {we:.3e}; "
+              f"launches {counts}")
+    return {"train_step": launched}
+
+
+def check_row_loss(torch) -> dict:
+    """Phase 3e''': ``train_step`` with a custom ``row_loss`` on CUDA
+    tensors — the two-pass route, forward kernel, the callable in torch
+    (with the head, its three products on the GEMM block), backward kernel
+    — against ``train_step_plain`` with the same seed words, with and
+    without the head, at the north star and E=30.  Also holds the
+    wrapper's shared-memory count to the library's."""
+    import importlib
+
+    from aecf_tpu_torch.kernels import (
+        shared_query_bwd,
+        shared_query_fwd,
+        train_step,
+        train_step_plain,
+    )
+    from aecf_tpu_torch.kernels._gemm import gemm_f32
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    step_mod = importlib.import_module("aecf_tpu_torch.kernels.train_step")
+    lib = step_mod._library()
+    for E, C in ((NS_E, NS_C), (30, 0), (1024, 24), (1024, 25), (258, 14)):
+        check(lib.aecf_train_step_smem(E, C) == step_mod._step_smem(E, C),
+              f"shared memory at E={E} C={C}: library "
+              f"{lib.aecf_train_step_smem(E, C)} != wrapper "
+              f"{step_mod._step_smem(E, C)}")
+
+    rng = np.random.default_rng(32)
+    worst, cases = 0.0, 0
+    for B, M, E in ((NS_B, NS_M, NS_E), (300, 3, 30)):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+        params = _pool_params(torch, rng, E, "cuda")
+        query = t(math.sqrt(2.0 / E) * rng.standard_normal((1, 1, E)))
+        with torch.inference_mode():
+            u, c, wvo, bctx, _, _ = _prep(params, query[0, 0], 1)
+        kv = t(rng.standard_normal((B, M, E)))
+        labels = t((rng.random((B, NS_C)) < 0.3).astype(np.float32))
+        head = dict(head_w=t(rng.uniform(-0.04, 0.04, (E, NS_C))),
+                    head_b=t(rng.uniform(-0.04, 0.04, NS_C)), labels=labels)
+        for with_head in (False, True):
+            C = NS_C if with_head else E
+            inv = 1.0 / (B * C)
+
+            def quad(x):  # the quadratic loss, on out or the logits
+                return (x * x).sum(-1, keepdim=True) * inv, x * (2 * inv)
+
+            def bce(x, y):
+                loss = (x.clamp_min(0) - x * y
+                        + torch.log1p(torch.exp(-x.abs()))).sum(-1, keepdim=True)
+                return loss * inv, (torch.sigmoid(x) - y) * inv
+
+            kw = dict(inv=inv, want_dkv=True, training=True,
+                      seed=(4321, 99), mask_prob=0.6, min_active=1,
+                      row_loss=bce if with_head else quad,
+                      **(head if with_head else {}))
+            before = (shared_query_fwd.launches, shared_query_bwd.launches,
+                      train_step.launches, gemm_f32.launches)
+            with torch.inference_mode():
+                got = train_step(kv, u[0], c, None, wvo, bctx, **kw)
+                want = train_step_plain(kv, u[0], c, None, wvo, bctx, **kw)
+            torch.cuda.synchronize()
+            check((shared_query_fwd.launches - before[0],
+                   shared_query_bwd.launches - before[1],
+                   train_step.launches - before[2],
+                   gemm_f32.launches - before[3])
+                  == (1, 1, 0, 3 if with_head else 0),
+                  "a custom row_loss must run the two-pass kernels (and the "
+                  "head's three products on the GEMM block)")
+            where = f"row_loss B={B} M={M} E={E} head={with_head}"
+            _hold_masks("row_loss", got["mw"], got["rate"], want["mw"],
+                        want["rate"], _mask_rows(kv, want["ent"], (4321, 99),
+                                                 0.6), where)
+            errs = [_hold("w", got["w"], want["w"], TOL_W, where),
+                    _hold("loss", got["loss"], want["loss"],
+                          _sum_tol(want["loss"]), where),
+                    _hold("dc", got["dc"], want["dc"],
+                          _sum_tol(want["dc"], want["du"]), where),
+                    _hold("d_kv", got["d_kv"], want["d_kv"],
+                          _dkv_tol(torch, want["d_kv"]), where)]
+            for k in ("G", "du", "dsum_out") + (
+                    ("dW_head", "db_head") if with_head else ()):
+                errs.append(_hold(k, got[k], want[k], _sum_tol(want[k]), where))
+            worst = max(worst, *errs)
+            cases += 1
+    print(f"train_step with a custom row_loss on CUDA (two-pass kernels, "
+          f"the head's products on gemm_f32) vs train_step_plain: {cases} "
+          f"cases within the step's tolerances, max abs err {worst:.3e}; "
+          f"shared memory a block: library == wrapper at 5 (E, C)")
+    return {"train_step": worst}
+
+
+def _x3_features(torch, rs, B, M, E, C, device="cuda"):
+    """Learnable X3-like features: a shared latent behind every modality
+    and the labels."""
+    latent = rs.normal(size=(B, 8))
+    feats = np.stack([latent @ rs.normal(size=(8, E)) * 0.3
+                      + rs.normal(size=(B, E)) * 0.1 for _ in range(M)],
+                     axis=1).astype(np.float32)
+    labels = (latent @ rs.normal(size=(8, C)) > 0.5).astype(np.float32)
+    return (torch.tensor(feats, device=device),
+            torch.tensor(labels, device=device))
+
+
+def chunk_slice(torch) -> dict:
+    """Phase 5e: the K-step chunk at the north star (B=4096, M=3, E=512,
+    H=1, C=14, AdamW(1e-4, wd 0.01, capturable=True)): K=16 steps as one
+    CUDA graph against 16 eager one-pass steps from the same state and
+    seed words — the per-step masked weights equal bit for bit, losses and
+    parameters held (and their bit-for-bit equality counted); packed
+    staging equal to 4-D staging; the second replay draws the next 16
+    steps' masks; each replay counts K ``train_step`` launches."""
+    from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+    from aecf_tpu_torch.train import (
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+
+    B, M, E, C, K = NS_B, NS_M, NS_E, NS_C, CHUNK_K
+    rs = np.random.default_rng(41)
+    flat = _classifier_flat(rs, E, C)
+    kv, labels = _x3_features(torch, rs, 2 * K * B, M, E, C)
+    kv = kv.reshape(2, K, B, M, E)
+    labels = labels.reshape(2, K, B, C)
+    seed = 20251017
+
+    # eager: 2K single steps, each fed its step's seed words
+    eager = _state(torch, flat, _adamw_graph)
+    step = make_pool_train_step(impl="fused-step")
+    e_losses, e_mw = [], []
+    for r in range(2):
+        for i in range(K):
+            eager, loss, info = step(eager, kv[r, i], labels[r, i],
+                                     fold_seed_words(seed, eager.step))
+            e_losses.append(loss.clone())
+            e_mw.append(info["masked_attention_weights"].clone())
+    torch.cuda.synchronize()
+    e_params = pool_classifier_params_to_numpy(eager.params)
+
+    # the graph: 4-D staging for the first chunk, packed for the second
+    graph = _state(torch, flat, _adamw_graph)
+    chunk = make_pool_scan_train_step(impl="auto")
+    _reset_counts()
+    g_losses, g_mw = [], []
+    for r in range(2):
+        staged = kv[r] if r == 0 else kv[r].reshape(K, B, M * E)
+        graph, losses, infos = chunk(graph, staged, labels[r], seed)
+        g_losses.append(losses)
+        # the graph's per-step entries, as this replay wrote them
+        (captured,) = chunk._graphs.values()
+        g_mw.append(torch.stack([d["masked_attention_weights"].clone()
+                                 for d in captured.step_info]))
+        check(torch.equal(infos["masked_attention_weights"],
+                          torch.stack([m.mean() for m in g_mw[-1]])),
+              "the chunk's info means are not those of its steps' entries")
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(captured.launched == (K, 0),
+          f"the capture counted {captured.launched} step chains, not {K}")
+    check(counts == _only(train_step=2 * K + 1),
+          f"chunk launches {counts} != 2 replays x {K} + 1 warm-up step")
+    check(graph.step == 2 * K, f"chunk state.step {graph.step} != {2 * K}")
+    g_losses = torch.cat(g_losses)
+    g_mw = torch.cat(g_mw)
+    mask_equal = all(torch.equal(g_mw[i], e_mw[i]) for i in range(2 * K))
+    check(mask_equal, "graph steps' masks differ from the eager steps'")
+    check(not torch.equal(g_mw[K], g_mw[0]),
+          "the second replay drew the first replay's masks")
+    e_losses = torch.stack(e_losses)
+    loss_rel = float(((g_losses - e_losses).abs() / e_losses.abs()).max())
+    check(loss_rel <= TOL_LOSS_REL, f"graph losses off by {loss_rel:.3e}")
+    g_params = pool_classifier_params_to_numpy(graph.params)
+    perr = max(float(np.abs(g_params[k] - v).max()) for k, v in e_params.items())
+    check(perr <= TOL_PARAM, f"graph params off by {perr:.3e}")
+    bitwise = (torch.equal(g_losses, e_losses)
+               and all(np.array_equal(g_params[k], v)
+                       for k, v in e_params.items()))
+
+    # packed == 4-D staging, from one state, one chunk each
+    outs = []
+    for packed in (False, True):
+        st = _state(torch, flat, _adamw_graph)
+        ch = make_pool_scan_train_step(impl="fused-step")
+        st, losses, _ = ch(st, kv[0].reshape(K, B, M * E) if packed else kv[0],
+                           labels[0], seed)
+        outs.append((losses, pool_classifier_params_to_numpy(st.params)))
+    torch.cuda.synchronize()
+    check(torch.equal(outs[0][0], outs[1][0])
+          and all(np.array_equal(outs[0][1][k], v)
+                  for k, v in outs[1][1].items()),
+          "packed staging differs from 4-D staging")
+    launched = _counts()["train_step"]
+    print(f"chunk B={B} M={M} E={E} H=1 C={C} AdamW(1e-4, wd 0.01, "
+          f"capturable=True): 2 replays of a {K}-step CUDA graph vs "
+          f"{2 * K} eager one-pass steps — masks equal bit for bit in "
+          f"{2 * K} of {2 * K} steps, losses rel err {loss_rel:.3e}, params "
+          f"max abs err {perr:.3e} (losses and params bit for bit: "
+          f"{bitwise}); packed == 4-D staging bit for bit; second replay "
+          f"drew steps {K}..{2 * K - 1}; launches {counts}")
+    return {"launches": {"train_step": launched}, "bitwise": bitwise}
+
+
+def _x3_data(rows=4 * X3_B, seed=51):
+    rs = np.random.default_rng(seed)
+    latent = rs.normal(size=(rows, 8))
+    img = (latent @ rs.normal(size=(8, X3_E)) * 0.3
+           + rs.normal(size=(rows, X3_E)) * 0.1).astype(np.float32)
+    txt = (latent @ rs.normal(size=(8, X3_E)) * 0.3
+           + rs.normal(size=(rows, X3_E)) * 0.1).astype(np.float32)
+    lab = (latent @ rs.normal(size=(8, X3_C)) > 0.5).astype(np.float32)
+    return {"image": img, "text": txt, "label": lab}
+
+
+def elastic_slice(torch) -> dict:
+    """Phase 5f: the X3 protocol end to end through ``fit`` at B=4096,
+    M=2 (image and text), E=512, C=14: 40 steps with ``checkpoint_dir`` and
+    ``save_every=10``, stopped at 25 by a first call and resumed by a
+    second, against an uninterrupted 40-step run; the same with
+    ``scan_chunk=8`` (the chunk's CUDA graph; the resume misaligned with
+    the chunks); then ``evaluate_model`` (mAP, macro-F1) against the same
+    parameters on the CPU."""
+    import tempfile
+
+    from aecf_tpu_torch.convert import (
+        pool_classifier_params_from_numpy,
+        pool_classifier_params_to_numpy,
+    )
+    from aecf_tpu_torch.ops import fusion_pool
+    from aecf_tpu_torch.train import (
+        as_fit_chunk,
+        as_fit_step,
+        evaluate_model,
+        fit,
+        make_epoch_batch_fn,
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+
+    data = _x3_data()
+    flat = _classifier_flat(np.random.default_rng(52), X3_E, X3_C)
+    batch_fn = make_epoch_batch_fn(data, X3_B, seed=0)
+
+    def run(num_steps, ckpt=None, chunk=1):
+        params = pool_classifier_params_from_numpy(flat, device="cuda")
+        state, history = fit(
+            None, _adamw_graph, params, batch_fn, num_steps=num_steps, rng=7,
+            checkpoint_dir=ckpt, save_every=10, log_every=20,
+            step_fn=as_fit_step(make_pool_train_step(impl="auto")),
+            chunk_fn=as_fit_chunk(make_pool_scan_train_step(impl="auto")),
+            scan_chunk=chunk)
+        torch.cuda.synchronize()
+        return state, history
+
+    _reset_counts()
+    results, bitwise = {}, {}
+    for chunk in (1, 8):
+        full, hist = run(40, chunk=chunk)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            first, _ = run(25, ckpt=d, chunk=chunk)
+            check(first.step == 25, f"first call stopped at {first.step}")
+            resumed, hist2 = run(40, ckpt=d, chunk=chunk)
+        check(resumed.step == 40, f"resumed run ended at {resumed.step}")
+        a = pool_classifier_params_to_numpy(full.params)
+        b = pool_classifier_params_to_numpy(resumed.params)
+        err = max(float(np.abs(a[k] - v).max()) for k, v in b.items())
+        check(err <= TOL_PARAM,
+              f"scan_chunk={chunk}: resumed params off by {err:.3e}")
+        bitwise[chunk] = all(np.array_equal(a[k], v) for k, v in b.items())
+        results[chunk] = (a, hist, err)
+        check(all(math.isfinite(x) for x in hist["loss"]),
+              f"scan_chunk={chunk}: loss not finite")
+    counts = _counts()
+    # chunked vs unchunked: the same steps and seed words
+    a1, a8 = results[1][0], results[8][0]
+    cross = max(float(np.abs(a1[k] - v).max()) for k, v in a8.items())
+    check(cross <= TOL_PARAM, f"scan_chunk=8 vs 1 params off by {cross:.3e}")
+    print(f"elastic X3 fit B={X3_B} M={X3_M} E={X3_E} C={X3_C}, 40 steps, "
+          f"save_every=10, stopped at 25 and resumed: params max abs err vs "
+          f"the uninterrupted run {results[1][2]:.3e} (scan_chunk=1, bit for "
+          f"bit {bitwise[1]}), {results[8][2]:.3e} (scan_chunk=8, "
+          f"misaligned resume, bit for bit {bitwise[8]}); scan_chunk=8 vs 1 "
+          f"{cross:.3e}; loss {results[1][1]['loss'][0]:.6f} -> "
+          f"{results[1][1]['loss'][-1]:.6f}; launches {counts}")
+
+    # evaluate_model on the card against the same parameters on the CPU
+    def predict(p, images, texts):
+        kv = torch.stack([images, texts], dim=1)
+        out, _, _, _ = fusion_pool(p["pool"], p["query"], kv, num_heads=1,
+                                   training=False)
+        return out[:, 0, :] @ p["head"]["w"] + p["head"]["b"]
+
+    rows = 2 * X3_B
+    args = (data["image"][:rows], data["text"][:rows], data["label"][:rows])
+    gpu_params = pool_classifier_params_from_numpy(results[1][0], device="cuda")
+    cpu_params = pool_classifier_params_from_numpy(results[1][0], device="cpu")
+    _reset_counts()
+    m_gpu, f1_gpu, _ = evaluate_model(predict, gpu_params, *args, "none", 1000)
+    eval_counts = _counts()
+    m_cpu, f1_cpu, _ = evaluate_model(predict, cpu_params, *args, "none", 1000)
+    check(abs(m_gpu - m_cpu) <= 1e-4 and abs(f1_gpu - f1_cpu) <= 1e-3,
+          f"evaluate_model on the card (mAP {m_gpu}, F1 {f1_gpu}) vs CPU "
+          f"(mAP {m_cpu}, F1 {f1_cpu})")
+    check(eval_counts["shared_query_fwd"] > 0,
+          f"evaluate_model launched {eval_counts}")
+    print(f"evaluate_model after 40 steps, {rows} rows: mAP {m_gpu:.6f} "
+          f"macro-F1 {f1_gpu:.6f} on the card, mAP {m_cpu:.6f} macro-F1 "
+          f"{f1_cpu:.6f} on the CPU (tol 1e-4 / 1e-3); launches "
+          f"{eval_counts}")
+    launches = {k: counts[k] + eval_counts[k] for k in counts}
+    return {"launches": launches, "batch_fn": batch_fn, "flat": flat}
+
+
+def time_chunk(torch, smi: str, elastic: dict) -> None:
+    """Phase 7f: ms per update at the north star (B=4096, M=3, E=512,
+    C=14, AdamW capturable) — single ``fused-step`` steps, and chunks of K
+    in ``TIME_CHUNKS`` as CUDA graphs, by CUDA events over whole steps or
+    chunks — the device time and the CUDA kernels a step (profiler), and
+    host ms per ``fit`` step at the X3 width with ``scan_chunk`` 1 and
+    8, with the host's time by phase (``_fit_run``)."""
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+    from aecf_tpu_torch.train import (
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+
+    B, M, E, C = NS_B, NS_M, NS_E, NS_C
+    rs = np.random.default_rng(61)
+    flat = _classifier_flat(rs, E, C)
+    kmax = max(TIME_CHUNKS)
+    kv, labels = _x3_features(torch, rs, kmax * B, M, E, C)
+    kv, labels = kv.reshape(kmax, B, M, E), labels.reshape(kmax, B, C)
+    state = _state(torch, flat, _adamw_graph)
+    step = make_pool_train_step(impl="fused-step")
+    n = [0]
+
+    def one():
+        nonlocal state
+        i = n[0] % kmax
+        state, _, _ = step(state, kv[i], labels[i],
+                           fold_seed_words(1, state.step))
+        n[0] += 1
+
+    single = cuda_ms(torch, one, iters=64, warmup=8)
+    print(f"time chunk B={B} M={M} E={E} C={C}: single fused-step steps "
+          f"{single:.5f} ms/update (CUDA events over 64 steps); CUDA kernels "
+          f"and device time a step {_launches_per_call(torch, one, calls=10)} "
+          f"({smi})")
+    for K in TIME_CHUNKS:
+        st = _state(torch, flat, _adamw_graph)
+        chunk = make_pool_scan_train_step(impl="fused-step")
+        staged = kv[:K].reshape(K, B, M * E)
+
+        def run_chunk():
+            nonlocal st
+            st, _, _ = chunk(st, staged, labels[:K], 1)
+
+        per = cuda_ms(torch, run_chunk, iters=max(2, 128 // K), warmup=2) / K
+        print(f"time chunk K={K} (one CUDA graph) B={B} M={M} E={E} C={C}: "
+              f"{per:.5f} ms/update vs single steps {single:.5f} "
+              f"(CUDA events over whole chunks; {smi})")
+
+    batch_fn = elastic["batch_fn"]
+    for chunk_k in (1, 8):
+        runs = []
+        # the difference drops the start-up: both runs capture the graph
+        # and allocate both sets of pinned buffers
+        for steps in (16, 48):
+            for profiled in (False, True):
+                runs.append(_fit_run(torch, elastic["flat"], batch_fn, steps,
+                                     chunk_k, profiled))
+        (t16, _), (_, o16), (t48, _), (_, o48) = runs
+        per = {k: (t48[k] - t16[k]) / 32 * 1e3 for k in t48}
+        own = sorted(((k, (v - o16.get(k, 0.0)) / 32 * 1e3)
+                      for k, v in o48.items()), key=lambda kv: -kv[1])[:8]
+        print(f"time fit X3 B={X3_B} M={X3_M} E={X3_E} C={X3_C} "
+              f"scan_chunk={chunk_k}: {per['fit']:.4f} ms/step host clock "
+              f"(48-step run minus 16-step run, over 32 steps; batches from "
+              f"numpy through pinned memory; {smi}); by phase (host clock "
+              f"around each call, ms/step): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items() if k != "fit")
+              + f"; most own time (cProfile, its overhead included, "
+              f"ms/step): " + ", ".join(f"{k} {v:.4f}" for k, v in own))
+
+
+def _fit_run(torch, flat, batch_fn, steps, chunk_k, profiled):
+    """One X3 ``fit`` run on the card: seconds of host clock in all and in
+    each phase — the batch gather (``batch_fn``), the staging
+    (``Stager.__call__``: the copies into pinned memory and the
+    host-to-card copies' enqueue), the step or chunk call (host side), the
+    rest — and, when ``profiled``, each function's own seconds (cProfile;
+    numpy's copies count as their caller's own time)."""
+    import pstats
+
+    from aecf_tpu_torch.convert import pool_classifier_params_from_numpy
+    from aecf_tpu_torch.train import (
+        as_fit_chunk,
+        as_fit_step,
+        fit,
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+    from aecf_tpu_torch.train.staging import Stager
+
+    spent = {"batch_fn": 0.0, "stager": 0.0, "step": 0.0, "chunk": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    def staging(self, *args, **kwargs):  # less the gathers it drives
+        gathered = spent["batch_fn"]
+        t0 = time.perf_counter()
+        try:
+            return stage(self, *args, **kwargs)
+        finally:
+            spent["stager"] += (time.perf_counter() - t0
+                                - (spent["batch_fn"] - gathered))
+
+    params = pool_classifier_params_from_numpy(flat, device="cuda")
+    stage = Stager.__call__
+    Stager.__call__ = staging
+    prof = cProfile.Profile() if profiled else None
+    try:
+        t0 = time.perf_counter()
+        if prof:
+            prof.enable()
+        fit(None, _adamw_graph, params, timed("batch_fn", batch_fn),
+            num_steps=steps, rng=3, scan_chunk=chunk_k,
+            step_fn=timed("step", as_fit_step(
+                make_pool_train_step(impl="auto"))),
+            chunk_fn=timed("chunk", as_fit_chunk(
+                make_pool_scan_train_step(impl="auto"))))
+        torch.cuda.synchronize()
+        if prof:
+            prof.disable()
+        wall = time.perf_counter() - t0
+    finally:
+        Stager.__call__ = stage
+    spent["fit"] = wall
+    spent["other"] = wall - sum(v for k, v in spent.items() if k != "fit")
+    own = {}
+    if prof:
+        own = {f"{Path(f).name}:{ln}({fn})": v[2]
+               for (f, ln, fn), v in pstats.Stats(prof).stats.items()}
+    return spent, own
+
+
 def model_slices(torch) -> dict:
     """Phase 6f: the model families at full width through the entry points
     a user calls, parameters seeded and loaded through ``convert``:
@@ -3319,6 +3837,8 @@ def main() -> None:
     errs.update(check_backward(torch, same))
     errs.update(check_step(torch, same))
     check_step_repeatable(torch)
+    errs["train_step"] = max(errs["train_step"],
+                             check_row_loss(torch)["train_step"])
     check_sq_repeatable(torch)
     check_sq_grads(torch)
     errs["fused_pool_fwd"] = check_fused_pool(torch)
@@ -3338,6 +3858,9 @@ def main() -> None:
               "q.float() * s")
     served = serve_slice(torch)
     trained = train_slice(torch)
+    auto = check_step_auto(torch)
+    chunked = chunk_slice(torch)
+    elastic = elastic_slice(torch)
     module = module_slice(torch)
     large = large_config(torch)
     heads8 = heads8_module(torch)
@@ -3346,6 +3869,7 @@ def main() -> None:
     families = model_slices(torch)
     time_kernels(torch, smi, served["gpu_pred"])
     times = time_training(torch, smi, trained)
+    time_chunk(torch, smi, elastic)
     times["fused_pool_fwd"] = time_module(torch, smi)
     times.update(time_streamed(torch, smi, sliced,
                                profiled="--profile" in sys.argv[1:]))
@@ -3358,6 +3882,10 @@ def main() -> None:
                                   + heads8["launches"])
     launches.update(sliced["launches"])
     launches.update(quantized["launches"])
+    launches["train_step"] += (auto["train_step"]
+                               + chunked["launches"]["train_step"])
+    for name, n in elastic["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     for name, n in families["launches"].items():
         launches[name] = launches.get(name, 0) + n
     for name, _, _ in KERNELS:

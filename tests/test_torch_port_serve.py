@@ -214,9 +214,15 @@ def test_importing_the_port_never_imports_jax():
         "import aecf_tpu_torch.ops, aecf_tpu_torch.models, aecf_tpu_torch.serve\n"
         "import aecf_tpu_torch.serving_http, aecf_tpu_torch.convert\n"
         "import aecf_tpu_torch.train, aecf_tpu_torch.nn\n"
+        "import aecf_tpu_torch.data, aecf_tpu_torch.train.fit\n"
+        "import aecf_tpu_torch.train.checkpointing, aecf_tpu_torch.train.metrics\n"
+        "import aecf_tpu_torch.train.sweeps, aecf_tpu_torch.train.trainer\n"
+        "import aecf_tpu_torch.train.staging\n"
         "from aecf_tpu_torch import create_fusion_pool\n"
         "import torch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "ref = [m for m in sys.modules if m.split('.')[0] == 'aecf_tpu']\n"
+        "assert not ref, f'imported the JAX package: {ref}'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
         "print('clean')\n"

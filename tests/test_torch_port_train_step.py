@@ -228,7 +228,7 @@ def test_custom_row_loss_on_cpu_equals_the_built_in():
 @pytest.mark.parametrize(
     "kwargs,exc,match",
     [
-        ({"row_offset": 0, "batch_rows": 8}, NotImplementedError, "ROADMAP"),
+        ({"row_offset": 4, "batch_rows": 3}, ValueError, "not a multiple"),
         ({"kv_scales": torch.ones(8, M)}, ValueError, "kv_scales passed"),
         ({"precision": "high"}, ValueError, "precision"),
         ({"training": True}, ValueError, "generator"),
@@ -245,11 +245,12 @@ def test_step_rejects_what_it_does_not_cover(kwargs, exc, match):
 
 def test_non_cpu_tensors_launch_or_raise():
     """Off the CPU the wrapper never runs its plain version: a custom
-    row_loss raises naming ROADMAP.md, and a device with no kernel raises."""
+    row_loss goes to the two-pass kernels, whose wrappers raise on a
+    device with no kernel, as the step's own does."""
     kv = torch.zeros(4, M, E, device="meta")
     f = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
     args = (kv, f(E), f(1), None, f(E, E), f(E))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         train_step(*args, inv=1.0, want_dkv=False,
                    row_loss=lambda o: (o.sum(-1, keepdim=True), o))
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -294,3 +295,38 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     (tmp_path / "train_step.cu").write_text("// edited source\n")
     assert _build.library_path("train_step") != after["train_step"]
     assert _build.library_path("shared_query_fwd") == after["shared_query_fwd"]
+
+
+def test_shared_memory_count_matches_the_sources():
+    """The wrapper's shared-memory count (checked before any dispatch, so
+    the CPU sees the card's limits) uses the constants of
+    ``csrc/gemm_f32.cuh``, ``csrc/pool_common.cuh`` and
+    ``csrc/train_step.cu``: read them there and recompute the GEMM ring
+    (``smem_bytes<128, false, true>``) and the head kernel's bytes."""
+    import importlib
+    import re
+
+    from aecf_tpu_torch.kernels import _build
+
+    ts_mod = importlib.import_module("aecf_tpu_torch.kernels.train_step")
+
+    src = "".join((_build._CSRC / f).read_text() for f in (
+        "gemm_f32.cuh", "pool_common.cuh", "train_step.cu"))
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert re.search(r"constexpr int kLdK = kBK \+ 4;", src)
+    assert re.search(
+        r"kMaxSmemBytes = smem_bytes<128, false, true>\(\);", src)
+    bm, bk, stages = const("kBM"), const("kBK"), const("kStages")
+    ring = 4 * stages * (bm * (bk + 4) + bk * 128)
+    assert ts_mod._GEMM_SMEM == ring
+    assert ts_mod._HEAD_STAGE_FLOATS == const("kHeadStageFloats")
+    threads = const("kThreads")
+    assert re.search(r"constexpr int kWarps = kThreads / 32;", src)
+    assert ts_mod._HEAD_WARPS == threads // 32
+    stage = ts_mod._HEAD_STAGE_FLOATS
+    for E, C in ((512, 14), (1024, 24), (1024, 25), (30, 0), (1024, 2000)):
+        head = 4 * ((E * C if E * C <= stage else 0) + threads // 32 * C)
+        assert ts_mod._step_smem(E, C) == max(ring, head if C else 0)
