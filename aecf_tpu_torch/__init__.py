@@ -3,9 +3,9 @@
 The JAX package ``aecf_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Public API (the reference's
 ``aecf/__init__.py``): ``CurriculumMasking``, ``MultimodalAttentionPool``,
-``multimodal_attention_pool``, ``create_fusion_pool``.  Ported so far —
-the module API, the model families, the serving path and the training
-loop:
+``multimodal_attention_pool``, ``create_fusion_pool``.  Ported so far — the module API, the model
+families, the serving path, the training loop, the data pipeline and the
+measurement layer:
 
     aecf_tpu_torch.nn            — the four public symbols (nn.Modules)
     aecf_tpu_torch.core          — pure functions (the CPU oracle)
@@ -22,16 +22,22 @@ loop:
                                    chunk (a CUDA graph on the card),
                                    checkpoints, metrics, evaluation and
                                    the baseline-vs-AECF experiment
-    aecf_tpu_torch.data          — synthetic CLIP-like features
+    aecf_tpu_torch.data          — the prefetching BatchLoader over the
+                                   native C++ batcher (``native/``),
+                                   quantize_rows, pathology report
+                                   mining, synthetic CLIP-like features
+    aecf_tpu_torch.measure       — build_chunk and the alternating-window
+                                   timing discipline
+    aecf_tpu_torch.utils         — trace, named_scope, StepTimer,
+                                   debug_nans, finiteness reports
     aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
                                    into the port's modules
 
-Not ported yet (ROADMAP.md): the native batch loader and pathology mining
-(``data/``), ``parallel/`` and ``mesh=``, serving export, ``tune.py``,
-``kernels/tiles.py`` and ``utils/``.
+Not ported yet (ROADMAP.md): ``parallel/`` and ``mesh=``, serving export,
+``tune.py`` and ``kernels/tiles.py``.
 
 Importing the package touches no CUDA and builds nothing; a kernel is
-compiled at its first launch.
+compiled at its first launch, the native batcher at its first use.
 """
 
 from .nn import (

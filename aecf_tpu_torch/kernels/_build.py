@@ -28,7 +28,9 @@ from typing import Dict, Iterable
 __all__ = ["build_all", "load_library", "library_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "aecf_tpu_torch"
+_DEFAULT_BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
+                       / "aecf_tpu_torch")
+_BUILD_ROOT = _DEFAULT_BUILD_ROOT  # measure.enable_persistent_cache moves it
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -431,10 +431,13 @@ def make_pool_scan_train_step(
     parameters and optimizer state is undone) and replayed after that; a
     final partial chunk captures its own, as a partial JAX chunk compiles a
     second program.  A call with other parameter or optimizer-state
-    tensors than the captured ones captures anew.  The graph needs an
+    tensors than the captured ones captures anew, and so does a call after
+    any param group's hyperparameters changed (an ``LRScheduler`` step, a
+    ``param_groups`` edit): the optimizer passes them to its kernels as
+    Python numbers, which the capture bakes in.  The graph needs an
     optimizer that can update inside it: ``torch.optim.Adam`` / ``AdamW``
     built with ``capturable=True``, or ``torch.optim.SGD``; any other
-    raises a ``ValueError`` (hyperparameters are read at capture).  Each
+    raises a ``ValueError``.  Each
     replay adds to ``train_step.launches`` what the capture counted: K
     chains, or the capture raises.
 
@@ -509,10 +512,16 @@ def _opt_tensors(optimizer) -> List[torch.Tensor]:
 
 
 def _signature(state: TrainState) -> tuple:
-    """The tensors a captured graph reads and writes, by address."""
-    return (id(state.optimizer),
+    """What a captured graph holds fixed: the tensors it reads and writes,
+    by address, and every param group's non-tensor hyperparameters (all
+    keys but ``params``), by value."""
+    opt = state.optimizer
+    return (id(opt),
             tuple(p.data_ptr() for p in param_leaves(state.params)),
-            tuple(t.data_ptr() for t in _opt_tensors(state.optimizer)))
+            tuple(t.data_ptr() for t in _opt_tensors(opt)),
+            tuple(tuple((k, v) for k, v in sorted(g.items())
+                        if k != "params" and not torch.is_tensor(v))
+                  for g in opt.param_groups))
 
 
 def _check_graph_optimizer(optimizer) -> None:

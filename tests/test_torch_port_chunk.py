@@ -47,7 +47,7 @@ from aecf_tpu_torch.train import (
     make_pool_train_step,
     param_leaves,
 )
-from aecf_tpu_torch.train.pool_step import _check_graph_optimizer
+from aecf_tpu_torch.train.pool_step import _check_graph_optimizer, _signature
 
 E, M, B, C, K = 32, 3, 24, 5, 4
 
@@ -325,3 +325,47 @@ def test_accumulated_chunk_equals_accumulated_steps():
         b, lb, _ = step(b, kv[i], labels[i], fold_seed_words(4, b.step))
         assert torch.equal(la[i], lb)
     _params_equal(a, b)
+
+
+@pytest.mark.parametrize("make_opt, key, value", [
+    (lambda ps: torch.optim.AdamW(ps, lr=1e-3, capturable=True), "lr", 5e-4),
+    (lambda ps: torch.optim.AdamW(ps, lr=1e-3, capturable=True),
+     "weight_decay", 0.1),
+    (lambda ps: torch.optim.AdamW(ps, lr=1e-3, capturable=True),
+     "betas", (0.8, 0.99)),
+    (lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9), "momentum", 0.5),
+], ids=["lr", "weight_decay", "betas", "sgd-momentum"])
+def test_signature_follows_hyperparameters(make_opt, key, value):
+    """A captured chunk graph bakes the optimizer's hyperparameters in, so
+    a change of any of them must change ``_signature`` (and recapture);
+    an unchanged state keeps its signature."""
+    state = _state(_flat(jax_init(jax.random.key(0), E, C)), make_opt)
+    before = _signature(state)
+    assert _signature(state) == before
+    state.optimizer.param_groups[0][key] = value
+    assert _signature(state) != before
+
+
+def test_chunk_with_step_lr_follows_the_schedule():
+    """A ``StepLR`` stepped between chunk calls: the chunk's steps equal
+    eager single steps under the same schedule, exactly, and each
+    scheduler step changes the signature a graph is held to."""
+    flat = _flat(jax_init(jax.random.key(0), E, C))
+    kv, labels = map(torch.from_numpy, _data(12))
+    chunked, single = _state(flat), _state(flat)
+    sched_c = torch.optim.lr_scheduler.StepLR(chunked.optimizer, 1, 0.5)
+    sched_s = torch.optim.lr_scheduler.StepLR(single.optimizer, 1, 0.5)
+    chunk = make_pool_scan_train_step(impl="fused-step")
+    step = make_pool_train_step(impl="fused-step")
+    for half in (slice(0, 2), slice(2, K)):
+        chunked, losses, _ = chunk(chunked, kv[half], labels[half], 6)
+        for i in range(half.start, half.stop):
+            single, loss, _ = step(single, kv[i], labels[i],
+                                   fold_seed_words(6, single.step))
+            assert torch.equal(losses[i - half.start], loss)
+        before = _signature(chunked)
+        sched_c.step()
+        sched_s.step()
+        assert _signature(chunked) != before
+    assert chunked.optimizer.param_groups[0]["lr"] == 1e-2 / 4
+    _params_equal(chunked, single)

@@ -218,6 +218,8 @@ def test_importing_the_port_never_imports_jax():
         "import aecf_tpu_torch.train.checkpointing, aecf_tpu_torch.train.metrics\n"
         "import aecf_tpu_torch.train.sweeps, aecf_tpu_torch.train.trainer\n"
         "import aecf_tpu_torch.train.staging\n"
+        "import aecf_tpu_torch.measure, aecf_tpu_torch.utils\n"
+        "import aecf_tpu_torch.data.loader, aecf_tpu_torch.data.pathology\n"
         "from aecf_tpu_torch import create_fusion_pool\n"
         "import torch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"

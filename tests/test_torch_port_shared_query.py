@@ -284,9 +284,11 @@ def test_cuda_source_ships_and_builds_outside_git():
     with open(os.path.join(root, "pyproject.toml"), "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     assert set(data["aecf_tpu_torch"]) == {
-        "py.typed", "kernels/csrc/*.cu", "kernels/csrc/*.cuh"
+        "py.typed", "kernels/csrc/*.cu", "kernels/csrc/*.cuh",
+        "native/batcher.cc",
     }
     pkg = os.path.join(root, "aecf_tpu_torch")
+    assert os.path.exists(os.path.join(pkg, "native", "batcher.cc"))
     for src in ("shared_query_fwd.cu", "shared_query_bwd.cu", "train_step.cu",
                 "pool_common.cuh", "pool_rows.cuh", "gemm_f32.cuh"):
         assert os.path.exists(os.path.join(pkg, "kernels", "csrc", src)), src
