@@ -30,11 +30,15 @@ measurement layer:
                                    timing discipline
     aecf_tpu_torch.utils         — trace, named_scope, StepTimer,
                                    debug_nans, finiteness reports
+    aecf_tpu_torch.parallel      — meshes over torch.distributed ranks,
+                                   data- and tensor-parallel steps
+                                   (``mesh=`` on the pool steps, fit and
+                                   FusionPredictor)
     aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
                                    into the port's modules
 
-Not ported yet (ROADMAP.md): ``parallel/`` and ``mesh=``, serving export,
-``tune.py`` and ``kernels/tiles.py``.
+Not ported yet (ROADMAP.md): serving export, ``tune.py`` and
+``kernels/tiles.py``.
 
 Importing the package touches no CUDA and builds nothing; a kernel is
 compiled at its first launch, the native batcher at its first use.

@@ -95,7 +95,9 @@ def fusion_pool(
     :func:`_wants_kernel` allows it — the shared-query kernels for a
     ``(1, 1, E)`` query, the per-row kernel for a ``(B, 1, E)`` one;
     ``'torch'`` forces the oracle path; ``'kernel'`` forces the kernel
-    (its plain version for CPU tensors).
+    (its plain version for CPU tensors).  A head-sharded pool
+    (:func:`aecf_tpu_torch.parallel.shard_params_tp`) runs the torch path
+    over this rank's heads (``tensor_parallel.sharded_fusion_pool``).
     ``generator`` (a CPU ``torch.Generator``) draws the training mask: the
     kernel takes two seed words from it, the torch path draws
     ``torch.bernoulli`` from it or, for features on a card, from a
@@ -119,6 +121,14 @@ def fusion_pool(
             "(expected 'auto', 'torch', or 'kernel')"
         )
     _check_kv_scales(kv, kv_scales)
+    from ..parallel.tensor_parallel import HeadShardedPool, sharded_fusion_pool
+
+    sharded = isinstance(params, HeadShardedPool)
+    if sharded and implementation == "kernel":
+        raise ValueError(
+            "a head-sharded pool runs the torch route (its entropy reads "
+            "every head's weights); implementation='kernel' does not apply"
+        )
     q8 = kv.dtype == torch.int8
     if not kv_grad:
         kv = kv.detach()
@@ -126,7 +136,7 @@ def fusion_pool(
     if impl == "auto":
         impl = (
             "kernel"
-            if _wants_kernel(
+            if not sharded and _wants_kernel(
                 params, query, kv, num_heads=num_heads, precision=precision
             )
             else "torch"
@@ -155,6 +165,13 @@ def fusion_pool(
             )
         return fused_fusion_pool(params, query, kv, **kwargs)
 
+    if sharded:
+        return sharded_fusion_pool(
+            params, query, kv, num_heads=num_heads, generator=generator,
+            training=training, base_mask_prob=base_mask_prob,
+            entropy_target=entropy_target, min_active=min_active,
+            key_padding_mask=key_padding_mask, precision=precision,
+        )
     B = kv.shape[0]
     q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
     with matmul_precision(precision):

@@ -3,8 +3,9 @@
 Port of :mod:`aecf_tpu.serve` (``pad_to_bucket``, ``FusionPredictor``,
 ``MicroBatcher``) with the same validation, bucketing, zero-fill and
 ``calls`` contract.  Every device call runs at a padded bucket shape under
-``torch.inference_mode()`` on an explicit ``device``.  ``mesh=`` serving
-and the ``export_predictor`` family are not ported yet (ROADMAP.md).
+``torch.inference_mode()`` on an explicit ``device``; ``mesh=`` shards each
+bucket's rows over a mesh's data axis.  The ``export_predictor`` family is
+not ported yet (ROADMAP.md).
 
 Usage::
 
@@ -22,7 +23,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, List, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +51,15 @@ class FusionPredictor:
         bucket are chunked.
       apply_sigmoid: return probabilities instead of logits.
       device: where the inputs are placed for ``apply_fn`` (the card
-        unless the caller asks for another).
+        unless the caller asks for another; with a mesh, this rank's card,
+        :func:`aecf_tpu_torch.parallel.mesh.default_device`).
+      mesh: optional ``DeviceMesh`` (:mod:`aecf_tpu_torch.parallel`) for
+        data-parallel serving.  There is no single controller: every rank
+        calls the predictor with the same request, runs ``apply_fn`` on its
+        contiguous slice of each padded bucket, and gets the whole answer
+        (the slices gathered with ``all_gather_into_tensor``).  Buckets
+        must be divisible by the axis size.
+      data_axis: the mesh axis carrying the batch dimension.
     """
 
     def __init__(
@@ -60,15 +69,32 @@ class FusionPredictor:
         modality_names: Sequence[str],
         buckets: Sequence[int] = (32, 256, 1024),
         apply_sigmoid: bool = True,
-        device: Union[str, torch.device] = "cuda",
+        device: Optional[Union[str, torch.device]] = None,
+        mesh: Optional[Any] = None,
+        data_axis: str = "data",
     ):
         self.apply_fn = apply_fn
         self.modality_names = tuple(modality_names)
         self.buckets = tuple(sorted(buckets))
         self.apply_sigmoid = apply_sigmoid
-        self.device = torch.device(device)
         self.calls = 0
         self._dims: Dict[str, int] = {}
+        self._axis = None
+        if mesh is not None:
+            from .parallel.data_parallel import _data_axis
+            from .parallel.mesh import default_device
+
+            self._axis = _data_axis(mesh, data_axis)
+            # a ragged last shard would change the padded call's shape
+            bad = [b for b in self.buckets if b % self._axis.size]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} not divisible by mesh axis "
+                    f"{data_axis!r} (size {self._axis.size})"
+                )
+            if device is None:
+                device = default_device()
+        self.device = torch.device("cuda" if device is None else device)
 
     def __call__(self, **modalities: np.ndarray) -> np.ndarray:
         """Predict for any subset of modalities; absent ones are zeroed.
@@ -149,12 +175,18 @@ class FusionPredictor:
                 )
 
     def _call_bucket(self, mods: List[np.ndarray]) -> np.ndarray:
-        """One device call at a padded bucket shape."""
+        """One device call at a padded bucket shape (over a mesh: this
+        rank's rows of it, then every rank's gathered)."""
+        if self._axis is not None:
+            mods = [self._axis.rows(x) for x in mods]
         with torch.inference_mode():
-            xs = [torch.from_numpy(x).to(self.device) for x in mods]
+            xs = [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                  for x in mods]
             out = self.apply_fn(**dict(zip(self.modality_names, xs)))
             if self.apply_sigmoid:
                 out = torch.sigmoid(out)
+            if self._axis is not None:
+                out = self._axis.gather(out)
             return out.float().cpu().numpy()
 
 

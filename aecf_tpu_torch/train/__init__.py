@@ -1,8 +1,8 @@
 """Training: the elastic loop, the pool-protocol steps and chunks,
 checkpoints, metrics and the experiment harness.
 
-Port of :mod:`aecf_tpu.train`.  Not ported yet (ROADMAP.md): ``mesh=``
-data and tensor parallelism (``parallel/``).
+Port of :mod:`aecf_tpu.train`; ``mesh=`` runs the steps, the chunk and
+``fit`` over a mesh (:mod:`aecf_tpu_torch.parallel`).
 """
 
 from .checkpointing import CheckpointManager, load_params, save_params

@@ -116,14 +116,21 @@ class CheckpointManager:
         if not force and latest is not None and (
                 latest >= step or step % self.save_interval_steps):
             return False
-        _write(self._path(step), {
+        self._commit(step, self._blob(state))
+        return True
+
+    def _blob(self, state: TrainState) -> Dict[str, Any]:
+        """What a checkpoint of ``state`` holds."""
+        return {
             "params": _params_state(state.params),
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
-        })
+        }
+
+    def _commit(self, step: int, blob: Dict[str, Any]) -> None:
+        _write(self._path(step), blob)
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
-        return True
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> Optional[TrainState]:
@@ -135,12 +142,14 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             return None
-        blob = torch.load(self._path(step), map_location="cpu",
-                          weights_only=True)
+        self._apply(state, torch.load(self._path(step), map_location="cpu",
+                                      weights_only=True))
+        return state
+
+    def _apply(self, state: TrainState, blob: Dict[str, Any]) -> None:
         _load_params(state.params, blob["params"])
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob["step"])
-        return state
 
     def wait(self) -> None:
         """Saves are synchronous; nothing to wait for."""

@@ -5,11 +5,13 @@ Port of :mod:`aecf_tpu.train.fit`.  Every ``save_every`` steps the whole
 step) is checkpointed; a restarted process calls the same :func:`fit` and
 continues from the latest checkpoint, with the batches and the seed words
 re-derived from the step index, so the resumed run reproduces the
-uninterrupted one.
+uninterrupted one.  Over a mesh (``mesh=``) every rank runs the loop on its
+own rows of each batch.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -124,35 +126,66 @@ def fit(
     words fold the global step, so any chunking resumes into any other;
     checkpoints and history land at chunk boundaries, and a final partial
     chunk runs (or captures) its own shape.  ``scan_chunk > 1`` with a
-    ``step_fn`` and no ``chunk_fn`` raises, as in JAX.  ``mesh=`` is not
-    ported yet.
+    ``step_fn`` and no ``chunk_fn`` raises, as in JAX.
+
+    ``mesh=`` (a ``DeviceMesh``, :mod:`aecf_tpu_torch.parallel`; every
+    rank calls ``fit`` alike) trains data-parallel: the parameters are
+    broadcast from the first rank, each rank stages only its rows of each
+    global batch (``batch_fn`` is the same on every rank) and the default
+    step and chunk are :func:`~aecf_tpu_torch.parallel.make_dp_train_step`
+    / ``make_dp_scan_train_step`` (a custom ``step_fn`` / ``chunk_fn``
+    gets the same rows, e.g. ``as_fit_step(make_pool_train_step(
+    mesh=mesh))``).  A mesh with a ``'model'`` axis runs data × tensor
+    parallelism: the parameters are head-sharded
+    (:func:`~aecf_tpu_torch.parallel.shard_params_tp`) before the
+    optimizer is built over them, and the steps are ``make_tp_train_step``
+    / ``make_tp_scan_train_step``.  Rank 0 writes the checkpoints, with
+    the sharded pools gathered whole, a barrier after each save; every
+    rank restores.  Resume stays exact, since each shard's seed words
+    derive from the run's seed, the step and the shard's index only.
     """
     if scan_chunk < 1:
         raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= data-parallel training is not ported yet (ROADMAP.md, "
-            "queue 1, item 6: parallel/)"
-        )
     if scan_chunk > 1 and step_fn is not None and chunk_fn is None:
         raise ValueError(
             "scan_chunk > 1 builds its own multi-step chunk and cannot "
             "wrap a custom step_fn; pass scan_chunk=1, or a chunk_fn"
         )
+    manager_type, rows = CheckpointManager, None
+    make_step, make_chunk = make_train_step, make_scan_train_step
+    if mesh is not None:
+        from .. import parallel
+        from ..parallel.checkpointing import MeshCheckpointManager
+        from ..parallel.collectives import MeshAxis
+
+        if "model" in (mesh.mesh_dim_names or ()):
+            init_params = parallel.shard_params_tp(mesh, init_params)
+            make_step = parallel.make_tp_train_step
+            make_chunk = parallel.make_tp_scan_train_step
+        else:
+            parallel.replicate(mesh, init_params)
+            make_step = parallel.make_dp_train_step
+            make_chunk = parallel.make_dp_scan_train_step
+        make_step = functools.partial(make_step, mesh=mesh)
+        make_chunk = functools.partial(make_chunk, mesh=mesh)
+        manager_type, rows = MeshCheckpointManager, MeshAxis(mesh, "data").rows
     state = _make_state(optimizer, init_params)
     stage = Stager(param_leaves(state.params)[0].device)
     manager = None
     start_step = 0
     if checkpoint_dir is not None:
-        manager = CheckpointManager(checkpoint_dir,
-                                    save_interval_steps=save_every)
+        manager = manager_type(checkpoint_dir, save_interval_steps=save_every)
         if manager.restore(state) is not None:
             start_step = state.step
 
     if scan_chunk > 1 and chunk_fn is None:
-        chunk_fn = make_scan_train_step(apply_fn, accum_steps=accum_steps)
+        chunk_fn = make_chunk(apply_fn, accum_steps=accum_steps)
     if step_fn is None:
-        step_fn = make_train_step(apply_fn, accum_steps=accum_steps)
+        step_fn = make_step(apply_fn, accum_steps=accum_steps)
+
+    def batch(step_idx):
+        arrays = batch_fn(step_idx)
+        return arrays if rows is None else tuple(rows(a) for a in arrays)
 
     history: Dict[str, list] = {"loss": [], "step": []}
 
@@ -167,9 +200,9 @@ def fit(
         step_idx = start_step
         while step_idx < num_steps:
             k = min(scan_chunk, num_steps - step_idx)
-            batch = stage((batch_fn(s) for s in range(step_idx, step_idx + k)),
-                          count=k)
-            state, losses, infos = chunk_fn(state, *batch, rng)
+            staged = stage((batch(s) for s in range(step_idx, step_idx + k)),
+                           count=k)
+            state, losses, infos = chunk_fn(state, *staged, rng)
             if manager is not None:
                 manager.save(step_idx + k, state)
             hits = [j for j in range(k)
@@ -185,7 +218,7 @@ def fit(
         return _finalize(manager, num_steps, state), history
 
     for step_idx in range(start_step, num_steps):
-        images, texts, labels = stage([batch_fn(step_idx)])
+        images, texts, labels = stage([batch(step_idx)])
         state, loss, info = step_fn(state, images, texts, labels,
                                     fold_seed_words(rng, step_idx))
         if manager is not None:

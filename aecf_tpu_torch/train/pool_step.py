@@ -16,6 +16,13 @@ parameter trajectory to f32 tolerance.
 CUDA graph — the steps' kernels, torch ops and optimizer updates captured
 once and replayed — so the host launches one graph where it launched tens
 of kernels a step; elsewhere the K steps run eagerly in one call.
+
+``mesh=`` on either builder makes it data-parallel over ``axis_name``:
+each rank steps on its own rows with the ``1/axis_size``-scaled loss
+(``loss_scale=``, so the one-pass kernel's direct gradients are those of
+the global mean), then one all-reduce over a flat buffer of gradients,
+loss and info means, and the same optimizer update on every rank — the
+direct-gradient form of :func:`aecf_tpu_torch.parallel.make_dp_train_step`.
 """
 
 from __future__ import annotations
@@ -268,6 +275,7 @@ def make_pool_train_step(
     training: bool = True,
     accum_steps: int = 1,
     mesh: Optional[Any] = None,
+    axis_name: str = "data",
 ) -> Callable:
     """Build a pool-protocol training step ``(state, kv, labels,
     generator) -> (state, loss, info)``.
@@ -295,46 +303,64 @@ def make_pool_train_step(
 
     The step sets every leaf's ``.grad`` from the path's gradients and
     calls ``optimizer.step()``.  ``accum_steps`` microbatches the batch.
-    ``mesh=`` (data parallelism) is not ported yet.
+
+    ``mesh=`` (a ``DeviceMesh``, :mod:`aecf_tpu_torch.parallel`) makes the
+    step data-parallel over ``axis_name``: every rank calls it with its
+    own rows (``parallel.shard_batch``) and equal parameters, draws from
+    its generator's seed words folded with its axis index
+    (``fold_seed_words(words, index)``, JAX's ``fold_in(rng,
+    axis_index)``; pass the same generator or seed words on every rank),
+    and gets the global-mean loss and the info entries' global means.
+    ``accum_steps`` then microbatches each rank's rows.
     """
-    _validate(impl, accum_steps, mesh)
+    _validate(impl, accum_steps)
     local_step = _make_local_step(
         num_heads=num_heads, impl=impl, precision=precision,
         base_mask_prob=base_mask_prob, entropy_target=entropy_target,
         min_active=min_active, entropy_coeff=entropy_coeff,
         training=training,
     )
-    return _make_step(local_step, accum_steps)
+    return _make_step(local_step, accum_steps, _axis(mesh, axis_name))
 
 
-def _validate(impl, accum_steps, mesh) -> None:
+def _validate(impl, accum_steps) -> None:
     if impl not in _IMPLS:
         raise ValueError(
             f"unknown impl {impl!r} (expected one of {', '.join(_IMPLS)})"
         )
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= data-parallel training is not ported yet (ROADMAP.md, "
-            "queue 1, item 6: parallel/)"
-        )
 
 
-def _make_step(local_step, accum_steps):
+def _axis(mesh, axis_name):
+    """The data axis of ``mesh`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    from ..parallel.data_parallel import _data_axis
+
+    return _data_axis(mesh, axis_name)
+
+
+def _make_step(local_step, accum_steps, axis=None):
     """``(state, kv, labels, generator) -> (state, loss, info)``: one
-    update (microbatched when ``accum_steps > 1``)."""
+    update (microbatched when ``accum_steps > 1``; over a mesh axis, the
+    shard's seed words, the scaled loss and the flat all-reduce)."""
+    scale = 1.0 if axis is None else 1.0 / axis.size
 
     def step(state: TrainState, kv, labels, generator):
+        if axis is not None:
+            generator = axis.fold(generator)
         if accum_steps == 1:
             loss, info, grads = local_step(
-                state.params, kv, labels, generator, 1.0
+                state.params, kv, labels, generator, scale
             )
         else:
             loss, info, grads = _accumulate(
-                local_step, state.params, kv, labels, generator, 1.0,
+                local_step, state.params, kv, labels, generator, scale,
                 accum_steps,
             )
+        if axis is not None:
+            loss, info, grads = axis.reduce(loss, info, grads)
         _set_grads(param_leaves(state.params), grads)
         state.optimizer.step()
         state.step += 1
@@ -407,6 +433,7 @@ def make_pool_scan_train_step(
     training: bool = True,
     accum_steps: int = 1,
     mesh: Optional[Any] = None,
+    axis_name: str = "data",
 ) -> Callable:
     """Multi-step pool-protocol chunk: ``(state, kv, labels, rng) ->
     (state, losses (K,), infos)`` — K updates a call.
@@ -443,17 +470,27 @@ def make_pool_scan_train_step(
 
     Every other route — two-pass kernels, the torch path, H == 2, the
     streamed split, ``accum_steps > 1``, CPU tensors — runs its K steps
-    eagerly in one call, as JAX's general per-step path does.  ``mesh=``
-    is not ported.
+    eagerly in one call, as JAX's general per-step path does.
+
+    ``mesh=`` makes each step data-parallel as in
+    :func:`make_pool_train_step`: ``kv`` and ``labels`` hold this rank's
+    rows ``(K, B_local, ...)``, and step ``i`` of shard ``s`` draws from
+    ``fold_seed_words(fold_seed_words(rng, state.step + i), s)``.  On an
+    NCCL group the graph captures each step's all-reduce with the rest
+    (the warm-up step's eager all-reduce creates the communicator first)
+    and the host writes the shards' seed words before each replay.  A
+    gloo group cannot be captured: its chunk runs the K steps eagerly,
+    whatever the route.
     """
-    _validate(impl, accum_steps, mesh)
+    _validate(impl, accum_steps)
     local_step = _make_local_step(
         num_heads=num_heads, impl=impl, precision=precision,
         base_mask_prob=base_mask_prob, entropy_target=entropy_target,
         min_active=min_active, entropy_coeff=entropy_coeff,
         training=training,
     )
-    single = _make_step(local_step, accum_steps)
+    axis = _axis(mesh, axis_name)
+    single = _make_step(local_step, accum_steps, axis)
     graphs: Dict[tuple, _ChunkGraph] = {}
 
     def chunk(state: TrainState, kv, labels, rng):
@@ -464,13 +501,14 @@ def make_pool_scan_train_step(
                 f"labels must be (K={K}, B={B}, C), got {tuple(labels.shape)}"
             )
         use = _resolve_impl(impl, num_heads, state.params, kv4, precision)
-        if use == "fused-step" and accum_steps == 1 and kv4.is_cuda:
+        if (use == "fused-step" and accum_steps == 1 and kv4.is_cuda
+                and (axis is None or axis.backend == "nccl")):
             key = (tuple(kv4.shape), kv4.dtype,
                    None if labels is None else labels.shape[-1])
             graph = graphs.get(key)
             if graph is None or graph.signature != _signature(state):
                 graph = graphs[key] = _ChunkGraph(
-                    local_step, state, kv4, labels)
+                    local_step, state, kv4, labels, axis)
             return graph.run(state, kv4, labels, rng)
         losses, infos = [], {}
         for i in range(K):
@@ -556,13 +594,16 @@ class _ChunkGraph:
     """K one-pass steps captured as one CUDA graph, for one shape.
 
     ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
-    per-step entries of the last replay, whose means the chunk returns."""
+    per-step entries of the last replay, whose means the chunk returns
+    (over a mesh ``axis``: the global means).  ``replays`` counts the
+    graph's replays."""
 
     def __init__(self, local_step, state: TrainState, kv4: torch.Tensor,
-                 labels: Optional[torch.Tensor]):
+                 labels: Optional[torch.Tensor], axis=None):
         dev = kv4.device
         K, B, M, E = kv4.shape
         self.local_step, self.K, self.B = local_step, K, B
+        self.axis, self.replays = axis, 0
         self.kv = torch.empty((K * B, M * E), dtype=kv4.dtype, device=dev)
         self.labels = None if labels is None else torch.empty(
             (K * B, labels.shape[-1]), dtype=torch.float32, device=dev)
@@ -578,11 +619,14 @@ class _ChunkGraph:
         self.signature = _signature(state)
 
     def _step(self, state: TrainState, i: int) -> Dict[str, torch.Tensor]:
+        scale = 1.0 if self.axis is None else 1.0 / self.axis.size
         loss, info, grads = self.local_step(
-            state.params, self.kv, self.labels, None, 1.0,
+            state.params, self.kv, self.labels, None, scale,
             seed_words=self.seeds[i], row_offset=i * self.B,
             batch_rows=self.B,
         )
+        if self.axis is not None:
+            loss, info, grads = self.axis.reduce(loss, info, grads)
         _set_grads(param_leaves(state.params), grads)
         state.optimizer.step()
         if self.info:
@@ -651,12 +695,15 @@ class _ChunkGraph:
         if self.copied is not None:
             self.copied.synchronize()  # the last replay's words are read
         words = [fold_seed_words(rng, state.step + i) for i in range(self.K)]
+        if self.axis is not None:
+            words = [self.axis.fold(w) for w in words]
         self.host_seeds.numpy()[:] = np.asarray(
             words, dtype=np.uint32).view(np.int32)
         self.seeds.copy_(self.host_seeds, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
         self.graph.replay()
+        self.replays += 1
         _step_kernel.launches += self.launched[0]
         _step_kernel.launches_q8 += self.launched[1]
         state.step += self.K

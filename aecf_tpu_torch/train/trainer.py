@@ -172,9 +172,12 @@ def _make_loss_on(apply_fn, entropy_coeff, entropy_seq_len):
     return loss_on
 
 
-def _grad_step(state, images, texts, labels, rng, *, loss_on, accum_steps):
+def _grad_step(state, images, texts, labels, rng, *, loss_on, accum_steps,
+               reduce=None):
     """One ``(state, batch, rng) -> (state, loss, info)`` update: the body
-    of :func:`make_train_step` and :func:`make_scan_train_step`."""
+    of :func:`make_train_step` and :func:`make_scan_train_step`, and of the
+    parallel steps, whose ``reduce(loss, info, grads)`` makes the
+    cross-rank sums before the optimizer's update."""
     leaves = param_leaves(state.params)
     if accum_steps == 1:
         loss, info = loss_on(state.params, images, texts, labels,
@@ -187,6 +190,8 @@ def _grad_step(state, images, texts, labels, rng, *, loss_on, accum_steps):
         loss, info, grads = accumulate_grads(
             loss_on, state.params, mbs, rng, accum_steps
         )
+    if reduce is not None:
+        loss, info, grads = reduce(loss, info, grads)
     _set_grads(leaves, grads)
     state.optimizer.step()
     state.step += 1
@@ -232,9 +237,14 @@ def make_scan_train_step(
     of ``rng`` and the global ``state.step`` — JAX's ``fold_in(rng,
     state.step)`` — so chunks chain and resume exactly like single steps
     fed those words.  ``infos`` are per-step means."""
-    step = make_train_step(apply_fn, entropy_coeff=entropy_coeff,
-                           entropy_seq_len=entropy_seq_len,
-                           accum_steps=accum_steps)
+    return _chunk_of(make_train_step(apply_fn, entropy_coeff=entropy_coeff,
+                                     entropy_seq_len=entropy_seq_len,
+                                     accum_steps=accum_steps))
+
+
+def _chunk_of(step: Callable) -> Callable:
+    """The K-step chunk over ``step``: step ``i`` fed the fold of ``rng``
+    and the global ``state.step``."""
 
     def chunk(state: TrainState, images, texts, labels, rng):
         losses, infos = [], {}

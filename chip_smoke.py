@@ -61,7 +61,18 @@ the resident forward, backward and step):
    (B=4096, M=2, E=512, C=14): ``fit`` for 40 steps, stopped at 25 and
    resumed from its checkpoints, against the uninterrupted run, with
    ``scan_chunk`` 1 and 8 (a misaligned resume), then ``evaluate_model``
-   against the same parameters on the CPU; the data and measurement
+   against the same parameters on the CPU; ``mesh=`` at world size 1
+   over NCCL (5g: the DP step, ``'fused-step'`` and ``'kernel'``, bit for
+   bit the non-mesh step fed ``fold_seed_words(seed, 0)``; the DP chunk,
+   one CUDA graph with each step's all-reduce captured, bit for bit its
+   eager steps; ``fit(mesh=)`` stopped and resumed; ``FusionPredictor(
+   mesh=)`` and ``make_dp_eval_step`` bit for bit the non-mesh ones) and
+   two ranks on the one card over gloo (5h, spawned: the DP step at
+   B=4096 global against one process, loss rtol 5e-5, parameters atol
+   1e-5; each rank's masks bit for bit the non-mesh step's fed
+   ``fold_seed_words(seed, rank)``; the gloo chunk eager; the TP step at
+   the X-ray model's full width against the unsharded step), each with
+   its times beside the non-mesh ones; the data and measurement
    layer: the native ``BatchLoader`` (the C++ batcher built by ``g++``
    from this checkout) at the X3 width into 20 AdamW one-pass steps
    through the ``Stager`` (rows tracked per stream, every row once an
@@ -2768,6 +2779,571 @@ def elastic_slice(torch) -> dict:
     return {"launches": launches, "batch_fn": batch_fn, "flat": flat}
 
 
+def _pool_flat_equal(a, b) -> bool:
+    return all(np.array_equal(a[k], v) for k, v in b.items())
+
+
+def _same_info(torch, dp_info, plain_info) -> bool:
+    """The DP step's info (global means) against the non-mesh step's
+    entries' means, bit for bit."""
+    return set(dp_info) == set(plain_info) and all(
+        torch.equal(dp_info[k].reshape(()),
+                    plain_info[k].float().mean().reshape(()))
+        for k in plain_info)
+
+
+def _nccl_mesh(torch, store_dir):
+    """Phase 5g's job: world size 1 over NCCL (a ``FileStore`` under
+    ``build/``, rank 0 of 1) and its ``('data',)`` mesh."""
+    import torch.distributed as dist
+
+    from aecf_tpu_torch import parallel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1)
+    return parallel.data_mesh()
+
+
+def parallel_slice(torch, smi: str) -> dict:
+    """Phase 5g: ``mesh=`` at world size 1 over NCCL, at the north star
+    (B=4096, M=3, E=512, H=1, C=14, AdamW capturable): the DP step
+    (``'fused-step'``, #8; ``'kernel'``, #1/#4) bit for bit the non-mesh
+    step fed ``fold_seed_words(seed, 0)``, 3 steps each; the DP chunk — one
+    CUDA graph with each step's all-reduce captured in it — bit for bit
+    K=16 eager DP steps; ``fit(mesh=)`` at the X3 width, 12 steps in
+    chunks of 4 stopped at 7 and resumed, bit for bit the uninterrupted run;
+    ``FusionPredictor(mesh=)`` bit for bit the non-mesh predictor at
+    buckets 32 and 256 (#1), and ``make_dp_eval_step`` the model; then
+    their times beside the non-mesh ones."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from aecf_tpu_torch import parallel
+    from aecf_tpu_torch.convert import (
+        params_from_numpy,
+        pool_classifier_params_from_numpy,
+        pool_classifier_params_to_numpy,
+    )
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+    from aecf_tpu_torch.models import VisionLanguageModel
+    from aecf_tpu_torch.serve import FusionPredictor
+    from aecf_tpu_torch.train import (
+        as_fit_chunk,
+        as_fit_step,
+        fit,
+        make_epoch_batch_fn,
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+
+    t0 = time.perf_counter()
+    B, M, E, C, K = NS_B, NS_M, NS_E, NS_C, CHUNK_K
+    rs = np.random.default_rng(71)
+    flat = _classifier_flat(rs, E, C)
+    kv, labels = _x3_features(torch, rs, K * B, M, E, C)
+    kv, labels = kv.reshape(K, B, M, E), labels.reshape(K, B, C)
+    seed = 20251018
+    store = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    mesh = _nccl_mesh(torch, store.name)
+    launches = {}
+
+    def tally():
+        for name, n in _counts().items():
+            launches[name] = launches.get(name, 0) + n
+        _reset_counts()
+
+    try:
+        _reset_counts()
+        for impl in ("fused-step", "kernel"):
+            dp_state = _state(torch, flat, _adamw_graph)
+            plain_state = _state(torch, flat, _adamw_graph)
+            dp = make_pool_train_step(impl=impl, mesh=mesh)
+            plain = make_pool_train_step(impl=impl)
+            for n in range(3):
+                words = fold_seed_words(seed, n)
+                dp_state, l_d, i_d = dp(dp_state, kv[n], labels[n], words)
+                plain_state, l_p, i_p = plain(plain_state, kv[n], labels[n],
+                                              fold_seed_words(words, 0))
+                check(torch.equal(l_d.reshape(()), l_p.float().reshape(())),
+                      f"{impl}: DP loss {l_d.item()!r} != non-mesh "
+                      f"{l_p.item()!r} at step {n}")
+                check(_same_info(torch, i_d, i_p),
+                      f"{impl}: DP info differs from the non-mesh step's means")
+            torch.cuda.synchronize()
+            check(_pool_flat_equal(
+                pool_classifier_params_to_numpy(dp_state.params),
+                pool_classifier_params_to_numpy(plain_state.params)),
+                f"{impl}: DP params differ from the non-mesh step's")
+        counts = _counts()
+        check(counts == _only(train_step=6, shared_query_fwd=6,
+                              shared_query_bwd=6),
+              f"DP step launches {counts}")
+        print(f"parallel NCCL world 1 B={B} M={M} E={E} C={C}: the DP step "
+              f"(fused-step, kernel) bit for bit the non-mesh step fed "
+              f"fold_seed_words(seed, 0) in 3 of 3 steps each (loss, info "
+              f"means, params); launches {counts}")
+        tally()
+
+        # the chunk: one graph, the all-reduce captured in it
+        eager = _state(torch, flat, _adamw_graph)
+        step = make_pool_train_step(impl="fused-step", mesh=mesh)
+        e_losses, e_mw = [], []
+        for i in range(K):
+            eager, loss, info = step(eager, kv[i], labels[i],
+                                     fold_seed_words(seed, eager.step))
+            e_losses.append(loss.clone())
+            e_mw.append(info["masked_attention_weights"].clone())
+        graph = _state(torch, flat, _adamw_graph)
+        chunk = make_pool_scan_train_step(impl="fused-step", mesh=mesh)
+        tally()
+        graph, g_losses, g_infos = chunk(graph, kv, labels, seed)
+        torch.cuda.synchronize()
+        (captured,) = chunk._graphs.values()
+        check(captured.axis is not None and captured.replays == 1
+              and captured.launched == (K, 0),
+              f"the DP chunk did not replay one graph of {K} step chains "
+              f"(replays {captured.replays}, {captured.launched})")
+        check(_counts() == _only(train_step=K + 1),
+              f"DP chunk launches {_counts()} != {K} + 1 warm-up")
+        bitwise = (torch.equal(g_losses, torch.stack(e_losses).reshape(K))
+                   and torch.equal(g_infos["masked_attention_weights"],
+                                   torch.stack(e_mw).reshape(K))
+                   and _pool_flat_equal(
+                       pool_classifier_params_to_numpy(graph.params),
+                       pool_classifier_params_to_numpy(eager.params)))
+        check(bitwise, "the DP chunk's graph differs from the eager DP steps")
+        print(f"parallel NCCL world 1: the DP chunk, one {K}-step CUDA graph "
+              f"with the all-reduce captured (replays {captured.replays}, "
+              f"step chains {captured.launched[0]}), bit for bit {K} eager DP "
+              f"steps (losses, masked-weight means, params)")
+        tally()
+
+        # fit(mesh=) at the X3 width, resumed in chunks of 4
+        data = _x3_data()
+        fit_flat = _classifier_flat(np.random.default_rng(72), X3_E, X3_C)
+        batch_fn = make_epoch_batch_fn(data, X3_B, seed=0)
+
+        def run(num_steps, ckpt=None):
+            params = pool_classifier_params_from_numpy(fit_flat,
+                                                       device="cuda")
+            state, history = fit(
+                None, _adamw_graph, params, batch_fn, num_steps=num_steps,
+                rng=7, checkpoint_dir=ckpt, save_every=4, mesh=mesh,
+                step_fn=as_fit_step(make_pool_train_step(mesh=mesh)),
+                chunk_fn=as_fit_chunk(make_pool_scan_train_step(mesh=mesh)),
+                scan_chunk=4, log_every=4)
+            torch.cuda.synchronize()
+            return state, history
+
+        full, hist = run(12)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            first, _ = run(7, d)
+            resumed, _ = run(12, d)
+        check(first.step == 7 and resumed.step == 12,
+              f"fit(mesh=) stopped at {first.step}, resumed to {resumed.step}")
+        check(_pool_flat_equal(pool_classifier_params_to_numpy(full.params),
+                               pool_classifier_params_to_numpy(
+                                   resumed.params)),
+              "fit(mesh=) resumed differs from the uninterrupted run")
+        check(all(math.isfinite(x) for x in hist["loss"]),
+              "fit(mesh=) loss not finite")
+        print(f"parallel NCCL world 1: fit(mesh=) X3 B={X3_B} M={X3_M} "
+              f"E={X3_E} C={X3_C}, 12 steps in chunks of 4 (the DP graph), "
+              f"stopped at 7 and resumed: bit for bit the uninterrupted run; "
+              f"loss {hist['loss'][0]:.6f} -> {hist['loss'][-1]:.6f}; "
+              f"launches {_counts()}")
+        tally()
+
+        # FusionPredictor(mesh=) and make_dp_eval_step (#1)
+        model = params_from_numpy(
+            VisionLanguageModel(device="cuda"),
+            _model_params(VisionLanguageModel(device="cpu"),
+                          np.random.default_rng(2))).eval()
+
+        def predictor(mesh_):
+            return FusionPredictor(lambda image, text: model(image, text),
+                                   modality_names=("image", "text"),
+                                   buckets=BUCKETS, device="cuda", mesh=mesh_)
+
+        meshed, plain = predictor(mesh), predictor(None)
+        frs = np.random.default_rng(73)
+        img = frs.standard_normal((300, 2048)).astype(np.float32)
+        txt = frs.standard_normal((300, 768)).astype(np.float32)
+        requests = {"32 rows": dict(image=img[:32], text=txt[:32]),
+                    "256 rows": dict(image=img[:256], text=txt[:256]),
+                    "300 rows": dict(image=img, text=txt),
+                    "image only": dict(image=img[:20])}
+        for name, req in requests.items():
+            got = meshed(**req)
+            check(np.array_equal(got, plain(**req)),
+                  f"FusionPredictor(mesh=) {name} differs from the non-mesh "
+                  "predictor")
+        served = _counts()["shared_query_fwd"]
+        check(served >= 2 * meshed.calls,
+              f"shared_query_fwd launches {served} < 2 x {meshed.calls} calls")
+        eval_step = parallel.make_dp_eval_step(
+            lambda m, b: m(b["image"], b["text"]), mesh)
+        batch = parallel.shard_batch(
+            mesh, {"image": img[:256], "text": txt[:256]})
+        with torch.inference_mode():
+            want = model(batch["image"], batch["text"])
+        check(torch.equal(eval_step(model, batch), want),
+              "make_dp_eval_step differs from the model")
+        print(f"parallel NCCL world 1: FusionPredictor(mesh=) bit for bit the "
+              f"non-mesh predictor at buckets {BUCKETS} "
+              f"({', '.join(requests)}; {meshed.calls} bucket calls); "
+              f"make_dp_eval_step bit for bit the model at 256 rows; "
+              f"launches {_counts()}")
+        tally()
+        times = _time_parallel(torch, smi, mesh, flat, kv, labels, meshed,
+                               plain, img, txt)
+        _reset_counts()
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    print(f"phase 5g (mesh= at world size 1, NCCL) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "times": times}
+
+
+def _time_parallel(torch, smi, mesh, flat, kv, labels, meshed, plain, img,
+                   txt) -> dict:
+    """Phase 7g: the north-star DP step and chunk at world size 1 (NCCL)
+    beside the non-mesh ones — ms per update, CUDA events, in turns non-mesh,
+    DP, DP, non-mesh — and ``FusionPredictor(mesh=)`` per bucket beside the
+    non-mesh predictor (host clock, medians of alternating calls)."""
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+    from aecf_tpu_torch.train import (
+        make_pool_scan_train_step,
+        make_pool_train_step,
+    )
+
+    K = kv.shape[0]
+    times = {}
+
+    def stepper(mesh_):
+        state = _state(torch, flat, _adamw_graph)
+        step = make_pool_train_step(impl="fused-step", mesh=mesh_)
+        n = [0]
+
+        def one():
+            nonlocal state
+            i = n[0] % K
+            state, _, _ = step(state, kv[i], labels[i],
+                               fold_seed_words(1, state.step))
+            n[0] += 1
+
+        return one
+
+    steps = {"plain": stepper(None), "dp": stepper(mesh)}
+    turns = [(w, cuda_ms(torch, steps[w], iters=64, warmup=8))
+             for w in ("plain", "dp", "dp", "plain")]
+    for w in steps:
+        times[f"step_{w}"] = float(np.mean([t for v, t in turns if v == w]))
+    print(f"time parallel step B={NS_B} M={NS_M} E={NS_E} C={NS_C} "
+          f"fused-step AdamW: DP (NCCL world 1) {times['step_dp']:.5f} "
+          f"ms/update vs non-mesh {times['step_plain']:.5f} (CUDA events over "
+          f"64 steps, turns " + ", ".join(f"{w} {t:.5f}" for w, t in turns)
+          + f"; {smi})")
+    for k in TIME_CHUNKS:
+        staged = kv[:min(k, K)]
+        reps = -(-k // K)
+        staged = torch.cat([staged] * reps)[:k].reshape(k, NS_B, NS_M * NS_E)
+        lab = torch.cat([labels] * reps)[:k]
+
+        def chunker(mesh_):
+            state = _state(torch, flat, _adamw_graph)
+            chunk = make_pool_scan_train_step(impl="fused-step", mesh=mesh_)
+
+            def run():
+                nonlocal state
+                state, _, _ = chunk(state, staged, lab, 1)
+
+            return run
+
+        runs = {"plain": chunker(None), "dp": chunker(mesh)}
+        turns = [(w, cuda_ms(torch, runs[w], iters=max(2, 128 // k),
+                             warmup=2) / k)
+                 for w in ("plain", "dp", "dp", "plain")]
+        for w in runs:
+            times[f"chunk{k}_{w}"] = float(np.mean([t for v, t in turns
+                                                    if v == w]))
+        print(f"time parallel chunk K={k} (one CUDA graph) B={NS_B} M={NS_M} "
+              f"E={NS_E} C={NS_C}: DP (NCCL world 1, all-reduce in the graph) "
+              f"{times[f'chunk{k}_dp']:.5f} ms/update vs non-mesh "
+              f"{times[f'chunk{k}_plain']:.5f} (turns "
+              + ", ".join(f"{w} {t:.5f}" for w, t in turns) + f"; {smi})")
+    for b in BUCKETS:
+        req = dict(image=img[:b], text=txt[:b])
+        for p in (meshed, plain):
+            for _ in range(3):
+                p(**req)
+        samples = {"dp": [], "plain": []}
+        for _ in range(20):
+            for w, p in (("plain", plain), ("dp", meshed)):
+                t1 = time.perf_counter()
+                p(**req)
+                samples[w].append((time.perf_counter() - t1) * 1e3)
+        for w in samples:
+            times[f"serve{b}_{w}"] = float(np.median(samples[w]))
+        print(f"time FusionPredictor(mesh=) bucket {b} (NCCL world 1): median "
+              f"{times[f'serve{b}_dp']:.4f} ms vs non-mesh "
+              f"{times[f'serve{b}_plain']:.4f} ms over 20 alternating calls "
+              f"(host clock, H2D + model + gather + D2H; {smi})")
+    return times
+
+
+GLOO_WORLD = 2
+# Two ranks on one card over gloo (phase 5h): every rank joins within it.
+GLOO_TIMEOUT_S = 420
+# The TP check at the X-ray model's full width (its defaults: 512 / 512 ->
+# 256, H=4, 80 classes), JAX's test_tp_step_matches_single_device.
+TP_B = 4096
+TOL_DP_LOSS_REL = 5e-5
+TOL_DP_PARAM = 1e-5
+
+
+def _gloo_data(torch):
+    """Phase 5h's inputs, made alike on every rank and in the parent."""
+    from aecf_tpu_torch.models import XrayAECFModel
+
+    rs = np.random.default_rng(81)
+    flat = _classifier_flat(rs, NS_E, NS_C)
+    kv, labels = _x3_features(torch, rs, NS_B, NS_M, NS_E, NS_C)
+    img = torch.tensor(rs.standard_normal((TP_B, 512)), dtype=torch.float32,
+                       device="cuda")
+    txt = torch.tensor(rs.standard_normal((TP_B, 512)), dtype=torch.float32,
+                       device="cuda")
+    lab = torch.tensor((rs.random((TP_B, 80)) < 0.3).astype(np.float32),
+                       device="cuda")
+    model = XrayAECFModel(generator=torch.Generator().manual_seed(91),
+                          device="cuda")
+    return flat, kv, labels, (img, txt, lab), model
+
+
+def _xray_eval(model, images, texts, generator):
+    model.eval()
+    return model(images, texts), {}
+
+
+def _gloo_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of phase 5h (a spawned process on the same card)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        out = _gloo_work(torch, rank)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(out_path, **out)
+
+
+def _gloo_work(torch, rank: int) -> dict:
+    from aecf_tpu_torch import parallel
+    from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+    from aecf_tpu_torch.parallel.tensor_parallel import sharded_pools
+    from aecf_tpu_torch.train import (
+        TrainState,
+        make_pool_scan_train_step,
+        make_pool_train_step,
+        param_leaves,
+        pool_step as ps,
+    )
+
+    flat, kv, labels, xray_batch, model = _gloo_data(torch)
+    mesh = parallel.data_mesh()
+    local = parallel.shard_batch(mesh, (kv, labels))
+    out = {}
+    _reset_counts()
+    state = _state(torch, flat, _adamw_graph)
+    step = make_pool_train_step(impl="fused-step", training=False, mesh=mesh)
+    losses = []
+    for n in range(3):
+        state, loss, _ = step(state, *local, (1, n))
+        losses.append(loss.item())
+    out["dp:loss"] = np.asarray(losses)
+    out.update({f"dp:p:{k}": v for k, v in
+                pool_classifier_params_to_numpy(state.params).items()})
+
+    # per-shard masks: the DP step's draw on this rank's rows, and the
+    # non-mesh step's on them fed fold_seed_words(seed, rank)
+    drawn = []
+    original = ps.fused_pool_head_train_step
+
+    def recorder(*args, **kwargs):
+        result = original(*args, **kwargs)
+        drawn.append(result[3]["masked_attention_weights"].clone())
+        return result
+
+    ps.fused_pool_head_train_step = recorder
+    try:
+        seed = (5, 6)
+        for mesh_, words in ((mesh, seed),
+                             (None, fold_seed_words(seed, rank))):
+            make_pool_train_step(impl="fused-step", mesh=mesh_)(
+                _state(torch, flat, _adamw_graph), *local, words)
+    finally:
+        ps.fused_pool_head_train_step = original
+    out["masks:dp"], out["masks:single"] = (d.cpu().numpy() for d in drawn)
+
+    # a gloo group cannot be captured: the chunk runs its steps eagerly
+    K = 4
+    chunk = make_pool_scan_train_step(impl="fused-step", mesh=mesh)
+    cstate = _state(torch, flat, _adamw_graph)
+    sstate = _state(torch, flat, _adamw_graph)
+    cstate, c_losses, _ = chunk(cstate, *(torch.stack([x] * K) for x in local),
+                                3)
+    for _ in range(K):
+        sstate, _, _ = step(sstate, *local, fold_seed_words(3, sstate.step))
+    out["chunk:graphs"] = np.asarray(len(chunk._graphs))
+    out["chunk:equal"] = np.asarray(_pool_flat_equal(
+        pool_classifier_params_to_numpy(cstate.params),
+        pool_classifier_params_to_numpy(sstate.params)))
+
+    # ms per two-rank step (host clock, synchronised)
+    tstate = _state(torch, flat, _adamw_graph)
+
+    def one():
+        nonlocal tstate
+        tstate, _, _ = step(tstate, *local, (1, 0))
+
+    out["time:step_s"] = np.asarray(_step_s(torch, one, steps=20, warmup=3))
+
+    # the TP step at the X-ray model's full width, pure TP over both ranks
+    tp_mesh = parallel.make_mesh((GLOO_WORLD,), ("model",))
+    tp = parallel.shard_params_tp(tp_mesh, model)
+    tstate = TrainState(tp, torch.optim.SGD(param_leaves(tp), lr=0.1))
+    tstate, loss, _ = parallel.make_tp_train_step(_xray_eval, tp_mesh)(
+        tstate, *xray_batch, 9)
+    out["tp:loss"] = np.asarray(loss.item())
+    full = {k: v.detach() for k, v in tp.state_dict().items()}
+    for (_, prefix), pool in sharded_pools(tp):
+        for name, p in pool.named_parameters(recurse=False):
+            full[prefix + name] = pool.gathered(name, p)
+    out.update({f"tp:p:{k}": v.cpu().numpy() for k, v in full.items()})
+    torch.cuda.synchronize()
+    out.update({f"launches:{k}": np.asarray(v) for k, v in _counts().items()})
+    return out
+
+
+def gloo_slice(torch, smi: str) -> dict:
+    """Phase 5h: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), spawned after the build and each bounded by
+    ``GLOO_TIMEOUT_S``: the DP one-pass step at B=4096 global (2048 rows a
+    rank), ``training=False``, 3 AdamW steps, against one process's B=4096
+    step (loss rtol 5e-5, parameters atol 1e-5); with ``training=True``,
+    rank r's masks bit for bit the non-mesh step's on its rows fed
+    ``fold_seed_words(seed, r)``; the DP chunk on gloo running its steps
+    eagerly (no graph), bit for bit as many DP steps; the TP step at the
+    X-ray model's full width (512 / 512 -> 256, H=4, B=4096,
+    ``training=False``, SGD) on a ``('model',)`` mesh of 2 against the
+    unsharded step (loss rtol 5e-5, parameters atol 1e-5)."""
+    import multiprocessing
+    import tempfile
+
+    from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    from aecf_tpu_torch.train import TrainState, make_pool_train_step
+    from aecf_tpu_torch.train import make_train_step, param_leaves
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        paths = [os.path.join(d, f"rank{r}.npz") for r in range(GLOO_WORLD)]
+        procs = [ctx.Process(target=_gloo_rank,
+                             args=(r, GLOO_WORLD, os.path.join(d, "store"),
+                                   paths[r]))
+                 for r in range(GLOO_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + GLOO_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * GLOO_WORLD,
+              f"gloo ranks exited {codes} (None: killed at "
+              f"{GLOO_TIMEOUT_S} s)")
+        outs = [dict(np.load(path)) for path in paths]
+    spawned = time.perf_counter() - t0
+
+    flat, kv, labels, xray_batch, model = _gloo_data(torch)
+    _reset_counts()
+    state = _state(torch, flat, _adamw_graph)
+    step = make_pool_train_step(impl="fused-step", training=False)
+    losses = []
+    for n in range(3):
+        state, loss, _ = step(state, kv, labels, (1, n))
+        losses.append(loss.item())
+    one = pool_classifier_params_to_numpy(state.params)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(outs[0]["dp:loss"],
+                                                        losses))
+    perr = max(float(np.abs(outs[0][f"dp:p:{k}"] - v).max())
+               for k, v in one.items())
+    check(loss_rel <= TOL_DP_LOSS_REL and perr <= TOL_DP_PARAM,
+          f"two-rank DP step vs one process: loss rel {loss_rel:.3e}, params "
+          f"{perr:.3e}")
+    for k in (k for k in outs[0] if ":p:" in k):
+        check(np.array_equal(outs[1][k], outs[0][k]),
+              f"the ranks' {k} differ")
+    for r, out in enumerate(outs):
+        check(np.array_equal(out["masks:dp"], out["masks:single"]),
+              f"rank {r}'s masks differ from the non-mesh step's fed "
+              f"fold_seed_words(seed, {r})")
+        check(int(out["chunk:graphs"]) == 0 and bool(out["chunk:equal"]),
+              f"rank {r}: the gloo chunk captured a graph or differs from "
+              "its steps")
+    check(not np.array_equal(outs[0]["masks:dp"], outs[1]["masks:dp"]),
+          "the two shards drew the same masks")
+
+    whole = TrainState(model, torch.optim.SGD(param_leaves(model), lr=0.1))
+    whole, loss, _ = make_train_step(_xray_eval)(whole, *xray_batch, 9)
+    torch.cuda.synchronize()
+    tp_rel = abs(float(outs[0]["tp:loss"]) - loss.item()) / abs(loss.item())
+    tp_err = max(float(np.abs(outs[0][f"tp:p:{k}"] - v.cpu().numpy()).max())
+                 for k, v in whole.params.state_dict().items())
+    check(tp_rel <= TOL_DP_LOSS_REL and tp_err <= TOL_DP_PARAM,
+          f"TP step vs unsharded: loss rel {tp_rel:.3e}, params {tp_err:.3e}")
+    launches = _counts()
+    for out in outs:
+        for name in launches:
+            launches[name] += int(out[f"launches:{name}"])
+    step_ms = float(np.mean([float(o["time:step_s"]) for o in outs])) * 1e3
+    print(f"parallel gloo 2 ranks on one card (spawned, {spawned:.1f} s): DP "
+          f"one-pass step B={NS_B} global ({NS_B // GLOO_WORLD} a rank) M="
+          f"{NS_M} E={NS_E} C={NS_C}, 3 AdamW steps, training=False, vs one "
+          f"process: loss rel {loss_rel:.3e} (tol {TOL_DP_LOSS_REL:g}), params "
+          f"max abs {perr:.3e} (tol {TOL_DP_PARAM:g}), the ranks equal bit for "
+          f"bit; training=True: each rank's masks bit for bit the non-mesh "
+          f"step's on its rows fed fold_seed_words(seed, rank), the shards' "
+          f"differ; the gloo chunk ran eagerly (no graph) and equals its "
+          f"steps; TP ('model',)=2 X-ray 512/512->256 H=4 B={TP_B} SGD vs "
+          f"unsharded: loss rel {tp_rel:.3e}, params max abs {tp_err:.3e}; "
+          f"launches {launches}")
+    print(f"time parallel gloo step: {step_ms:.4f} ms per two-rank DP step "
+          f"(host clock, synchronised, mean of the ranks over 20 steps; "
+          f"B={NS_B} global, the flat buffer through pinned host memory; "
+          f"{smi})")
+    print(f"phase 5h (two gloo ranks on one card) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "times": {"gloo_step": step_ms}}
+
+
 def time_chunk(torch, smi: str, elastic: dict) -> None:
     """Phase 7f: ms per update at the north star (B=4096, M=3, E=512,
     C=14, AdamW capturable) — single ``fused-step`` steps, and chunks of K
@@ -4280,6 +4856,8 @@ def main() -> None:
     auto = check_step_auto(torch)
     chunked = chunk_slice(torch)
     elastic = elastic_slice(torch)
+    meshed = parallel_slice(torch, smi)
+    two_rank = gloo_slice(torch, smi)
     loaded = loader_slice(torch)
     measured = measure_slice(torch, smi)
     profiled = profile_slice(torch, smi)
@@ -4307,7 +4885,7 @@ def main() -> None:
     launches.update(quantized["launches"])
     launches["train_step"] += (auto["train_step"]
                                + chunked["launches"]["train_step"])
-    for part in (elastic, loaded, measured, profiled):
+    for part in (elastic, meshed, two_rank, loaded, measured, profiled):
         for name, n in part["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name, n in families["launches"].items():

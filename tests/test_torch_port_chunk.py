@@ -17,6 +17,7 @@ kernels' plain versions (the CUDA graph is the card's route;
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -288,8 +289,9 @@ def test_seed_words_and_the_fold():
 
 
 def test_chunk_rejections():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        make_pool_scan_train_step(mesh=object())
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        make_pool_scan_train_step(
+            mesh=SimpleNamespace(mesh_dim_names=("model",)))
     with pytest.raises(ValueError, match="accum_steps"):
         make_pool_scan_train_step(accum_steps=0)
     with pytest.raises(ValueError, match="unknown impl"):

@@ -17,6 +17,7 @@
   views equals it on separate tensors, exactly.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -25,6 +26,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from aecf_tpu.train import as_fit_step as jax_as_fit_step
 from aecf_tpu.train import fit as jax_fit
@@ -35,6 +37,7 @@ from aecf_tpu_torch.convert import (
     pool_classifier_params_from_numpy,
     pool_classifier_params_to_numpy,
 )
+from aecf_tpu_torch.parallel import data_mesh
 from aecf_tpu_torch.train import (
     CheckpointManager,
     TrainState,
@@ -149,13 +152,34 @@ def test_resume_equals_the_uninterrupted_run(tmp_path, chunk, stop):
             assert torch.equal(a, b)
 
 
-def test_fit_options():
+@contextlib.contextmanager
+def _one_rank(tmp_path):
+    """A one-rank gloo job in this process, and its ('data',) mesh."""
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield data_mesh(device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fit_options(tmp_path):
     flat = _flat(jax_init(jax.random.key(2), E, C))
     params = pool_classifier_params_from_numpy(flat, device="cpu")
     batch_fn = make_epoch_batch_fn(_data(), B)
     step = as_fit_step(make_pool_train_step())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        fit(None, _sgd, params, batch_fn, num_steps=1, rng=0, mesh=object())
+    # mesh= over one rank: the plain run's parameters (the gradients do
+    # not depend on the shard's draws, quirk Q1)
+    with _one_rank(tmp_path) as mesh:
+        dp, _ = fit(None, _sgd,
+                    pool_classifier_params_from_numpy(flat, device="cpu"),
+                    batch_fn, num_steps=2, rng=0, mesh=mesh,
+                    step_fn=as_fit_step(make_pool_train_step(mesh=mesh)))
+    plain, _ = fit(None, _sgd,
+                   pool_classifier_params_from_numpy(flat, device="cpu"),
+                   batch_fn, num_steps=2, rng=0, step_fn=step)
+    for a, b in zip(param_leaves(dp.params), param_leaves(plain.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="scan_chunk"):
         fit(None, _sgd, params, batch_fn, num_steps=1, rng=0, scan_chunk=0)
     with pytest.raises(ValueError, match="custom step_fn"):

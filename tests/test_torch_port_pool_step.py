@@ -12,6 +12,7 @@ the port does not cover.
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -179,8 +180,8 @@ def test_training_draws_from_the_generator_and_fit_step_stacks():
 
 
 def test_builder_rejects_what_it_does_not_cover():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pool_train_step(mesh=object())
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        make_pool_train_step(mesh=SimpleNamespace(mesh_dim_names=("model",)))
     with pytest.raises(ValueError, match="unknown impl"):
         make_pool_train_step(impl="pallas")
     with pytest.raises(ValueError, match="accum_steps"):

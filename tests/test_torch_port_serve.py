@@ -220,6 +220,8 @@ def test_importing_the_port_never_imports_jax():
         "import aecf_tpu_torch.train.staging\n"
         "import aecf_tpu_torch.measure, aecf_tpu_torch.utils\n"
         "import aecf_tpu_torch.data.loader, aecf_tpu_torch.data.pathology\n"
+        "import aecf_tpu_torch.parallel, aecf_tpu_torch.parallel.dryrun\n"
+        "import aecf_tpu_torch.parallel.checkpointing\n"
         "from aecf_tpu_torch import create_fusion_pool\n"
         "import torch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -227,6 +229,7 @@ def test_importing_the_port_never_imports_jax():
         "assert not ref, f'imported the JAX package: {ref}'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
+        "assert not torch.distributed.is_initialized(), 'a process group'\n"
         "print('clean')\n"
     )
     proc = _run(["-c", code], ROOT)
