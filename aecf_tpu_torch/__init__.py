@@ -15,7 +15,10 @@ measurement layer:
     aecf_tpu_torch.models        — VisionLanguageModel,
                                    MedicalDiagnosisModel, XrayAECFModel,
                                    XrayBaselineModel, MultiScaleFusion
-    aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher
+    aecf_tpu_torch.serve         — FusionPredictor, MicroBatcher,
+                                   export_predictor and
+                                   load_exported_predictor (frozen
+                                   torch.export artifacts)
     aecf_tpu_torch.serving_http  — PredictionServer, predict_remote
     aecf_tpu_torch.train         — fit (checkpoint/resume),
                                    make_pool_train_step and the K-step
@@ -37,11 +40,12 @@ measurement layer:
     aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
                                    into the port's modules
 
-Not ported yet (ROADMAP.md): serving export, ``tune.py`` and
-``kernels/tiles.py``.
+Not ported yet (ROADMAP.md): ``tune.py`` and ``kernels/tiles.py``.
 
-Importing the package touches no CUDA and builds nothing; a kernel is
-compiled at its first launch, the native batcher at its first use.
+Importing the package touches no CUDA and builds nothing; it registers
+the eval-forward kernels as the custom ops ``aecf_tpu_torch::
+shared_query_fwd``, ``::stream_mix`` and ``::fused_pool_fwd``.  A kernel
+is compiled at its first launch, the native batcher at its first use.
 """
 
 from .nn import (

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
 
-Kernels are compiled and loaded at first launch, never at import.
+Kernels are compiled and loaded at first launch, never at import.  The
+eval forwards are ``torch.library`` custom ops, registered at import —
+``aecf_tpu_torch::shared_query_fwd``, ``::stream_mix`` and
+``::fused_pool_fwd`` — so ``torch.export`` records each as one node and a
+frozen program launches the kernel (``aecf_tpu_torch.serve``).
 """
 
 from .fused_pool import (

@@ -13,7 +13,10 @@ mask chain (Philox draw, ``min_active``, renormalisation; :mod:`.draws`)
 and the per-head mixes, then the context and output projections as GEMMs
 (``csrc/gemm_f32.cuh``, a pipelined SIMT f32 GEMM over the whole batch,
 reading the weights as stored), through a workspace this wrapper
-allocates.  Its plain PyTorch version,
+allocates.  The launch is the custom op ``aecf_tpu_torch::fused_pool_fwd``
+(its plain version on CPU tensors), so ``torch.export`` records it as one
+node and a frozen program launches the kernel with the query's row stride
+as it finds it.  Its plain PyTorch version,
 :func:`fused_pool_fwd_plain`, follows the JAX kernel's op order (project
 Q, K and V, then scores), so the two agree to ~1e-6, not bitwise.
 
@@ -46,11 +49,14 @@ from ..core.attention import AttentionPoolParams
 from ._build import load_library
 from .draws import draw_seed_words
 from .shared_query import (
+    _FWD_OUTS,
+    _MASK_ARGS,
     _MAX_M,
     _RESIDENT_E_CAP,
     _STREAMED_E_CAP,
     _check_f32,
     _entropy,
+    _fake_outs,
     _fold_entropy_cotangent,
     _package_outputs,
     _pad_bias_rows,
@@ -58,6 +64,7 @@ from .shared_query import (
     _raise_on_error,
     _require_aligned,
     _require_cuda,
+    _require_device,
     _side_outputs,
     _split_params,
 )
@@ -250,18 +257,52 @@ def fused_pool_fwd(
     """Wrapper of ``csrc/fused_pool_fwd.cu``; operands and results as in
     :func:`fused_pool_fwd_plain`.
 
-    CUDA tensors only: it launches the kernel chain or raises (a CPU
-    tensor, a width or dtype the kernel does not take, unaligned ``kv`` or
-    weights, a failed build or launch) and never runs the plain version.
-    ``q`` may have any row stride, 0 included (an expanded query: the Q
-    and ``u`` projections then run for one row); its rows must be
-    contiguous.  ``fused_pool_fwd.launches`` counts calls (one a call,
-    whatever the chain launches).  The outputs carry no autograd graph:
+    CUDA tensors only: it launches the kernel chain, through the custom op
+    ``aecf_tpu_torch::fused_pool_fwd``, or raises (a CPU tensor, a width
+    or dtype the kernel does not take, unaligned ``kv`` or weights, a
+    failed build or launch) and never runs the plain version.  ``q`` may
+    have any row stride, 0 included (an expanded query: the Q and ``u``
+    projections then run for one row); its rows must be contiguous.
+    ``fused_pool_fwd.launches`` counts calls (one a call, whatever the
+    chain launches).  The outputs carry no autograd graph:
     :func:`fused_fusion_pool` is the differentiable entry.
     """
+    if kv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {kv.device}")
+    return _kernel_fwd(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
+                       training=training, seed=seed, mask_prob=mask_prob,
+                       min_active=min_active)
+
+
+def _kernel_fwd(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads, *,
+                training, seed, mask_prob, min_active):
+    """The operands validated, then the op: the kernel for CUDA tensors,
+    the plain version for CPU ones."""
     _check_operands(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads)
     if q.stride(1) != 1:
         raise ValueError("q's rows must be contiguous (stride 1 along E)")
+    _require_device(kv)
+    return _fused_pool_fwd_op(
+        q, kv, pad_bias, in_w, in_b, out_w, out_b, int(num_heads),
+        bool(training), int(seed[0]), int(seed[1]), float(mask_prob),
+        int(min_active),
+    )
+
+
+@torch.library.custom_op(
+    "aecf_tpu_torch::fused_pool_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor kv, Tensor? pad_bias, Tensor in_w, "
+           "Tensor? in_b, Tensor out_w, Tensor? out_b, int num_heads, "
+           f"{_MASK_ARGS}) -> {_FWD_OUTS}",
+)
+def _fused_pool_fwd_op(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
+                       training, seed0, seed1, mask_prob, min_active):
+    if kv.device.type == "cpu":
+        return fused_pool_fwd_plain(
+            q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads=num_heads,
+            training=training, seed=(seed0, seed1), mask_prob=mask_prob,
+            min_active=min_active,
+        )
     _require_cuda(kv, dict(kv=kv, pad_bias=pad_bias, in_w=in_w, in_b=in_b,
                            out_w=out_w, out_b=out_b))
     _require_aligned(dict(kv=kv, in_w=in_w, in_b=in_b, out_w=out_w))
@@ -285,8 +326,8 @@ def fused_pool_fwd(
         _ptr(bk), _ptr(wv), _ptr(bv), _ptr(out_w), _ptr(bo), _ptr(out),
         _ptr(w), _ptr(mw), _ptr(ent), _ptr(rate), _ptr(ws), q.stride(0),
         B, M, E, H, int(q.dtype == torch.bfloat16),
-        int(kv.dtype == torch.bfloat16), int(bool(training)), int(min_active),
-        seed[0], seed[1], math.log(M) if M > 1 else 0.0, float(mask_prob),
+        int(kv.dtype == torch.bfloat16), int(training), min_active,
+        seed0, seed1, math.log(M) if M > 1 else 0.0, mask_prob,
         (E // H) ** -0.5,
     )
     with torch.cuda.device(dev):
@@ -298,18 +339,24 @@ def fused_pool_fwd(
     return out, w, mw, ent, rate
 
 
+@_fused_pool_fwd_op.register_fake
+def _(q, kv, pad_bias, in_w, in_b, out_w, out_b, *rest):
+    return _fake_outs(kv, kv.shape[2])
+
+
 fused_pool_fwd.launches = 0
 
 
 def _forward(tensors, kpm, num_heads, mask_kw, implementation):
-    """The kernel for CUDA tensors, the plain version for CPU tensors (or
-    wherever ``implementation='plain'``)."""
+    """The op — the kernel for CUDA tensors, the plain version for CPU
+    tensors — or the plain version on any device where
+    ``implementation='plain'``."""
     in_w, in_b, out_w, out_b, q, kv = tensors
     args = (q, kv, _pad_bias_rows(kpm), in_w, in_b, out_w, out_b)
-    if kv.device.type == "cpu" or implementation == "plain":
+    if implementation == "plain":
         _check_operands(*args, num_heads)  # the kernel's limits on any device
         return fused_pool_fwd_plain(*args, num_heads=num_heads, **mask_kw)
-    return fused_pool_fwd(*args, num_heads=num_heads, **mask_kw)
+    return _kernel_fwd(*args, num_heads, **mask_kw)
 
 
 def _fused_bwd(tensors, kpm, d_out, d_w, num_heads, want_dkv):

@@ -52,7 +52,11 @@ ties them into one ``torch.autograd.Function``; :func:`_vjp_wants_streamed`
 chooses the route as the JAX package does.  The resident H > 1 backward is
 plain torch, as the JAX package runs that case in XLA.  Each wrapper runs
 its plain version for CPU tensors and, for CUDA tensors, launches its
-kernel or raises.
+kernel or raises.  The two forwards' wrappers validate their operands and
+call a custom op (``aecf_tpu_torch::shared_query_fwd``,
+``::stream_mix``) with a fake implementation, so ``torch.export`` can
+trace them; everything that reads storage (pointers, alignment, the
+workspace size) runs inside the op.
 
 Reassociating ``(kv·Wkᵀ)·qp → kv·(Wkᵀ·qp)`` changes the f32 summation
 order, so weights match the naive oracle to ~1e-6, not bitwise.  Padded
@@ -417,6 +421,28 @@ def _count_launch(wrapper, kv: torch.Tensor) -> None:
         wrapper.launches += 1
 
 
+def _require_device(kv: torch.Tensor) -> None:
+    """Only the CPU (the plain version) and CUDA (the kernel) have an
+    implementation: a tensor elsewhere raises before it reaches an op,
+    whose fake implementation would otherwise answer for the meta
+    device."""
+    if kv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {kv.device}")
+
+
+# The five outputs of the forward ops: (out or mix, w, mw, ent, rate).
+_FWD_OUTS = "(Tensor, Tensor, Tensor, Tensor, Tensor)"
+_MASK_ARGS = "bool training, int seed0, int seed1, float mask_prob, int min_active"
+
+
+def _fake_outs(kv: torch.Tensor, width: int) -> Tuple[torch.Tensor, ...]:
+    """The forward ops' outputs as empty tensors on ``kv``'s device: ``(B,
+    width)``, ``(B, M)`` twice, ``(B,)`` twice, f32."""
+    B, M = kv.shape[0], kv.shape[1]
+    f = lambda *shape: kv.new_empty(shape, dtype=torch.float32)  # noqa: E731
+    return f(B, width), f(B, M), f(B, M), f(B), f(B)
+
+
 def shared_query_fwd(
     kv: torch.Tensor,
     u: torch.Tensor,
@@ -437,19 +463,38 @@ def shared_query_fwd(
     ``_shared_kernel_q8`` for int8 ``kv`` with ``kv_scales``); operands as
     in :func:`shared_query_fwd_plain`, any E ≤ 1024 that H divides.
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel
-    chain or raise — there is no fallback.  ``shared_query_fwd.launches``
-    counts f32/bf16 calls and ``shared_query_fwd.launches_q8`` int8 ones,
-    one a call whatever the chain launches (the plain version does not
-    count).  The outputs carry no autograd graph:
-    :func:`fused_fusion_pool_shared` is the differentiable entry.
+    It validates the operands and calls the custom op
+    ``aecf_tpu_torch::shared_query_fwd``, so ``torch.export`` records the
+    kernel as one node.  CPU tensors run the plain version.  CUDA tensors
+    launch the kernel chain or raise — there is no fallback.
+    ``shared_query_fwd.launches`` counts f32/bf16 calls and
+    ``shared_query_fwd.launches_q8`` int8 ones, one a call whatever the
+    chain launches (the plain version does not count).  The outputs carry
+    no autograd graph: :func:`fused_fusion_pool_shared` is the
+    differentiable entry.
     """
     _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales)
-    kw = dict(kv_scales=kv_scales, training=training, seed=seed,
-              mask_prob=mask_prob, min_active=min_active)
+    _require_device(kv)
+    return _shared_query_fwd_op(
+        kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales, bool(training),
+        int(seed[0]), int(seed[1]), float(mask_prob), int(min_active),
+    )
+
+
+@torch.library.custom_op(
+    "aecf_tpu_torch::shared_query_fwd", mutates_args=(),
+    schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, Tensor wctx, "
+           "Tensor bctx, Tensor? wo, Tensor? bo, Tensor? kv_scales, "
+           f"{_MASK_ARGS}) -> {_FWD_OUTS}",
+)
+def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
+                         training, seed0, seed1, mask_prob, min_active):
     if kv.device.type == "cpu":
-        return shared_query_fwd_plain(kv, u, c, pad_bias, wctx, bctx, wo, bo,
-                                      **kw)
+        return shared_query_fwd_plain(
+            kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales=kv_scales,
+            training=training, seed=(seed0, seed1), mask_prob=mask_prob,
+            min_active=min_active,
+        )
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias, wctx=wctx, bctx=bctx, wo=wo,
                            bo=bo))
@@ -471,13 +516,17 @@ def shared_query_fwd(
             _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), _ptr(ws), B, M, E, H,
             math.log(M) if M > 1 else 0.0,
-            int(bool(training)), seed[0], seed[1], float(mask_prob),
-            int(min_active),
+            int(training), seed0, seed1, mask_prob, min_active,
             torch.cuda.current_stream(kv.device).cuda_stream,
         )
     _raise_on_error(lib, err, "shared_query_fwd")
     _count_launch(shared_query_fwd, kv)
     return out, w, mw, ent, rate
+
+
+@_shared_query_fwd_op.register_fake
+def _(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales, *mask):
+    return _fake_outs(kv, kv.shape[2])
 
 
 shared_query_fwd.launches = shared_query_fwd.launches_q8 = 0
@@ -565,22 +614,40 @@ def stream_mix(
     min_active: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/stream_mix.cu``; operands and results as in
-    :func:`stream_mix_plain`.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise.  ``stream_mix.launches`` counts
-    f32/bf16 launches, ``stream_mix.launches_q8`` int8 ones."""
+    :func:`stream_mix_plain`.  It validates the operands and calls the
+    custom op ``aecf_tpu_torch::stream_mix``: CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise.
+    ``stream_mix.launches`` counts f32/bf16 launches,
+    ``stream_mix.launches_q8`` int8 ones."""
     H = u.shape[0] if u.ndim == 2 else -1
     B, M, E = _check_stream(kv, H)
     _check_kv_scales(kv, kv_scales)
     _check_f32(kv, {"u": (u, (H, E)), "c": (c, (H,)),
                     "pad_bias": (pad_bias, (B, M))},
                optional=("pad_bias",), why="the streamed forward")
-    kw = dict(kv_scales=kv_scales, training=training, seed=seed,
-              mask_prob=mask_prob, min_active=min_active)
+    _require_device(kv)
+    return _stream_mix_op(kv, u, c, pad_bias, kv_scales, bool(training),
+                          int(seed[0]), int(seed[1]), float(mask_prob),
+                          int(min_active))
+
+
+@torch.library.custom_op(
+    "aecf_tpu_torch::stream_mix", mutates_args=(),
+    schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, "
+           f"Tensor? kv_scales, {_MASK_ARGS}) -> {_FWD_OUTS}",
+)
+def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
+                   mask_prob, min_active):
     if kv.device.type == "cpu":
-        return stream_mix_plain(kv, u, c, pad_bias, **kw)
+        return stream_mix_plain(
+            kv, u, c, pad_bias, kv_scales=kv_scales, training=training,
+            seed=(seed0, seed1), mask_prob=mask_prob, min_active=min_active,
+        )
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias))
     _require_aligned(dict(kv=kv, u=u))
+    B, M, E = kv.shape
+    H = u.shape[0]
     dev = kv.device
     mix = torch.empty((B, H * E), dtype=torch.float32, device=dev)
     w = torch.empty((B, M), dtype=torch.float32, device=dev)
@@ -593,12 +660,17 @@ def stream_mix(
             _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales), _ptr(u), _ptr(c),
             _ptr(pad_bias), _ptr(mix), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
-            int(bool(training)), seed[0], seed[1], float(mask_prob),
-            int(min_active), torch.cuda.current_stream(dev).cuda_stream,
+            int(training), seed0, seed1, mask_prob, min_active,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(lib, err, "stream_mix")
     _count_launch(stream_mix, kv)
     return mix, w, mw, ent, rate
+
+
+@_stream_mix_op.register_fake
+def _(kv, u, c, pad_bias, kv_scales, *mask):
+    return _fake_outs(kv, u.shape[0] * kv.shape[2])
 
 
 stream_mix.launches = stream_mix.launches_q8 = 0

@@ -4,8 +4,9 @@ Port of :mod:`aecf_tpu.serve` (``pad_to_bucket``, ``FusionPredictor``,
 ``MicroBatcher``) with the same validation, bucketing, zero-fill and
 ``calls`` contract.  Every device call runs at a padded bucket shape under
 ``torch.inference_mode()`` on an explicit ``device``; ``mesh=`` shards each
-bucket's rows over a mesh's data axis.  The ``export_predictor`` family is
-not ported yet (ROADMAP.md).
+bucket's rows over a mesh's data axis.  ``export_predictor`` freezes a
+predictor into one ``.npz`` of ``torch.export`` programs, one a bucket,
+which ``load_exported_predictor`` serves with no model code.
 
 Usage::
 
@@ -16,10 +17,15 @@ Usage::
     )
     probs = predictor(image=imgs, text=txts)           # any batch size
     probs = predictor(image=imgs)                      # text missing → zeros
+    export_predictor(predictor, "frozen.npz")
+    frozen = load_exported_predictor("frozen.npz")     # no model code
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -28,7 +34,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["FusionPredictor", "MicroBatcher", "pad_to_bucket"]
+__all__ = [
+    "ExportedFusionPredictor",
+    "FusionPredictor",
+    "MicroBatcher",
+    "export_predictor",
+    "load_exported_predictor",
+    "pad_to_bucket",
+]
 
 
 def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -152,7 +165,7 @@ class FusionPredictor:
                 if k in provided:
                     x[:chunk_n] = provided[k][start : start + chunk_n]
                 mods.append(x)
-            out = self._call_bucket(mods)
+            out = self._call_bucket(bucket, mods)
             # one per SUCCESSFUL bucket call: a chunked request counts once
             # per chunk, a request failing validation counts zero
             self.calls += 1
@@ -160,12 +173,12 @@ class FusionPredictor:
             start += chunk_n
         # Commit dims only after every device call succeeded, so one
         # bad-width first request cannot poison the zero-fill width.
-        for k, v in provided.items():
-            self._dims[k] = v.shape[1]
+        self._commit_dims(provided)
         return np.concatenate(outs)
 
     def _check_dims(self, provided: Dict[str, np.ndarray]) -> None:
-        """Reject widths that contradict an already-committed dim."""
+        """Reject widths that contradict an already-committed dim
+        (:class:`ExportedFusionPredictor` holds them to its artifact's)."""
         for k, v in provided.items():
             prev = self._dims.get(k)
             if prev is not None and v.shape[1] != prev:
@@ -174,7 +187,11 @@ class FusionPredictor:
                     f"this predictor previously saw {prev}"
                 )
 
-    def _call_bucket(self, mods: List[np.ndarray]) -> np.ndarray:
+    def _commit_dims(self, provided: Dict[str, np.ndarray]) -> None:
+        for k, v in provided.items():
+            self._dims[k] = v.shape[1]
+
+    def _call_bucket(self, bucket: int, mods: List[np.ndarray]) -> np.ndarray:
         """One device call at a padded bucket shape (over a mesh: this
         rank's rows of it, then every rank's gathered)."""
         if self._axis is not None:
@@ -306,3 +323,180 @@ class MicroBatcher:
             self._stopping = True
             self._cv.notify_all()
         self._worker.join(timeout=5)
+
+
+# ---------------------------------------------------------------------------
+# Frozen serving artifacts (torch.export)
+# ---------------------------------------------------------------------------
+
+
+class _Frozen(torch.nn.Module):
+    """What one bucket call of a predictor computes, as a module for
+    ``torch.export``: ``apply_fn`` on the modalities in order, then the
+    sigmoid where ``apply_sigmoid`` is set."""
+
+    def __init__(self, apply_fn, modality_names, apply_sigmoid):
+        super().__init__()
+        self.apply_fn = apply_fn
+        self.modality_names = modality_names
+        self.apply_sigmoid = apply_sigmoid
+
+    def forward(self, *mods: torch.Tensor) -> torch.Tensor:
+        out = self.apply_fn(**dict(zip(self.modality_names, mods)))
+        return torch.sigmoid(out) if self.apply_sigmoid else out
+
+
+def _npz_path(path: str) -> str:
+    # np.savez appends '.npz' when it is missing but np.load does not:
+    # normalise, so export and load take the same path string.
+    return str(path) if str(path).endswith(".npz") else f"{path}.npz"
+
+
+def export_predictor(
+    predictor: FusionPredictor,
+    path: str,
+    *,
+    feature_dims: Optional[Dict[str, int]] = None,
+) -> None:
+    """Freeze a predictor into a self-contained serving artifact.
+
+    For every batch bucket, the eval forward (``apply_fn``, then the
+    sigmoid where ``apply_sigmoid`` is set) is traced by
+    ``torch.export.export(strict=False)`` under ``torch.no_grad()`` on
+    ``(bucket, dim)`` f32 zeros on ``predictor.device``, with the
+    parameters baked in as constants.  The artifact is one ``.npz``: each
+    ``bucket_<b>`` the bytes of ``torch.export.save`` of that bucket's
+    program, and ``config`` a JSON of the modality names, buckets,
+    ``apply_sigmoid``, the feature dims and the device type traced for.
+    A path without the ``.npz`` suffix gets it.
+
+    Differences from the JAX package's ``export_predictor``, by design:
+    there is no ``platforms=`` (``torch.export`` lowers for no other
+    backend, so an artifact runs on the device type of the predictor it
+    was traced from), and the programs call the kernels as the custom ops
+    of :mod:`aecf_tpu_torch.kernels` — loading needs that package, which
+    registers them (and builds a kernel at its first launch), but no model
+    code.  A predictor with a ``mesh`` exports the single-device program
+    of a whole bucket, with no collective.
+
+    Args:
+      feature_dims: ``{modality: feature_dim}``.  Taken from the
+        predictor's call history when omitted (call it once with every
+        modality present first).
+    """
+    if isinstance(predictor, ExportedFusionPredictor):
+        # it has no apply_fn to trace: say so, not AttributeError mid-export
+        raise TypeError(
+            "cannot re-export a frozen ExportedFusionPredictor — export "
+            "from the live FusionPredictor (the original artifact file is "
+            "already the serialized form)"
+        )
+    dims = dict(feature_dims or predictor._dims)
+    missing = [k for k in predictor.modality_names if k not in dims]
+    if missing:
+        raise ValueError(
+            f"feature dims unknown for {missing}; pass feature_dims= or "
+            "call the predictor once with every modality present"
+        )
+    frozen = _Frozen(predictor.apply_fn, predictor.modality_names,
+                     predictor.apply_sigmoid)
+    arrays: Dict[str, np.ndarray] = {}
+    with torch.no_grad():
+        for b in predictor.buckets:
+            args = tuple(
+                torch.zeros((b, dims[k]), dtype=torch.float32,
+                            device=predictor.device)
+                for k in predictor.modality_names
+            )
+            program = torch.export.export(frozen, args, strict=False)
+            buf = io.BytesIO()
+            torch.export.save(program, buf)
+            arrays[f"bucket_{b}"] = np.frombuffer(buf.getvalue(), np.uint8)
+    config = {
+        "modality_names": list(predictor.modality_names),
+        "buckets": list(predictor.buckets),
+        "apply_sigmoid": bool(predictor.apply_sigmoid),
+        "feature_dims": {k: int(dims[k]) for k in predictor.modality_names},
+        "device": predictor.device.type,
+    }
+    arrays["config"] = np.frombuffer(json.dumps(config).encode(), np.uint8)
+    np.savez(_npz_path(path), **arrays)
+
+
+class ExportedFusionPredictor(FusionPredictor):
+    """A :class:`FusionPredictor` backed by frozen ``torch.export``
+    programs — the same padding, bucketing, chunking, missing-modality
+    zero-fill and ``calls`` count, no Python model.  Its feature dims are
+    the artifact's and never change; each bucket call runs that bucket's
+    program under ``torch.inference_mode()`` on the device type it was
+    traced for."""
+
+    def __init__(self, blobs: Dict[int, bytes], config: Dict[str, Any]):
+        self.apply_fn = None
+        self.modality_names = tuple(config["modality_names"])
+        self.buckets = tuple(sorted(config["buckets"]))
+        self.apply_sigmoid = bool(config["apply_sigmoid"])
+        self.calls = 0
+        self._dims = {k: int(v) for k, v in config["feature_dims"].items()}
+        self._axis = None  # frozen programs are single-device
+        self.device = torch.device(config["device"])
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "this artifact was traced for CUDA and this host has no "
+                "CUDA device; export from a CPU predictor to serve on the CPU"
+            )
+        missing = [b for b in self.buckets if b not in blobs]
+        if missing:
+            raise ValueError(
+                f"artifact is missing programs for buckets {missing} "
+                f"(config declares {list(self.buckets)}) — truncated or "
+                "mismatched export"
+            )
+        self._programs = {
+            b: torch.export.load(io.BytesIO(blobs[b])).module()
+            for b in self.buckets
+        }
+
+    def _check_dims(self, provided: Dict[str, np.ndarray]) -> None:
+        # The programs' input shapes are frozen: accepting another width
+        # would also corrupt the zero-fill width of later requests.
+        for k, v in provided.items():
+            want = self._dims[k]
+            if v.shape[1] != want:
+                raise ValueError(
+                    f"modality {k!r} has feature dim {v.shape[1]}, but the "
+                    f"exported artifact expects {want}"
+                )
+
+    def _commit_dims(self, provided: Dict[str, np.ndarray]) -> None:
+        pass  # the artifact's dims are authoritative and never updated
+
+    def _call_bucket(self, bucket: int, mods: List[np.ndarray]) -> np.ndarray:
+        with torch.inference_mode():
+            xs = [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                  for x in mods]
+            return self._programs[bucket](*xs).float().cpu().numpy()
+
+
+def load_exported_predictor(path: str) -> ExportedFusionPredictor:
+    """Load an :func:`export_predictor` artifact.  It needs no model code.
+    It imports :mod:`aecf_tpu_torch.kernels` first, which registers the
+    custom ops the programs call: ``torch.export.load`` refuses a program
+    whose op is not registered."""
+    from . import kernels  # noqa: F401 — registers the aecf_tpu_torch ops
+
+    if not str(path).endswith(".npz") and not os.path.exists(path):
+        path = _npz_path(path)
+    with np.load(path) as data:
+        if "config" not in data.files:
+            raise ValueError(
+                f"{path} is not an export_predictor artifact "
+                "(no 'config' entry)"
+            )
+        config = json.loads(bytes(data["config"]).decode())
+        blobs = {
+            int(name.split("_", 1)[1]): bytes(data[name])
+            for name in data.files
+            if name.startswith("bucket_")
+        }
+    return ExportedFusionPredictor(blobs, config)

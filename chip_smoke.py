@@ -43,6 +43,18 @@ the resident forward, backward and step):
    ragged and concurrent one-row requests; every answer is held against the
    same parameters run on the CPU through the plain path, and the kernel's
    launch count over the run must cover every bucket call;
+   then the same predictor frozen (phase 4b, ``export_slice``):
+   ``export_predictor`` → ``load_exported_predictor`` (``torch.export``,
+   the eval-forward kernels as the custom ops ``aecf_tpu_torch::*``), each
+   bucket's graph calling ``aecf_tpu_torch::shared_query_fwd`` and no
+   softmax, its answers within ``TOL_PROBS`` of the CPU plain path and
+   ``TOL_FROZEN`` of the live predictor, its launches covering its bucket
+   calls, the same requests over HTTP, and a load in a fresh process that
+   imports only ``aecf_tpu_torch.serve`` (no model code); then
+   ``VisionLanguageModel(hidden_dim=2048)`` frozen (``stream_mix``) and a
+   per-row ``(B, 1, 512)`` query expanded from one row (``fused_pool_fwd``,
+   the kernel seeing the row stride 0), each held to its live predictor;
+   and ``torch.library.opcheck`` of the three ops on CUDA tensors;
 5. the training slice at the north-star width (B=4096, M=3, E=512, H=1,
    C=14, training on) through ``make_pool_train_step``: a 10-step SGD
    lockstep of the one-pass step and of the two-pass kernels against the
@@ -127,7 +139,10 @@ the resident forward, backward and step):
    shapes (each int8 kernel beside the f32 kernel at its shape; the
    per-row forward also with distinct query rows; with the CUDA kernels one
    call of each chain launches and their device time, ``_chain_line``), of one
-   predictor call per bucket, samples/s of one training step, ms per
+   predictor call per bucket, the frozen predictor's bucket calls against
+   the live one's (alternating), each bucket's export and load seconds,
+   what the custom-op dispatcher adds to an eager kernel call, samples/s
+   of one training step, ms per
    update of single one-pass steps and of 8- and 32-step CUDA-graph
    chunks at the north star (AdamW), what a recapture of the 8-step
    graph after a ``StepLR`` step costs over a replay, the CUDA kernels
@@ -162,6 +177,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1288,14 +1304,79 @@ def _model_params(model, rng):
     return flat
 
 
+def _serve_requests():
+    """The serving slices' requests: ``{name: {modality: rows}}``, seeded
+    (4 rows, npz and JSON; image only; 300 ragged rows; 16 one-row
+    requests sent at once)."""
+    rng = np.random.default_rng(3)
+    feats = lambda n: {  # noqa: E731
+        "image": rng.standard_normal((n, 2048)).astype(np.float32),
+        "text": rng.standard_normal((n, 768)).astype(np.float32),
+    }
+    four, ragged, sixteen = feats(4), feats(300), feats(16)
+    return {
+        "npz 4 rows": four,
+        "json 4 rows": four,
+        "image only": {"image": four["image"]},
+        "ragged 300 rows": ragged,
+        "16 concurrent one-row": sixteen,
+    }
+
+
+def _over_http(predictor, requests) -> dict:
+    """Each request of :func:`_serve_requests` through ``MicroBatcher`` →
+    ``PredictionServer`` on 127.0.0.1 → ``predict_remote``; the 16 one-row
+    requests from 16 threads at once.  Returns ``{name: probabilities}``."""
+    from aecf_tpu_torch.serve import MicroBatcher
+    from aecf_tpu_torch.serving_http import PredictionServer, predict_remote
+
+    batcher = MicroBatcher(predictor, max_batch=256, max_wait_ms=3.0)
+    server = PredictionServer(batcher, host="127.0.0.1", port=0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        got = {name: predict_remote(url, binary=not name.startswith("json"),
+                                    **requests[name])
+               for name in ("npz 4 rows", "json 4 rows", "image only",
+                            "ragged 300 rows")}
+        rows = requests["16 concurrent one-row"]
+        singles = [None] * 16
+
+        def one(i):
+            singles[i] = predict_remote(
+                url, **{k: v[i : i + 1] for k, v in rows.items()}
+            )
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(all(s is not None for s in singles), "a one-row request got no answer")
+        got["16 concurrent one-row"] = np.concatenate(singles)
+    finally:
+        server.stop()
+        batcher.stop()
+    return got
+
+
+def _agree(name, got, want, tol, what="cpu plain") -> float:
+    """Served probabilities: the shape, finite, within ``tol`` of
+    ``want``; prints and returns the max difference."""
+    check(got.shape == want.shape, f"{name}: shape {got.shape} != {want.shape}")
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite probabilities")
+    err = float(np.abs(got - want).max())
+    check(err <= tol, f"{name}: max |probs - {what}| {err:.3e} > {tol:g}")
+    print(f"served {name}: {got.shape[0]} rows, max |probs - {what}| {err:.3e}")
+    return err
+
+
 def serve_slice(torch) -> dict:
     """Phase 4: the serving path at full width, through the HTTP front
     end, against the CPU plain path.  Returns the predictors and counts."""
     from aecf_tpu_torch.convert import params_from_numpy
     from aecf_tpu_torch.kernels import shared_query_fwd
     from aecf_tpu_torch.models import VisionLanguageModel
-    from aecf_tpu_torch.serve import FusionPredictor, MicroBatcher
-    from aecf_tpu_torch.serving_http import PredictionServer, predict_remote
+    from aecf_tpu_torch.serve import FusionPredictor
 
     cpu_model = VisionLanguageModel(device="cpu").eval()
     flat = _model_params(cpu_model, np.random.default_rng(2))
@@ -1310,68 +1391,294 @@ def serve_slice(torch) -> dict:
 
     gpu_pred = predictor(gpu_model, "cuda")
     cpu_pred = predictor(cpu_model, "cpu")
-
-    rng = np.random.default_rng(3)
-    feats = lambda n: (  # noqa: E731
-        rng.standard_normal((n, 2048)).astype(np.float32),
-        rng.standard_normal((n, 768)).astype(np.float32),
-    )
-    img4, txt4 = feats(4)
-    img300, txt300 = feats(300)
-    img16, txt16 = feats(16)
-
-    def agree(name, got, want):
-        check(got.shape == want.shape, f"{name}: shape {got.shape} != {want.shape}")
-        check(bool(np.isfinite(got).all()), f"{name}: non-finite probabilities")
-        err = float(np.abs(got - want).max())
-        check(err <= TOL_PROBS, f"{name}: max |probs - cpu| {err:.3e} > {TOL_PROBS:g}")
-        print(f"served {name}: {got.shape[0]} rows, max |probs - cpu plain| {err:.3e}")
-
+    requests = _serve_requests()
     shared_query_fwd.launches = 0
     gpu_pred.calls = 0
-    batcher = MicroBatcher(gpu_pred, max_batch=256, max_wait_ms=3.0)
-    server = PredictionServer(batcher, host="127.0.0.1", port=0).start()
-    url = f"http://127.0.0.1:{server.port}"
-    try:
-        got = {
-            "npz 4 rows": predict_remote(url, image=img4, text=txt4),
-            "json 4 rows": predict_remote(url, binary=False, image=img4, text=txt4),
-            "image only": predict_remote(url, image=img4),
-            "ragged 300 rows": predict_remote(url, image=img300, text=txt300),
-        }
-        singles = [None] * 16
-
-        def one(i):
-            singles[i] = predict_remote(
-                url, image=img16[i : i + 1], text=txt16[i : i + 1]
-            )
-
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=120)
-        check(all(s is not None for s in singles), "a one-row request got no answer")
-        got["16 concurrent one-row"] = np.concatenate(singles)
-    finally:
-        server.stop()
-        batcher.stop()
+    got = _over_http(gpu_pred, requests)
     launches, calls = shared_query_fwd.launches, gpu_pred.calls
-
-    want = {
-        "npz 4 rows": cpu_pred(image=img4, text=txt4),
-        "json 4 rows": cpu_pred(image=img4, text=txt4),
-        "image only": cpu_pred(image=img4),
-        "ragged 300 rows": cpu_pred(image=img300, text=txt300),
-        "16 concurrent one-row": cpu_pred(image=img16, text=txt16),
-    }
+    want = {name: cpu_pred(**req) for name, req in requests.items()}
     for name in got:
-        agree(name, got[name], want[name])
+        _agree(name, got[name], want[name], TOL_PROBS)
     print(f"slice: {calls} bucket calls on the card, shared_query_fwd "
           f"launches {launches}")
     check(calls > 0 and launches >= calls,
           f"kernel launches {launches} < bucket calls {calls}")
-    return {"launches": launches, "calls": calls, "gpu_pred": gpu_pred}
+    return {"launches": launches, "calls": calls, "gpu_pred": gpu_pred,
+            "cpu_pred": cpu_pred, "requests": requests, "want": want}
+
+
+# Frozen probabilities against the live predictor on the card: the same
+# ops on the same inputs, in the same bucket.
+TOL_FROZEN = 1e-6
+# The frozen phase's per-row-query case (E=512, M=2, H=1).
+ROW_E = 512
+# The live FusionPredictor's bucket calls before its kernel became a custom
+# op, non-mesh, as PERF.md section 5 records them (NVIDIA H100 80GB HBM3,
+# 700 W): bucket -> median host ms.
+RECORDED_LIVE_MS = {32: 1.1813, 256: 2.2091}
+
+
+def _graph_ops(program) -> list:
+    return [str(n.target) for n in program.graph.nodes
+            if n.op == "call_function"]
+
+
+def _timed(torch, name, times):
+    """``torch.export.<name>``, wrapped to append each call's seconds to
+    ``times``; restored by the caller."""
+    fn = getattr(torch.export, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    return fn, timed
+
+
+def _export_and_load(torch, live, path, op, **kw):
+    """``export_predictor`` then ``load_exported_predictor``, each bucket's
+    trace and load timed; every bucket's graph must call the custom op
+    ``op`` and no softmax (the kernel, not the torch route).  Returns
+    ``(frozen, trace s per bucket, load s per bucket)``."""
+    from aecf_tpu_torch.serve import export_predictor, load_exported_predictor
+
+    export_s, load_s = [], []
+    export_fn, timed_export = _timed(torch, "export", export_s)
+    load_fn, timed_load = _timed(torch, "load", load_s)
+    torch.export.export, torch.export.load = timed_export, timed_load
+    try:
+        export_predictor(live, path, **kw)
+        frozen = load_exported_predictor(path)
+    finally:
+        torch.export.export, torch.export.load = export_fn, load_fn
+    for b, program in frozen._programs.items():
+        ops = _graph_ops(program)
+        check(f"aecf_tpu_torch.{op}.default" in ops,
+              f"the frozen bucket {b} does not call aecf_tpu_torch::{op}")
+        check(not [t for t in ops if "softmax" in t],
+              f"the frozen bucket {b} runs a softmax: the torch route")
+    print(f"export {os.path.basename(path)}: buckets {list(frozen.buckets)}, "
+          f"trace s {[round(t, 4) for t in export_s]}, load s "
+          f"{[round(t, 4) for t in load_s]}; each bucket calls "
+          f"aecf_tpu_torch::{op}, no softmax node")
+    return frozen, export_s, load_s
+
+
+def _fresh_process(path, request, out_path) -> np.ndarray:
+    """Load ``path`` and answer ``request`` in a new process that imports
+    only ``aecf_tpu_torch.serve``, and must load no model code."""
+    req_path = out_path.with_suffix(".req.npz")
+    np.savez(req_path, **request)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from aecf_tpu_torch.serve import load_exported_predictor\n"
+        "frozen = load_exported_predictor(sys.argv[1])\n"
+        "req = np.load(sys.argv[2])\n"
+        "np.save(sys.argv[3], frozen(**{k: req[k] for k in req.files}))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'aecf_tpu')\n"
+        "       or m.startswith('aecf_tpu_torch.models')]\n"
+        "assert not bad, f'the loader imported {bad}'\n"
+        "print('fresh process: clean,', frozen.calls, 'bucket calls')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(path), str(req_path), str(out_path)],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0 and "clean" in proc.stdout,
+          f"the fresh-process load failed: {proc.stderr[-2000:]}")
+    print(proc.stdout.strip())
+    return np.load(out_path)
+
+
+def export_slice(torch, served) -> dict:
+    """Phase 4b: the serving slice frozen.  The full-width predictor of
+    phase 4 exported (``export_predictor``, ``torch.export``) and loaded;
+    each bucket's graph calls the custom op of the shared-query forward;
+    its answers held to the CPU plain path and to the live predictor, its
+    launches counted, then served over HTTP and loaded in a fresh process
+    without model code.  Then the streamed forward (hidden 2048) and the
+    per-row forward (an expanded ``(B, 1, 512)`` query, its row stride 0
+    reaching the kernel) frozen, and ``opcheck`` of the three ops on the
+    card."""
+    from aecf_tpu_torch.convert import params_from_numpy
+    from aecf_tpu_torch.kernels import fused_pool
+    from aecf_tpu_torch.models import VisionLanguageModel
+    from aecf_tpu_torch.ops import fusion_pool
+    from aecf_tpu_torch.serve import FusionPredictor
+
+    live, requests, want = (served[k] for k in ("gpu_pred", "requests", "want"))
+    launches = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        frozen, export_s, load_s = _export_and_load(
+            torch, live, tmp / "vlm.npz", "shared_query_fwd")
+        _reset_counts()
+        frozen.calls = 0
+        got = {name: frozen(**req) for name, req in requests.items()}
+        http = _over_http(frozen, requests)
+        counts, calls = _counts(), frozen.calls
+        print(f"frozen slice: {calls} bucket calls, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        check(counts["shared_query_fwd"] >= calls > 0,
+              f"frozen shared_query_fwd launches {counts['shared_query_fwd']}"
+              f" < bucket calls {calls}")
+        check(counts == _only(shared_query_fwd=counts["shared_query_fwd"]),
+              f"the frozen predictor launched other kernels: {counts}")
+        launches["shared_query_fwd"] = counts["shared_query_fwd"]
+        worst = 0.0
+        for name, req in requests.items():
+            _agree(f"frozen {name}", got[name], want[name], TOL_PROBS)
+            worst = max(worst, _agree(f"frozen {name}", got[name],
+                                      live(**req), TOL_FROZEN, "live gpu"))
+            _agree(f"frozen over http {name}", http[name], want[name],
+                   TOL_PROBS)
+        print(f"frozen vs live gpu predictor: max |diff| {worst:.3e} "
+              f"(tol {TOL_FROZEN:g})")
+        name = "ragged 300 rows"
+        fresh = _fresh_process(tmp / "vlm.npz", requests[name],
+                               tmp / "fresh.npy")
+        _agree(f"fresh process {name}", fresh, got[name], TOL_FROZEN,
+               "in-process frozen")
+
+        # The streamed forward: hidden 2048 (E > 1024, H=1), explicit dims.
+        wide = VisionLanguageModel(hidden_dim=2048, device="cuda").eval()
+        params_from_numpy(wide, _model_params(wide, np.random.default_rng(22)))
+        wide_live = FusionPredictor(
+            lambda image, text: wide(image, text),
+            modality_names=("image", "text"), buckets=BUCKETS, device="cuda",
+        )
+        wide_frozen, *_ = _export_and_load(
+            torch, wide_live, tmp / "vlm2048.npz", "stream_mix",
+            feature_dims={"image": 2048, "text": 768})
+        launches["stream_mix"] = _hold_frozen(
+            torch, "hidden 2048", wide_frozen, wide_live,
+            {k: requests[k] for k in ("npz 4 rows", "ragged 300 rows")},
+            "stream_mix")
+
+        # The per-row forward: a (B, 1, E) query expanded from one row.
+        rng = np.random.default_rng(23)
+        params = _pool_params(torch, rng, ROW_E, "cuda")
+        query = torch.tensor(
+            rng.standard_normal((1, 1, ROW_E)) * math.sqrt(2.0 / ROW_E),
+            dtype=torch.float32, device="cuda")
+
+        def per_row(a, b):
+            kv = torch.stack([a, b], dim=1)
+            q = query.expand(kv.shape[0], 1, ROW_E)
+            return fusion_pool(params, q, kv)[0][:, 0]
+
+        row_live = FusionPredictor(per_row, modality_names=("a", "b"),
+                                   buckets=BUCKETS, apply_sigmoid=False,
+                                   device="cuda")
+        row_frozen, *_ = _export_and_load(
+            torch, row_live, tmp / "per_row.npz", "fused_pool_fwd",
+            feature_dims={"a": ROW_E, "b": ROW_E})
+        row_req = {
+            f"{n} rows": {k: rng.standard_normal((n, ROW_E)).astype(np.float32)
+                          for k in ("a", "b")}
+            for n in (40, 300)
+        }
+        strides = []
+        plain_params = fused_pool._FusedParams
+
+        class Recording(plain_params):
+            def __init__(self, *args):
+                super().__init__(*args)
+                strides.append(self.ldq)
+
+        fused_pool._FusedParams = Recording
+        try:
+            launches["fused_pool_fwd"] = _hold_frozen(
+                torch, "per-row query", row_frozen, row_live, row_req,
+                "fused_pool_fwd")
+        finally:
+            fused_pool._FusedParams = plain_params
+        check(bool(strides) and set(strides) == {0},
+              f"the frozen per-row kernel saw query row strides {strides}, "
+              "not 0: it would project every row")
+        print(f"frozen per-row query: the kernel saw row stride 0 in "
+              f"{len(strides)} launches (Q and u projected once)")
+    opcheck_cuda(torch)
+    return {"launches": launches, "live": live, "frozen": frozen,
+            "export_s": export_s, "load_s": load_s}
+
+
+def _hold_frozen(torch, label, frozen, live, requests, op) -> int:
+    """A frozen predictor's answers against its live one (``TOL_FROZEN``),
+    its kernel ``op`` launched at least once a bucket call and no other
+    kernel; returns the launches."""
+    _reset_counts()
+    frozen.calls = 0
+    got = {name: frozen(**req) for name, req in requests.items()}
+    counts, calls = _counts(), frozen.calls
+    check(counts == _only(**{op: counts[op]}) and counts[op] >= calls > 0,
+          f"frozen {label}: {calls} bucket calls, launches {counts}")
+    worst = max(_agree(f"frozen {label} {name}", got[name], live(**req),
+                       TOL_FROZEN, "live gpu")
+                for name, req in requests.items())
+    print(f"frozen {label}: {calls} bucket calls, {op} launches "
+          f"{counts[op]}, max |diff| vs live {worst:.3e}")
+    return counts[op]
+
+
+def opcheck_cuda(torch) -> None:
+    """``torch.library.opcheck`` (schema, fake tensor, autograd
+    registration, AOT dispatch) of the three custom ops on CUDA tensors:
+    f32 and int8 features with ``kv_scales`` where the op takes them, with
+    and without ``pad_bias``, eval and training with a seed pair."""
+    from aecf_tpu_torch.kernels import fused_pool, quantize_features
+    from aecf_tpu_torch.kernels import shared_query as sq
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+
+    def features(B, M, E, q8):
+        x = f(B, M, E)
+        return quantize_features(x) if q8 else (x, None)
+
+    def pad(B, M):
+        return torch.where(torch.rand(B, M, generator=gen, device="cuda")
+                           < 0.3, -1e30, 0.0)
+
+    cases = []
+    B, M, E = 32, 3, 512
+    for q8, padded, training in itertools.product((False, True), repeat=3):
+        kv, scales = features(B, M, E, q8)
+        cases.append((f"shared_query_fwd {'int8' if q8 else 'f32'} "
+                      f"pad={padded} training={training}",
+                      sq._shared_query_fwd_op,
+                      (kv, f(1, E), f(1), pad(B, M) if padded else None,
+                       f(E, E), f(E), None, None, scales, training,
+                       1234567, 3456789012, 0.3, 1)))
+    kv, _ = features(B, M, E, False)
+    cases.append(("shared_query_fwd f32 H=2", sq._shared_query_fwd_op,
+                  (kv, f(2, E), f(2), pad(B, M), f(E, E), f(E), f(E, E),
+                   f(E), None, False, 0, 0, 0.15, 1)))
+    for q8, training in ((False, False), (False, True), (True, False),
+                         (True, True)):
+        kv, scales = features(B, 4, 2048, q8)
+        cases.append((f"stream_mix {'int8' if q8 else 'f32'} "
+                      f"training={training}", sq._stream_mix_op,
+                      (kv, f(1, 2048), f(1), pad(B, 4) if training else None,
+                       scales, training, 7, 8, 0.3, 1)))
+    for expanded, training in ((True, False), (False, True)):
+        q = f(1, E).expand(B, E) if expanded else f(B, E)
+        cases.append((f"fused_pool_fwd expanded={expanded} "
+                      f"training={training}", fused_pool._fused_pool_fwd_op,
+                      (q, f(B, M, E), pad(B, M) if training else None,
+                       f(3 * E, E), f(3 * E), f(E, E), f(E), 1, training,
+                       5, 6, 0.15, 1)))
+    for label, op, args in cases:
+        torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+    print(f"opcheck on the card: {len(cases)} cases of the three custom ops "
+          "pass (schema, fake tensor, autograd registration, AOT dispatch)")
 
 
 def _classifier_flat(rng, E, C=None):
@@ -4793,6 +5100,96 @@ def time_kernels(torch, smi: str, gpu_pred) -> dict:
     return times
 
 
+def _host_us(torch, fn, calls=500) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` back-to-back
+    calls, the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def time_export(torch, smi: str, exported) -> None:
+    """Phase 7a, frozen: the frozen predictor's bucket calls against the live
+    one's (medians of 20 alternating calls, host clock), the trace and
+    load seconds of each bucket, and what the custom-op dispatcher adds to
+    an eager kernel call (the op against its Python implementation called
+    directly, turns direct, op, op, direct; the wrapper's validation
+    beside them)."""
+    from aecf_tpu_torch.kernels import fused_pool
+    from aecf_tpu_torch.kernels import shared_query as sq
+    from aecf_tpu_torch.kernels.shared_query import _prep
+
+    live, frozen = exported["live"], exported["frozen"]
+    for b, t_export, t_load in zip(frozen.buckets, exported["export_s"],
+                                   exported["load_s"]):
+        print(f"time export bucket {b}: torch.export {t_export:.4f} s, "
+              f"torch.export.load {t_load:.4f} s ({smi})")
+    feats = np.random.default_rng(5)
+    for b in BUCKETS:
+        req = {"image": feats.standard_normal((b, 2048)).astype(np.float32),
+               "text": feats.standard_normal((b, 768)).astype(np.float32)}
+        for _ in range(3):
+            live(**req)
+            frozen(**req)
+        samples = {live: [], frozen: []}
+        for i in range(20):
+            for pred in ((live, frozen) if i % 2 == 0 else (frozen, live)):
+                t0 = time.perf_counter()
+                pred(**req)
+                samples[pred].append((time.perf_counter() - t0) * 1e3)
+        f_ms, l_ms = (float(np.median(samples[p])) for p in (frozen, live))
+        print(f"time bucket {b}: frozen {f_ms:.4f} ms, live {l_ms:.4f} ms "
+              f"(medians of 20 alternating calls, host clock, H2D + model + "
+              f"D2H; recorded live, before the op: {RECORDED_LIVE_MS[b]:.4f} "
+              f"ms; {smi})")
+
+    rng = np.random.default_rng(4)
+    E, M = 512, 2
+    params = _pool_params(torch, rng, E, "cuda")
+    query = torch.tensor(rng.standard_normal((1, 1, E)) * math.sqrt(2.0 / E),
+                         dtype=torch.float32, device="cuda")
+    cuda = lambda *shape: torch.tensor(  # noqa: E731
+        rng.standard_normal(shape), dtype=torch.float32, device="cuda")
+    mask = (False, 0, 0, 0.15, 1)
+    calls = {}
+    with torch.inference_mode():
+        u, c, wctx, bctx, wo, bo = _prep(params, query[0, 0], 1)
+        for B in BUCKETS:
+            kv = cuda(B, M, E)
+            op_args = (kv, u, c, None, wctx, bctx, wo, bo, None, *mask)
+            calls[f"shared_query_fwd B={B}"] = (
+                sq._shared_query_fwd_op, op_args,
+                lambda a=(kv, u, c, None, wctx, bctx, wo, bo):
+                sq.shared_query_fwd(*a))
+        kv, u2 = cuda(32, 4, 2048), cuda(1, 2048)
+        calls["stream_mix B=32 E=2048"] = (
+            sq._stream_mix_op, (kv, u2, c, None, None, *mask),
+            lambda: sq.stream_mix(kv, u2, c, None))
+        q, kvr = query[0].expand(32, E), cuda(32, M, E)
+        w = (params.in_proj_weight, params.in_proj_bias,
+             params.out_proj_weight, params.out_proj_bias)
+        row_args = (q, kvr, None, *w)
+        calls["fused_pool_fwd B=32 expanded"] = (
+            fused_pool._fused_pool_fwd_op, (*row_args, 1, *mask),
+            lambda: fused_pool.fused_pool_fwd(*row_args, num_heads=1))
+        for label, (op, args, wrapper) in calls.items():
+            direct = lambda: op._init_fn(*args)  # noqa: E731
+            through = lambda: op(*args)  # noqa: E731
+            for fn in (direct, through, wrapper):
+                _host_us(torch, fn, calls=50)
+            d1, o1, o2, d2 = (_host_us(torch, fn)
+                              for fn in (direct, through, through, direct))
+            w_us = _host_us(torch, wrapper)
+            print(f"time op dispatch {label}: the Python kernel called "
+                  f"directly {d1:.2f}/{d2:.2f} us a call, through "
+                  f"torch.ops {o1:.2f}/{o2:.2f} (+{(o1 + o2 - d1 - d2) / 2:.2f}"
+                  f" us), the wrapper with its validation {w_us:.2f} us "
+                  f"(host clock, 500 back-to-back calls; {smi})")
+
+
 # Each kernel's source and the TPU kernel it replaces.
 KERNELS = (
     ("shared_query_fwd", "shared_query_fwd.cu",
@@ -4852,6 +5249,7 @@ def main() -> None:
               f"an int8 {name[:-3]} call differs from the f32 call on "
               "q.float() * s")
     served = serve_slice(torch)
+    exported = export_slice(torch, served)
     trained = train_slice(torch)
     auto = check_step_auto(torch)
     chunked = chunk_slice(torch)
@@ -4868,6 +5266,7 @@ def main() -> None:
     quantized = q8_slices(torch)
     families = model_slices(torch)
     time_kernels(torch, smi, served["gpu_pred"])
+    time_export(torch, smi, exported)
     times = time_training(torch, smi, trained)
     time_chunk(torch, smi, elastic)
     time_loader(torch, smi)
@@ -4885,7 +5284,8 @@ def main() -> None:
     launches.update(quantized["launches"])
     launches["train_step"] += (auto["train_step"]
                                + chunked["launches"]["train_step"])
-    for part in (elastic, meshed, two_rank, loaded, measured, profiled):
+    for part in (exported, elastic, meshed, two_rank, loaded, measured,
+                 profiled):
         for name, n in part["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name, n in families["launches"].items():

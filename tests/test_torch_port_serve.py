@@ -228,6 +228,8 @@ def test_importing_the_port_never_imports_jax():
         "ref = [m for m in sys.modules if m.split('.')[0] == 'aecf_tpu']\n"
         "assert not ref, f'imported the JAX package: {ref}'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
+        "for op in ('shared_query_fwd', 'stream_mix', 'fused_pool_fwd'):\n"
+        "    assert getattr(torch.ops.aecf_tpu_torch, op).default, op\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
         "assert not torch.distributed.is_initialized(), 'a process group'\n"
         "print('clean')\n"
