@@ -9,13 +9,18 @@ or ``(G, N, K)``, an ``nn.Linear`` weight read as ``x · Wᵀ``; ``bias``
 transposed ``a`` only with a k-major ``w``.  Both operands are read in
 place, any strides whose last is 1, rows 16-byte aligned.  Built into the
 ``train_step`` library.
+
+``plan=(bn, splits)`` passes a plan to the kernel verbatim (the library
+refuses one the product cannot take, and the call raises); ``None`` is the
+kernel's own default, ``gemm_plan``.  The GEMM alone is no launch site of
+the plan table: its caller chooses.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -73,14 +78,18 @@ class _GemmCall(ctypes.Structure):
     ] + [
         (name, ctypes.c_int)
         for name in ("rows", "N", "K", "groups", "a_trans", "w_kmajor")
-    ] + [("scale", ctypes.c_float)]
+    ] + [("scale", ctypes.c_float), ("bn", ctypes.c_int),
+         ("splits", ctypes.c_int)]
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("train_step")
-    lib.aecf_gemm_f32_scratch.argtypes = [ctypes.c_int] * 5
+    lib.aecf_gemm_f32_scratch.argtypes = [ctypes.c_int] * 7
     lib.aecf_gemm_f32_scratch.restype = ctypes.c_size_t
+    lib.aecf_gemm_f32_plan.argtypes = [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.aecf_gemm_f32_plan.restype = ctypes.c_int
     lib.aecf_gemm_f32.argtypes = [ctypes.POINTER(_GemmCall), ctypes.c_void_p]
     lib.aecf_gemm_f32.restype = ctypes.c_int
     lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
@@ -96,11 +105,12 @@ def gemm_f32(
     scale: float = 1.0,
     a_trans: bool = False,
     w_kmajor: bool = True,
+    plan: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Launches the GEMM on CUDA tensors, or raises (a CPU tensor, a dtype
-    other than f32, shapes that do not chain, strides it cannot read);
-    operands and result as in :func:`gemm_f32_plain`.
-    ``gemm_f32.launches`` counts calls."""
+    other than f32, shapes that do not chain, strides it cannot read, a
+    ``plan`` the kernel refuses); operands and result as in
+    :func:`gemm_f32_plain`.  ``gemm_f32.launches`` counts calls."""
     G, rows, K, N = _dims(a, w, a_trans, w_kmajor)
     if a_trans and not w_kmajor:
         raise ValueError("a transposed a takes a k-major w (w_kmajor=True)")
@@ -123,17 +133,19 @@ def gemm_f32(
                 f"{name} must have unit last stride, the others multiples "
                 "of 4, and a 16-byte aligned start"
             )
+    bn, splits = plan if plan is not None else (0, 0)
     out = torch.empty((G, rows, N), dtype=torch.float32, device=a.device)
     lib = _library()
     scratch = torch.empty((lib.aecf_gemm_f32_scratch(rows, N, K, G,
-                                                     int(w_kmajor)),),
+                                                     int(w_kmajor), bn,
+                                                     splits),),
                           dtype=torch.float32, device=a.device)
     call = _GemmCall(
         _ptr(a), a.stride(1), gstride["a"], _ptr(w), w.stride(1),
         gstride["w"],
         _ptr(bias), 0 if bias is None else bias.stride(0), _ptr(out), N,
         rows * N, _ptr(scratch), rows, N, K, G, int(a_trans), int(w_kmajor),
-        float(scale),
+        float(scale), bn, splits,
     )
     with torch.cuda.device(a.device):
         err = lib.aecf_gemm_f32(

@@ -49,6 +49,10 @@
 // the query and kv may be bf16.  Rows past B are masked in the kernels and
 // nothing is padded on the host.
 //
+// Plans: FusedParams.plans gives G1..G4's column tiles and K splits
+// (gemm_f32.cuh GemmTile, {0, 0} the default; kernels/tiles.py chooses
+// them), and the workspace follows them.
+//
 // Numerics: f32 FMAs throughout.  Scores are kv . (Wk^T qp) where the
 // plain version computes (kv Wk^T + bk) . qp: the sums run in another
 // order, ~1e-6 apart.  Built without fast-math and without flush-to-zero
@@ -83,6 +87,7 @@ struct FusedParams {
   int B, M, E, H, q_bf16, kv_bf16, training, min_active;
   unsigned int seed0, seed1;
   float max_entropy, mask_prob, scale;
+  gemm::GemmTile plans[4];  // G1 .. G4; {0, 0}: gemm_plan's
 };
 
 namespace {
@@ -98,34 +103,37 @@ struct Workspace {
 
 constexpr int kPieces = 6;
 
-size_t scratch_floats(int B, int E, int H, int qrows) {
+// The chain's products in launch order: G1 QP, G2 U, G3 CTX, G4 out
+// (kernels/_plan.py lists the same).  qrows: 1 for a stride-0 query, else
+// B.
+constexpr int kProducts = 4;
+int products(int B, int E, int H, int qrows, gemm::Product q[kProducts]) {
   const int Dh = E / H;
-  const size_t n[4] = {
-      gemm::gemm_scratch_floats(qrows, E, E, 1, false, true),
-      gemm::gemm_scratch_floats(qrows, E, Dh, H, true, true),
-      gemm::gemm_scratch_floats(B, Dh, E, H, false, true),
-      gemm::gemm_scratch_floats(B, E, E, 1, false, true),
-  };
-  size_t m = 0;
-  for (size_t x : n) m = x > m ? x : m;
-  return m;
+  q[0] = {qrows, E, E, 1, false, true};
+  q[1] = {qrows, E, Dh, H, true, true};
+  q[2] = {B, Dh, E, H, false, true};
+  q[3] = {B, E, E, 1, false, true};
+  return kProducts;
 }
 
 // Floats of each workspace piece, in carve order, each rounded up to 64
 // (256-byte aligned starts).  qrows: 1 for a stride-0 query, else B.
-void workspace_sizes(int B, int E, int H, int qrows, size_t n[kPieces]) {
+void workspace_sizes(int B, int E, int H, int qrows, const gemm::GemmTile* t,
+                     size_t n[kPieces]) {
   n[0] = (size_t)qrows * E;
   n[1] = (size_t)qrows * E;
   n[2] = (size_t)qrows * H * E;
   n[3] = (size_t)B * H * E;
   n[4] = (size_t)B * E;
-  n[5] = scratch_floats(B, E, H, qrows);
+  gemm::Product q[kProducts];
+  n[5] = gemm::scratch_floats(q, t, products(B, E, H, qrows, q));
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
-Workspace carve(float* ws, int B, int E, int H, int qrows) {
+Workspace carve(float* ws, int B, int E, int H, int qrows,
+                const gemm::GemmTile* t) {
   size_t n[kPieces];
-  workspace_sizes(B, E, H, qrows, n);
+  workspace_sizes(B, E, H, qrows, t, n);
   float* at[kPieces];
   for (int i = 0; i < kPieces; ++i) {
     at[i] = ws;
@@ -210,7 +218,7 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
   const int H = p.H;
   const int Dh = E / H;
   const int qrows = p.ldq == 0 ? 1 : B;
-  const Workspace ws = carve(p.ws, B, E, H, qrows);
+  const Workspace ws = carve(p.ws, B, E, H, qrows, p.plans);
   cudaError_t err;
 
   // the query as GEMM rows: in place when f32 with 16-byte aligned rows
@@ -239,7 +247,8 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
   g1.groups = 1;
   gemm::EpiAffine e1;
   e1.bias = p.bq;
-  if ((err = gemm::gemm_f32<false, false>(g1, e1, ws.scratch, stream)) !=
+  if ((err = gemm::gemm_f32<false, false>(g1, e1, p.plans[0], ws.scratch,
+                                          stream)) !=
       cudaSuccess)
     return err;
 
@@ -260,7 +269,8 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
   g2.groups = H;
   gemm::EpiAffine e2;
   e2.scale = p.scale;
-  if ((err = gemm::gemm_f32<false, true>(g2, e2, ws.scratch, stream)) !=
+  if ((err = gemm::gemm_f32<false, true>(g2, e2, p.plans[1], ws.scratch,
+                                          stream)) !=
       cudaSuccess)
     return err;
 
@@ -296,7 +306,8 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
   gemm::EpiAffine e3;
   e3.bias = p.bv;
   e3.bias_gstride = Dh;
-  if ((err = gemm::gemm_f32<false, false>(g3, e3, ws.scratch, stream)) !=
+  if ((err = gemm::gemm_f32<false, false>(g3, e3, p.plans[2], ws.scratch,
+                                          stream)) !=
       cudaSuccess)
     return err;
 
@@ -314,18 +325,22 @@ cudaError_t launch(const FusedParams& p, cudaStream_t stream) {
   g4.groups = 1;
   gemm::EpiAffine e4;
   e4.bias = p.bo;
-  return gemm::gemm_f32<false, false>(g4, e4, ws.scratch, stream);
+  return gemm::gemm_f32<false, false>(g4, e4, p.plans[3], ws.scratch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace one call needs: shared_q = 1 for a query of row
-// stride 0, else 0.
-size_t aecf_fused_pool_fwd_workspace(int B, int E, int H, int shared_q) {
+// Floats of workspace one call needs under the products' plans
+// (FusedParams.plans; null: the default plans): shared_q = 1 for a query
+// of row stride 0, else 0.
+size_t aecf_fused_pool_fwd_workspace(int B, int E, int H, int shared_q,
+                                     const gemm::GemmTile* plans) {
+  const gemm::GemmTile none[kProducts] = {};
   size_t n[kPieces];
-  workspace_sizes(B, E, H, shared_q ? 1 : B, n);
+  workspace_sizes(B, E, H, shared_q ? 1 : B, plans != nullptr ? plans : none,
+                  n);
   size_t total = 0;
   for (int i = 0; i < kPieces; ++i) total += n[i];
   return total;
@@ -339,16 +354,34 @@ size_t aecf_fused_pool_fwd_smem(int E, int H, int M) {
   return rows > gemm::kMaxSmemBytes ? rows : gemm::kMaxSmemBytes;
 }
 
+// The plans the chain's products run at (B, E, H; shared_q as above) when
+// asked for `plans` (null: the default plans): bn, splits and k_per_split
+// for each product in launch order into `out` (3 x 4 ints).  Returns the
+// number of products, or minus the cudaError_t of a plan the chain
+// refuses.
+int aecf_fused_pool_fwd_plans(int B, int E, int H, int shared_q,
+                              const gemm::GemmTile* plans, int* out) {
+  gemm::Product q[kProducts];
+  const int n = products(B, E, H, shared_q ? 1 : B, q);
+  const cudaError_t err = gemm::report_plans(q, plans, n, out);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 // Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
 // device buffers as listed in FusedParams (kv aligned to four features,
 // the weights, out and ws to 16 bytes); any H with E a multiple of 4 H
 // (the GEMMs read 16-byte chunks of each head's slice).  training = 0 is
-// the eval branch (seed words, mask_prob and min_active unread).
+// the eval branch (seed words, mask_prob and min_active unread).  The
+// plans are checked before anything launches.
 int aecf_fused_pool_fwd(const FusedParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->H < 1 || p->E < 1 ||
       p->E % (4 * p->H) != 0 || p->ldq < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  int plan[3 * kProducts];
+  if (aecf_fused_pool_fwd_plans(p->B, p->E, p->H, p->ldq == 0, p->plans,
+                                plan) < 0)
+    return (int)cudaErrorInvalidValue;
   const void* aligned[] = {p->wq, p->wk, p->wv, p->wo, p->bk, p->out, p->ws};
   for (const void* ptr : aligned)
     if (!gemm::aligned16(ptr)) return (int)cudaErrorInvalidValue;

@@ -9,7 +9,8 @@
 // lever (tensor cores at precision='default' are later work).  Design:
 //
 //   * 256-thread blocks, block tiles of 128 x 128 or 128 x 64 (gemm_plan
-//     picks per shape so that the grid fills the 132 SMs; 128 x 128 only
+//     picks per shape so that the grid fills the device's SMs, unless the
+//     caller gives a plan, a GemmTile: kernels/tiles.py; 128 x 128 only
 //     for a k-major W), 8 x 8 or 8 x 4 accumulators a thread: each weight
 //     loaded into shared memory is used for 128 FMAs, each row element for
 //     64 or 128;
@@ -128,7 +129,7 @@ struct GemmArgs {
   float* C;
   long long ldc, c_gstride;
   int rows, N, K, groups;
-  int splits, k_per_split;  // from gemm_plan
+  int splits, k_per_split;  // from the plan (plan_of)
   float* partials;          // splits > 1: splits x groups x rows x N floats
 };
 
@@ -138,32 +139,97 @@ struct GemmPlan {
   int k_per_split;  // a multiple of kBK
 };
 
+// A product's plan as its caller asks for it, in the C interfaces (also
+// declared by kernels/_plan.py): block tile columns and K splits; {0, 0}
+// is gemm_plan's.
+struct GemmTile {
+  int bn;
+  int splits;
+};
+
+// One product of a chain: its shape and what its layout and epilogue
+// allow (a k-major W for bn = 128; splits where the epilogue is not the
+// quadratic loss's).  Each chain lists its products, in launch order, to
+// size its split partials and to report its plans.
+struct Product {
+  int rows, N, K, groups;
+  bool w_kmajor, may_split;
+};
+
 // 128 x 128 tiles where they alone give two blocks for every SM (the
 // registers allow two an SM) and W is k-major, else 128 x 64 (with an
 // n-major W, 8 x 8 accumulators and float4 fragments of both operands
 // along k spill at two blocks an SM); split K where the tiles leave SMs
-// idle (and the epilogue allows it), keeping four stages a split.
+// idle (and the epilogue allows it), keeping four stages a split.  Sized
+// by the device's SMs; kernels/_plan.py holds a copy.
 inline GemmPlan gemm_plan(int rows, int N, int K, int groups, bool w_kmajor,
                           bool may_split) {
+  const int sms = sm_count();
   GemmPlan p;
   const int mt = cdiv(rows, kBM);
-  p.bn = (w_kmajor && N > 64 && mt * cdiv(N, 128) * groups >= 2 * kSms)
+  p.bn = (w_kmajor && N > 64 && mt * cdiv(N, 128) * groups >= 2 * sms)
              ? 128
              : 64;
   const int blocks = mt * cdiv(N, p.bn) * groups;
   p.splits = 1;
-  if (may_split && blocks < kSms)  // at most one wave of two blocks an SM
-    p.splits = max(1, min(2 * kSms / blocks, K / (4 * kBK)));
+  if (may_split && blocks < sms)  // at most one wave of two blocks an SM
+    p.splits = max(1, min(2 * sms / blocks, K / (4 * kBK)));
   p.k_per_split = cdiv(cdiv(K, p.splits), kBK) * kBK;
   p.splits = cdiv(K, p.k_per_split);
   return p;
 }
 
-// Floats of split-K partials a product needs (0 when it does not split).
-inline size_t gemm_scratch_floats(int rows, int N, int K, int groups,
-                                  bool w_kmajor, bool may_split) {
-  const GemmPlan p = gemm_plan(rows, N, K, groups, w_kmajor, may_split);
-  return p.splits > 1 ? (size_t)p.splits * groups * rows * N : 0;
+// The plan a product runs: gemm_plan's for a zero tile, else the caller's,
+// checked (cudaErrorInvalidValue: bn other than 64 or 128, 128 with an
+// n-major W, splits < 1, splits > 1 where the epilogue forbids them, or
+// more splits than k-stages).  Each split takes ceil(K / splits) of K
+// rounded up to kBK, so the splits that run are ceil(K / k_per_split).
+inline cudaError_t plan_of(const Product& q, GemmTile t, GemmPlan* p) {
+  if (t.bn == 0 && t.splits == 0) {
+    *p = gemm_plan(q.rows, q.N, q.K, q.groups, q.w_kmajor, q.may_split);
+    return cudaSuccess;
+  }
+  if (!(t.bn == 64 || (t.bn == 128 && q.w_kmajor)) || t.splits < 1 ||
+      (t.splits > 1 && !q.may_split) || t.splits > cdiv(q.K, kBK))
+    return cudaErrorInvalidValue;
+  p->bn = t.bn;
+  p->k_per_split = cdiv(cdiv(q.K, t.splits), kBK) * kBK;
+  p->splits = cdiv(q.K, p->k_per_split);
+  return cudaSuccess;
+}
+
+// Floats of split-K partials a product needs under a plan (0 when it does
+// not split, or when the plan is refused: its launch then fails).
+inline size_t scratch_floats(const Product& q, GemmTile t) {
+  GemmPlan p;
+  if (plan_of(q, t, &p) != cudaSuccess || p.splits == 1) return 0;
+  return (size_t)p.splits * q.groups * q.rows * q.N;
+}
+
+// The largest of n products' partials: a chain runs them one at a time.
+inline size_t scratch_floats(const Product* q, const GemmTile* t, int n) {
+  size_t m = 0;
+  for (int i = 0; i < n; ++i) {
+    const size_t x = scratch_floats(q[i], t != nullptr ? t[i] : GemmTile{});
+    m = x > m ? x : m;
+  }
+  return m;
+}
+
+// The plans n products run, three ints each (bn, splits, k_per_split), for
+// a chain's plan report; the first refused plan's error.
+inline cudaError_t report_plans(const Product* q, const GemmTile* t, int n,
+                                int* out) {
+  for (int i = 0; i < n; ++i) {
+    GemmPlan p;
+    const cudaError_t err =
+        plan_of(q[i], t != nullptr ? t[i] : GemmTile{}, &p);
+    if (err != cudaSuccess) return err;
+    out[3 * i] = p.bn;
+    out[3 * i + 1] = p.splits;
+    out[3 * i + 2] = p.k_per_split;
+  }
+  return cudaSuccess;
 }
 
 template <bool kATrans>
@@ -425,20 +491,21 @@ cudaError_t launch_tiles(const GemmArgs& a, const Epi& epi,
   return cudaGetLastError();
 }
 
-// The product of GemmArgs (splits, k_per_split and partials filled here
-// from gemm_plan; partials must hold gemm_scratch_floats(..., kWKMajor,
-// may_split) floats, may_split = !Epi::kRowSquares).  Launches one GEMM
-// kernel, and the split sum when it splits.
+// The product of GemmArgs under the caller's plan `tile` (plan_of: a zero
+// tile is gemm_plan's; splits, k_per_split and partials filled here;
+// partials must hold scratch_floats(product, tile) floats).  Launches one
+// GEMM kernel, and the split sum when it splits.
 template <bool kATrans, bool kWKMajor, class Epi>
-cudaError_t gemm_f32(GemmArgs a, const Epi& epi, float* partials,
-                     cudaStream_t stream) {
-  const GemmPlan plan =
-      gemm_plan(a.rows, a.N, a.K, a.groups, kWKMajor, !Epi::kRowSquares);
+cudaError_t gemm_f32(GemmArgs a, const Epi& epi, GemmTile tile,
+                     float* partials, cudaStream_t stream) {
+  GemmPlan plan;
+  const Product q{a.rows, a.N, a.K, a.groups, kWKMajor, !Epi::kRowSquares};
+  cudaError_t err = plan_of(q, tile, &plan);
+  if (err != cudaSuccess) return err;
   a.splits = plan.splits;
   a.k_per_split = plan.k_per_split;
   a.partials = partials;
   if (a.splits > 1 && partials == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err;
   if constexpr (kWKMajor)
     err = plan.bn == 128 ? launch_tiles<128, kATrans, true>(a, epi, stream)
                          : launch_tiles<64, kATrans, true>(a, epi, stream);

@@ -34,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -43,7 +45,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxM = 8;
 constexpr int kMaxH = 2;
-constexpr int kSms = 132;   // H100 SXM
 constexpr float kEps = 1e-8f;  // aecf_tpu/core/masking.py EPS
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -513,6 +514,27 @@ __device__ __forceinline__ void row_side_outputs(
     ent_out[gr] = ent;
     rate_out[gr] = rate;
   }
+}
+
+// SMs of the current device (132 on the H100 SXM, 114 on the H100 PCIe):
+// what the GEMMs' default plans and the persistent grids are sized by.
+// Asked once a device, then cached.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices)
+    dev = -1;
+  if (dev >= 0) {
+    const int n = known[dev].load(std::memory_order_relaxed);
+    if (n > 0) return n;
+  }
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                             dev < 0 ? 0 : dev) != cudaSuccess || n < 1)
+    n = 132;
+  if (dev >= 0) known[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // Rounds a count of floats up to a multiple of 4 (16 bytes).

@@ -41,6 +41,10 @@
 // 16-byte chunks.  Rows past B write nothing and add nothing.  int8
 // changes only R1 and R2, so the int8 backward equals the f32 backward on
 // q.float() * s bit for bit.  No atomics: a run is bit for bit repeatable.
+//
+// Plans: BwdParams.plans gives G2's and G3's column tiles and K splits
+// (gemm_f32.cuh GemmTile, {0, 0} the default; kernels/tiles.py chooses
+// them), and the workspace follows them.
 
 #include "gemm_f32.cuh"
 #include "pool_rows.cuh"
@@ -62,6 +66,7 @@ struct BwdParams {
   float* sums;        // (2E + 1): du | sum d_out | sum d_s
   float* ws;          // aecf_shared_query_bwd_workspace floats
   int B, M, E, kv_dtype;  // KvDtype: 0 f32, 1 bf16, 2 int8
+  gemm::GemmTile plans[2];  // G2 d_mix, G3 G; {0, 0}: gemm_plan's
 };
 
 namespace {
@@ -78,24 +83,33 @@ struct Workspace {
 
 constexpr int kPieces = 7;
 
-void workspace_sizes(int B, int E, size_t n[kPieces]) {
+// The chain's products in launch order: G2 d_mix, G3 G (kernels/_plan.py
+// lists the same).
+constexpr int kProducts = 2;
+int products(int B, int E, gemm::Product q[kProducts]) {
+  q[0] = {B, E, E, 1, true, true};
+  q[1] = {E, E, B, 1, true, true};
+  return kProducts;
+}
+
+void workspace_sizes(int B, int E, const gemm::GemmTile* t,
+                     size_t n[kPieces]) {
   const size_t E4 = align4(E);
   const bool ragged = E % 4 != 0;
-  const size_t g2 = gemm::gemm_scratch_floats(B, E, E, 1, true, true);
-  const size_t g3 = gemm::gemm_scratch_floats(E, E, B, 1, true, true);
+  gemm::Product q[kProducts];
   n[0] = (size_t)B * kMaxM;
   n[1] = B * E4;
   n[2] = B * E4;
   n[3] = ragged ? B * E4 : 0;
   n[4] = ragged ? E * E4 : 0;
   n[5] = (size_t)warp_blocks(B) * part_cols(E, 0, false);
-  n[6] = g2 > g3 ? g2 : g3;
+  n[6] = gemm::scratch_floats(q, t, products(B, E, q));
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
-Workspace carve(float* ws, int B, int E) {
+Workspace carve(float* ws, int B, int E, const gemm::GemmTile* t) {
   size_t n[kPieces];
-  workspace_sizes(B, E, n);
+  workspace_sizes(B, E, t, n);
   float* at[kPieces];
   for (int i = 0; i < kPieces; ++i) {
     at[i] = ws;
@@ -109,7 +123,7 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
   const int B = p.B;
   const int E = p.E;
   const int E4 = align4(E);
-  const Workspace ws = carve(p.ws, B, E);
+  const Workspace ws = carve(p.ws, B, E, p.plans);
   cudaError_t err;
 
   // the GEMM operands d_out and W_vo: rows of E4 floats
@@ -155,7 +169,8 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
   g2.N = E;
   g2.K = E;
   g2.groups = 1;
-  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, ws.scr, stream);
+  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, p.plans[0], ws.scr,
+                                    stream);
   if (err != cudaSuccess) return err;
 
   // R2 with the weights' cotangent
@@ -189,7 +204,8 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
   g3.N = E;
   g3.K = B;
   g3.groups = 1;
-  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, ws.scr, stream);
+  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, p.plans[1], ws.scr,
+                                   stream);
   if (err != cudaSuccess) return err;
   return part_sum(ws.part, warp_blocks(B), part_cols(E, 0, false), p.sums,
                   stream);
@@ -199,18 +215,34 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
 
 extern "C" {
 
-// Floats of workspace aecf_shared_query_bwd needs for (B, E).
-size_t aecf_shared_query_bwd_workspace(int B, int E) {
+// Floats of workspace aecf_shared_query_bwd needs for (B, E) under the
+// products' plans (BwdParams.plans; null: the default plans).
+size_t aecf_shared_query_bwd_workspace(int B, int E,
+                                       const gemm::GemmTile* plans) {
+  const gemm::GemmTile none[kProducts] = {};
   size_t n[kPieces];
-  workspace_sizes(B, E, n);
+  workspace_sizes(B, E, plans != nullptr ? plans : none, n);
   size_t total = 0;
   for (int i = 0; i < kPieces; ++i) total += n[i];
   return total;
 }
 
+// The plans the chain's products run at (B, E) when asked for `plans`
+// (null: the default plans): bn, splits and k_per_split for each product
+// in launch order into `out` (3 x 2 ints).  Returns the number of
+// products, or minus the cudaError_t of a plan the chain refuses.
+int aecf_shared_query_bwd_plans(int B, int E, const gemm::GemmTile* plans,
+                                int* out) {
+  gemm::Product q[kProducts];
+  const int n = products(B, E, q);
+  const cudaError_t err = gemm::report_plans(q, plans, n, out);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 // Returns a cudaError_t; 0 means every launch was accepted.  Pointers are
 // contiguous device buffers as listed in BwdParams, dout, wvo and ws 16-byte
-// aligned; int8 needs scales and takes no dkv.
+// aligned; int8 needs scales and takes no dkv.  The plans are checked
+// before anything launches.
 int aecf_shared_query_bwd(const BwdParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 ||
       (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
@@ -218,6 +250,9 @@ int aecf_shared_query_bwd(const BwdParams* p, void* stream) {
       !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
+  int plan[3 * kProducts];
+  if (aecf_shared_query_bwd_plans(p->B, p->E, p->plans, plan) < 0)
+    return (int)cudaErrorInvalidValue;
   // the four-feature accesses of kv, u and d_kv (16 bytes f32, 8 bf16, 4
   // int8)
   const uintptr_t size =

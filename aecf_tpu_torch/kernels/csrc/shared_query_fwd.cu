@@ -46,6 +46,10 @@
 // the int8 forward equals the f32 forward on q.float() * s bit for bit.  No
 // atomics: a run is bit for bit repeatable.
 //
+// Plans: `plans` gives the products' column tiles and K splits in launch
+// order (G1 at H == 1; G2, G3 above; gemm_f32.cuh GemmTile, {0, 0} the
+// default; kernels/tiles.py chooses them), and the workspace follows them.
+//
 // Numerics: full f32 FMAs for every precision mode.  Entropy uses logf on
 // max(w, 1e-38) — a subnormal floor — so this file must be built without
 // --use_fast_math and without -ftz=true.
@@ -74,6 +78,7 @@ struct FwdCall {
   float* rate;
   float* ws;
   int B, M, E, H;
+  const gemm::GemmTile* plans;  // one a product, in launch order
 };
 
 struct Workspace {
@@ -87,16 +92,25 @@ struct Workspace {
 
 constexpr int kPieces = 6;
 
-size_t scratch_floats(int B, int E, int H) {
-  const size_t out = gemm::gemm_scratch_floats(B, E, E, 1, false, true);
-  const size_t ctx =
-      H > 1 ? gemm::gemm_scratch_floats(B, E / H, E, H, false, true) : 0;
-  return out > ctx ? out : ctx;
+// The chain's products in launch order: the out GEMM at H == 1; the
+// grouped context GEMM and the output GEMM above (kernels/_plan.py lists
+// the same).
+constexpr int kProducts = 2;
+int products(int B, int E, int H, gemm::Product q[kProducts]) {
+  const gemm::Product out{B, E, E, 1, false, true};
+  if (H == 1) {
+    q[0] = out;
+    return 1;
+  }
+  q[0] = {B, E / H, E, H, false, true};
+  q[1] = out;
+  return 2;
 }
 
 // Floats of each workspace piece, in carve order, each rounded up to 64
 // (256-byte aligned starts).
-void workspace_sizes(int B, int M, int E, int H, size_t n[kPieces]) {
+void workspace_sizes(int B, int M, int E, int H, const gemm::GemmTile* t,
+                     size_t n[kPieces]) {
   const size_t E4 = align4(E);
   const bool ragged = E % 4 != 0;
   n[0] = (size_t)B * H * E4;
@@ -104,13 +118,15 @@ void workspace_sizes(int B, int M, int E, int H, size_t n[kPieces]) {
   n[2] = H > kMaxH ? (size_t)B * H * M : 0;
   n[3] = ragged ? E * E4 : 0;
   n[4] = ragged && H > 1 ? E * E4 : 0;
-  n[5] = scratch_floats(B, E, H);
+  gemm::Product q[kProducts];
+  n[5] = gemm::scratch_floats(q, t, products(B, E, H, q));
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
-Workspace carve(float* ws, int B, int M, int E, int H) {
+Workspace carve(float* ws, int B, int M, int E, int H,
+                const gemm::GemmTile* t) {
   size_t n[kPieces];
-  workspace_sizes(B, M, E, H, n);
+  workspace_sizes(B, M, E, H, t, n);
   float* at[kPieces];
   for (int i = 0; i < kPieces; ++i) {
     at[i] = ws;
@@ -134,7 +150,7 @@ cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
   const int E = p.E;
   const int H = p.H;
   const int E4 = align4(E);
-  const Workspace ws = carve(p.ws, B, p.M, E, H);
+  const Workspace ws = carve(p.ws, B, p.M, E, H, p.plans);
   cudaError_t err;
 
   // the weights as GEMM operands: rows of E4 floats
@@ -192,7 +208,8 @@ cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
     go.A = ws.mix;
     go.W = wctx;
     eo.bias = p.bctx;
-    return gemm::gemm_f32<false, false>(go, eo, ws.scratch, stream);
+    return gemm::gemm_f32<false, false>(go, eo, p.plans[0], ws.scratch,
+                                        stream);
   }
 
   // G2: CTX[b, h Dh + n] = sum_k MIX[b, h, k] Wv[h Dh + n, k] + bv[h Dh + n]
@@ -214,28 +231,43 @@ cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
   gemm::EpiAffine ec;
   ec.bias = p.bctx;
   ec.bias_gstride = Dh;
-  if ((err = gemm::gemm_f32<false, false>(gc, ec, ws.scratch, stream)) !=
-      cudaSuccess)
+  if ((err = gemm::gemm_f32<false, false>(gc, ec, p.plans[0], ws.scratch,
+                                          stream)) != cudaSuccess)
     return err;
 
   // G3: out = CTX Wo^T + bo
   go.A = ws.ctx;
   go.W = wo;
   eo.bias = p.bo;
-  return gemm::gemm_f32<false, false>(go, eo, ws.scratch, stream);
+  return gemm::gemm_f32<false, false>(go, eo, p.plans[1], ws.scratch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace one call needs.
-size_t aecf_shared_query_fwd_workspace(int B, int M, int E, int H) {
+// Floats of workspace one call needs under the products' plans (null: the
+// default plans).
+size_t aecf_shared_query_fwd_workspace(int B, int M, int E, int H,
+                                       const gemm::GemmTile* plans) {
+  const gemm::GemmTile none[kProducts] = {};
   size_t n[kPieces];
-  workspace_sizes(B, M, E, H, n);
+  workspace_sizes(B, M, E, H, plans != nullptr ? plans : none, n);
   size_t total = 0;
   for (int i = 0; i < kPieces; ++i) total += n[i];
   return total;
+}
+
+// The plans the chain's products run at (B, E, H) when asked for `plans`
+// (null: the default plans): bn, splits and k_per_split for each product
+// in launch order into `out` (3 x 2 ints).  Returns the number of
+// products, or minus the cudaError_t of a plan the chain refuses.
+int aecf_shared_query_fwd_plans(int B, int E, int H,
+                                const gemm::GemmTile* plans, int* out) {
+  gemm::Product q[kProducts];
+  const int n = products(B, E, H, q);
+  const cudaError_t err = gemm::report_plans(q, plans, n, out);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 // Returns a cudaError_t; 0 means every launch was accepted.  kv is (B, M,
@@ -243,9 +275,10 @@ size_t aecf_shared_query_fwd_workspace(int B, int M, int E, int H) {
 // scales is read for int8 only); pad may be null (no padding); wo and bo
 // are read only when H > 1.  All other pointers are f32 device buffers of
 // the shapes in the header comment, contiguous; wctx, wo and ws 16-byte
-// aligned; ws holds aecf_shared_query_fwd_workspace(B, M, E, H) floats.
-// training = 0 is the eval branch (seed words, mask_prob and min_active
-// unread).
+// aligned; ws holds aecf_shared_query_fwd_workspace(B, M, E, H, plans)
+// floats; plans (one a product, or null: the default plans) are checked
+// before anything launches.  training = 0 is the eval branch (seed words,
+// mask_prob and min_active unread).
 int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           const float* u, const float* c, const float* pad,
                           const float* wctx, const float* wo,
@@ -254,13 +287,18 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           float* ws, int B, int M, int E, int H,
                           float max_entropy, int training, unsigned int seed0,
                           unsigned int seed1, float mask_prob, int min_active,
-                          void* stream) {
+                          const gemm::GemmTile* plans, void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || E < 1 || E % H != 0 ||
       (kv_dtype == kKvInt8 && scales == nullptr) ||
       (H > 1 && (wo == nullptr || bo == nullptr)) || !gemm::aligned16(wctx) ||
       (H > 1 && !gemm::aligned16(wo)) || !gemm::aligned16(ws)) {
     return (int)cudaErrorInvalidValue;
   }
+  const gemm::GemmTile none[kProducts] = {};
+  if (plans == nullptr) plans = none;
+  int plan[3 * kProducts];
+  if (aecf_shared_query_fwd_plans(B, E, H, plans, plan) < 0)
+    return (int)cudaErrorInvalidValue;
   MaskParams mp;
   mp.max_entropy = max_entropy;
   mp.mask_prob = mask_prob;
@@ -268,8 +306,8 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
-  const FwdCall p{kv, scales, u,  c,   pad,  wctx, wo, bctx, bo,
-                  out, w,     mw, ent, rate, ws,   B,  M,    E, H};
+  const FwdCall p{kv, scales, u,   c,    pad, wctx, wo, bctx, bo, out,
+                  w,  mw,     ent, rate, ws,  B,    M,  E,    H,  plans};
   const int vec = kv_vec(kv, kv_dtype, u, E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // eval and training are separate instances (see row_side_outputs)

@@ -34,7 +34,10 @@
 // fixed order — the TPU kernel adds du/dc into one VMEM block across its
 // sequential grid.  No atomics: two calls agree bit for bit.  int8 and
 // bf16 calls take the f32 call's cut and grid, so an int8 call sums in the
-// f32 call's order.  Needs E % 4 == 0.
+// f32 call's order.  Needs E % 4 == 0.  The grid's blocks an SM may come
+// from the caller (StreamBwdParams.blocks_per_sm, the streamed plan;
+// kernels/tiles.py resolves it from the f32 call's key, so every dtype
+// takes one grid), 1 up to the f32 kernel's occupancy; 0 is that limit.
 //
 // Measured on an H100 SXM (700 W), f32, no d_kv: 0.069 ms at B = 4096,
 // M = 4, E = 2048, H = 1 (bound 0.050 ms; with d_kv 0.122 ms, bound
@@ -64,6 +67,7 @@ struct StreamBwdParams {
   float* acc;         // (H E + H): du_0 .. du_{H-1} | dc
   float* ws;          // aecf_stream_bwd_workspace floats
   int B, M, E, kv_dtype;  // KvDtype: 0 f32, 1 bf16, 2 int8
+  int blocks_per_sm;      // the grid's, 1 .. occupancy; 0: the occupancy
 };
 
 namespace {
@@ -295,24 +299,29 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
   if (C > 1) cg::this_cluster().sync();  // ranks read each other's part
 }
 
-// Clusters of the persistent grid: as many blocks an SM as the f32 call's
-// registers and shared memory let run at once, at most one row a cluster.
-// It depends on (B, M, E, H) alone — the workspace does too, and an int8
-// or bf16 call splits the batch as the f32 call does, so sums in its
-// order.
-int bwd_clusters(int B, int M, int E, int H) {
+// The most blocks an SM of the f32 kernel at (M, E, H) that run at once.
+int bwd_occupancy(int M, int E, int H) {
   const Slices sl = bwd_slices(M, E, H);
   const size_t smem = bwd_smem(sl, M, H, 4);
-  return clusters_of(B, sl.C,
-                     H == 1 ? blocks_per_sm(stream_bwd_kernel<float, 1>,
-                                            kThreads, smem)
-                            : blocks_per_sm(stream_bwd_kernel<float, 2>,
-                                            kThreads, smem));
+  return H == 1 ? blocks_per_sm(stream_bwd_kernel<float, 1>, kThreads, smem)
+                : blocks_per_sm(stream_bwd_kernel<float, 2>, kThreads, smem);
 }
 
-// Workspace: one partial row (H E + H floats) a cluster.
-size_t workspace_floats(int B, int M, int E, int H) {
-  return (size_t)bwd_clusters(B, M, E, H) * (H * E + H);
+// Clusters of the persistent grid: `req` blocks an SM (0: as many as the
+// f32 call's registers and shared memory let run at once), at most one row
+// a cluster; -1 for a request above that.  It depends on (B, M, E, H) and
+// the request alone — the workspace does too, and an int8 or bf16 call
+// splits the batch as the f32 call does, so sums in its order.
+int bwd_clusters(int B, int M, int E, int H, int req) {
+  const int per_sm = grid_per_sm(req, bwd_occupancy(M, E, H));
+  return per_sm < 1 ? -1 : clusters_of(B, bwd_slices(M, E, H).C, per_sm);
+}
+
+// Workspace: one partial row (H E + H floats) a cluster (0 for a refused
+// grid: its launch fails).
+size_t workspace_floats(int B, int M, int E, int H, int req) {
+  const int clusters = bwd_clusters(B, M, E, H, req);
+  return clusters < 1 ? 0 : (size_t)clusters * (H * E + H);
 }
 
 template <typename T, int kH>
@@ -323,7 +332,8 @@ cudaError_t launch(const StreamBwdParams& p, cudaStream_t stream) {
                                (size_t)p.E * sizeof(T));
   pl.dm_g = route_of(p.dmix, (size_t)pl.sl.es * 4 | (size_t)p.E * 4);
   const size_t smem = bwd_smem(pl.sl, p.M, kH, sizeof(T));
-  const int clusters = bwd_clusters(p.B, p.M, p.E, kH);
+  const int clusters = bwd_clusters(p.B, p.M, p.E, kH, p.blocks_per_sm);
+  if (clusters < 1) return cudaErrorInvalidValue;
   cudaError_t err = launch_clusters(stream_bwd_kernel<T, kH>,
                                     clusters * pl.sl.C, kThreads, smem,
                                     pl.sl.C, stream, p, pl);
@@ -351,9 +361,17 @@ int run(const StreamBwdParams* p, void* stream) {
 extern "C" {
 
 // Floats of workspace aecf_stream_bwd (H = 1) or aecf_stream_bwd_mh
-// (H = 2) needs for (B, M, E).
-size_t aecf_stream_bwd_workspace(int B, int M, int E, int H) {
-  return workspace_floats(B, M, E, H);
+// (H = 2) needs for (B, M, E) and the grid's blocks_per_sm.
+size_t aecf_stream_bwd_workspace(int B, int M, int E, int H,
+                                 int blocks_per_sm) {
+  return workspace_floats(B, M, E, H, blocks_per_sm);
+}
+
+// The most blocks an SM of the persistent grid at (M, E, H) (the limit of
+// StreamBwdParams.blocks_per_sm); -1 for arguments it refuses.
+int aecf_stream_bwd_occupancy(int M, int E, int H) {
+  if (M < 1 || M > kMaxM || H < 1 || H > 2 || E < 4 || E % 4 != 0) return -1;
+  return bwd_occupancy(M, E, H);
 }
 
 // The H == 1 backward (_bwd_kernel_streamed).  Returns a cudaError_t; 0

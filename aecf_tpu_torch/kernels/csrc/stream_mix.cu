@@ -46,6 +46,11 @@
 // 0.139; int8, eval, 0.054 ms (bound 0.020 ms: 67 MB; before, 0.085); at
 // B = 8192, M = 4, E = 1024, H = 2, training, 0.098 ms (before, 0.156).
 //
+// The grid: as many blocks an SM as the kernel's registers and shared
+// memory let run at once (one wave), or fewer where the caller asks
+// (blocks_per_sm, the streamed plan; kernels/tiles.py).  Rows are
+// independent, so the grid changes no bit of the result.
+//
 // Numerics: f32 throughout; the entropy floors w at the subnormal 1e-38,
 // so this file is built without fast-math and without flush-to-zero.
 
@@ -300,8 +305,18 @@ __global__ void __launch_bounds__(kThreads) stream_mix_slices(MixArgs p,
   if (C > 1) cg::this_cluster().sync();  // ranks read each other's part
 }
 
+// A call's launch: its path, threads, shared memory and the blocks an SM
+// that run at once (the limit of the plan's blocks_per_sm); fills the
+// path's fields of `a`.
+struct MixLaunch {
+  bool rows;
+  int threads;
+  size_t smem;
+  int per_sm;
+};
+
 template <typename T, bool kTraining>
-cudaError_t launch(MixArgs a, const MaskParams& mp, cudaStream_t stream) {
+MixLaunch mix_launch(MixArgs& a) {
   if (a.E <= kResidentE) {
     a.slot = (int)align16(a.M * a.E * sizeof(T));
     a.g = route_of(a.kv, (size_t)a.M * a.E * sizeof(T));
@@ -309,22 +324,43 @@ cudaError_t launch(MixArgs a, const MaskParams& mp, cudaStream_t stream) {
     const int nw = max(1, min(kWarps, (int)((kBlockSmem - head) /
                                             (kStages * a.slot))));
     const size_t smem = head + (size_t)nw * kStages * a.slot;
-    const int per_sm =
-        blocks_per_sm(stream_mix_rows<T, kTraining>, 32 * nw, smem);
-    const int blocks = max(1, min((a.B + nw - 1) / nw, per_sm * kSms));
-    return launch_clusters(stream_mix_rows<T, kTraining>, blocks, 32 * nw,
-                           smem, 1, stream, a, mp);
+    return {true, 32 * nw, smem,
+            blocks_per_sm(stream_mix_rows<T, kTraining>, 32 * nw, smem)};
   }
   a.sl = slices_of(a.E, (size_t)a.M * a.E * 4);
   a.g = route_of(a.kv,
                  (size_t)a.sl.es * sizeof(T) | (size_t)a.E * sizeof(T));
   const size_t smem = 128 + align16(a.H * a.sl.ld * 4) +
                       (size_t)kStages * a.M * a.sl.ld * sizeof(T);
-  const int per_sm =
-      blocks_per_sm(stream_mix_slices<T, kTraining>, kThreads, smem);
+  return {false, kThreads, smem,
+          blocks_per_sm(stream_mix_slices<T, kTraining>, kThreads, smem)};
+}
+
+template <typename T, bool kTraining>
+cudaError_t launch(MixArgs a, const MaskParams& mp, int req,
+                   cudaStream_t stream) {
+  const MixLaunch l = mix_launch<T, kTraining>(a);
+  const int per_sm = grid_per_sm(req, l.per_sm);
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  if (l.rows) {
+    const int nw = l.threads / 32;
+    const int blocks = max(1, min((a.B + nw - 1) / nw, per_sm * sm_count()));
+    return launch_clusters(stream_mix_rows<T, kTraining>, blocks, l.threads,
+                           l.smem, 1, stream, a, mp);
+  }
   const int clusters = clusters_of(a.B, a.sl.C, per_sm);
   return launch_clusters(stream_mix_slices<T, kTraining>, clusters * a.sl.C,
-                         kThreads, smem, a.sl.C, stream, a, mp);
+                         l.threads, l.smem, a.sl.C, stream, a, mp);
+}
+
+template <bool kTraining>
+int occupancy(MixArgs& a, int kv_dtype) {
+  switch (kv_dtype) {
+    case kKvF32: return mix_launch<float, kTraining>(a).per_sm;
+    case kKvBf16: return mix_launch<__nv_bfloat16, kTraining>(a).per_sm;
+    case kKvInt8: return mix_launch<int8_t, kTraining>(a).per_sm;
+  }
+  return -1;
 }
 
 }  // namespace
@@ -336,14 +372,15 @@ extern "C" {
 // for int8 only), aligned to four elements; pad may be null (no padding);
 // mix is (B, H E) f32, 16-byte aligned; w, mw (B, M), ent, rate (B,).  All
 // contiguous device buffers.  training = 0 is the eval branch (seed words,
-// mask_prob and min_active unread).
+// mask_prob and min_active unread).  blocks_per_sm: the persistent grid's
+// blocks an SM, 1 up to aecf_stream_mix_occupancy, or 0 for that limit.
 int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
                     const float* u, const float* c, const float* pad,
                     float* mix, float* w,
                     float* mw, float* ent, float* rate, int B, int M, int E,
                     int H, float max_entropy, int training,
                     unsigned int seed0, unsigned int seed1, float mask_prob,
-                    int min_active, void* stream) {
+                    int min_active, int blocks_per_sm, void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 4 ||
       E % 4 != 0 || (kv_dtype == kKvInt8 && scales == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -371,18 +408,34 @@ int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
   a.E = E;
   a.H = H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = blocks_per_sm;
   switch (kv_dtype) {
     case kKvF32:
-      return (int)(training ? launch<float, true>(a, mp, s)
-                            : launch<float, false>(a, mp, s));
+      return (int)(training ? launch<float, true>(a, mp, n, s)
+                            : launch<float, false>(a, mp, n, s));
     case kKvBf16:
-      return (int)(training ? launch<__nv_bfloat16, true>(a, mp, s)
-                            : launch<__nv_bfloat16, false>(a, mp, s));
+      return (int)(training ? launch<__nv_bfloat16, true>(a, mp, n, s)
+                            : launch<__nv_bfloat16, false>(a, mp, n, s));
     case kKvInt8:
-      return (int)(training ? launch<int8_t, true>(a, mp, s)
-                            : launch<int8_t, false>(a, mp, s));
+      return (int)(training ? launch<int8_t, true>(a, mp, n, s)
+                            : launch<int8_t, false>(a, mp, n, s));
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The most blocks an SM of aecf_stream_mix's persistent grid at (M, E, H)
+// for the kv dtype and branch (the limit of its blocks_per_sm); -1 for
+// arguments it refuses.
+int aecf_stream_mix_occupancy(int M, int E, int H, int kv_dtype,
+                              int training) {
+  if (M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 4 || E % 4 != 0)
+    return -1;
+  MixArgs a = {};
+  a.M = M;
+  a.E = E;
+  a.H = H;
+  return training ? occupancy<true>(a, kv_dtype)
+                  : occupancy<false>(a, kv_dtype);
 }
 
 const char* aecf_cuda_error_string(int err) {

@@ -212,10 +212,19 @@ inline Slices slices_of(int E, size_t per_row_f32) {
   return {C, es, (es + 15) & ~15};
 }
 
+// Blocks an SM of a persistent grid when the caller asks for `req` (the
+// streamed plan, kernels/tiles.py): 0 takes `limit`, the most that run at
+// once (blocks_per_sm); 1 .. limit is taken as asked; anything else is
+// refused (-1).
+inline int grid_per_sm(int req, int limit) {
+  if (req == 0) return limit;
+  return req >= 1 && req <= limit ? req : -1;
+}
+
 // Clusters of a persistent grid: `per_sm` blocks an SM, at most one row a
 // cluster.
 inline int clusters_of(int B, int C, int per_sm) {
-  return max(1, min(B, max(1, per_sm * kSms / C)));
+  return max(1, min(B, max(1, per_sm * sm_count() / C)));
 }
 
 // The rows [first, end) that cluster q of n walks: contiguous, in order.

@@ -70,6 +70,13 @@
 // E % 4 == 0 with aligned operands the chain is the one it was before
 // these widths: the same kernels, layouts and bits.
 //
+// Plans: StepParams.plans gives each product's column tile and K splits
+// (gemm_f32.cuh, GemmTile; kernels/tiles.py chooses them); {0, 0} is the
+// default, gemm_plan's.  G1's column tile sets the quadratic loss's row
+// partials, so the workspace follows the plans (aecf_train_step_workspace
+// takes them), and a plan the chain refuses fails the call before any
+// launch.
+//
 // Seeds: the mask's two seed words come by value (seed0, seed1), or, when
 // `seeds` is set, from device memory, read by R1: a CUDA graph of K steps
 // (the training chunk) keeps a (K, 2) buffer that the host refills before
@@ -109,6 +116,7 @@ struct StepParams {
   int B, M, E, C, kv_dtype, training, min_active;  // kv_dtype: KvDtype
   unsigned int seed0, seed1;
   float max_entropy, mask_prob, inv, two_inv;
+  gemm::GemmTile plans[4];  // out, d_mix, G, dW_head; {0, 0}: gemm_plan's
 };
 
 namespace {
@@ -130,31 +138,43 @@ struct Workspace {
 
 // Row stride of d_logits: a multiple of 4 floats, for G3's 16-byte loads.
 __host__ __device__ inline int logits_ld(int C) { return align4(C); }
-// Column tiles of G1 (the quadratic loss's partials a row).
-inline int out_tiles(int B, int E) {
-  return cdiv(E, gemm::gemm_plan(B, E, E, 1, false, false).bn);
+
+// The chain's products in launch order: G1 out (split only with the head:
+// the quadratic loss's epilogue keeps row partials), G2 d_mix, G and, with
+// the head, dW_head (kernels/_plan.py lists the same).
+constexpr int kProducts = 4;
+int products(int B, int E, int C, gemm::Product q[kProducts]) {
+  q[0] = {B, E, E, 1, false, C > 0};
+  q[1] = {B, E, E, 1, true, true};
+  q[2] = {E, E, B, 1, true, true};
+  q[3] = {E, C, B, 1, true, true};
+  return C > 0 ? 4 : 3;
+}
+
+// Column tiles of G1 under its plan (the quadratic loss's partials a row:
+// G1's plan sets the loss's summation order).
+inline int out_tiles(int B, int E, const gemm::GemmTile* t) {
+  gemm::Product q[kProducts];
+  products(B, E, 0, q);
+  gemm::GemmPlan p;
+  if (gemm::plan_of(q[0], t[0], &p) != cudaSuccess)
+    p = gemm::gemm_plan(B, E, E, 1, false, false);  // refused at launch
+  return cdiv(E, p.bn);
 }
 
 constexpr int kPieces = 11;
 
-// Floats of split partials the chain's GEMMs need, the largest of them:
-// they run one after another on one stream.
-size_t scratch_floats(int B, int E, int C) {
-  const size_t n[4] = {
-      // G1 (head), G2, G, dW_head (head)
-      C > 0 ? gemm::gemm_scratch_floats(B, E, E, 1, false, true) : 0,
-      gemm::gemm_scratch_floats(B, E, E, 1, true, true),
-      gemm::gemm_scratch_floats(E, E, B, 1, true, true),
-      C > 0 ? gemm::gemm_scratch_floats(E, C, B, 1, true, true) : 0,
-  };
-  size_t m = 0;
-  for (size_t x : n) m = x > m ? x : m;
-  return m;
+// Floats of split partials the chain's GEMMs need under their plans, the
+// largest of them: they run one after another on one stream.
+size_t scratch_floats(int B, int E, int C, const gemm::GemmTile* t) {
+  gemm::Product q[kProducts];
+  return gemm::scratch_floats(q, t, products(B, E, C, q));
 }
 
 // Floats of each workspace piece, in carve order; each rounded up to 64
 // floats, so every piece starts 256-byte aligned.
-void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
+void workspace_sizes(int B, int E, int C, const gemm::GemmTile* t,
+                     size_t n[kPieces]) {
   const size_t E4 = align4(E);
   const size_t be = (size_t)B * E4;
   n[0] = (size_t)B * kMaxM;  // a: B x M used (the size takes no M)
@@ -162,33 +182,33 @@ void workspace_sizes(int B, int E, int C, size_t n[kPieces]) {
   n[2] = C > 0 ? be : 0;
   n[3] = be;
   n[4] = be;
-  n[5] = C > 0 ? 0 : (size_t)B * out_tiles(B, E);
+  n[5] = C > 0 ? 0 : (size_t)B * out_tiles(B, E, t);
   n[6] = B;
   n[7] = C > 0 ? (size_t)B * logits_ld(C) : 0;
   n[8] = (size_t)warp_blocks(B) * part_cols(E, C, true);
-  n[9] = scratch_floats(B, E, C);
+  n[9] = scratch_floats(B, E, C, t);
   n[10] = E % 4 != 0 ? (size_t)E * E4 : 0;
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 
-size_t workspace_floats(int B, int E, int C) {
+size_t workspace_floats(int B, int E, int C, const gemm::GemmTile* t) {
   size_t n[kPieces];
-  workspace_sizes(B, E, C, n);
+  workspace_sizes(B, E, C, t, n);
   size_t total = 0;
   for (int i = 0; i < kPieces; ++i) total += n[i];
   return total;
 }
 
-Workspace carve(float* ws, int B, int E, int C) {
+Workspace carve(float* ws, int B, int E, int C, const gemm::GemmTile* t) {
   size_t n[kPieces];
-  workspace_sizes(B, E, C, n);
+  workspace_sizes(B, E, C, t, n);
   float* at[kPieces];
   for (int i = 0; i < kPieces; ++i) {
     at[i] = ws;
     ws += n[i];
   }
   return Workspace{at[0], at[1], at[2], at[3], at[4], at[5],
-                   at[6], at[7], at[8], at[9], at[10], out_tiles(B, E)};
+                   at[6], at[7], at[8], at[9], at[10], out_tiles(B, E, t)};
 }
 
 MaskParams mask_params(const StepParams& p) {
@@ -286,7 +306,7 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   const int E = p.E;
   const int E4 = align4(E);
   const int C = p.head_w != nullptr ? p.C : 0;
-  const Workspace ws = carve(p.ws, B, E, C);
+  const Workspace ws = carve(p.ws, B, E, C, p.plans);
   cudaError_t err;
 
   // the GEMM operand W_vo: rows of E4 floats
@@ -335,12 +355,12 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
     g1.C = ws.dout;
     err = gemm::gemm_f32<false, false>(
         g1, gemm::EpiQuadLoss{p.bctx, p.two_inv, ws.sq, ws.sq_ld},
-        nullptr, stream);
+        p.plans[0], nullptr, stream);
   } else {
     g1.C = ws.out;
     gemm::EpiAffine bias;
     bias.bias = p.bctx;
-    err = gemm::gemm_f32<false, false>(g1, bias, ws.scr, stream);
+    err = gemm::gemm_f32<false, false>(g1, bias, p.plans[0], ws.scr, stream);
   }
   if (err != cudaSuccess) return err;
 
@@ -356,7 +376,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   gemm::GemmArgs g2 = g1;
   g2.A = ws.dout;
   g2.C = ws.dmix;
-  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, ws.scr, stream);
+  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, p.plans[1], ws.scr,
+                                    stream);
   if (err != cudaSuccess) return err;
 
   // R2 with the loss partials
@@ -396,7 +417,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   g3.N = E;
   g3.K = B;
   g3.groups = 1;
-  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, ws.scr, stream);
+  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, p.plans[2], ws.scr,
+                                   stream);
   if (err != cudaSuccess) return err;
   if (C > 0) {
     // dW_head[i, c] = sum_b out[b, i] d_logits[b, c]
@@ -407,7 +429,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
     gh.C = p.dhead_w;
     gh.ldc = C;
     gh.N = C;
-    err = gemm::gemm_f32<true, true>(gh, gemm::EpiAffine{}, ws.scr, stream);
+    err = gemm::gemm_f32<true, true>(gh, gemm::EpiAffine{}, p.plans[3],
+                                     ws.scr, stream);
     if (err != cudaSuccess) return err;
   }
   return part_sum(ws.part, warp_blocks(B), part_cols(E, C, true), p.sums,
@@ -418,10 +441,25 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
 
 extern "C" {
 
-// Floats of workspace aecf_train_step needs for (B, E, C); C = 0 for the
-// quadratic loss.
-size_t aecf_train_step_workspace(int B, int E, int C) {
-  return workspace_floats(B, E, C);
+// Floats of workspace aecf_train_step needs for (B, E, C) under the
+// products' plans (StepParams.plans; null: the default plans); C = 0 for
+// the quadratic loss.
+size_t aecf_train_step_workspace(int B, int E, int C,
+                                 const gemm::GemmTile* plans) {
+  const gemm::GemmTile none[kProducts] = {};
+  return workspace_floats(B, E, C, plans != nullptr ? plans : none);
+}
+
+// The plans the chain's products run at (B, E, C) when asked for `plans`
+// (null: the default plans): bn, splits and k_per_split for each product
+// in launch order into `out` (3 x 4 ints).  Returns the number of
+// products, or minus the cudaError_t of a plan the chain refuses.
+int aecf_train_step_plans(int B, int E, int C, const gemm::GemmTile* plans,
+                          int* out) {
+  gemm::Product q[kProducts];
+  const int n = products(B, E, C, q);
+  const cudaError_t err = gemm::report_plans(q, plans, n, out);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 // Bytes of shared memory a block of the chain asks for at (E, C), C = 0
@@ -446,6 +484,11 @@ int aecf_train_step(const StepParams* p, void* stream) {
       !gemm::aligned16(p->wvo) || !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
+  // every plan is checked before anything launches
+  int plan[3 * kProducts];
+  if (aecf_train_step_plans(p->B, p->E, p->head_w != nullptr ? p->C : 0,
+                            p->plans, plan) < 0)
+    return (int)cudaErrorInvalidValue;
   // the four-feature accesses of kv, u and d_kv (16 bytes f32, 8 bf16, 4
   // int8)
   const uintptr_t size =
@@ -478,11 +521,24 @@ struct GemmCall {
   float* partials;  // aecf_gemm_f32_scratch floats
   int rows, N, K, groups, a_trans, w_kmajor;
   float scale;
+  gemm::GemmTile plan;  // {0, 0}: gemm_plan's
 };
 
 size_t aecf_gemm_f32_scratch(int rows, int N, int K, int groups,
-                             int w_kmajor) {
-  return gemm::gemm_scratch_floats(rows, N, K, groups, w_kmajor != 0, true);
+                             int w_kmajor, int bn, int splits) {
+  return gemm::scratch_floats(
+      gemm::Product{rows, N, K, groups, w_kmajor != 0, true},
+      gemm::GemmTile{bn, splits});
+}
+
+// The plan one product runs when asked for (bn, splits) ({0, 0}:
+// gemm_plan's): bn, splits and k_per_split into `out`.  Returns a
+// cudaError_t (a refused plan: cudaErrorInvalidValue).
+int aecf_gemm_f32_plan(int rows, int N, int K, int groups, int w_kmajor,
+                       int may_split, int bn, int splits, int* out) {
+  const gemm::Product q{rows, N, K, groups, w_kmajor != 0, may_split != 0};
+  const gemm::GemmTile t{bn, splits};
+  return (int)gemm::report_plans(&q, &t, 1, out);
 }
 
 // Returns a cudaError_t; 0 means every launch was accepted.  A, W and C
@@ -517,10 +573,11 @@ int aecf_gemm_f32(const GemmCall* c, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (c->a_trans)
-    err = gemm::gemm_f32<true, true>(a, e, c->partials, s);
+    err = gemm::gemm_f32<true, true>(a, e, c->plan, c->partials, s);
   else
-    err = c->w_kmajor ? gemm::gemm_f32<false, true>(a, e, c->partials, s)
-                      : gemm::gemm_f32<false, false>(a, e, c->partials, s);
+    err = c->w_kmajor
+              ? gemm::gemm_f32<false, true>(a, e, c->plan, c->partials, s)
+              : gemm::gemm_f32<false, false>(a, e, c->plan, c->partials, s);
   return (int)err;
 }
 

@@ -47,6 +47,7 @@ import torch
 
 from ..core.attention import AttentionPoolParams
 from ._build import load_library
+from ._plan import GemmTile, _pick_plan, dtype_name, fused_fwd_products
 from .draws import draw_seed_words
 from .shared_query import (
     _FWD_OUTS,
@@ -220,7 +221,7 @@ class _FusedParams(ctypes.Structure):
         )
     ] + [(name, ctypes.c_uint32) for name in ("seed0", "seed1")] + [
         (name, ctypes.c_float) for name in ("max_entropy", "mask_prob", "scale")
-    ]
+    ] + [("plans", GemmTile * 4)]
 
 
 @functools.cache
@@ -232,8 +233,12 @@ def _library() -> ctypes.CDLL:
     lib.aecf_fused_pool_fwd.restype = ctypes.c_int
     lib.aecf_fused_pool_fwd_smem.argtypes = [ctypes.c_int] * 3
     lib.aecf_fused_pool_fwd_smem.restype = ctypes.c_size_t
-    lib.aecf_fused_pool_fwd_workspace.argtypes = [ctypes.c_int] * 4
+    tiles = ctypes.POINTER(GemmTile)
+    lib.aecf_fused_pool_fwd_workspace.argtypes = [ctypes.c_int] * 4 + [tiles]
     lib.aecf_fused_pool_fwd_workspace.restype = ctypes.c_size_t
+    lib.aecf_fused_pool_fwd_plans.argtypes = [ctypes.c_int] * 4 + [
+        tiles, ctypes.POINTER(ctypes.c_int)]
+    lib.aecf_fused_pool_fwd_plans.restype = ctypes.c_int
     lib.aecf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aecf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -297,6 +302,14 @@ def _kernel_fwd(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads, *,
 )
 def _fused_pool_fwd_op(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
                        training, seed0, seed1, mask_prob, min_active):
+    B, M, E = kv.shape
+    H = num_heads
+    # resolved in the op's body: a frozen program follows the table of the
+    # process that runs it
+    plans = _pick_plan(
+        "fwd_generic", fused_fwd_products(B, E, H, 1 if q.stride(0) == 0
+                                          else B),
+        M=M, E=E, H=H, kv_dtype=dtype_name(kv.dtype), device=kv.device)
     if kv.device.type == "cpu":
         return fused_pool_fwd_plain(
             q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads=num_heads,
@@ -306,8 +319,6 @@ def _fused_pool_fwd_op(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
     _require_cuda(kv, dict(kv=kv, pad_bias=pad_bias, in_w=in_w, in_b=in_b,
                            out_w=out_w, out_b=out_b))
     _require_aligned(dict(kv=kv, in_w=in_w, in_b=in_b, out_w=out_w))
-    B, M, E = kv.shape
-    H = num_heads
     wq, wk, wv, bq, bk, bv = _split_params(in_w, in_b, out_w)
     bo = out_b if out_b is not None else out_w.new_zeros(E)
     dev = kv.device
@@ -318,7 +329,8 @@ def _fused_pool_fwd_op(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
     rate = torch.empty_like(ent)
     lib = _library()
     ws = torch.empty(
-        (lib.aecf_fused_pool_fwd_workspace(B, E, H, int(q.stride(0) == 0)),),
+        (lib.aecf_fused_pool_fwd_workspace(B, E, H, int(q.stride(0) == 0),
+                                           plans),),
         dtype=torch.float32, device=dev,
     )
     p = _FusedParams(
@@ -328,7 +340,7 @@ def _fused_pool_fwd_op(q, kv, pad_bias, in_w, in_b, out_w, out_b, num_heads,
         B, M, E, H, int(q.dtype == torch.bfloat16),
         int(kv.dtype == torch.bfloat16), int(training), min_active,
         seed0, seed1, math.log(M) if M > 1 else 0.0, mask_prob,
-        (E // H) ** -0.5,
+        (E // H) ** -0.5, plans,
     )
     with torch.cuda.device(dev):
         err = lib.aecf_fused_pool_fwd(

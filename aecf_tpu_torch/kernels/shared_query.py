@@ -85,6 +85,14 @@ import torch
 
 from ..core.attention import AttentionPoolParams
 from ._build import load_library
+from ._plan import (
+    GemmTile,
+    _pick_grid,
+    _pick_plan,
+    dtype_name,
+    sq_bwd_products,
+    sq_fwd_products,
+)
 from .draws import draw_seed_words, mask_and_renorm, mask_uniforms
 
 __all__ = [
@@ -489,6 +497,12 @@ def shared_query_fwd(
 )
 def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
                          training, seed0, seed1, mask_prob, min_active):
+    B, M, E = kv.shape
+    H = u.shape[0]
+    # resolved in the op's body: a frozen program follows the table of the
+    # process that runs it
+    plans = _pick_plan("fwd_resident", sq_fwd_products(B, E, H), M=M, E=E,
+                       H=H, kv_dtype=dtype_name(kv.dtype), device=kv.device)
     if kv.device.type == "cpu":
         return shared_query_fwd_plain(
             kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales=kv_scales,
@@ -498,15 +512,13 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias, wctx=wctx, bctx=bctx, wo=wo,
                            bo=bo))
-    B, M, E = kv.shape
-    H = u.shape[0]
     out = torch.empty((B, E), dtype=torch.float32, device=kv.device)
     w = torch.empty((B, M), dtype=torch.float32, device=kv.device)
     mw = torch.empty_like(w)
     ent = torch.empty((B,), dtype=torch.float32, device=kv.device)
     rate = torch.empty_like(ent)
     lib = _fwd_library()
-    ws = torch.empty((lib.aecf_shared_query_fwd_workspace(B, M, E, H),),
+    ws = torch.empty((lib.aecf_shared_query_fwd_workspace(B, M, E, H, plans),),
                      dtype=torch.float32, device=kv.device)
     wctx, wo = _aligned16(wctx), _aligned16(wo)
     with torch.cuda.device(kv.device):
@@ -516,7 +528,7 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
             _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), _ptr(ws), B, M, E, H,
             math.log(M) if M > 1 else 0.0,
-            int(training), seed0, seed1, mask_prob, min_active,
+            int(training), seed0, seed1, mask_prob, min_active, plans,
             torch.cuda.current_stream(kv.device).cuda_stream,
         )
     _raise_on_error(lib, err, "shared_query_fwd")
@@ -559,19 +571,27 @@ def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 # (kv, kv_dtype, scales, *pointers, B, M, E, H, max_entropy, training,
-# seed0, seed1, mask_prob, min_active, stream) of the two forward kernels'
-# C entries
-def _fwd_argtypes(pointers: int):
+# seed0, seed1, mask_prob, min_active, plan, stream) of the two forward
+# kernels' C entries; `plan` is of type `plan`
+def _fwd_argtypes(pointers: int, plan):
     p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    return [p, i, p] + [p] * pointers + [i, i, i, i, f, i, u32, u32, f, i, p]
+    return ([p, i, p] + [p] * pointers
+            + [i, i, i, i, f, i, u32, u32, f, i, plan, p])
+
+
+_TILES = ctypes.POINTER(GemmTile)
 
 
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
     lib = load_library("shared_query_fwd")
-    lib.aecf_shared_query_fwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.aecf_shared_query_fwd_workspace.argtypes = [ctypes.c_int] * 4 + [
+        _TILES]
     lib.aecf_shared_query_fwd_workspace.restype = ctypes.c_size_t
-    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(13)
+    lib.aecf_shared_query_fwd_plans.argtypes = [ctypes.c_int] * 3 + [
+        _TILES, ctypes.POINTER(ctypes.c_int)]
+    lib.aecf_shared_query_fwd_plans.restype = ctypes.c_int
+    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(13, _TILES)
     lib.aecf_shared_query_fwd.restype = ctypes.c_int
     lib.aecf_philox4x32_10.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_void_p,
@@ -638,6 +658,10 @@ def stream_mix(
 )
 def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
                    mask_prob, min_active):
+    B, M, E = kv.shape
+    H = u.shape[0]
+    per_sm = _pick_grid("fwd_streamed", M=M, E=E, H=H,
+                        kv_dtype=dtype_name(kv.dtype))
     if kv.device.type == "cpu":
         return stream_mix_plain(
             kv, u, c, pad_bias, kv_scales=kv_scales, training=training,
@@ -646,8 +670,6 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias))
     _require_aligned(dict(kv=kv, u=u))
-    B, M, E = kv.shape
-    H = u.shape[0]
     dev = kv.device
     mix = torch.empty((B, H * E), dtype=torch.float32, device=dev)
     w = torch.empty((B, M), dtype=torch.float32, device=dev)
@@ -660,7 +682,7 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
             _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales), _ptr(u), _ptr(c),
             _ptr(pad_bias), _ptr(mix), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
-            int(training), seed0, seed1, mask_prob, min_active,
+            int(training), seed0, seed1, mask_prob, min_active, per_sm,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(lib, err, "stream_mix")
@@ -679,8 +701,10 @@ stream_mix.launches = stream_mix.launches_q8 = 0
 @functools.cache
 def _mix_library() -> ctypes.CDLL:
     lib = load_library("stream_mix")
-    lib.aecf_stream_mix.argtypes = _fwd_argtypes(8)
+    lib.aecf_stream_mix.argtypes = _fwd_argtypes(8, ctypes.c_int)
     lib.aecf_stream_mix.restype = ctypes.c_int
+    lib.aecf_stream_mix_occupancy.argtypes = [ctypes.c_int] * 5
+    lib.aecf_stream_mix_occupancy.restype = ctypes.c_int
     return _bind_error_string(lib)
 
 
@@ -728,7 +752,8 @@ class _StreamBwdParams(ctypes.Structure):
         (name, ctypes.c_void_p)
         for name in ("kv", "scales", "dmix", "dw", "pad", "u", "c", "dkv",
                      "acc", "ws")
-    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")]
+    ] + [(name, ctypes.c_int)
+         for name in ("B", "M", "E", "kv_dtype", "blocks_per_sm")]
 
 
 def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
@@ -744,6 +769,10 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
         "d_mix": (d_mix, (B, H * E)), "d_w": (d_w, (B, M)),
         "pad_bias": (pad_bias, (B, M)), "u": (u, (H, E)), "c": (c, (H,)),
     }, optional=("d_w", "pad_bias"), why="the streamed backward")
+    # the f32 call's key whatever the dtype: the grid sets the order of the
+    # batch sums, which an int8 or bf16 call takes from the f32 call
+    per_sm = _pick_grid("bwd_streamed", M=M, E=E, H=H, kv_dtype="float32",
+                        want_dkv=want_dkv)
     if kv.device.type == "cpu":
         return None
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, d_mix=d_mix, d_w=d_w,
@@ -753,12 +782,12 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
     dev = kv.device
     d_kv = torch.empty_like(kv) if want_dkv else None
     acc = torch.empty((H * E + H,), dtype=torch.float32, device=dev)
-    ws = torch.empty((lib.aecf_stream_bwd_workspace(B, M, E, H),),
+    ws = torch.empty((lib.aecf_stream_bwd_workspace(B, M, E, H, per_sm),),
                      dtype=torch.float32, device=dev)
     params = _StreamBwdParams(
         _ptr(kv), _ptr(kv_scales), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias),
         _ptr(u), _ptr(c), _ptr(d_kv), _ptr(acc), _ptr(ws), B, M, E,
-        _KV_DTYPE[kv.dtype],
+        _KV_DTYPE[kv.dtype], per_sm,
     )
     with torch.cuda.device(dev):
         err = getattr(lib, f"aecf_{entry}")(
@@ -823,8 +852,10 @@ stream_bwd_mh.launches = stream_bwd_mh.launches_q8 = 0
 @functools.cache
 def _stream_bwd_library() -> ctypes.CDLL:
     lib = load_library("stream_bwd")
-    lib.aecf_stream_bwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.aecf_stream_bwd_workspace.argtypes = [ctypes.c_int] * 5
     lib.aecf_stream_bwd_workspace.restype = ctypes.c_size_t
+    lib.aecf_stream_bwd_occupancy.argtypes = [ctypes.c_int] * 3
+    lib.aecf_stream_bwd_occupancy.restype = ctypes.c_int
     for entry in (lib.aecf_stream_bwd, lib.aecf_stream_bwd_mh):
         entry.argtypes = [ctypes.POINTER(_StreamBwdParams), ctypes.c_void_p]
         entry.restype = ctypes.c_int
@@ -889,6 +920,9 @@ def shared_query_bwd(
         "wvo": (wvo, (E, E)),
     }, optional=("pad_bias", "d_w"), why="the backward")
     _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
+    plans = _pick_plan("bwd_resident", sq_bwd_products(B, E), M=M, E=E, H=1,
+                       kv_dtype=dtype_name(kv.dtype), want_dkv=want_dkv,
+                       device=kv.device)
     if kv.device.type == "cpu":
         return shared_query_bwd_plain(kv, u, c, pad_bias, d_out, d_w, wvo,
                                       want_dkv=want_dkv, kv_scales=kv_scales)
@@ -900,12 +934,12 @@ def shared_query_bwd(
     d_kv = torch.empty_like(kv) if want_dkv else None
     G = torch.empty((E, E), dtype=torch.float32, device=dev)
     sums = torch.empty((2 * E + 1,), dtype=torch.float32, device=dev)
-    ws = torch.empty((lib.aecf_shared_query_bwd_workspace(B, E),),
+    ws = torch.empty((lib.aecf_shared_query_bwd_workspace(B, E, plans),),
                      dtype=torch.float32, device=dev)
     params = _BwdParams(
         _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
         _ptr(d_out), _ptr(d_w), _ptr(wvo), _ptr(d_kv), _ptr(G), _ptr(sums),
-        _ptr(ws), B, M, E, _KV_DTYPE[kv.dtype],
+        _ptr(ws), B, M, E, _KV_DTYPE[kv.dtype], plans,
     )
     with torch.cuda.device(dev):
         err = lib.aecf_shared_query_bwd(
@@ -928,14 +962,19 @@ class _BwdParams(ctypes.Structure):
             "kv", "scales", "u", "c", "pad", "dout", "dw", "wvo", "dkv", "g",
             "sums", "ws",
         )
-    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")]
+    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")] + [
+        ("plans", GemmTile * 2)]
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library("shared_query_bwd")
-    lib.aecf_shared_query_bwd_workspace.argtypes = [ctypes.c_int] * 2
+    lib.aecf_shared_query_bwd_workspace.argtypes = [ctypes.c_int] * 2 + [
+        _TILES]
     lib.aecf_shared_query_bwd_workspace.restype = ctypes.c_size_t
+    lib.aecf_shared_query_bwd_plans.argtypes = [ctypes.c_int] * 2 + [
+        _TILES, ctypes.POINTER(ctypes.c_int)]
+    lib.aecf_shared_query_bwd_plans.restype = ctypes.c_int
     lib.aecf_shared_query_bwd.argtypes = [
         ctypes.POINTER(_BwdParams), ctypes.c_void_p,
     ]

@@ -59,6 +59,7 @@ import torch
 from ..core.attention import AttentionPoolParams
 from ._build import load_library
 from ._gemm import gemm_f32, gemm_f32_plain
+from ._plan import GemmTile, _pick_plan, dtype_name, step_products
 from .draws import draw_seed_words
 from .shared_query import (
     _KV_DTYPE,
@@ -129,10 +130,22 @@ def step_tile(
     kv_grad: bool = False,
 ) -> int:
     """The batch rows one block tile of the step's GEMMs covers: a
-    constant (128; the row kernels take a row a warp) — the per-device
-    tile table is ROADMAP.md, queue 1, item 8.  The kernels mask a ragged
-    last tile themselves, so any batch size runs."""
+    constant (128, compiled; the row kernels take a row a warp).  The
+    kernels mask a ragged last tile themselves, so any batch size runs.
+    What a card tunes is not this tile but the step's plan — each
+    product's column tile and K splits (:func:`step_plan`, recorded under
+    the ``step_resident`` site of :mod:`.tiles`)."""
     return _STEP_ROWS
+
+
+def step_plan(B: int, M: int, E: int, C: int, kv_dtype: torch.dtype,
+              want_dkv: bool, device, *, record: bool = True):
+    """The plan of the step's chain at one call (:func:`._plan._pick_plan`
+    at the ``step_resident`` site): four ``GemmTile`` slots, out, d_mix, G,
+    dW_head (``{0, 0}`` where the chain takes its default)."""
+    return _pick_plan("step_resident", step_products(B, E, C), M=M, E=E, H=1,
+                      kv_dtype=dtype_name(kv_dtype), want_dkv=want_dkv,
+                      device=device, slots=4, record=record)
 
 
 def _bce_rows(logits, labels, inv):
@@ -319,6 +332,7 @@ def train_step(
             raise ValueError("row_extras without a row_loss")
         return _row_loss_step(kv, u, c, pad_bias, wvo, bctx, row_loss=row_loss,
                               row_extras=tuple(row_extras), **kw)
+    plans = step_plan(B, M, E, C, kv.dtype, want_dkv, kv.device)
     if kv.device.type == "cpu":
         return train_step_plain(kv, u, c, pad_bias, wvo, bctx, inv=inv, **kw)
     _require_cuda(kv, operands)
@@ -336,7 +350,7 @@ def train_step(
     }
     dhead_w = torch.empty((E, C), **f32) if C else None
     sums = torch.empty((2 * E + 2 + C,), **f32)
-    ws = torch.empty((lib.aecf_train_step_workspace(B, E, C),), **f32)
+    ws = torch.empty((lib.aecf_train_step_workspace(B, E, C, plans),), **f32)
     params = _StepParams(
         _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
         _ptr(wvo), _ptr(bctx),
@@ -346,7 +360,7 @@ def train_step(
         _ptr(ws), _ptr(seed_words), B, M, E, C, _KV_DTYPE[kv.dtype],
         int(bool(training)), int(min_active), seed[0], seed[1],
         math.log(M) if M > 1 else 0.0, float(mask_prob), float(inv),
-        float(2.0 * inv),
+        float(2.0 * inv), plans,
     )
     with torch.cuda.device(dev):
         err = lib.aecf_train_step(
@@ -450,14 +464,19 @@ class _StepParams(ctypes.Structure):
             (name, ctypes.c_float)
             for name in ("max_entropy", "mask_prob", "inv", "two_inv")
         ]
+        + [("plans", GemmTile * 4)]
     )
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("train_step")
-    lib.aecf_train_step_workspace.argtypes = [ctypes.c_int] * 3
+    tiles = ctypes.POINTER(GemmTile)
+    lib.aecf_train_step_workspace.argtypes = [ctypes.c_int] * 3 + [tiles]
     lib.aecf_train_step_workspace.restype = ctypes.c_size_t
+    lib.aecf_train_step_plans.argtypes = [ctypes.c_int] * 3 + [
+        tiles, ctypes.POINTER(ctypes.c_int)]
+    lib.aecf_train_step_plans.restype = ctypes.c_int
     lib.aecf_train_step_smem.argtypes = [ctypes.c_int] * 2
     lib.aecf_train_step_smem.restype = ctypes.c_size_t
     lib.aecf_train_step.argtypes = [

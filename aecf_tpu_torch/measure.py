@@ -64,12 +64,18 @@ def build_chunk(batch, modalities, embed, heads, impl, steps_per_call,
     take no scales).  All three give the same trajectory to f32
     tolerance.
 
+    ``kv_grad=True`` (JAX's: the kernels also compute the features'
+    gradient, which the step discards) runs K eager steps of the wrappers
+    as int8 does: ``'kernel'`` through ``fused_fusion_pool_shared`` with
+    features that require grad, so its backward writes ``d_kv``;
+    ``'fused-step'`` through ``fused_pool_train_step(kv_grad=True)``.  The
+    trajectory is the ``kv_grad=False`` one; ``'torch'`` (JAX's ``'xla'``)
+    differentiates the parameters alone either way, and int8 features,
+    frozen, raise.
+
     ``training=False`` builds the draw-free step (identical gradients);
     ``device="cpu"`` runs the kernels' plain versions, as JAX's
     ``interpret=True`` runs the Pallas interpreter, for CPU checks.
-    ``kv_grad=True`` (JAX: the kernels also compute the features'
-    gradient) is not ported: ``make_pool_train_step`` keeps the features
-    frozen.
     """
     from .train.pool_step import init_pool_classifier_params
 
@@ -106,11 +112,9 @@ def _chunk(params: Dict[str, Any], modal: torch.Tensor, heads: int,
             f"impl='fused-step' covers H=1, resident E only "
             f"(got heads={heads}, embed={E})"
         )
-    if kv_grad:
-        raise NotImplementedError(
-            "kv_grad=True is not ported: make_pool_train_step keeps the "
-            "features frozen"
-        )
+    if kv_grad and features_dtype == "int8":
+        raise ValueError("int8 features are frozen: kv_grad=True needs "
+                         "float features")
     K = steps_per_call
     state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1e-3))
     step_kw = dict(num_heads=heads, precision=precision, base_mask_prob=0.15,
@@ -122,7 +126,10 @@ def _chunk(params: Dict[str, Any], modal: torch.Tensor, heads: int,
                 "int8 features bench requires impl='kernel' or 'fused-step'"
             )
         kv, scales = quantize_features(modal)
-        step = _int8_step(impl, kv, scales, step_kw)
+        step = _wrapper_step(impl, kv, scales, step_kw, kv_grad=False)
+    elif kv_grad and impl != "torch":
+        kv = modal.to(getattr(torch, features_dtype))
+        step = _wrapper_step(impl, kv, None, step_kw, kv_grad=True)
     else:
         kv = modal.to(getattr(torch, features_dtype))
         if impl == "fused-step":
@@ -155,9 +162,11 @@ def _chunk(params: Dict[str, Any], modal: torch.Tensor, heads: int,
     return chunk_fn, state
 
 
-def _int8_step(impl, kv, scales, step_kw):
-    """One eager SGD step on int8 features with their scales: the
-    one-pass step's wrapper, or the two-pass kernels under autograd."""
+def _wrapper_step(impl, kv, scales, step_kw, *, kv_grad):
+    """One eager SGD step through the wrappers — int8 features with their
+    scales, or ``kv_grad=True`` (the kernels also write the features'
+    gradient, discarded): the one-pass step's wrapper, or the two-pass
+    kernels under autograd."""
     from .core.masking import entropy_loss
     from .kernels import fused_fusion_pool_shared, fused_pool_train_step
     from .train import param_leaves
@@ -166,7 +175,9 @@ def _int8_step(impl, kv, scales, step_kw):
     M = kv.shape[1]
     kw = dict(training=step_kw["training"], precision=step_kw["precision"],
               base_mask_prob=step_kw["base_mask_prob"], kv_scales=scales,
-              kv_grad=False)
+              kv_grad=kv_grad)
+    # requires grad, so the two-pass backward writes d_kv
+    kv = kv.detach().requires_grad_(kv_grad and impl != "fused-step")
 
     def step(state, words):
         p = state.params

@@ -44,6 +44,7 @@ from ..kernels import (
     train_step as _step_kernel,
 )
 from ..kernels.draws import device_generator, draw_seed_words, fold_seed_words
+from ..kernels.train_step import step_plan
 from .trainer import TrainState, param_leaves
 
 __all__ = [
@@ -506,7 +507,7 @@ def make_pool_scan_train_step(
             key = (tuple(kv4.shape), kv4.dtype,
                    None if labels is None else labels.shape[-1])
             graph = graphs.get(key)
-            if graph is None or graph.signature != _signature(state):
+            if graph is None or graph.signature != _signature(state, kv4):
                 graph = graphs[key] = _ChunkGraph(
                     local_step, state, kv4, labels, axis)
             return graph.run(state, kv4, labels, rng)
@@ -549,12 +550,22 @@ def _opt_tensors(optimizer) -> List[torch.Tensor]:
             if torch.is_tensor(v)]
 
 
-def _signature(state: TrainState) -> tuple:
+def _signature(state: TrainState,
+               kv4: Optional[torch.Tensor] = None) -> tuple:
     """What a captured graph holds fixed: the tensors it reads and writes,
-    by address, and every param group's non-tensor hyperparameters (all
-    keys but ``params``), by value."""
+    by address, every param group's non-tensor hyperparameters (all keys
+    but ``params``), by value, and — given the chunk's ``(K, B, M, E)``
+    staging — the plan its step kernels resolve (:mod:`..kernels.tiles`:
+    an env or table change recaptures)."""
     opt = state.optimizer
-    return (id(opt),
+    plan = ()
+    if kv4 is not None:
+        head = state.params.get("head")
+        _, B, M, E = kv4.shape
+        plan = tuple((t.bn, t.splits) for t in step_plan(
+            B, M, E, 0 if head is None else head["w"].shape[1], kv4.dtype,
+            False, kv4.device, record=False))
+    return (id(opt), plan,
             tuple(p.data_ptr() for p in param_leaves(state.params)),
             tuple(t.data_ptr() for t in _opt_tensors(opt)),
             tuple(tuple((k, v) for k, v in sorted(g.items())
@@ -616,7 +627,7 @@ class _ChunkGraph:
         self.launched = (0, 0)
         self.graph = torch.cuda.CUDAGraph()
         self._capture(state, kv4, labels)
-        self.signature = _signature(state)
+        self.signature = _signature(state, kv4)
 
     def _step(self, state: TrainState, i: int) -> Dict[str, torch.Tensor]:
         scale = 1.0 if self.axis is None else 1.0 / self.axis.size

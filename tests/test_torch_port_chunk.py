@@ -17,6 +17,7 @@ kernels' plain versions (the CUDA graph is the card's route;
 """
 
 import functools
+import json
 from types import SimpleNamespace
 
 import jax
@@ -346,6 +347,35 @@ def test_signature_follows_hyperparameters(make_opt, key, value):
     assert _signature(state) == before
     state.optimizer.param_groups[0][key] = value
     assert _signature(state) != before
+
+
+@pytest.mark.parametrize("how", ["table", "env"])
+def test_signature_follows_the_plan(how, monkeypatch, tmp_path):
+    """A captured chunk graph bakes its step chain's plan in, so a plan
+    table or env change between chunk calls must change ``_signature``
+    (and recapture); a change at another site does not."""
+    from aecf_tpu_torch.kernels import tiles
+
+    monkeypatch.setenv(tiles.ENV_TABLE, str(tmp_path / "tiles.json"))
+    monkeypatch.delenv("AECF_TORCH_STEP_PLAN", raising=False)
+    tiles.set_table(None)
+    state = _state(_flat(jax_init(jax.random.key(0), E, C)))
+    kv4 = torch.zeros((K, B, M, E))
+    before = _signature(state, kv4)
+    assert _signature(state, kv4) == before
+    key = tiles.site_key("step_resident", M=M, E=E, H=1, kv_dtype="float32",
+                         want_dkv=False)
+    plan = {"d_mix": [128, 1]}  # the step's products can take it
+    tiles.set_table({key.replace("E=", "E=1"): plan})
+    assert _signature(state, kv4) == before
+    if how == "table":
+        tiles.set_table({key: plan})
+    else:
+        monkeypatch.setenv("AECF_TORCH_STEP_PLAN", json.dumps(plan))
+    try:
+        assert _signature(state, kv4) != before
+    finally:
+        tiles.set_table(None)
 
 
 def test_chunk_with_step_lr_follows_the_schedule():

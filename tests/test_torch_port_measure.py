@@ -38,9 +38,9 @@ def _flat(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(impl, features_dtype):
+def _jax_run(impl, features_dtype, kv_grad=False):
     c, p, s = jax_measure.build_chunk(
-        B, M, E, H, impl, K, features_dtype=features_dtype,
+        B, M, E, H, impl, K, features_dtype=features_dtype, kv_grad=kv_grad,
         precision="highest", training=False, interpret=True)
     flat0 = _flat(p)
     p, s, loss0 = c(p, s, jnp.int32(0))
@@ -72,6 +72,51 @@ def test_build_chunk_holds_jax_trajectory(impl, features_dtype):
         np.testing.assert_allclose(final[k], v, atol=2e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("impl", ["torch", "kernel", "fused-step"])
+def test_build_chunk_kv_grad_holds_jax_trajectory(impl):
+    """``kv_grad=True`` (the kernels also write the features' gradient,
+    discarded) against JAX's ``build_chunk(kv_grad=True)``, at the f32
+    tolerances above; the trajectory is the ``kv_grad=False`` one."""
+    flat0, losses_j, final_j = _jax_run(JAX_IMPL[impl], "float32", True)
+    modal = np.array(jax.random.normal(jax.random.key(2), (B, M, E)))
+    params = pool_classifier_params_from_numpy(flat0, device="cpu")
+    chunk, state = measure._chunk(
+        params, torch.from_numpy(modal), H, impl, K,
+        features_dtype="float32", kv_grad=True, precision="highest",
+        training=False)
+    state, loss0 = chunk(state, 0)
+    state, loss1 = chunk(state, K)
+    np.testing.assert_allclose([float(loss0), float(loss1)], losses_j,
+                               rtol=2e-5)
+    final = pool_classifier_params_to_numpy(state.params)
+    _, _, final_f = _jax_run(JAX_IMPL[impl], "float32")
+    for k, v in final_j.items():
+        np.testing.assert_allclose(final[k], v, atol=2e-5, err_msg=k)
+        np.testing.assert_allclose(final[k], final_f[k], atol=2e-5,
+                                   err_msg=k)
+
+
+def test_build_chunk_kv_grad_writes_d_kv(monkeypatch):
+    """The two-pass route under ``kv_grad=True`` asks its backward for
+    ``d_kv``; without it, not."""
+    from aecf_tpu_torch.kernels import shared_query
+
+    asked = []
+    real = shared_query.shared_query_bwd
+
+    def spy(*args, want_dkv, **kw):
+        asked.append(want_dkv)
+        return real(*args, want_dkv=want_dkv, **kw)
+
+    monkeypatch.setattr(shared_query, "shared_query_bwd", spy)
+    for kv_grad in (True, False):
+        chunk, state = measure.build_chunk(B, M, E, H, "kernel", 1,
+                                           kv_grad=kv_grad, training=False,
+                                           device="cpu")
+        chunk(state, 0)
+    assert asked == [True, False]
+
+
 def test_build_chunk_impls_agree():
     """The public ``build_chunk`` (its own seeded draws): the three impls
     give one trajectory on the CPU, and a chunk starts where ``start``
@@ -96,8 +141,8 @@ def test_build_chunk_impls_agree():
     ((B, M, E, 2, "fused-step", K), {}, ValueError, "H=1"),
     ((B, M, E, H, "torch", K), {"features_dtype": "int8"}, ValueError,
      "int8"),
-    ((B, M, E, H, "kernel", K), {"kv_grad": True}, NotImplementedError,
-     "kv_grad"),
+    ((B, M, E, H, "kernel", K), {"kv_grad": True, "features_dtype": "int8"},
+     ValueError, "kv_grad"),
 ], ids=["impl", "fused-heads", "int8-torch", "kv_grad"])
 def test_build_chunk_rejections(args, kw, err, match):
     with pytest.raises(err, match=match):

@@ -222,6 +222,7 @@ def test_importing_the_port_never_imports_jax():
         "import aecf_tpu_torch.data.loader, aecf_tpu_torch.data.pathology\n"
         "import aecf_tpu_torch.parallel, aecf_tpu_torch.parallel.dryrun\n"
         "import aecf_tpu_torch.parallel.checkpointing\n"
+        "import aecf_tpu_torch.tune, aecf_tpu_torch.kernels.tiles\n"
         "from aecf_tpu_torch import create_fusion_pool\n"
         "import torch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
