@@ -39,8 +39,15 @@ measurement layer:
                                    FusionPredictor)
     aecf_tpu_torch.convert       — JAX parameters, flattened to numpy,
                                    into the port's modules
+    aecf_tpu_torch.tune          — the launch-plan tuner (with
+                                   ``kernels/tiles.py``, the per-card
+                                   plan table)
 
-Not ported yet (ROADMAP.md): ``tune.py`` and ``kernels/tiles.py``.
+``precision`` follows the JAX package: ``'highest'`` is IEEE f32;
+``'default'`` runs the kernels' products on TF32 tensor cores on the card
+(IEEE f32 on the CPU, as JAX's CPU backend) and stores the streamed
+split's ``mix`` and ``d_mix`` in bf16.  Not ported (ROADMAP.md): the
+JAX package's ``contrib/``.
 
 Importing the package touches no CUDA and builds nothing; it registers
 the eval-forward kernels as the custom ops ``aecf_tpu_torch::

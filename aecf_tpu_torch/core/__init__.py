@@ -15,7 +15,7 @@ from .masking import (
     curriculum_mask,
     entropy_loss,
 )
-from .precision import PRECISIONS, matmul_precision
+from .precision import PRECISIONS, matmul_precision, round_tf32
 
 __all__ = [
     "AttentionPoolConfig",
@@ -32,4 +32,5 @@ __all__ = [
     "entropy_loss",
     "PRECISIONS",
     "matmul_precision",
+    "round_tf32",
 ]

@@ -1,6 +1,8 @@
-"""The f32 GEMM of ``csrc/gemm_f32.cuh`` on its own, for its checks and its
-cuBLAS yardstick (``chip_smoke.py``); the port's kernels call it from
-inside their C chains, never through this module.
+"""The GEMM block on its own — ``csrc/gemm_f32.cuh``'s SIMT f32 instance
+at ``precision='highest'``, ``csrc/gemm_tf32.cuh``'s TF32 tensor-core
+instance at ``'default'`` — for its checks and its cuBLAS yardstick
+(``chip_smoke.py``); the port's kernels call it from inside their C chains,
+never through this module (and the custom-``row_loss`` route's head).
 
 ``C[g] = scale · A[g] · W[g] + bias[g]`` with ``a`` ``(G, rows, K)`` or,
 ``a_trans=True``, ``(G, K, rows)``; ``w`` ``(G, K, N)`` (``w_kmajor=True``)
@@ -24,8 +26,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.precision import matmul_precision, round_tf32
 from ._build import load_library
-from .shared_query import _ptr, _raise_on_error
+from .shared_query import _precision_code, _ptr, _raise_on_error
 
 __all__ = ["gemm_f32", "gemm_f32_plain"]
 
@@ -38,11 +41,20 @@ def gemm_f32_plain(
     scale: float = 1.0,
     a_trans: bool = False,
     w_kmajor: bool = True,
+    tf32: bool = False,
 ) -> torch.Tensor:
-    """The GEMM's function in plain PyTorch: ``(G, rows, N)``."""
+    """The GEMM's function in plain PyTorch: ``(G, rows, N)``, an IEEE f32
+    product (whatever the process's matmul mode); with ``tf32`` (the TF32
+    instance's function, :func:`gemm_f32` at ``precision='default'``) of
+    the operands rounded to TF32 (:func:`round_tf32`), as the tensor cores
+    take them — the products of two TF32 values are exact in f32, so only
+    the order of the sums differs from the kernel's."""
     A = a.transpose(1, 2) if a_trans else a
     W = w if w_kmajor else w.transpose(1, 2)
-    out = torch.matmul(A, W) * scale
+    if tf32:
+        A, W = round_tf32(A), round_tf32(W)
+    with matmul_precision("highest"):
+        out = torch.matmul(A, W) * scale
     return out if bias is None else out + bias[:, None, :]
 
 
@@ -79,7 +91,7 @@ class _GemmCall(ctypes.Structure):
         (name, ctypes.c_int)
         for name in ("rows", "N", "K", "groups", "a_trans", "w_kmajor")
     ] + [("scale", ctypes.c_float), ("bn", ctypes.c_int),
-         ("splits", ctypes.c_int)]
+         ("splits", ctypes.c_int), ("precision", ctypes.c_int)]
 
 
 @functools.cache
@@ -106,11 +118,16 @@ def gemm_f32(
     a_trans: bool = False,
     w_kmajor: bool = True,
     plan: Optional[Tuple[int, int]] = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Launches the GEMM on CUDA tensors, or raises (a CPU tensor, a dtype
     other than f32, shapes that do not chain, strides it cannot read, a
     ``plan`` the kernel refuses); operands and result as in
-    :func:`gemm_f32_plain`.  ``gemm_f32.launches`` counts calls."""
+    :func:`gemm_f32_plain`.  ``precision`` picks the instance: the SIMT
+    f32 kernel at ``'highest'``, the TF32 tensor-core kernel at
+    ``'default'``, under the same plans.  ``gemm_f32.launches`` counts
+    calls."""
+    code = _precision_code(precision)
     G, rows, K, N = _dims(a, w, a_trans, w_kmajor)
     if a_trans and not w_kmajor:
         raise ValueError("a transposed a takes a k-major w (w_kmajor=True)")
@@ -145,7 +162,7 @@ def gemm_f32(
         gstride["w"],
         _ptr(bias), 0 if bias is None else bias.stride(0), _ptr(out), N,
         rows * N, _ptr(scratch), rows, N, K, G, int(a_trans), int(w_kmajor),
-        float(scale), bn, splits,
+        float(scale), bn, splits, code,
     )
     with torch.cuda.device(a.device):
         err = lib.aecf_gemm_f32(

@@ -4,9 +4,11 @@
 //
 //   C[g] (rows x N) = epi(A[g] (rows x K) . W[g] (K x N))
 //
-// Why SIMT f32: the port's main paths run at precision='highest', IEEE f32,
-// which TF32 / bf16 wgmma cannot give; a SIMT GEMM built for the card is the
-// lever (tensor cores at precision='default' are later work).  Design:
+// Why SIMT f32: precision='highest' is IEEE f32, which TF32 / bf16 tensor
+// cores cannot give; a SIMT GEMM built for the card is the lever.  At
+// precision='default' the chains run the block's tensor-core instance
+// instead (gemm_tf32.cuh: the same interface, plans and epilogues, TF32
+// mma.sync).  Design:
 //
 //   * 256-thread blocks, block tiles of 128 x 128 or 128 x 64 (gemm_plan
 //     picks per shape so that the grid fills the device's SMs, unless the
@@ -491,26 +493,28 @@ cudaError_t launch_tiles(const GemmArgs& a, const Epi& epi,
   return cudaGetLastError();
 }
 
-// The product of GemmArgs under the caller's plan `tile` (plan_of: a zero
-// tile is gemm_plan's; splits, k_per_split and partials filled here;
-// partials must hold scratch_floats(product, tile) floats).  Launches one
-// GEMM kernel, and the split sum when it splits.
-template <bool kATrans, bool kWKMajor, class Epi>
-cudaError_t gemm_f32(GemmArgs a, const Epi& epi, GemmTile tile,
-                     float* partials, cudaStream_t stream) {
-  GemmPlan plan;
+// The plan of one product under the caller's `tile` (plan_of: a zero tile
+// is gemm_plan's): fills a's splits, k_per_split and partials (which must
+// hold scratch_floats(product, tile) floats) and the plan.  Shared by the
+// two instances of the block (gemm_f32 here, gemm_tf32 in gemm_tf32.cuh).
+template <bool kWKMajor, class Epi>
+cudaError_t plan_product(GemmArgs& a, GemmTile tile, float* partials,
+                         GemmPlan* plan) {
   const Product q{a.rows, a.N, a.K, a.groups, kWKMajor, !Epi::kRowSquares};
-  cudaError_t err = plan_of(q, tile, &plan);
+  const cudaError_t err = plan_of(q, tile, plan);
   if (err != cudaSuccess) return err;
-  a.splits = plan.splits;
-  a.k_per_split = plan.k_per_split;
+  a.splits = plan->splits;
+  a.k_per_split = plan->k_per_split;
   a.partials = partials;
-  if (a.splits > 1 && partials == nullptr) return cudaErrorInvalidValue;
-  if constexpr (kWKMajor)
-    err = plan.bn == 128 ? launch_tiles<128, kATrans, true>(a, epi, stream)
-                         : launch_tiles<64, kATrans, true>(a, epi, stream);
-  else
-    err = launch_tiles<64, kATrans, false>(a, epi, stream);
+  return a.splits > 1 && partials == nullptr ? cudaErrorInvalidValue
+                                             : cudaSuccess;
+}
+
+// After the product's kernel (launched with `err`): the split sum, in
+// split order, when the plan splits.
+template <class Epi>
+cudaError_t reduce_splits(const GemmArgs& a, const Epi& epi, cudaError_t err,
+                          cudaStream_t stream) {
   if constexpr (!Epi::kRowSquares) {
     if (err != cudaSuccess || a.splits == 1) return err;
     const size_t n = (size_t)a.groups * a.rows * a.N;
@@ -519,6 +523,22 @@ cudaError_t gemm_f32(GemmArgs a, const Epi& epi, GemmTile tile,
     return cudaGetLastError();
   }
   return err;
+}
+
+// The product of GemmArgs under the caller's plan `tile` (plan_product).
+// Launches one GEMM kernel, and the split sum when it splits.
+template <bool kATrans, bool kWKMajor, class Epi>
+cudaError_t gemm_f32(GemmArgs a, const Epi& epi, GemmTile tile,
+                     float* partials, cudaStream_t stream) {
+  GemmPlan plan;
+  cudaError_t err = plan_product<kWKMajor, Epi>(a, tile, partials, &plan);
+  if (err != cudaSuccess) return err;
+  if constexpr (kWKMajor)
+    err = plan.bn == 128 ? launch_tiles<128, kATrans, true>(a, epi, stream)
+                         : launch_tiles<64, kATrans, true>(a, epi, stream);
+  else
+    err = launch_tiles<64, kATrans, false>(a, epi, stream);
+  return reduce_splits(a, epi, err, stream);
 }
 
 __host__ inline bool aligned16(const void* p) {

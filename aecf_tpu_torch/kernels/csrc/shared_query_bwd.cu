@@ -19,8 +19,10 @@
 // to XLA.
 //
 // What bounds it on the H100: the two E x E products over the batch
-// (d_mix and G, 4 B E^2 operations) on the SIMT f32 pipes; the kv stream
-// (B M E) is read twice, by R1 and by R2.  It is the one-pass step's chain
+// (d_mix and G, 4 B E^2 operations) on the SIMT f32 pipes at precision
+// 'highest', on the TF32 tensor cores at 'default' (BwdParams.precision,
+// gemm::Precision: the JAX kernel's dots at mxu_precision; R1 and R2 stay
+// f32 at both); the kv stream (B M E) is read twice, by R1 and by R2.  It is the one-pass step's chain
 // (train_step.cu) without the loss, with the same row kernels
 // (pool_rows.cuh) and products (gemm_f32.cuh):
 //
@@ -47,6 +49,7 @@
 // them), and the workspace follows them.
 
 #include "gemm_f32.cuh"
+#include "gemm_tf32.cuh"
 #include "pool_rows.cuh"
 
 using namespace aecf;
@@ -66,6 +69,7 @@ struct BwdParams {
   float* sums;        // (2E + 1): du | sum d_out | sum d_s
   float* ws;          // aecf_shared_query_bwd_workspace floats
   int B, M, E, kv_dtype;  // KvDtype: 0 f32, 1 bf16, 2 int8
+  int precision;          // gemm::Precision
   gemm::GemmTile plans[2];  // G2 d_mix, G3 G; {0, 0}: gemm_plan's
 };
 
@@ -169,8 +173,8 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
   g2.N = E;
   g2.K = E;
   g2.groups = 1;
-  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, p.plans[0], ws.scr,
-                                    stream);
+  err = gemm::gemm<false, true>(p.precision, g2, gemm::EpiAffine{},
+                                p.plans[0], ws.scr, stream);
   if (err != cudaSuccess) return err;
 
   // R2 with the weights' cotangent
@@ -204,8 +208,8 @@ cudaError_t launch(const BwdParams& p, int vec, cudaStream_t stream) {
   g3.N = E;
   g3.K = B;
   g3.groups = 1;
-  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, p.plans[1], ws.scr,
-                                   stream);
+  err = gemm::gemm<true, true>(p.precision, g3, gemm::EpiAffine{},
+                               p.plans[1], ws.scr, stream);
   if (err != cudaSuccess) return err;
   return part_sum(ws.part, warp_blocks(B), part_cols(E, 0, false), p.sums,
                   stream);
@@ -246,6 +250,7 @@ int aecf_shared_query_bwd_plans(int B, int E, const gemm::GemmTile* plans,
 int aecf_shared_query_bwd(const BwdParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 ||
       (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
+      (p->precision != gemm::kHighest && p->precision != gemm::kTf32) ||
       !gemm::aligned16(p->dout) || !gemm::aligned16(p->wvo) ||
       !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;

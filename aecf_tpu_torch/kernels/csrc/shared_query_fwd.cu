@@ -19,8 +19,9 @@
 //   H  > 1: ctx = concat_h(mix_h Wv_h^T) + bv;  out = ctx Wo^T + bo
 //
 // What bounds it on the H100: the context products, 2 B E^2 operations at
-// H == 1 and 4 B E^2 at H > 1 on the SIMT f32 pipes (IEEE f32, which the
-// tensor cores cannot give), and at small B the kv stream and the weights'
+// H == 1 and 4 B E^2 at H > 1, on the SIMT f32 pipes at precision
+// 'highest' (IEEE f32, which the tensor cores cannot give) or the TF32
+// tensor cores at 'default', and at small B the kv stream and the weights'
 // bytes.  A kernel that runs those products 16 batch rows a block loads
 // each weight for 16 FMAs and, split over column tiles, reads the row chain
 // again for every tile.  The chain runs the row-local phases once, a warp a
@@ -50,11 +51,18 @@
 // order (G1 at H == 1; G2, G3 above; gemm_f32.cuh GemmTile, {0, 0} the
 // default; kernels/tiles.py chooses them), and the workspace follows them.
 //
-// Numerics: full f32 FMAs for every precision mode.  Entropy uses logf on
+// Precision (gemm::Precision): kHighest runs the products in IEEE f32
+// FMAs (gemm_f32.cuh); kTf32, precision='default', on the TF32 tensor
+// cores (gemm_tf32.cuh), as the JAX kernel's dots at mxu_precision = None.
+// R is f32 at both, as JAX's VPU code is, and the int8 forward still equals
+// the f32 forward on q.float() * s bit for bit at both.
+//
+// Numerics: f32 outside the TF32 products.  Entropy uses logf on
 // max(w, 1e-38) — a subnormal floor — so this file must be built without
 // --use_fast_math and without -ftz=true.
 
 #include "gemm_f32.cuh"
+#include "gemm_tf32.cuh"
 #include "pool_rows.cuh"
 
 using namespace aecf;
@@ -78,6 +86,7 @@ struct FwdCall {
   float* rate;
   float* ws;
   int B, M, E, H;
+  int precision;                // gemm::Precision
   const gemm::GemmTile* plans;  // one a product, in launch order
 };
 
@@ -208,8 +217,8 @@ cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
     go.A = ws.mix;
     go.W = wctx;
     eo.bias = p.bctx;
-    return gemm::gemm_f32<false, false>(go, eo, p.plans[0], ws.scratch,
-                                        stream);
+    return gemm::gemm<false, false>(p.precision, go, eo, p.plans[0],
+                                    ws.scratch, stream);
   }
 
   // G2: CTX[b, h Dh + n] = sum_k MIX[b, h, k] Wv[h Dh + n, k] + bv[h Dh + n]
@@ -231,15 +240,16 @@ cudaError_t launch(const FwdCall& p, int vec, const MaskParams& mp,
   gemm::EpiAffine ec;
   ec.bias = p.bctx;
   ec.bias_gstride = Dh;
-  if ((err = gemm::gemm_f32<false, false>(gc, ec, p.plans[0], ws.scratch,
-                                          stream)) != cudaSuccess)
+  if ((err = gemm::gemm<false, false>(p.precision, gc, ec, p.plans[0],
+                                      ws.scratch, stream)) != cudaSuccess)
     return err;
 
   // G3: out = CTX Wo^T + bo
   go.A = ws.ctx;
   go.W = wo;
   eo.bias = p.bo;
-  return gemm::gemm_f32<false, false>(go, eo, p.plans[1], ws.scratch, stream);
+  return gemm::gemm<false, false>(p.precision, go, eo, p.plans[1], ws.scratch,
+                                  stream);
 }
 
 }  // namespace
@@ -278,7 +288,7 @@ int aecf_shared_query_fwd_plans(int B, int E, int H,
 // aligned; ws holds aecf_shared_query_fwd_workspace(B, M, E, H, plans)
 // floats; plans (one a product, or null: the default plans) are checked
 // before anything launches.  training = 0 is the eval branch (seed words,
-// mask_prob and min_active unread).
+// mask_prob and min_active unread); precision is a gemm::Precision.
 int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           const float* u, const float* c, const float* pad,
                           const float* wctx, const float* wo,
@@ -287,11 +297,13 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           float* ws, int B, int M, int E, int H,
                           float max_entropy, int training, unsigned int seed0,
                           unsigned int seed1, float mask_prob, int min_active,
-                          const gemm::GemmTile* plans, void* stream) {
+                          int precision, const gemm::GemmTile* plans,
+                          void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || E < 1 || E % H != 0 ||
       (kv_dtype == kKvInt8 && scales == nullptr) ||
       (H > 1 && (wo == nullptr || bo == nullptr)) || !gemm::aligned16(wctx) ||
-      (H > 1 && !gemm::aligned16(wo)) || !gemm::aligned16(ws)) {
+      (H > 1 && !gemm::aligned16(wo)) || !gemm::aligned16(ws) ||
+      (precision != gemm::kHighest && precision != gemm::kTf32)) {
     return (int)cudaErrorInvalidValue;
   }
   const gemm::GemmTile none[kProducts] = {};
@@ -306,8 +318,8 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
-  const FwdCall p{kv, scales, u,   c,    pad, wctx, wo, bctx, bo, out,
-                  w,  mw,     ent, rate, ws,  B,    M,  E,    H,  plans};
+  const FwdCall p{kv, scales, u,  c,  pad, wctx, wo, bctx,      bo,   out,
+                  w,  mw,     ent, rate, ws, B, M, E, H, precision, plans};
   const int vec = kv_vec(kv, kv_dtype, u, E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // eval and training are separate instances (see row_side_outputs)

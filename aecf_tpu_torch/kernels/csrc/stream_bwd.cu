@@ -16,8 +16,15 @@
 //   d_kv[m]  = sum_h (a_h[m] d_mix_h + d_s_h[m] u_h)   (optional, kv dtype)
 // and the batch sums du_h = sum_b sum_m d_s_h kv and dc_h = sum_b sum_m d_s_h.
 //
+// d_mix comes in f32 at precision 'highest' and in bf16 at 'default'
+// (dmix_dtype; JAX's _stream_mix_dtype: the streamed split's round trips
+// are bf16 there): the bf16 row is staged as it is and read through the
+// staged-row reader kv's bf16 rows use (StagedRow<__nv_bfloat16>), so
+// only its bytes and its upcast change; the cut, the grid and every sum's
+// order are the f32 call's.
+//
 // What bounds it on the H100: bytes.  It must read kv (B M E) and d_mix
-// (B H E f32), and write d_kv when asked; the arithmetic, about (8 + 6H)
+// (B H E, f32 or bf16), and write d_kv when asked; the arithmetic, about (8 + 6H)
 // B M E flops, is far below the SIMT rate.  So each kv row and each d_mix
 // row crosses from device memory once, into shared memory
 // (stream_stage.cuh: TMA bulk copies where the pieces are 16-byte
@@ -58,7 +65,7 @@ using namespace aecf;
 struct StreamBwdParams {
   const void* kv;     // (B, M, E) f32, bf16 or int8 (kv_dtype)
   const float* scales;  // (B, M) dequant scales, int8 only
-  const float* dmix;  // (B, H E)
+  const void* dmix;   // (B, H E) f32 or bf16 (dmix_dtype)
   const float* dw;    // (B, M) or null: the weights cotangent (head mean)
   const float* pad;   // (B, M) or null
   const float* u;     // (H, E)
@@ -67,6 +74,7 @@ struct StreamBwdParams {
   float* acc;         // (H E + H): du_0 .. du_{H-1} | dc
   float* ws;          // aecf_stream_bwd_workspace floats
   int B, M, E, kv_dtype;  // KvDtype: 0 f32, 1 bf16, 2 int8
+  int dmix_dtype;         // KvDtype: 0 f32, 1 bf16
   int blocks_per_sm;      // the grid's, 1 .. occupancy; 0: the occupancy
 };
 
@@ -80,11 +88,12 @@ struct BwdPlan {
 };
 
 // Shared memory of a block: du and u's slice (H ld f32 each), then kStages
-// stages of kv (M ld elements) and d_mix (H ld f32).
-size_t bwd_smem(const Slices& sl, int M, int H, size_t kv_size) {
+// stages of kv (M ld elements) and d_mix (H ld elements).
+size_t bwd_smem(const Slices& sl, int M, int H, size_t kv_size,
+                size_t dm_size) {
   return 128 + 2 * (size_t)H * sl.ld * 4 +
          kStages * (align16((size_t)M * sl.ld * kv_size) +
-                    (size_t)H * sl.ld * 4);
+                    (size_t)H * sl.ld * dm_size);
 }
 Slices bwd_slices(int M, int E, int H) {
   return slices_of(E, (size_t)(M + H) * E * 4);  // a stage: kv and d_mix
@@ -100,7 +109,7 @@ Slices bwd_slices(int M, int E, int H) {
 // du slice (shared memory, each thread its own chunks, rows in order) and
 // writes d_kv.  After its last row the cluster writes one partial row,
 // du | dc.
-template <typename T, int kH>
+template <typename T, typename D, int kH>
 __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
     StreamBwdParams p, BwdPlan pl) {
   constexpr int kN = 2 * kH * kMaxM;  // s_h[m] | d_a_h[m]
@@ -122,15 +131,16 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
   row_range(p.B, q, gridDim.x / C, first, end);
   const int n = end - first;
   const T* kv = static_cast<const T*>(p.kv);
+  const D* dmix = static_cast<const D*>(p.dmix);
   T* dkv = static_cast<T*>(p.dkv);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* du = reinterpret_cast<float*>(smem + 128);  // kH x ld
   float* us = du + kH * ld;                           // u's slice, kH x ld
   unsigned char* buf = smem + 128 + (size_t)2 * kH * ld * 4;
   const size_t kv_bytes = align16((size_t)M * ld * sizeof(T));
-  const size_t stage = kv_bytes + (size_t)kH * ld * 4;
+  const size_t stage = kv_bytes + (size_t)kH * ld * sizeof(D);
   const uint32_t kv_piece = (uint32_t)(ne * sizeof(T));
-  const uint32_t dm_piece = (uint32_t)(ne * 4);
+  const uint32_t dm_piece = (uint32_t)(ne * sizeof(D));
   if (threadIdx.x == 0)
     for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
   fence_barrier_init();
@@ -158,8 +168,8 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
                     kv + (row * M + m) * E + e0, kv_piece, pl.kv_g, bar + s,
                     threadIdx.x, kThreads);
       for (int h = 0; h < kH; ++h)
-        stage_piece(st + kv_bytes + (size_t)h * ld * 4,
-                    p.dmix + (row * kH + h) * E + e0, dm_piece, pl.dm_g,
+        stage_piece(st + kv_bytes + (size_t)h * ld * sizeof(D),
+                    dmix + (row * kH + h) * E + e0, dm_piece, pl.dm_g,
                     bar + s, threadIdx.x, kThreads);
     }
     cp_async_commit();
@@ -182,8 +192,9 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
     __syncthreads();
     const StagedRow<T> kvr(reinterpret_cast<const T*>(buf + s * stage),
                            p.scales, row, M, ld);
-    const float* dms =
-        reinterpret_cast<const float*>(buf + s * stage + kv_bytes);
+    const StagedRow<D> dmr(reinterpret_cast<const D*>(buf + s * stage +
+                                                      kv_bytes),
+                           nullptr, row, kH, ld);
 
     // ---- phase A: scores and d_a, summed over the cluster ----------------
     float sc[kMaxH][kMaxM];
@@ -198,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
 #pragma unroll
       for (int h = 0; h < kH; ++h) {
         uh[h] = load4(us + h * ld + j);
-        dm[h] = load4(dms + h * ld + j);
+        dm[h] = dmr.at4(h, j);
       }
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
@@ -252,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
 #pragma unroll
         for (int h = 0; h < kH; ++h) {
           uh[h] = load4(us + h * ld + j);
-          dm[h] = load4(dms + h * ld + j);
+          dm[h] = dmr.at4(h, j);
         }
       }
 #pragma unroll
@@ -302,9 +313,11 @@ __global__ void __launch_bounds__(kThreads) stream_bwd_kernel(
 // The most blocks an SM of the f32 kernel at (M, E, H) that run at once.
 int bwd_occupancy(int M, int E, int H) {
   const Slices sl = bwd_slices(M, E, H);
-  const size_t smem = bwd_smem(sl, M, H, 4);
-  return H == 1 ? blocks_per_sm(stream_bwd_kernel<float, 1>, kThreads, smem)
-                : blocks_per_sm(stream_bwd_kernel<float, 2>, kThreads, smem);
+  const size_t smem = bwd_smem(sl, M, H, 4, 4);
+  return H == 1
+             ? blocks_per_sm(stream_bwd_kernel<float, float, 1>, kThreads, smem)
+             : blocks_per_sm(stream_bwd_kernel<float, float, 2>, kThreads,
+                             smem);
 }
 
 // Clusters of the persistent grid: `req` blocks an SM (0: as many as the
@@ -324,36 +337,44 @@ size_t workspace_floats(int B, int M, int E, int H, int req) {
   return clusters < 1 ? 0 : (size_t)clusters * (H * E + H);
 }
 
-template <typename T, int kH>
+template <typename T, typename D, int kH>
 cudaError_t launch(const StreamBwdParams& p, cudaStream_t stream) {
   BwdPlan pl;
   pl.sl = bwd_slices(p.M, p.E, kH);
   pl.kv_g = route_of(p.kv, (size_t)pl.sl.es * sizeof(T) |
                                (size_t)p.E * sizeof(T));
-  pl.dm_g = route_of(p.dmix, (size_t)pl.sl.es * 4 | (size_t)p.E * 4);
-  const size_t smem = bwd_smem(pl.sl, p.M, kH, sizeof(T));
+  pl.dm_g = route_of(p.dmix, (size_t)pl.sl.es * sizeof(D) |
+                                 (size_t)p.E * sizeof(D));
+  const size_t smem = bwd_smem(pl.sl, p.M, kH, sizeof(T), sizeof(D));
   const int clusters = bwd_clusters(p.B, p.M, p.E, kH, p.blocks_per_sm);
   if (clusters < 1) return cudaErrorInvalidValue;
-  cudaError_t err = launch_clusters(stream_bwd_kernel<T, kH>,
+  cudaError_t err = launch_clusters(stream_bwd_kernel<T, D, kH>,
                                     clusters * pl.sl.C, kThreads, smem,
                                     pl.sl.C, stream, p, pl);
   if (err != cudaSuccess) return err;
   return part_sum(p.ws, clusters, kH * p.E + kH, p.acc, stream);
 }
 
+template <typename D, int kH>
+int run_dmix(const StreamBwdParams* p, cudaStream_t s) {
+  switch (p->kv_dtype) {
+    case kKvF32: return (int)launch<float, D, kH>(*p, s);
+    case kKvBf16: return (int)launch<__nv_bfloat16, D, kH>(*p, s);
+    case kKvInt8: return (int)launch<int8_t, D, kH>(*p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int kH>
 int run(const StreamBwdParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 4 || p->E % 4 != 0 ||
-      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr))) {
+      (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
+      (p->dmix_dtype != kKvF32 && p->dmix_dtype != kKvBf16)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p->kv_dtype) {
-    case kKvF32: return (int)launch<float, kH>(*p, s);
-    case kKvBf16: return (int)launch<__nv_bfloat16, kH>(*p, s);
-    case kKvInt8: return (int)launch<int8_t, kH>(*p, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return p->dmix_dtype == kKvBf16 ? run_dmix<__nv_bfloat16, kH>(p, s)
+                                  : run_dmix<float, kH>(p, s);
 }
 
 }  // namespace
@@ -377,7 +398,8 @@ int aecf_stream_bwd_occupancy(int M, int E, int H) {
 // The H == 1 backward (_bwd_kernel_streamed).  Returns a cudaError_t; 0
 // means every launch was accepted.  Pointers are contiguous device
 // buffers as listed in StreamBwdParams; kv, dmix, u, dkv and ws aligned
-// to four elements; int8 needs scales and takes no dkv.
+// to four elements; int8 needs scales and takes no dkv; dmix is f32 or
+// bf16 (dmix_dtype).
 int aecf_stream_bwd(const StreamBwdParams* p, void* stream) {
   return run<1>(p, stream);
 }

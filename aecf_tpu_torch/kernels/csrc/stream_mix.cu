@@ -11,7 +11,12 @@
 //   s_h[m] = kv[b, m] . u_h + c_h + pad[b, m]      (pad: 0 or -1e30)
 //   a_h    = softmax_m(s_h);  w = mean_h(a_h);  ent, and in training the
 //            Philox mask chain -> mw, rate           (pool_common.cuh)
-//   mix[b, h E : (h + 1) E] = sum_m a_h[m] kv[b, m]  (f32, unmasked: Q1)
+//   mix[b, h E : (h + 1) E] = sum_m a_h[m] kv[b, m]  (unmasked: Q1)
+//
+// mix is stored in f32 at precision 'highest' and in bf16 at 'default'
+// (mix_dtype; JAX's _stream_mix_dtype: the streamed split's mix and d_mix
+// round trips are bf16 there), rounded to nearest even from the f32 sum:
+// an output-type instance of the store, nothing else changes.
 //
 // The context GEMMs (out = mix W_vo^T + b_ctx for H == 1; the per-head V
 // projection, then the output projection, for H == 2) run in cuBLAS
@@ -19,7 +24,7 @@
 // holds no E x E matrix, so E is bounded by nothing but the caller's cap.
 //
 // What bounds it on the H100: bytes.  It must read kv (B M E) and write
-// mix (B H E f32); its arithmetic, about (6 + 2H) B M E flops, is far
+// mix (B H E, f32 or bf16); its arithmetic, about (6 + 2H) B M E flops, is far
 // below the SIMT rate.  So each kv row crosses from device memory once,
 // into shared memory (stream_stage.cuh: TMA bulk copies where the row is a
 // 16-byte multiple, cp.async otherwise), and the score pass and the mix
@@ -71,7 +76,7 @@ struct MixArgs {
   const float* u;       // (H, E)
   const float* c;       // (H,)
   const float* pad;     // (B, M) or null
-  float* mix;           // (B, H E)
+  void* mix;            // (B, H E) f32 or bf16 (the store's type O)
   float *w, *mw, *ent, *rate;
   int B, M, E, H;
   int g;                // the route of kv's pieces (route_of)
@@ -85,7 +90,7 @@ struct MixArgs {
 // reads the staged row in the resident kernel's order (lane l: e = l, l +
 // 32, ...), so weights, entropy and mask equal R1's bit for bit; the mix
 // then reads it four features a lane.
-template <typename T, bool kTraining>
+template <typename T, typename O, bool kTraining>
 __global__ void __launch_bounds__(kThreads) stream_mix_rows(MixArgs p,
                                                             MaskParams mp) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -145,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) stream_mix_rows(MixArgs p,
     row_softmax(kvr, us, cr, p.pad != nullptr ? padv : nullptr, M, E, H, a,
                 w);
     row_side_outputs<kTraining>(w, row, M, mp, p.w, p.mw, p.ent, p.rate);
-    float* mixr = p.mix + (size_t)row * H * E;
+    O* mixr = static_cast<O*>(p.mix) + (size_t)row * H * E;
     for (int j = 4 * lane; j < E; j += 4 * 32) {
       float4 acc[kMaxH];
 #pragma unroll
@@ -175,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) stream_mix_rows(MixArgs p,
 // (reduce_rows); every warp then runs the softmax lane-parallel on those
 // sums (lane_softmax), each rank mixes its slice, and one warp of rank 0
 // writes the side outputs.
-template <typename T, bool kTraining>
+template <typename T, typename O, bool kTraining>
 __global__ void __launch_bounds__(kThreads) stream_mix_slices(MixArgs p,
                                                               MaskParams mp) {
   constexpr int kN = kMaxH * kMaxM;
@@ -278,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) stream_mix_slices(MixArgs p,
       for (int h = 0; h < kMaxH; ++h)
         sc[h][m] = __shfl_sync(0xffffffffu, al, h * kMaxM + m);  // a_h[m]
     }
-    float* mixr = p.mix + (size_t)row * H * E + e0;
+    O* mixr = static_cast<O*>(p.mix) + (size_t)row * H * E + e0;
     for (int j = 4 * threadIdx.x; j < ne; j += 4 * kThreads) {
       float4 acc[kMaxH];
 #pragma unroll
@@ -306,8 +311,9 @@ __global__ void __launch_bounds__(kThreads) stream_mix_slices(MixArgs p,
 }
 
 // A call's launch: its path, threads, shared memory and the blocks an SM
-// that run at once (the limit of the plan's blocks_per_sm); fills the
-// path's fields of `a`.
+// that run at once (the limit of the plan's blocks_per_sm, the f32 store's
+// for both stores: rows are independent, so the grid changes no bit);
+// fills the path's fields of `a`.
 struct MixLaunch {
   bool rows;
   int threads;
@@ -325,7 +331,8 @@ MixLaunch mix_launch(MixArgs& a) {
                                             (kStages * a.slot))));
     const size_t smem = head + (size_t)nw * kStages * a.slot;
     return {true, 32 * nw, smem,
-            blocks_per_sm(stream_mix_rows<T, kTraining>, 32 * nw, smem)};
+            blocks_per_sm(stream_mix_rows<T, float, kTraining>, 32 * nw,
+                          smem)};
   }
   a.sl = slices_of(a.E, (size_t)a.M * a.E * 4);
   a.g = route_of(a.kv,
@@ -333,10 +340,11 @@ MixLaunch mix_launch(MixArgs& a) {
   const size_t smem = 128 + align16(a.H * a.sl.ld * 4) +
                       (size_t)kStages * a.M * a.sl.ld * sizeof(T);
   return {false, kThreads, smem,
-          blocks_per_sm(stream_mix_slices<T, kTraining>, kThreads, smem)};
+          blocks_per_sm(stream_mix_slices<T, float, kTraining>, kThreads,
+                        smem)};
 }
 
-template <typename T, bool kTraining>
+template <typename T, typename O, bool kTraining>
 cudaError_t launch(MixArgs a, const MaskParams& mp, int req,
                    cudaStream_t stream) {
   const MixLaunch l = mix_launch<T, kTraining>(a);
@@ -345,12 +353,32 @@ cudaError_t launch(MixArgs a, const MaskParams& mp, int req,
   if (l.rows) {
     const int nw = l.threads / 32;
     const int blocks = max(1, min((a.B + nw - 1) / nw, per_sm * sm_count()));
-    return launch_clusters(stream_mix_rows<T, kTraining>, blocks, l.threads,
-                           l.smem, 1, stream, a, mp);
+    return launch_clusters(stream_mix_rows<T, O, kTraining>, blocks,
+                           l.threads, l.smem, 1, stream, a, mp);
   }
   const int clusters = clusters_of(a.B, a.sl.C, per_sm);
-  return launch_clusters(stream_mix_slices<T, kTraining>, clusters * a.sl.C,
-                         l.threads, l.smem, a.sl.C, stream, a, mp);
+  return launch_clusters(stream_mix_slices<T, O, kTraining>,
+                         clusters * a.sl.C, l.threads, l.smem, a.sl.C, stream,
+                         a, mp);
+}
+
+// The instance of the call's kv dtype and branch storing mix as O.
+template <typename O>
+cudaError_t launch_stored(MixArgs a, const MaskParams& mp, int kv_dtype,
+                          int req, cudaStream_t s) {
+  const bool t = mp.training != 0;
+  switch (kv_dtype) {
+    case kKvF32:
+      return t ? launch<float, O, true>(a, mp, req, s)
+               : launch<float, O, false>(a, mp, req, s);
+    case kKvBf16:
+      return t ? launch<__nv_bfloat16, O, true>(a, mp, req, s)
+               : launch<__nv_bfloat16, O, false>(a, mp, req, s);
+    case kKvInt8:
+      return t ? launch<int8_t, O, true>(a, mp, req, s)
+               : launch<int8_t, O, false>(a, mp, req, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kTraining>
@@ -370,19 +398,22 @@ extern "C" {
 // Returns a cudaError_t; 0 means the launch was accepted.  kv is (B, M, E)
 // f32 (kv_dtype = 0), bf16 (1) or int8 (2, with scales (B, M) f32, read
 // for int8 only), aligned to four elements; pad may be null (no padding);
-// mix is (B, H E) f32, 16-byte aligned; w, mw (B, M), ent, rate (B,).  All
-// contiguous device buffers.  training = 0 is the eval branch (seed words,
-// mask_prob and min_active unread).  blocks_per_sm: the persistent grid's
-// blocks an SM, 1 up to aecf_stream_mix_occupancy, or 0 for that limit.
+// mix is (B, H E) f32 (mix_dtype = 0) or bf16 (1), 16-byte aligned; w, mw
+// (B, M), ent, rate (B,).  All contiguous device buffers.  training = 0 is
+// the eval branch (seed words, mask_prob and min_active unread).
+// blocks_per_sm: the persistent grid's blocks an SM, 1 up to
+// aecf_stream_mix_occupancy, or 0 for that limit.
 int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
                     const float* u, const float* c, const float* pad,
-                    float* mix, float* w,
+                    void* mix, float* w,
                     float* mw, float* ent, float* rate, int B, int M, int E,
                     int H, float max_entropy, int training,
                     unsigned int seed0, unsigned int seed1, float mask_prob,
-                    int min_active, int blocks_per_sm, void* stream) {
+                    int min_active, int mix_dtype, int blocks_per_sm,
+                    void* stream) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 4 ||
-      E % 4 != 0 || (kv_dtype == kKvInt8 && scales == nullptr)) {
+      E % 4 != 0 || (kv_dtype == kKvInt8 && scales == nullptr) ||
+      (mix_dtype != kKvF32 && mix_dtype != kKvBf16)) {
     return (int)cudaErrorInvalidValue;
   }
   MaskParams mp;
@@ -408,19 +439,10 @@ int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
   a.E = E;
   a.H = H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = blocks_per_sm;
-  switch (kv_dtype) {
-    case kKvF32:
-      return (int)(training ? launch<float, true>(a, mp, n, s)
-                            : launch<float, false>(a, mp, n, s));
-    case kKvBf16:
-      return (int)(training ? launch<__nv_bfloat16, true>(a, mp, n, s)
-                            : launch<__nv_bfloat16, false>(a, mp, n, s));
-    case kKvInt8:
-      return (int)(training ? launch<int8_t, true>(a, mp, n, s)
-                            : launch<int8_t, false>(a, mp, n, s));
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)(mix_dtype == kKvBf16
+                   ? launch_stored<__nv_bfloat16>(a, mp, kv_dtype,
+                                                  blocks_per_sm, s)
+                   : launch_stored<float>(a, mp, kv_dtype, blocks_per_sm, s));
 }
 
 // The most blocks an SM of aecf_stream_mix's persistent grid at (M, E, H)

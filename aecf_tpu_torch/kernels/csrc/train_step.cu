@@ -24,9 +24,11 @@
 //
 // What bounds it on the H100: the three E x E products over the batch
 // (out, d_mix, G: 6 B E^2 of the step's 6.67 GFLOP at the north star B =
-// 4096, M = 3, E = 512, C = 14) on the SIMT f32 pipes — precision
-// 'highest' is IEEE f32, which the tensor cores cannot give — with a bound
+// 4096, M = 3, E = 512, C = 14) on the SIMT f32 pipes at precision
+// 'highest' — IEEE f32, which the tensor cores cannot give — with a bound
 // of 0.0995 ms by operations; the kv stream (25 MB in f32) is the bytes.
+// At 'default' the products run on the TF32 tensor cores (gemm_tf32.cuh),
+// and the bytes bound the step.
 // A kernel that runs the products 16 batch rows a block loads each weight
 // for 16 FMAs and idles its FMA pipes while the weights load.  The chain
 // runs them over the whole batch in gemm_f32.cuh (128-row tiles, 8 x 8 or
@@ -82,10 +84,19 @@
 // (the training chunk) keeps a (K, 2) buffer that the host refills before
 // each replay, so each replay draws its own steps' masks.
 //
-// Numerics: f32 throughout; built without fast-math or flush-to-zero
-// (the entropy's subnormal floor).
+// Precision (StepParams.precision, gemm::Precision): kHighest runs every
+// product in IEEE f32 FMAs; kTf32 ('default') runs each product the JAX
+// kernel runs at mxu_precision with TF32 operands — G1, G2, G and dW_head
+// on the TF32 instance of the GEMM block, and the head kernel's logits and
+// d_out on out, W_head and d_logits rounded by cvt.rna.tf32 (C = 14 needs
+// no tensor cores).  The row kernels (scores, softmax, entropy, masks,
+// softmax backward, sums) are f32 at both, as JAX's VPU code is.
+//
+// Numerics: f32 throughout, apart from the TF32 operands above; built
+// without fast-math or flush-to-zero (the entropy's subnormal floor).
 
 #include "gemm_f32.cuh"
+#include "gemm_tf32.cuh"
 #include "pool_rows.cuh"
 
 using namespace aecf;
@@ -114,6 +125,7 @@ struct StepParams {
   float* ws;             // aecf_train_step_workspace floats
   const uint32_t* seeds;  // two seed words on the device, or null: seed0/1
   int B, M, E, C, kv_dtype, training, min_active;  // kv_dtype: KvDtype
+  int precision;         // gemm::Precision: kHighest or kTf32 ('default')
   unsigned int seed0, seed1;
   float max_entropy, mask_prob, inv, two_inv;
   gemm::GemmTile plans[4];  // out, d_mix, G, dW_head; {0, 0}: gemm_plan's
@@ -227,10 +239,18 @@ MaskParams mask_params(const StepParams& p) {
 // d_logits and the row loss, then d_out = d_logits W_head^T.  Shared
 // memory: W_head (E x C) when it fits in kHeadStageFloats (the lanes of a
 // warp read 32 of its rows at a time, 56 bytes apart at C = 14: from device
-// memory that is one cache line a lane), then the warp's C logits.
+// memory that is one cache line a lane), then the warp's C logits.  kTf32:
+// the products' operands rounded to TF32 (out, W_head, d_logits), their
+// sums f32 — the JAX kernel's logits and d_out dots at mxu_precision.
 constexpr int kHeadChunk = 16;             // logits a lane accumulates at once
 constexpr int kHeadStageFloats = 24576;    // 96 KB: E = 1024 at C = 24
 
+template <bool kTf32>
+__device__ __forceinline__ float head_operand(float x) {
+  return kTf32 ? __uint_as_float(gemm::to_tf32(x)) : x;
+}
+
+template <bool kTf32>
 __global__ void __launch_bounds__(kThreads)
     step_head_kernel(StepParams p, Workspace ws, int staged) {
   extern __shared__ float smem[];
@@ -243,7 +263,8 @@ __global__ void __launch_bounds__(kThreads)
   float* lg = smem;
   if (staged) {
     float* Ws = smem;
-    for (int i = threadIdx.x; i < E * C; i += kThreads) Ws[i] = W[i];
+    for (int i = threadIdx.x; i < E * C; i += kThreads)
+      Ws[i] = head_operand<kTf32>(W[i]);
     W = Ws;
     lg = smem + E * C;
     __syncthreads();
@@ -257,11 +278,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kHeadChunk; ++j) acc[j] = 0.f;
     for (int e = lane; e < E; e += 32) {
-      const float x = o[e];
+      const float x = head_operand<kTf32>(o[e]);
       const float* wr = W + (size_t)e * C + c0;
 #pragma unroll
       for (int j = 0; j < kHeadChunk; ++j)
-        if (c0 + j < C) acc[j] = fmaf(x, wr[j], acc[j]);
+        if (c0 + j < C)
+          acc[j] = fmaf(x, staged ? wr[j] : head_operand<kTf32>(wr[j]),
+                        acc[j]);
     }
 #pragma unroll
     for (int j = 0; j < kHeadChunk; ++j) {
@@ -278,7 +301,7 @@ __global__ void __launch_bounds__(kThreads)
     s += fmaxf(x, 0.f) - x * y + log1pf(expf(-fabsf(x)));
     const float d = (1.f / (1.f + expf(-x)) - y) * p.inv;
     ws.dlogits[(size_t)b * ldl + j] = d;
-    lg[j] = d;
+    lg[j] = head_operand<kTf32>(d);
   }
   s = warp_sum(s);
   if (lane == 0) ws.lrow[b] = s * p.inv;
@@ -288,7 +311,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = lane; e < E; e += 32) {
     const float* wr = W + (size_t)e * C;
     float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(lg[c], wr[c], acc);
+    for (int c = 0; c < C; ++c)
+      acc = fmaf(lg[c], staged ? wr[c] : head_operand<kTf32>(wr[c]), acc);
     dout[e] = acc;
   }
 }
@@ -353,22 +377,25 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   g1.groups = 1;
   if (C == 0) {
     g1.C = ws.dout;
-    err = gemm::gemm_f32<false, false>(
-        g1, gemm::EpiQuadLoss{p.bctx, p.two_inv, ws.sq, ws.sq_ld},
+    err = gemm::gemm<false, false>(
+        p.precision, g1, gemm::EpiQuadLoss{p.bctx, p.two_inv, ws.sq, ws.sq_ld},
         p.plans[0], nullptr, stream);
   } else {
     g1.C = ws.out;
     gemm::EpiAffine bias;
     bias.bias = p.bctx;
-    err = gemm::gemm_f32<false, false>(g1, bias, p.plans[0], ws.scr, stream);
+    err = gemm::gemm<false, false>(p.precision, g1, bias, p.plans[0], ws.scr,
+                                   stream);
   }
   if (err != cudaSuccess) return err;
 
   if (C > 0) {
     const size_t smem = head_smem_bytes(E, C);
-    if ((err = allow_smem(step_head_kernel, smem)) != cudaSuccess) return err;
-    step_head_kernel<<<cdiv(B, kWarps), kThreads, smem, stream>>>(
-        p, ws, head_staged(E, C));
+    const auto head = p.precision == gemm::kTf32 ? step_head_kernel<true>
+                                                 : step_head_kernel<false>;
+    if ((err = allow_smem(head, smem)) != cudaSuccess) return err;
+    head<<<cdiv(B, kWarps), kThreads, smem, stream>>>(p, ws,
+                                                      head_staged(E, C));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
 
@@ -376,8 +403,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   gemm::GemmArgs g2 = g1;
   g2.A = ws.dout;
   g2.C = ws.dmix;
-  err = gemm::gemm_f32<false, true>(g2, gemm::EpiAffine{}, p.plans[1], ws.scr,
-                                    stream);
+  err = gemm::gemm<false, true>(p.precision, g2, gemm::EpiAffine{},
+                                p.plans[1], ws.scr, stream);
   if (err != cudaSuccess) return err;
 
   // R2 with the loss partials
@@ -417,8 +444,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
   g3.N = E;
   g3.K = B;
   g3.groups = 1;
-  err = gemm::gemm_f32<true, true>(g3, gemm::EpiAffine{}, p.plans[2], ws.scr,
-                                   stream);
+  err = gemm::gemm<true, true>(p.precision, g3, gemm::EpiAffine{},
+                               p.plans[2], ws.scr, stream);
   if (err != cudaSuccess) return err;
   if (C > 0) {
     // dW_head[i, c] = sum_b out[b, i] d_logits[b, c]
@@ -429,8 +456,8 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
     gh.C = p.dhead_w;
     gh.ldc = C;
     gh.N = C;
-    err = gemm::gemm_f32<true, true>(gh, gemm::EpiAffine{}, p.plans[3],
-                                     ws.scr, stream);
+    err = gemm::gemm<true, true>(p.precision, gh, gemm::EpiAffine{},
+                                 p.plans[3], ws.scr, stream);
     if (err != cudaSuccess) return err;
   }
   return part_sum(ws.part, warp_blocks(B), part_cols(E, C, true), p.sums,
@@ -481,6 +508,7 @@ int aecf_train_step(const StepParams* p, void* stream) {
   if (p->B < 1 || p->M < 1 || p->M > kMaxM || p->E < 1 ||
       (p->head_w != nullptr && p->C < 1) ||
       (p->kv_dtype == kKvInt8 && (p->scales == nullptr || p->dkv != nullptr)) ||
+      (p->precision != gemm::kHighest && p->precision != gemm::kTf32) ||
       !gemm::aligned16(p->wvo) || !gemm::aligned16(p->ws)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -506,9 +534,9 @@ int aecf_train_step(const StepParams* p, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The GEMM of gemm_f32.cuh alone, with the affine epilogue, for its checks
-// and its cuBLAS yardstick (kernels/gemm.py).  Also declared by
-// kernels/gemm.py (ctypes).
+// The GEMM block alone, either instance (precision: gemm::Precision), with
+// the affine epilogue, for its checks and its cuBLAS yardstick
+// (kernels/_gemm.py).  Also declared by kernels/_gemm.py (ctypes).
 struct GemmCall {
   const float* A;
   long long lda, a_gstride;
@@ -522,6 +550,7 @@ struct GemmCall {
   int rows, N, K, groups, a_trans, w_kmajor;
   float scale;
   gemm::GemmTile plan;  // {0, 0}: gemm_plan's
+  int precision;        // gemm::Precision
 };
 
 size_t aecf_gemm_f32_scratch(int rows, int N, int K, int groups,
@@ -571,13 +600,14 @@ int aecf_gemm_f32(const GemmCall* c, void* stream) {
   e.bias_gstride = c->bias_gstride;
   e.scale = c->scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int pr = c->precision;
   cudaError_t err;
   if (c->a_trans)
-    err = gemm::gemm_f32<true, true>(a, e, c->plan, c->partials, s);
+    err = gemm::gemm<true, true>(pr, a, e, c->plan, c->partials, s);
   else
     err = c->w_kmajor
-              ? gemm::gemm_f32<false, true>(a, e, c->plan, c->partials, s)
-              : gemm::gemm_f32<false, false>(a, e, c->plan, c->partials, s);
+              ? gemm::gemm<false, true>(pr, a, e, c->plan, c->partials, s)
+              : gemm::gemm<false, false>(pr, a, e, c->plan, c->partials, s);
   return (int)err;
 }
 

@@ -22,7 +22,8 @@ PyTorch, as the JAX package leaves it to XLA.  Four kernels:
   a row kernel (scores, softmax, head mean, entropy, the training mask
   chain — Philox draw, ``min_active``, renormalisation; :mod:`.draws` —
   and the per-head mixes), then the context GEMM(s) over the whole batch
-  (``csrc/gemm_f32.cuh``), E ≤ 1024;
+  (``csrc/gemm_f32.cuh``, or its TF32 tensor-core instance
+  ``csrc/gemm_tf32.cuh`` at ``precision='default'``), E ≤ 1024;
 * ``csrc/shared_query_bwd.cu`` behind :func:`shared_query_bwd` — the H == 1
   backward of that forward, a chain on the same row kernels
   (``csrc/pool_rows.cuh``, shared with the one-pass step) and GEMM:
@@ -40,6 +41,22 @@ PyTorch, as the JAX package leaves it to XLA.  Four kernels:
 
 Both streamed kernels read each kv row (and ``d_mix`` row) from device
 memory once, staged in shared memory (``csrc/stream_stage.cuh``).
+
+``precision`` — JAX's rule (``_ctx_prec``, ``_dot_prec``,
+``_stream_mix_dtype``).  ``'highest'``: every product in IEEE f32.
+``'default'`` on the card: the chains' in-kernel products on TF32 tensor
+cores (JAX's dots at ``mxu_precision = None``, which an Ampere or Hopper
+GPU runs as TF32), and the prologue (``qp``, ``u``, ``c``, ``W_vo``) and the
+glue GEMMs under :func:`~aecf_tpu_torch.core.matmul_precision` (cuBLAS
+TF32), the backward re-entering its forward's mode; on the CPU the
+products stay IEEE f32, as JAX's CPU backend computes them.  At
+``'default'`` on any device the streamed split stores ``mix`` and
+``d_mix`` in bf16, an explicit dtype in JAX.  The row kernels (scores,
+softmax, entropy, masks, softmax backward) are f32 at both.  The plain
+versions take the TF32 emulation as an argument (``tf32=``:
+:func:`~aecf_tpu_torch.core.round_tf32` on both operands of each such
+product, then an IEEE f32 product), which the wrappers leave off on the
+CPU.
 
 Each takes f32, bf16 or int8 features; int8 comes with per-(row,
 modality) f32 scales ``kv_scales (B, M)`` (:func:`quantize_features`) and
@@ -84,6 +101,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.attention import AttentionPoolParams
+from ..core.precision import matmul_precision, round_tf32
 from ._build import load_library
 from ._plan import (
     GemmTile,
@@ -126,6 +144,48 @@ _HEADS = ("the resident shared-query kernel takes 1 <= H <= E with H "
           "dividing E, got H={H}, E={E}")
 # kv_dtype codes of the C interfaces (KvDtype in csrc/pool_common.cuh).
 _KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# precision codes of the chains' C interfaces (gemm::Precision in
+# csrc/gemm_tf32.cuh): which instance of the GEMM block their products run.
+_PRECISION = {"highest": 0, "default": 1}
+
+
+def _precision_code(precision: str) -> int:
+    """The C code of a kernel precision, ``'default'`` or ``'highest'``."""
+    if precision not in _PRECISION:
+        raise ValueError(
+            f"fused kernels support precision 'default' or 'highest', got "
+            f"{precision!r}"
+        )
+    return _PRECISION[precision]
+
+
+def _stream_mix_dtype(precision: str) -> torch.dtype:
+    """Storage dtype of the streamed split's ``mix`` / ``d_mix`` round
+    trips, JAX's ``_stream_mix_dtype`` without its env override: bf16 at
+    ``'default'`` (on every device: an explicit dtype, not the platform's
+    dot), f32 at ``'highest'``."""
+    return torch.bfloat16 if precision == "default" else torch.float32
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, tf32: bool = False) -> torch.Tensor:
+    """``a @ b`` at the ambient matmul mode, or with ``tf32`` as the
+    kernels' TF32 products compute it: both operands rounded
+    (:func:`round_tf32`), then an IEEE f32 product — the products of two
+    TF32 values are exact in f32, so only the order of the sums differs
+    from the tensor cores'."""
+    if not tf32:
+        return a @ b
+    with matmul_precision("highest"):
+        return round_tf32(a) @ round_tf32(b)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+            tf32: bool = False) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)``, with ``tf32`` as :func:`_mm`."""
+    if not tf32:
+        return torch.einsum(eq, a, b)
+    with matmul_precision("highest"):
+        return torch.einsum(eq, round_tf32(a), round_tf32(b))
 
 
 def _vjp_wants_streamed(num_heads: int, E: int) -> bool:
@@ -171,7 +231,9 @@ def _pad_bias_rows(key_padding_mask: Optional[torch.Tensor]):
 
 def _prep_tensors(in_w, in_b, out_w, out_b, qrow, num_heads: int):
     """:func:`_prep` on the parameter tensors; also returns ``qp`` and the
-    score scale, which the backwards need."""
+    score scale, which the backwards need.  Its GEMVs and ``W_vo`` run at
+    the ambient matmul mode: its callers run it under their ``precision``
+    (:func:`matmul_precision`), forward and backward alike."""
     E = qrow.shape[-1]
     H = num_heads
     Dh = E // H
@@ -268,19 +330,21 @@ def _softmax_heads(x, u, c, pad_bias) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _context(mix, wctx, bctx, wo, bo):
-    """The context GEMMs on the per-head mixes ``(B, H·E)``: ``out = mix
-    W_voᵀ + b_ctx`` (H == 1); the per-head V projection, then ``out = ctx
-    Woᵀ + bo`` (H > 1)."""
+def _context(mix, wctx, bctx, wo, bo, *, tf32: bool = False):
+    """The context GEMMs on the per-head mixes ``(B, H·E)`` (f32, or the
+    streamed split's bf16, read upcast): ``out = mix W_voᵀ + b_ctx`` (H ==
+    1); the per-head V projection, then ``out = ctx Woᵀ + bo`` (H > 1).
+    ``tf32``: as the forward chain's TF32 products (:func:`_mm`)."""
+    mix = mix.float()
     E = wctx.shape[0]
     B = mix.shape[0]
     H = mix.shape[1] // E
     if H == 1:
-        return mix @ wctx.T + bctx
-    ctx = torch.einsum(
-        "bhe,hde->bhd", mix.reshape(B, H, E), wctx.reshape(H, E // H, E)
+        return _mm(mix, wctx.T, tf32) + bctx
+    ctx = _einsum(
+        "bhe,hde->bhd", mix.reshape(B, H, E), wctx.reshape(H, E // H, E), tf32
     ).reshape(B, E) + bctx
-    return ctx @ wo.T + bo
+    return _mm(ctx, wo.T, tf32) + bo
 
 
 def stream_mix_plain(
@@ -294,12 +358,14 @@ def stream_mix_plain(
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
     min_active: int = 1,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, ...]:
     """The streamed forward kernel's function in plain PyTorch: ``(mix
-    (B, H·E) f32, w (B,M), mw (B,M), ent (B,), rate (B,))``, ``mix`` the
-    per-head ``Σ_m a_hm kv_m`` side by side.  Eval: ``mw = w``, ``rate =
-    0``.  Training (M > 1) masks with the uniforms of
-    :func:`.draws.mask_uniforms` for ``seed``."""
+    (B, H·E), w (B,M), mw (B,M), ent (B,), rate (B,))``, ``mix`` the
+    per-head ``Σ_m a_hm kv_m`` side by side, summed in f32 and stored in
+    f32, or in bf16 at ``precision='default'`` (:func:`_stream_mix_dtype`).
+    Eval: ``mw = w``, ``rate = 0``.  Training (M > 1) masks with the
+    uniforms of :func:`.draws.mask_uniforms` for ``seed``."""
     B, M, E = kv.shape
     H = u.shape[0]
     x = _dequant(kv, kv_scales)
@@ -307,6 +373,7 @@ def stream_mix_plain(
     w = a.sum(dim=1) * (1.0 / H)
     ent = _entropy(w)
     mix = torch.einsum("bhm,bme->bhe", a, x).reshape(B, H * E)
+    mix = mix.to(_stream_mix_dtype(precision))
     mw, rate = _side_outputs(
         w, ent, training=training, seed=seed, mask_prob=mask_prob,
         min_active=min_active,
@@ -323,14 +390,18 @@ def shared_query_fwd_plain(
     bctx: torch.Tensor,  # (E,)
     wo: Optional[torch.Tensor],  # (E, E), H > 1 only
     bo: Optional[torch.Tensor],  # (E,), H > 1 only
+    *,
+    tf32: bool = False,
     **mask_kw,
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's function in plain PyTorch: ``(out (B,E), w (B,M),
     mw (B,M), ent (B,), rate (B,))`` — :func:`stream_mix_plain` (whose
     ``kv_scales``, ``training``, ``seed``, ``mask_prob`` and
-    ``min_active`` it takes), then the context GEMMs."""
+    ``min_active`` it takes) with an f32 ``mix``, then the context GEMMs,
+    with ``tf32`` as the chain computes them at ``precision='default'``
+    on the card."""
     mix, w, mw, ent, rate = stream_mix_plain(kv, u, c, pad_bias, **mask_kw)
-    return _context(mix, wctx, bctx, wo, bo), w, mw, ent, rate
+    return _context(mix, wctx, bctx, wo, bo, tf32=tf32), w, mw, ent, rate
 
 
 def _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo,
@@ -466,10 +537,14 @@ def shared_query_fwd(
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
     min_active: int = 1,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/shared_query_fwd.cu`` (``_shared_kernel``, and
     ``_shared_kernel_q8`` for int8 ``kv`` with ``kv_scales``); operands as
     in :func:`shared_query_fwd_plain`, any E ≤ 1024 that H divides.
+    ``precision='default'`` runs the chain's products on the TF32 tensor
+    cores (the plain version with ``tf32=True`` is their function); the
+    CPU's plain version computes them in IEEE f32 at both.
 
     It validates the operands and calls the custom op
     ``aecf_tpu_torch::shared_query_fwd``, so ``torch.export`` records the
@@ -486,6 +561,7 @@ def shared_query_fwd(
     return _shared_query_fwd_op(
         kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales, bool(training),
         int(seed[0]), int(seed[1]), float(mask_prob), int(min_active),
+        _precision_code(precision),
     )
 
 
@@ -493,10 +569,11 @@ def shared_query_fwd(
     "aecf_tpu_torch::shared_query_fwd", mutates_args=(),
     schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, Tensor wctx, "
            "Tensor bctx, Tensor? wo, Tensor? bo, Tensor? kv_scales, "
-           f"{_MASK_ARGS}) -> {_FWD_OUTS}",
+           f"{_MASK_ARGS}, int precision=0) -> {_FWD_OUTS}",
 )
 def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
-                         training, seed0, seed1, mask_prob, min_active):
+                         training, seed0, seed1, mask_prob, min_active,
+                         precision=0):
     B, M, E = kv.shape
     H = u.shape[0]
     # resolved in the op's body: a frozen program follows the table of the
@@ -528,8 +605,8 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
             _ptr(bctx), _ptr(bo), _ptr(out), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), _ptr(ws), B, M, E, H,
             math.log(M) if M > 1 else 0.0,
-            int(training), seed0, seed1, mask_prob, min_active, plans,
-            torch.cuda.current_stream(kv.device).cuda_stream,
+            int(training), seed0, seed1, mask_prob, min_active, precision,
+            plans, torch.cuda.current_stream(kv.device).cuda_stream,
         )
     _raise_on_error(lib, err, "shared_query_fwd")
     _count_launch(shared_query_fwd, kv)
@@ -571,12 +648,12 @@ def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 # (kv, kv_dtype, scales, *pointers, B, M, E, H, max_entropy, training,
-# seed0, seed1, mask_prob, min_active, plan, stream) of the two forward
-# kernels' C entries; `plan` is of type `plan`
+# seed0, seed1, mask_prob, min_active, precision or mix dtype, plan, stream)
+# of the two forward kernels' C entries; `plan` is of type `plan`
 def _fwd_argtypes(pointers: int, plan):
     p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     return ([p, i, p] + [p] * pointers
-            + [i, i, i, i, f, i, u32, u32, f, i, plan, p])
+            + [i, i, i, i, f, i, u32, u32, f, i, i, plan, p])
 
 
 _TILES = ctypes.POINTER(GemmTile)
@@ -632,11 +709,13 @@ def stream_mix(
     seed: Tuple[int, int] = (0, 0),
     mask_prob: float = 0.15,
     min_active: int = 1,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/stream_mix.cu``; operands and results as in
-    :func:`stream_mix_plain`.  It validates the operands and calls the
-    custom op ``aecf_tpu_torch::stream_mix``: CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    :func:`stream_mix_plain` (``mix`` in bf16 at ``precision='default'``).
+    It validates the operands and calls the custom op
+    ``aecf_tpu_torch::stream_mix``: CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise.
     ``stream_mix.launches`` counts f32/bf16 launches,
     ``stream_mix.launches_q8`` int8 ones."""
     H = u.shape[0] if u.ndim == 2 else -1
@@ -646,18 +725,20 @@ def stream_mix(
                     "pad_bias": (pad_bias, (B, M))},
                optional=("pad_bias",), why="the streamed forward")
     _require_device(kv)
+    _precision_code(precision)
     return _stream_mix_op(kv, u, c, pad_bias, kv_scales, bool(training),
                           int(seed[0]), int(seed[1]), float(mask_prob),
-                          int(min_active))
+                          int(min_active),
+                          _KV_DTYPE[_stream_mix_dtype(precision)])
 
 
 @torch.library.custom_op(
     "aecf_tpu_torch::stream_mix", mutates_args=(),
     schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, "
-           f"Tensor? kv_scales, {_MASK_ARGS}) -> {_FWD_OUTS}",
+           f"Tensor? kv_scales, {_MASK_ARGS}, int mix_dtype=0) -> {_FWD_OUTS}",
 )
 def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
-                   mask_prob, min_active):
+                   mask_prob, min_active, mix_dtype=0):
     B, M, E = kv.shape
     H = u.shape[0]
     per_sm = _pick_grid("fwd_streamed", M=M, E=E, H=H,
@@ -666,12 +747,14 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
         return stream_mix_plain(
             kv, u, c, pad_bias, kv_scales=kv_scales, training=training,
             seed=(seed0, seed1), mask_prob=mask_prob, min_active=min_active,
+            precision="default" if mix_dtype else "highest",
         )
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias))
     _require_aligned(dict(kv=kv, u=u))
     dev = kv.device
-    mix = torch.empty((B, H * E), dtype=torch.float32, device=dev)
+    mix = torch.empty((B, H * E), device=dev,
+                      dtype=torch.bfloat16 if mix_dtype else torch.float32)
     w = torch.empty((B, M), dtype=torch.float32, device=dev)
     mw = torch.empty_like(w)
     ent = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -682,8 +765,8 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
             _ptr(kv), _KV_DTYPE[kv.dtype], _ptr(kv_scales), _ptr(u), _ptr(c),
             _ptr(pad_bias), _ptr(mix), _ptr(w), _ptr(mw), _ptr(ent),
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
-            int(training), seed0, seed1, mask_prob, min_active, per_sm,
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(training), seed0, seed1, mask_prob, min_active, mix_dtype,
+            per_sm, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(lib, err, "stream_mix")
     _count_launch(stream_mix, kv)
@@ -691,8 +774,10 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
 
 
 @_stream_mix_op.register_fake
-def _(kv, u, c, pad_bias, kv_scales, *mask):
-    return _fake_outs(kv, u.shape[0] * kv.shape[2])
+def _(kv, u, c, pad_bias, kv_scales, training, seed0, seed1, mask_prob,
+      min_active, mix_dtype=0):
+    mix, *rest = _fake_outs(kv, u.shape[0] * kv.shape[2])
+    return (mix.to(torch.bfloat16) if mix_dtype else mix, *rest)
 
 
 stream_mix.launches = stream_mix.launches_q8 = 0
@@ -723,15 +808,16 @@ def stream_bwd_plain(
     kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """The streamed backward kernels' function in plain PyTorch: from the
-    mix cotangent ``d_mix`` and the head-mean weights cotangent ``d_w``
-    (``d_w / H`` on each head), ``(d_kv (B,M,E) in kv's dtype or None,
-    du (H,E) = Σ_b Σ_m d_s·kv, dc (H,) = Σ d_s)``, ``d_kv`` summed over
-    heads (float features only)."""
+    mix cotangent ``d_mix`` (f32, or bf16 at ``precision='default'``, read
+    upcast) and the head-mean weights cotangent ``d_w`` (``d_w / H`` on
+    each head), ``(d_kv (B,M,E) in kv's dtype or None, du (H,E) = Σ_b Σ_m
+    d_s·kv, dc (H,) = Σ d_s)``, ``d_kv`` summed over heads (float features
+    only)."""
     B, M, E = kv.shape
     H = u.shape[0]
     x = _dequant(kv, kv_scales)
     a = _softmax_heads(x, u, c, pad_bias)  # (B, H, M)
-    dm = d_mix.reshape(B, H, E)
+    dm = d_mix.float().reshape(B, H, E)
     d_a = torch.einsum("bhe,bme->bhm", dm, x)
     if d_w is not None:
         d_a = d_a + d_w[:, None, :] / H
@@ -753,7 +839,8 @@ class _StreamBwdParams(ctypes.Structure):
         for name in ("kv", "scales", "dmix", "dw", "pad", "u", "c", "dkv",
                      "acc", "ws")
     ] + [(name, ctypes.c_int)
-         for name in ("B", "M", "E", "kv_dtype", "blocks_per_sm")]
+         for name in ("B", "M", "E", "kv_dtype", "dmix_dtype",
+                      "blocks_per_sm")]
 
 
 def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
@@ -765,9 +852,15 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
                          f"{tuple(u.shape)}")
     B, M, E = _check_stream(kv, H)
     _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
+    if (d_mix.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(d_mix.shape) != (B, H * E) or d_mix.device != kv.device):
+        raise ValueError(
+            f"d_mix must be float32 or bfloat16 {(B, H * E)} on {kv.device}, "
+            f"got {d_mix.dtype} {tuple(d_mix.shape)} on {d_mix.device}"
+        )
     _check_f32(kv, {
-        "d_mix": (d_mix, (B, H * E)), "d_w": (d_w, (B, M)),
-        "pad_bias": (pad_bias, (B, M)), "u": (u, (H, E)), "c": (c, (H,)),
+        "d_w": (d_w, (B, M)), "pad_bias": (pad_bias, (B, M)),
+        "u": (u, (H, E)), "c": (c, (H,)),
     }, optional=("d_w", "pad_bias"), why="the streamed backward")
     # the f32 call's key whatever the dtype: the grid sets the order of the
     # batch sums, which an int8 or bf16 call takes from the f32 call
@@ -787,7 +880,7 @@ def _stream_bwd(entry, H, kv, d_mix, d_w, pad_bias, u, c, want_dkv,
     params = _StreamBwdParams(
         _ptr(kv), _ptr(kv_scales), _ptr(d_mix), _ptr(d_w), _ptr(pad_bias),
         _ptr(u), _ptr(c), _ptr(d_kv), _ptr(acc), _ptr(ws), B, M, E,
-        _KV_DTYPE[kv.dtype], per_sm,
+        _KV_DTYPE[kv.dtype], _KV_DTYPE[d_mix.dtype], per_sm,
     )
     with torch.cuda.device(dev):
         err = getattr(lib, f"aecf_{entry}")(
@@ -810,7 +903,8 @@ def stream_bwd(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Wrapper of ``csrc/stream_bwd.cu`` at H == 1 (the port of
     ``_bwd_kernel_streamed``); operands and results as in
-    :func:`stream_bwd_plain`.  CPU tensors run the plain version; CUDA
+    :func:`stream_bwd_plain`, ``d_mix`` f32 or bf16 (its instance of the
+    kernel stages the bf16 row).  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.  ``stream_bwd.launches`` counts
     f32/bf16 launches, ``stream_bwd.launches_q8`` int8 ones."""
     got = _stream_bwd("stream_bwd", 1, kv, d_mix, d_w, pad_bias, u, c,
@@ -873,14 +967,18 @@ def shared_query_bwd_plain(
     *,
     want_dkv: bool,
     kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
+    tf32: bool = False,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward kernel's function in plain PyTorch.  Returns ``(d_kv
     (B,M,E) in kv's dtype or None, G (E,E) = Σ_b d_outᵀ mix, du (E,),
-    Σ_b d_out (E,), dc = Σ d_s (0-d))``."""
+    Σ_b d_out (E,), dc = Σ d_s (0-d))``; ``tf32``: ``d_mix`` and G as the
+    chain computes them at ``precision='default'`` on the card
+    (:func:`_mm`)."""
     mix = stream_mix_plain(kv, u[None], c, pad_bias, kv_scales=kv_scales)[0]
-    d_kv, du, dc = stream_bwd_plain(kv, d_out @ wvo, d_w, pad_bias, u[None],
-                                    c, want_dkv=want_dkv, kv_scales=kv_scales)
-    return d_kv, d_out.T @ mix, du[0], d_out.sum(dim=0), dc[0]
+    d_kv, du, dc = stream_bwd_plain(kv, _mm(d_out, wvo, tf32), d_w, pad_bias,
+                                    u[None], c, want_dkv=want_dkv,
+                                    kv_scales=kv_scales)
+    return d_kv, _mm(d_out.T, mix, tf32), du[0], d_out.sum(dim=0), dc[0]
 
 
 def shared_query_bwd(
@@ -894,13 +992,15 @@ def shared_query_bwd(
     *,
     want_dkv: bool,
     kv_scales: Optional[torch.Tensor] = None,
+    precision: str = "highest",
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """Wrapper of ``csrc/shared_query_bwd.cu`` (``_bwd_kernel``, and its
     ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
     and results as in :func:`shared_query_bwd_plain`, every width the
-    forward takes at H == 1 (any E ≤ 1024).  Every limit is checked before
-    the dispatch: CPU tensors run the plain version; CUDA tensors launch
-    the kernel chain or raise.  ``shared_query_bwd.launches`` counts
+    forward takes at H == 1 (any E ≤ 1024); ``precision='default'`` runs
+    ``d_mix`` and G on the TF32 tensor cores.  Every limit is checked
+    before the dispatch: CPU tensors run the plain version (IEEE f32 at
+    both precisions); CUDA tensors launch the kernel chain or raise.  ``shared_query_bwd.launches`` counts
     f32/bf16 calls, ``shared_query_bwd.launches_q8`` int8 ones, one a
     call."""
     if kv.ndim != 3 or kv.dtype not in _KV_DTYPE:
@@ -920,6 +1020,7 @@ def shared_query_bwd(
         "wvo": (wvo, (E, E)),
     }, optional=("pad_bias", "d_w"), why="the backward")
     _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
+    code = _precision_code(precision)
     plans = _pick_plan("bwd_resident", sq_bwd_products(B, E), M=M, E=E, H=1,
                        kv_dtype=dtype_name(kv.dtype), want_dkv=want_dkv,
                        device=kv.device)
@@ -939,7 +1040,7 @@ def shared_query_bwd(
     params = _BwdParams(
         _ptr(kv), _ptr(kv_scales), _ptr(u), _ptr(c), _ptr(pad_bias),
         _ptr(d_out), _ptr(d_w), _ptr(wvo), _ptr(d_kv), _ptr(G), _ptr(sums),
-        _ptr(ws), B, M, E, _KV_DTYPE[kv.dtype], plans,
+        _ptr(ws), B, M, E, _KV_DTYPE[kv.dtype], code, plans,
     )
     with torch.cuda.device(dev):
         err = lib.aecf_shared_query_bwd(
@@ -962,7 +1063,8 @@ class _BwdParams(ctypes.Structure):
             "kv", "scales", "u", "c", "pad", "dout", "dw", "wvo", "dkv", "g",
             "sums", "ws",
         )
-    ] + [(name, ctypes.c_int) for name in ("B", "M", "E", "kv_dtype")] + [
+    ] + [(name, ctypes.c_int)
+         for name in ("B", "M", "E", "kv_dtype", "precision")] + [
         ("plans", GemmTile * 2)]
 
 
@@ -1055,11 +1157,12 @@ def _fold_entropy_cotangent(d_w, d_ent, w):
     return extra if d_w is None else d_w + extra
 
 
-def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
+def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix, precision):
     """H == 1 backward: the resident backward kernel (``_bwd_pallas``), or,
     after a streamed forward (``mix`` saved), the ``d_mix``/G GEMMs in
-    torch and the streamed kernel (``_bwd_streamed``).  int8 features
-    take the kernels' quantized branches (JAX's ``_shared_q8_bwd``)."""
+    torch and the streamed kernel (``_bwd_streamed``; ``d_mix`` stored as
+    ``mix`` is).  int8 features take the kernels' quantized branches
+    (JAX's ``_shared_q8_bwd``).  Called under the forward's matmul mode."""
     in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
     E = kv.shape[-1]
     wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
@@ -1072,13 +1175,14 @@ def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
     if mix is None:
         d_kv, G, du, dsum_out, dc = shared_query_bwd(
             kv, u[0], c, pad, d_out, d_w, wvo, want_dkv=want_dkv,
-            kv_scales=kv_scales,
+            kv_scales=kv_scales, precision=precision,
         )
         du, dc = du.reshape(1, E), dc.reshape(1)
     else:
-        d_kv, du, dc = stream_bwd(kv, d_out @ wvo, d_w, pad, u, c,
+        d_mix = (d_out @ wvo).to(_stream_mix_dtype(precision))
+        d_kv, du, dc = stream_bwd(kv, d_mix, d_w, pad, u, c,
                                   want_dkv=want_dkv, kv_scales=kv_scales)
-        G, dsum_out = d_out.T @ mix, d_out.sum(dim=0)
+        G, dsum_out = d_out.T @ mix.float(), d_out.sum(dim=0)
     dWo, dWv, d_bv, dbo = _g_epilogue(
         G, dsum_out, wv, out_w, bv, out_b is not None
     )
@@ -1092,13 +1196,15 @@ def _bwd_h1(tensors, kpm, d_out, d_w, want_dkv, mix):
     return d_params, d_qrow, d_kv
 
 
-def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
+def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix,
+               precision):
     """H > 1 backward: the out/V-projection backward in torch, then the
     softmax backward — after a resident forward in plain torch, as the
     JAX package runs it in XLA (``_shared_bwd_impl``: ``mix`` recomputed),
-    after a streamed one in the multi-head kernel (``_bwd_streamed_mh``);
-    int8 features: the plain torch on the dequantized features, or the
-    kernel's quantized branch."""
+    after a streamed one in the multi-head kernel (``_bwd_streamed_mh``;
+    ``d_mix`` stored as ``mix`` is); int8 features: the plain torch on the
+    dequantized features, or the kernel's quantized branch.  Called under
+    the forward's matmul mode."""
     in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
     B, M, E = kv.shape
     H = num_heads
@@ -1108,16 +1214,16 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
         in_w, in_b, out_w, out_b, qrow, H
     )
     pad = _pad_bias_rows(kpm)
-    softmax_bwd = stream_bwd_mh
+    softmax_bwd, d_mix_dtype = stream_bwd_mh, _stream_mix_dtype(precision)
     if mix is None:
         mix = stream_mix_plain(kv, u, c, pad, kv_scales=kv_scales)[0]
-        softmax_bwd = stream_bwd_plain
+        softmax_bwd, d_mix_dtype = stream_bwd_plain, torch.float32
     d_mix, dWo, dbo, dWv, d_bv = _out_vproj_bwd(
-        d_out, mix.reshape(B, H, E), wv.reshape(H, Dh, E), out_w, bv,
+        d_out, mix.float().reshape(B, H, E), wv.reshape(H, Dh, E), out_w, bv,
         out_b is not None,
     )
     d_kv, d_u, d_c = softmax_bwd(
-        kv, d_mix.reshape(B, H * E).contiguous(),
+        kv, d_mix.reshape(B, H * E).to(d_mix_dtype).contiguous(),
         None if d_w is None else d_w.contiguous(),
         pad, u, c, want_dkv=want_dkv, kv_scales=kv_scales,
     )
@@ -1131,22 +1237,25 @@ def _bwd_heads(tensors, kpm, d_out, d_w, want_dkv, num_heads, mix):
     return d_params, d_qrow, d_kv
 
 
-def _forward(tensors, kpm, num_heads, mask_kw, *, streamed):
+def _forward(tensors, kpm, num_heads, mask_kw, *, streamed, precision):
     """``((out, w, mw, ent, rate), mix)``: the resident forward kernel
     (``mix`` None), or the streamed one and the context GEMMs in torch
-    (``_forward_streamed``; ``mix`` kept for the backward)."""
+    (``_forward_streamed``; ``mix`` kept for the backward), the prologue
+    and the glue under ``precision``'s matmul mode."""
     in_w, in_b, out_w, out_b, qrow, kv, kv_scales = tensors
-    u, c, wctx, bctx, wo, bo = _prep_tensors(
-        in_w, in_b, out_w, out_b, qrow, num_heads
-    )[0]
-    pad = _pad_bias_rows(kpm)
-    if not streamed:
-        outs = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo,
-                                kv_scales=kv_scales, **mask_kw)
-        return outs, None
-    mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, kv_scales=kv_scales,
-                                       **mask_kw)
-    return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
+    with matmul_precision(precision):
+        u, c, wctx, bctx, wo, bo = _prep_tensors(
+            in_w, in_b, out_w, out_b, qrow, num_heads
+        )[0]
+        pad = _pad_bias_rows(kpm)
+        if not streamed:
+            outs = shared_query_fwd(kv, u, c, pad, wctx, bctx, wo, bo,
+                                    kv_scales=kv_scales, precision=precision,
+                                    **mask_kw)
+            return outs, None
+        mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, kv_scales=kv_scales,
+                                           precision=precision, **mask_kw)
+        return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
 
 
 class _SharedPool(torch.autograd.Function):
@@ -1158,18 +1267,24 @@ class _SharedPool(torch.autograd.Function):
     (``_fold_entropy_cotangent``).  The backward needs no mask and no
     draw: the output flows through the unmasked weights (quirk Q1).  With
     int8 ``kv`` and its ``kv_scales`` (``_shared_core_q8``) both get None
-    gradients: int8 features are frozen."""
+    gradients: int8 features are frozen.  The backward runs under the
+    forward's ``precision`` itself (saved on ``ctx``): autograd calls it
+    outside the forward's block, and a backward that recomputed ``u`` in
+    another mode than its forward would drift from the returned primal
+    (the lesson of JAX's ``_ctx_prec``)."""
 
     @staticmethod
     def forward(ctx, in_w, in_b, out_w, out_b, qrow, kv, kv_scales, kpm,
-                num_heads, mask_kw):
+                num_heads, mask_kw, precision):
         tensors = (in_w, in_b, out_w, out_b, qrow, kv, kv_scales)
         outs, mix = _forward(
             tensors, kpm, num_heads, mask_kw,
             streamed=_vjp_wants_streamed(num_heads, kv.shape[-1]),
+            precision=precision,
         )
         ctx.save_for_backward(*tensors, kpm, outs[1], mix)
         ctx.num_heads = num_heads
+        ctx.precision = precision
         ctx.mark_non_differentiable(outs[2], outs[4])
         return outs
 
@@ -1178,17 +1293,19 @@ class _SharedPool(torch.autograd.Function):
         *tensors, kpm, w, mix = ctx.saved_tensors
         d_w = _fold_entropy_cotangent(d_w, d_ent, w)
         want_dkv = ctx.needs_input_grad[5]  # never for int8 kv
-        if ctx.num_heads == 1:
-            d_params, d_qrow, d_kv = _bwd_h1(tensors, kpm, d_out, d_w,
-                                             want_dkv, mix)
-        else:
-            d_params, d_qrow, d_kv = _bwd_heads(
-                tensors, kpm, d_out, d_w, want_dkv, ctx.num_heads, mix
-            )
+        with matmul_precision(ctx.precision):
+            if ctx.num_heads == 1:
+                d_params, d_qrow, d_kv = _bwd_h1(tensors, kpm, d_out, d_w,
+                                                 want_dkv, mix, ctx.precision)
+            else:
+                d_params, d_qrow, d_kv = _bwd_heads(
+                    tensors, kpm, d_out, d_w, want_dkv, ctx.num_heads, mix,
+                    ctx.precision,
+                )
         return (
             d_params["in_proj_weight"], d_params["in_proj_bias"],
             d_params["out_proj_weight"], d_params["out_proj_bias"],
-            d_qrow, d_kv, None, None, None, None,
+            d_qrow, d_kv, None, None, None, None, None,
         )
 
 
@@ -1239,9 +1356,13 @@ def fused_fusion_pool_shared(
     ``generator`` (a CPU ``torch.Generator``, in place of JAX's ``rng=``).
     Gradients flow to the pool's parameters, ``query`` (its ``(1, 1, E)``
     shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
-    ``precision`` is ``"default"`` or ``"highest"``; both run full f32
-    FMAs in these kernels (tighter than the JAX package's bf16
-    ``"default"``).  Up to E = 1024 the resident kernels run, at any H
+    ``precision`` is ``"default"`` or ``"highest"``: ``'highest'`` runs
+    every product in IEEE f32; ``'default'`` on the card runs the chains'
+    products on the TF32 tensor cores and the prologue and glue GEMMs in
+    cuBLAS TF32 (JAX's ``DEFAULT`` on an Ampere or Hopper GPU; IEEE f32 on
+    the CPU, as JAX's CPU backend), forward and backward, and on any
+    device stores the streamed split's ``mix`` and ``d_mix`` in bf16, as
+    the JAX package does.  Up to E = 1024 the resident kernels run, at any H
     dividing E; above it (to E = 8192, H ≤ 2), and for H == 2 training or
     gradients from E = 512, the streamed split
     (:func:`_vjp_wants_streamed`).
@@ -1295,7 +1416,7 @@ def fused_fusion_pool_shared(
         t is not None and t.requires_grad for t in tensors
     ):
         outs = _SharedPool.apply(*tensors, key_padding_mask, num_heads,
-                                 mask_kw)
+                                 mask_kw, precision)
     else:
         # as JAX's _shared_core: training draws as the differentiable
         # forward would; gradient-free eval keeps the resident kernel
@@ -1304,7 +1425,7 @@ def fused_fusion_pool_shared(
             training and _vjp_wants_streamed(num_heads, E)
         )
         outs, _ = _forward(tensors, key_padding_mask, num_heads, mask_kw,
-                           streamed=streamed)
+                           streamed=streamed, precision=precision)
     return _package_outputs(
         *outs, training=training, M=M, entropy_target=entropy_target
     )

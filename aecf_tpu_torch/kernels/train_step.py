@@ -22,10 +22,13 @@ its epilogue (or a head kernel for logits, BCE and ``d_out``), the
 ``d_mix`` GEMM, a row kernel for the softmax backward [→ ``d_kv``] and the
 per-block partial sums, and the batch reductions G (and dW_head) as split
 GEMMs, then du, Σd_out, Σd_s, Σloss (and db_head).  The E×E products run
-in ``csrc/gemm_f32.cuh``, a pipelined SIMT f32 GEMM over the whole batch.
-The E×E weight-gradient reconstruction (``_g_epilogue`` /
-``_query_path_grads``) stays in torch, as the JAX package leaves it to
-XLA.
+in ``csrc/gemm_f32.cuh``, a pipelined SIMT f32 GEMM over the whole batch,
+at ``precision='highest'``, and in its TF32 tensor-core instance
+``csrc/gemm_tf32.cuh`` at ``'default'`` on the card (JAX's dots at
+``mxu_precision = None``; the head kernel's logits and ``d_out`` then take
+TF32-rounded operands).  The E×E weight-gradient reconstruction
+(``_g_epilogue`` / ``_query_path_grads``) stays in torch, as the JAX
+package leaves it to XLA, under the step's matmul mode with the prologue.
 
 Draws are Philox (:mod:`.draws`) with tile-independent counters, so the
 step draws the same mask as the training forward kernel for the same seed
@@ -57,6 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..core.attention import AttentionPoolParams
+from ..core.precision import matmul_precision
 from ._build import load_library
 from ._gemm import gemm_f32, gemm_f32_plain
 from ._plan import GemmTile, _pick_plan, dtype_name, step_products
@@ -73,7 +77,9 @@ from .shared_query import (
     _dequant,
     _entropy,
     _g_epilogue,
+    _mm,
     _pad_bias_rows,
+    _precision_code,
     _prep_tensors,
     _ptr,
     _query_path_grads,
@@ -178,6 +184,7 @@ def train_step_plain(
     row_loss: Optional[Callable] = None,
     row_extras: Tuple[torch.Tensor, ...] = (),
     kv_scales: Optional[torch.Tensor] = None,  # (B, M), int8 kv only
+    tf32: bool = False,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """The step kernel's function in plain PyTorch.
 
@@ -188,7 +195,9 @@ def train_step_plain(
     normaliser (``loss_scale/(B·E)``, or ``loss_scale/(B·C)`` with the
     head).  ``row_loss(x, *row_extras) -> (loss_rows (B, 1), d_x)`` — on
     ``out``, or on the logits then (``labels`` first among the extras) —
-    replaces the built-in loss.
+    replaces the built-in loss.  ``tf32``: out, the logits, the head's
+    ``d_out``, dW_head, ``d_mix`` and G as the chain computes them at
+    ``precision='default'`` on the card (:func:`~.shared_query._mm`).
     """
     B, M, E = kv.shape
     x = _dequant(kv, kv_scales)
@@ -203,18 +212,18 @@ def train_step_plain(
         min_active=min_active,
     )
     mix = torch.einsum("bm,bme->be", a, x)
-    out = mix @ wvo.T + bctx
+    out = _mm(mix, wvo.T, tf32) + bctx
     res: Dict[str, Optional[torch.Tensor]] = {}
     if head_w is not None:
-        logits = out @ head_w + head_b
+        logits = _mm(out, head_w, tf32) + head_b
         if row_loss is not None:
             extras = ((labels,) if labels is not None else ()) + tuple(row_extras)
             loss_rows, d_logits = row_loss(logits, *extras)
             loss_rows = loss_rows.reshape(B)
         else:
             loss_rows, d_logits = _bce_rows(logits, labels, inv)
-        d_out = d_logits @ head_w.T
-        res["dW_head"] = out.T @ d_logits
+        d_out = _mm(d_logits, head_w.T, tf32)
+        res["dW_head"] = _mm(out.T, d_logits, tf32)
         res["db_head"] = d_logits.sum(dim=0)
     elif row_loss is not None:
         loss_rows, d_out = row_loss(out, *row_extras)
@@ -222,7 +231,7 @@ def train_step_plain(
     else:
         loss_rows = (out * out).sum(dim=-1) * inv
         d_out = out * (2.0 * inv)
-    d_mix = d_out @ wvo
+    d_mix = _mm(d_out, wvo, tf32)
     d_a = torch.einsum("be,bme->bm", d_mix, x)
     d_s = a * (d_a - (a * d_a).sum(dim=-1, keepdim=True))
     res.update(
@@ -231,7 +240,7 @@ def train_step_plain(
             (a[..., None] * d_mix[:, None, :] + d_s[..., None] * u).to(kv.dtype)
             if want_dkv else None
         ),
-        G=d_out.T @ mix,
+        G=_mm(d_out.T, mix, tf32),
         du=torch.einsum("bm,bme->e", d_s, x),
         dsum_out=d_out.sum(dim=0),
         dc=d_s.sum(),
@@ -261,11 +270,15 @@ def train_step(
     row_extras: Tuple[torch.Tensor, ...] = (),
     kv_scales: Optional[torch.Tensor] = None,
     seed_words: Optional[torch.Tensor] = None,
+    precision: str = "highest",
 ) -> Dict[str, Optional[torch.Tensor]]:
     """Wrapper of ``csrc/train_step.cu`` (``_step_kernel``, and its
     ``quantized=True`` branch for int8 ``kv`` with ``kv_scales``); operands
     and results as in :func:`train_step_plain`, any E ≤ 1024, ``kv`` at any
-    element offset (a view into a staged batch).  ``seed_words``, a ``(2,)``
+    element offset (a view into a staged batch).  ``precision='default'``
+    runs the chain's products on the TF32 tensor cores (the plain version
+    with ``tf32=True``); the CPU's plain version computes them in IEEE f32
+    at both.  ``seed_words``, a ``(2,)``
     int32 tensor on kv's device, replaces ``seed``: the kernel reads the
     words from it, so a captured CUDA graph draws what the tensor holds at
     replay.
@@ -301,6 +314,7 @@ def train_step(
             want["labels"] = (labels, (B, C))
     _check_f32(kv, want, optional=("pad_bias", "labels"), why="the step")
     _check_kv_scales(kv, kv_scales, want_dkv=want_dkv)
+    code = _precision_code(precision)
     if head_w is not None and labels is None and row_loss is None:
         raise ValueError("the step kernel's head loss needs labels")
     if _step_smem(E, C) > _SMEM_CAP:
@@ -331,7 +345,8 @@ def train_step(
         if row_loss is None:
             raise ValueError("row_extras without a row_loss")
         return _row_loss_step(kv, u, c, pad_bias, wvo, bctx, row_loss=row_loss,
-                              row_extras=tuple(row_extras), **kw)
+                              row_extras=tuple(row_extras),
+                              precision=precision, **kw)
     plans = step_plan(B, M, E, C, kv.dtype, want_dkv, kv.device)
     if kv.device.type == "cpu":
         return train_step_plain(kv, u, c, pad_bias, wvo, bctx, inv=inv, **kw)
@@ -358,7 +373,7 @@ def train_step(
         _ptr(res["mw"]), _ptr(res["ent"]), _ptr(res["rate"]),
         _ptr(res["d_kv"]), _ptr(res["G"]), _ptr(dhead_w), _ptr(sums),
         _ptr(ws), _ptr(seed_words), B, M, E, C, _KV_DTYPE[kv.dtype],
-        int(bool(training)), int(min_active), seed[0], seed[1],
+        int(bool(training)), int(min_active), code, seed[0], seed[1],
         math.log(M) if M > 1 else 0.0, float(mask_prob), float(inv),
         float(2.0 * inv), plans,
     )
@@ -377,7 +392,7 @@ def train_step(
 
 def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
                    seed, mask_prob, min_active, head_w, head_b, labels,
-                   row_loss, row_extras, kv_scales):
+                   row_loss, row_extras, kv_scales, precision):
     """:func:`train_step` with a custom ``row_loss``, through the two-pass
     kernels (their plain versions on CPU tensors): the training forward
     gives ``out`` and the side outputs (the step's mask for the same seed
@@ -390,7 +405,7 @@ def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
     out, w, mw, ent, rate = shared_query_fwd(
         kv, u[None], c, pad_bias, wvo, bctx, kv_scales=kv_scales,
         training=training, seed=seed, mask_prob=mask_prob,
-        min_active=min_active,
+        min_active=min_active, precision=precision,
     )
     res: Dict[str, Optional[torch.Tensor]] = {}
     if head_w is not None:
@@ -403,19 +418,20 @@ def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
         out1 = _padded(out, B, E1)
         out1[:, E] = 1.0
         w4 = _padded(head_w, E1, C4)
-        logits = _head_gemm(out1, w4, _padded(head_b[None], 1, C4)[0])
+        logits = _head_gemm(out1, w4, _padded(head_b[None], 1, C4)[0],
+                            precision=precision)
         extras = ((labels,) if labels is not None else ()) + row_extras
         loss_rows, d_logits = row_loss(logits[:, :C].contiguous(), *extras)
         d4 = _padded(d_logits.float(), B, C4)
-        d_out = _head_gemm(d4, w4[:E], w_kmajor=False)
-        dwb = _head_gemm(out1, d4, a_trans=True)
+        d_out = _head_gemm(d4, w4[:E], w_kmajor=False, precision=precision)
+        dwb = _head_gemm(out1, d4, a_trans=True, precision=precision)
         res["dW_head"] = dwb[:E, :C].contiguous()
         res["db_head"] = dwb[E, :C].contiguous()
     else:
         loss_rows, d_out = row_loss(out, *row_extras)
     d_kv, G, du, dsum_out, dc = shared_query_bwd(
         kv, u, c, pad_bias, d_out.float().contiguous(), None, wvo,
-        want_dkv=want_dkv, kv_scales=kv_scales,
+        want_dkv=want_dkv, kv_scales=kv_scales, precision=precision,
     )
     res.update(w=w, mw=mw, ent=ent, rate=rate, d_kv=d_kv, G=G, du=du,
                dsum_out=dsum_out, dc=dc, loss=loss_rows.reshape(B).sum())
@@ -429,13 +445,18 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-def _head_gemm(a, w, bias=None, *, a_trans=False, w_kmajor=True):
+def _head_gemm(a, w, bias=None, *, a_trans=False, w_kmajor=True,
+               precision="highest"):
     """One product of the custom-``row_loss`` route's head on the GEMM
-    block (``csrc/gemm_f32.cuh``; its plain version on CPU tensors),
-    operands as :func:`~._gemm.gemm_f32` takes them, one group."""
-    gemm = gemm_f32_plain if a.device.type == "cpu" else gemm_f32
-    return gemm(a[None], w[None], None if bias is None else bias[None],
-                a_trans=a_trans, w_kmajor=w_kmajor)[0]
+    block (``csrc/gemm_f32.cuh``, or its TF32 instance at ``'default'``;
+    the plain version, IEEE f32, on CPU tensors), operands as
+    :func:`~._gemm.gemm_f32` takes them, one group."""
+    bias = None if bias is None else bias[None]
+    if a.device.type == "cpu":
+        return gemm_f32_plain(a[None], w[None], bias, a_trans=a_trans,
+                              w_kmajor=w_kmajor)[0]
+    return gemm_f32(a[None], w[None], bias, a_trans=a_trans,
+                    w_kmajor=w_kmajor, precision=precision)[0]
 
 
 train_step.launches = train_step.launches_q8 = 0
@@ -457,7 +478,7 @@ class _StepParams(ctypes.Structure):
         + [
             (name, ctypes.c_int)
             for name in ("B", "M", "E", "C", "kv_dtype", "training",
-                         "min_active")
+                         "min_active", "precision")
         ]
         + [("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32)]
         + [
@@ -541,7 +562,12 @@ def fused_pool_train_step(
     (the CUDA-graph chunk's steps).  ``training=False`` skips the draw
     (eval info contract; identical gradients, Q1).  ``loss_scale``
     multiplies the built-in losses' mean normaliser.  ``precision`` is
-    ``"default"`` or ``"highest"``; the kernel runs full f32 FMAs for both.
+    ``"default"`` or ``"highest"``: ``'highest'`` runs every product in
+    IEEE f32; ``'default'`` on the card runs the chain's products (out,
+    logits, ``d_out``, dW_head, ``d_mix``, G) with TF32 operands and the
+    prologue (``qp``, ``u``, ``c``, ``W_vo``) and the weight-gradient GEMMs in
+    cuBLAS TF32 — JAX's ``DEFAULT`` on an Ampere or Hopper GPU; on the CPU
+    both are IEEE f32, as JAX's CPU backend computes them.
 
     ``row_offset``/``batch_rows`` — staged-batch addressing (JAX's
     in-kernel tile offset): ``kv`` holds S steps' batches stacked on axis 0,
@@ -636,7 +662,7 @@ def fused_pool_train_step(
     qrow = query[0, 0, :]
     in_w, in_b = params.in_proj_weight, params.in_proj_bias
     out_w, out_b = params.out_proj_weight, params.out_proj_bias
-    with torch.no_grad():
+    with torch.no_grad(), matmul_precision(precision):
         wq, wk, wv, _, bk, bv = _split_params(in_w, in_b, out_w)
         (u, c, wvo, bctx, _, _), qp, scale = _prep_tensors(
             in_w, in_b, out_w, out_b, qrow, 1
@@ -656,6 +682,7 @@ def fused_pool_train_step(
             row_loss=row_loss, row_extras=tuple(row_extras),
             kv_scales=kv_scales,
             seed_words=seed_words if training else None,
+            precision=precision,
         )
         dWo, dWv, d_bv, dbo = _g_epilogue(
             res["G"], res["dsum_out"], wv, out_w, bv, out_b is not None

@@ -214,8 +214,10 @@ class MultimodalAttentionPool(nn.Module):
     Configurations the kernels do not cover take the torch path either way.
     ``precision``: the torch path's forward runs under
     :func:`~aecf_tpu_torch.core.matmul_precision` (``'highest'``, the
-    default, is IEEE f32 whatever the process set) and restores the
-    process's mode; the kernels run full f32 FMAs at every setting.
+    default, is IEEE f32 whatever the process set; ``'default'`` TF32 on
+    the card) and restores the process's mode; the shared-query kernels
+    run their products on TF32 tensor cores at ``'default'`` on the card,
+    the per-row kernel IEEE f32 at every setting, as the JAX package's.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
@@ -264,10 +266,11 @@ class MultimodalAttentionPool(nn.Module):
         if implementation not in ("auto", "torch", "kernel"):
             raise ValueError(f"unknown implementation {implementation!r}")
         self.implementation = implementation
-        # The kernels run full f32 FMAs for every setting; the torch path
-        # runs under core.matmul_precision(precision) ('highest' is IEEE
-        # f32).  'high' keeps the call on the torch path (the JAX kernels
-        # implement 'default' and 'highest' only).
+        # The torch path runs under core.matmul_precision(precision)
+        # ('highest' is IEEE f32, 'default' TF32 on the card), the
+        # shared-query kernels take it too.  'high' keeps the call on the
+        # torch path (the JAX kernels implement 'default' and 'highest'
+        # only).
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be 'default', 'high', or 'highest', "

@@ -268,7 +268,9 @@ def test_caps_and_alignment():
 def test_plain_matches_the_torch_oracle_with_mask_injection(H):
     """Training through the streamed split against ``attention_pool_core``
     + ``curriculum_mask`` fed the port's own Bernoulli draw
-    (``mask_override``): out, weights, masked weights, entropy, rate."""
+    (``mask_override``): out, weights, masked weights, entropy, rate.  At
+    ``'highest'``, the f32 oracle's mode (``'default'`` stores ``mix`` in
+    bf16, as the JAX package does)."""
     B, M, E = 40, 4, 1028
     arrs, q, kv, _ = _inputs(50 + H, B, M, E)
     tp = _torch_params(arrs)
@@ -276,7 +278,7 @@ def test_plain_matches_the_torch_oracle_with_mask_injection(H):
         out, w, mw, info = fused_fusion_pool_shared(
             tp, torch.from_numpy(q), torch.from_numpy(kv), num_heads=H,
             training=True, base_mask_prob=0.9, min_active=2,
-            generator=torch.Generator().manual_seed(H),
+            generator=torch.Generator().manual_seed(H), precision="highest",
         )
         out_o, w_o = attention_pool_core(
             tp, torch.from_numpy(q).expand(B, 1, E), torch.from_numpy(kv),
