@@ -3,6 +3,7 @@
 from .attention import (
     AttentionPoolConfig,
     AttentionPoolParams,
+    PoolTensors,
     apply_pooled_weights,
     attention_pool_core,
     scaled_dot_product_attention,
@@ -15,11 +16,12 @@ from .masking import (
     curriculum_mask,
     entropy_loss,
 )
-from .precision import PRECISIONS, matmul_precision, round_tf32
+from .precision import PRECISIONS, matmul_precision, round_tf32, run_at
 
 __all__ = [
     "AttentionPoolConfig",
     "AttentionPoolParams",
+    "PoolTensors",
     "apply_pooled_weights",
     "attention_pool_core",
     "scaled_dot_product_attention",
@@ -33,4 +35,5 @@ __all__ = [
     "PRECISIONS",
     "matmul_precision",
     "round_tf32",
+    "run_at",
 ]

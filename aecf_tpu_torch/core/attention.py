@@ -12,7 +12,7 @@ returned attention weights are head-averaged ``(B, T, S)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +20,7 @@ from torch import nn
 __all__ = [
     "AttentionPoolConfig",
     "AttentionPoolParams",
+    "PoolTensors",
     "apply_pooled_weights",
     "attention_pool_core",
     "scaled_dot_product_attention",
@@ -79,6 +80,24 @@ class AttentionPoolParams(nn.Module):
             self.register_parameter(
                 name, None if value is None else nn.Parameter(value)
             )
+
+
+class PoolTensors(NamedTuple):
+    """A pool's four tensors as a tuple that reads like
+    :class:`AttentionPoolParams`: what a block run through
+    :func:`aecf_tpu_torch.core.run_at` takes as its inputs."""
+
+    in_proj_weight: torch.Tensor
+    in_proj_bias: Optional[torch.Tensor]
+    out_proj_weight: torch.Tensor
+    out_proj_bias: Optional[torch.Tensor]
+
+    @classmethod
+    def of(cls, params) -> "PoolTensors":
+        """The four tensors of any object that has them (a pool, a module's
+        parameters, this rank's heads)."""
+        return cls(params.in_proj_weight, params.in_proj_bias,
+                   params.out_proj_weight, params.out_proj_bias)
 
 
 def _merge_masks(

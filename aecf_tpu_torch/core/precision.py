@@ -7,7 +7,9 @@ around its XLA path (``aecf_tpu/ops/__init__.py``,
 :func:`matmul_precision` runs a block under the mode that ``precision``
 names and gives the process its own mode back afterwards, so
 ``ops.fusion_pool``, ``MultimodalAttentionPool`` and the kernels'
-wrappers share one rule.
+wrappers share one rule.  :func:`run_at` runs a differentiable block
+under that mode, forward and backward, as JAX binds the precision into
+every dot it traces, the transposed dots of the gradient among them.
 
 :func:`round_tf32` is what the tensor cores do to an f32 operand at
 ``'default'`` (PTX ``cvt.rna.tf32.f32``), for the kernels' plain versions.
@@ -17,11 +19,11 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["PRECISIONS", "matmul_precision", "round_tf32"]
+__all__ = ["PRECISIONS", "matmul_precision", "round_tf32", "run_at"]
 
 PRECISIONS = ("default", "high", "highest")
 
@@ -73,9 +75,10 @@ def matmul_precision(precision: str) -> Iterator[None]:
     it.  A thread that sets the mode itself meanwhile has its setting
     undone then.
 
-    Gradients are not covered: autograd's backward runs later, outside
-    the block, at the process's mode, unless the backward enters the mode
-    itself, as the kernels' autograd functions do.
+    The block covers what runs inside it: autograd calls a backward
+    later, outside it.  A differentiable block whose gradient must run at
+    the same mode goes through :func:`run_at`; the kernels' autograd
+    functions enter their forward's mode in their backward themselves.
     """
     global _saved
     if precision not in PRECISIONS:
@@ -94,6 +97,97 @@ def matmul_precision(precision: str) -> Iterator[None]:
         with _lock:
             _depth[mode] -= 1
             _apply()
+
+
+def _keeps_graph() -> bool:
+    """Whether the backward running now keeps its graph
+    (``retain_graph=True``); True where torch cannot say."""
+    probe = getattr(torch._C._autograd, "_get_current_graph_task_keep_graph",
+                    None)
+    return True if probe is None else bool(probe())
+
+
+class _RunAt(torch.autograd.Function):
+    """``fn`` on detached copies of the inputs, its graph kept inside the
+    node: the forward builds it under ``precision``'s mode, the backward
+    differentiates it under the same mode, so the mode is entered and left
+    within each of the two calls."""
+
+    @staticmethod
+    def forward(ctx, precision, fn, *tensors):
+        ctx.set_materialize_grads(False)
+        inner = tuple(
+            t.detach().requires_grad_(t.requires_grad)
+            if isinstance(t, torch.Tensor) else t
+            for t in tensors
+        )
+        with torch.enable_grad(), matmul_precision(precision):
+            outs = fn(*inner)
+        ctx.single = isinstance(outs, torch.Tensor)
+        outs = (outs,) if ctx.single else tuple(outs)
+        ctx.precision = precision
+        ctx.graph = (inner, outs)
+        detached = tuple(
+            o.detach() if isinstance(o, torch.Tensor) else o for o in outs
+        )
+        ctx.mark_non_differentiable(*(
+            d for d, o in zip(detached, outs)
+            if isinstance(o, torch.Tensor) and not o.requires_grad
+        ))
+        return detached[0] if ctx.single else detached
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        if ctx.graph is None:
+            raise RuntimeError(
+                "Trying to backward through the graph a second time; pass "
+                "retain_graph=True to the first backward"
+            )
+        inner, outs = ctx.graph
+        keep = _keeps_graph()
+        if not keep:
+            ctx.graph = None  # the inner graph goes with this call
+        pairs = [
+            (o, g) for o, g in zip(outs, grads)
+            if g is not None and isinstance(o, torch.Tensor)
+            and o.requires_grad
+        ]
+        wanted = [i for i, t in enumerate(inner)
+                  if ctx.needs_input_grad[2 + i]]
+        result = [None] * (2 + len(inner))
+        if pairs and wanted:
+            with matmul_precision(ctx.precision):
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [inner[i] for i in wanted],
+                    [g for _, g in pairs], retain_graph=keep,
+                    allow_unused=True,
+                )
+            for i, g in zip(wanted, got):
+                result[2 + i] = g
+        return tuple(result)
+
+
+def run_at(precision: str, fn: Callable[..., Any], *tensors: Any) -> Any:
+    """``fn(*tensors)`` under :func:`matmul_precision` ``(precision)``,
+    its gradient too: the backward re-enters the mode and leaves it before
+    it returns — also after a backward that raises, or one taken with
+    respect to some of the inputs only.
+
+    ``fn`` returns a tensor or a tuple of tensors (None allowed); every
+    tensor it differentiates must come through ``tensors`` (a tensor it
+    closes over gets no gradient through the block).  Entries of
+    ``tensors`` that are not tensors, None among them, pass through.
+    Where nothing requires a gradient (``torch.no_grad()``, frozen
+    inputs), it is ``fn`` inside the mode's block and nothing more.  The
+    gradients are once differentiable.
+    """
+    if not torch.is_grad_enabled() or not any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        with matmul_precision(precision):
+            return fn(*tensors)
+    return _RunAt.apply(precision, fn, *tensors)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

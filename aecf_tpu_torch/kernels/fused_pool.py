@@ -21,7 +21,8 @@ as it finds it.  Its plain PyTorch version,
 Q, K and V, then scores), so the two agree to ~1e-6, not bitwise.
 
 The backward is plain torch — the JAX package runs it as XLA einsums
-(``_fused_bwd_impl``), not as a Pallas kernel.  :class:`_FusedPool` ties
+(``_fused_bwd_impl``), not as a Pallas kernel — at IEEE f32 whatever the
+process's matmul mode, as JAX runs it under ``"highest"``.  :class:`_FusedPool` ties
 the two into one ``torch.autograd.Function``; :func:`fused_fusion_pool`
 is the differentiable entry with the JAX function's info contract.
 
@@ -46,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.attention import AttentionPoolParams
+from ..core.precision import matmul_precision
 from ._build import load_library
 from ._plan import GemmTile, _pick_plan, dtype_name, fused_fwd_products
 from .draws import draw_seed_words
@@ -443,8 +445,11 @@ class _FusedPool(torch.autograd.Function):
     def backward(ctx, d_out, d_w, _d_mw, d_ent, _d_rate):
         *tensors, kpm, w = ctx.saved_tensors
         d_w = _fold_entropy_cotangent(d_w, d_ent, w)
-        grads = _fused_bwd(tensors, kpm, d_out, d_w, ctx.num_heads,
-                           want_dkv=ctx.needs_input_grad[5])
+        # IEEE f32 whatever the process's mode, as the forward kernel (and
+        # JAX's _fused_bwd_impl, under "highest")
+        with matmul_precision("highest"):
+            grads = _fused_bwd(tensors, kpm, d_out, d_w, ctx.num_heads,
+                               want_dkv=ctx.needs_input_grad[5])
         return (*grads, None, None, None, None)
 
 

@@ -95,13 +95,14 @@ def create_fusion_pool(
     ``fusion_query`` is an ``nn.Parameter`` ``(1, 1, E)`` drawn from
     ``N(0, √(2/E))`` — register it with your model.  ``num_modalities`` is
     validation-only, as in the reference (:708).  ``kwargs`` go to
-    :class:`MultimodalAttentionPool`; its ``device=`` places the query too.
-    Both draws come from ``generator`` (a CPU ``torch.Generator``), the
-    query's first.
+    :class:`MultimodalAttentionPool`, and the query goes where the pool's
+    parameters go: ``'cuda'`` unless ``device=`` (or ``params=``) says
+    otherwise.  Both draws come from ``generator`` (a CPU
+    ``torch.Generator``), the query's first.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
-    >>> query, pool = create_fusion_pool(64, 3, generator=g)
+    >>> query, pool = create_fusion_pool(64, 3, generator=g, device="cpu")
     >>> tuple(query.shape)
     (1, 1, 64)
     >>> kv = torch.ones(2, 3, 64)
@@ -126,11 +127,12 @@ def create_fusion_pool(
 
     if generator is None:
         generator = _default_generator()
-    query = init_fusion_query(generator, embed_dim).to(kwargs.get("device"))
+    query = init_fusion_query(generator, embed_dim)
     attention_pool = MultimodalAttentionPool(
         embed_dim=embed_dim,
         curriculum_masking=CurriculumMasking(base_mask_prob=mask_prob),
         generator=generator,
         **kwargs,
     )
+    query = query.to(attention_pool.params.in_proj_weight.device)
     return nn.Parameter(query), attention_pool

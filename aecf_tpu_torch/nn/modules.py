@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.attention import (
     AttentionPoolConfig,
+    PoolTensors,
     apply_pooled_weights,
     attention_pool_core,
 )
@@ -42,7 +43,7 @@ from ..core.masking import (
     curriculum_mask,
     entropy_loss,
 )
-from ..core.precision import PRECISIONS, matmul_precision
+from ..core.precision import PRECISIONS, run_at
 from ..kernels import (
     fused_fusion_pool,
     fused_fusion_pool_shared,
@@ -212,17 +213,21 @@ class MultimodalAttentionPool(nn.Module):
     per-row kernel for a ``(B, 1, E)`` one; their plain versions on CPU
     tensors) or ``'auto'`` (the kernels for CUDA features when H ≤ 2).
     Configurations the kernels do not cover take the torch path either way.
-    ``precision``: the torch path's forward runs under
+    ``precision``: the torch path runs under
     :func:`~aecf_tpu_torch.core.matmul_precision` (``'highest'``, the
     default, is IEEE f32 whatever the process set; ``'default'`` TF32 on
-    the card) and restores the process's mode; the shared-query kernels
+    the card), its backward too (:func:`~aecf_tpu_torch.core.run_at`),
+    and restores the process's mode; the shared-query kernels
     run their products on TF32 tensor cores at ``'default'`` on the card,
     the per-row kernel IEEE f32 at every setting, as the JAX package's.
+    ``device``: where the parameters go, ``'cuda'`` unless given; with
+    ``params=`` and no ``device``, they stay where ``params`` are.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
     >>> pool = MultimodalAttentionPool(
-    ...     64, curriculum_masking=CurriculumMasking(), generator=g)
+    ...     64, curriculum_masking=CurriculumMasking(), generator=g,
+    ...     device="cpu")
     >>> q, kv = torch.ones(2, 1, 64), torch.ones(2, 3, 64)
     >>> out, info = pool.train()(q, kv, generator=g, return_info=True)
     >>> tuple(out.shape), tuple(info["attention_weights"].shape)
@@ -266,11 +271,11 @@ class MultimodalAttentionPool(nn.Module):
         if implementation not in ("auto", "torch", "kernel"):
             raise ValueError(f"unknown implementation {implementation!r}")
         self.implementation = implementation
-        # The torch path runs under core.matmul_precision(precision)
-        # ('highest' is IEEE f32, 'default' TF32 on the card), the
-        # shared-query kernels take it too.  'high' keeps the call on the
-        # torch path (the JAX kernels implement 'default' and 'highest'
-        # only).
+        # The torch path runs under core.matmul_precision(precision),
+        # forward and backward ('highest' is IEEE f32, 'default' TF32 on
+        # the card), the shared-query kernels take it too.  'high' keeps
+        # the call on the torch path (the JAX kernels implement 'default'
+        # and 'highest' only).
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be 'default', 'high', or 'highest', "
@@ -282,6 +287,8 @@ class MultimodalAttentionPool(nn.Module):
                 generator if generator is not None else _default_generator(),
                 embed_dim, bias=bias, dtype=dtype,
             )
+            if device is None:
+                device = "cuda"
         self.attention = _AttentionParams(params)
         if device is not None:
             self.to(device)
@@ -426,33 +433,35 @@ class MultimodalAttentionPool(nn.Module):
         # so a checkpoint's recompute draws the same mask
         drop_seed = draw_seed_words(generator) if dropout_active else None
 
-        def attend(q, k, v):
+        def attend(q, k, v, *tensors):
             drop_gen = (
                 device_generator(drop_seed, q.device) if dropout_active
                 else None
             )
-            with matmul_precision(self.precision):
-                return attention_pool_core(
-                    params,
-                    q,
-                    k,
-                    v,
-                    num_heads=self.num_heads,
-                    key_padding_mask=key_padding_mask,
-                    attn_mask=attn_mask,
-                    dropout_rate=(
-                        self.config.dropout if dropout_active else 0.0
-                    ),
-                    dropout_generator=drop_gen,
-                    need_weights=need_weights,
+            return attention_pool_core(
+                PoolTensors(*tensors),
+                q,
+                k,
+                v,
+                num_heads=self.num_heads,
+                key_padding_mask=key_padding_mask,
+                attn_mask=attn_mask,
+                dropout_rate=self.config.dropout if dropout_active else 0.0,
+                dropout_generator=drop_gen,
+                need_weights=need_weights,
+            )
+
+        body = attend
+        if use_checkpoint and self.training:
+            # inside run_at's block, so the recompute runs at its mode too
+            def body(*args):
+                return torch.utils.checkpoint.checkpoint(
+                    attend, *args, use_reentrant=False
                 )
 
-        if use_checkpoint and self.training:
-            out, weights = torch.utils.checkpoint.checkpoint(
-                attend, query, key, value, use_reentrant=False
-            )
-        else:
-            out, weights = attend(query, key, value)
+        tensors = PoolTensors.of(params)
+        out, weights = run_at(self.precision, body, query, key, value,
+                              *tensors)
 
         info: Dict[str, Any] = {}
         if cm is not None and weights is not None:
@@ -471,10 +480,13 @@ class MultimodalAttentionPool(nn.Module):
                 step=step,
             )
             if self.apply_masking_to_output:
-                with matmul_precision(self.precision):
-                    out = apply_pooled_weights(
-                        params, masked, value, num_heads=self.num_heads
-                    )
+                out = run_at(
+                    self.precision,
+                    lambda w, v, *t: apply_pooled_weights(
+                        PoolTensors(*t), w, v, num_heads=self.num_heads
+                    ),
+                    masked, value, *tensors,
+                )
             info.update(mask_info)
             # Grad-carrying raw weights (reference AECFLayer.py:538).
             info["attention_weights"] = weights

@@ -13,9 +13,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..core.attention import AttentionPoolParams, attention_pool_core
+from ..core.attention import (
+    AttentionPoolParams,
+    PoolTensors,
+    attention_pool_core,
+)
 from ..core.masking import curriculum_mask
-from ..core.precision import matmul_precision
+from ..core.precision import run_at
 from ..kernels import (
     fused_fusion_pool,
     fused_fusion_pool_shared,
@@ -104,10 +108,11 @@ def fusion_pool(
     generator there seeded from two words drawn from it
     (:func:`aecf_tpu_torch.kernels.draws.generator_on`; a generator on
     ``kv``'s device is used as it is).  ``kv_grad=False`` detaches the
-    features.  The torch path's forward runs under the float32 matmul mode
+    features.  The torch path runs under the float32 matmul mode
     ``precision`` names (:func:`aecf_tpu_torch.core.matmul_precision`:
-    ``'highest'`` is IEEE f32 whatever the process set) and leaves the
-    process's mode as it found it.
+    ``'highest'`` is IEEE f32 whatever the process set), its backward
+    too (:func:`aecf_tpu_torch.core.run_at`), and leaves the process's
+    mode as it found it.
 
     int8 features: pass ``kv`` as int8 with ``kv_scales (B, M)`` (see
     :func:`aecf_tpu_torch.kernels.quantize_features`); they are frozen
@@ -174,16 +179,19 @@ def fusion_pool(
         )
     B = kv.shape[0]
     q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
-    with matmul_precision(precision):
-        out, weights = attention_pool_core(
-            params,
-            q_full,
-            kv,
-            kv,
+
+    def pool(q, x, *tensors):
+        return attention_pool_core(
+            PoolTensors(*tensors),
+            q,
+            x,
+            x,
             num_heads=num_heads,
             key_padding_mask=key_padding_mask,
             need_weights=True,
         )
+
+    out, weights = run_at(precision, pool, q_full, kv, *PoolTensors.of(params))
     masked, info = curriculum_mask(
         weights,
         generator=generator_on(generator, kv.device),

@@ -42,7 +42,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ..core.attention import AttentionPoolParams, _merge_masks
 from ..core.masking import curriculum_mask
-from ..core.precision import matmul_precision
+from ..core.precision import run_at
 from ..kernels.draws import generator_on
 from ..train.trainer import _chunk_of, bce_with_logits_loss
 from .collectives import MeshAxis, all_reduce_, gather_rows
@@ -219,25 +219,31 @@ def sharded_fusion_pool(
     q_in = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
     kv_in = _CopyToModel.apply(kv, group)
     T = q_in.shape[1]
-    w_q, w_k, w_v = params.in_proj_weight.chunk(3, dim=0)
-    b_q = b_k = b_v = None
-    if params.in_proj_bias is not None:
-        b_q, b_k, b_v = params.in_proj_bias.chunk(3, dim=0)
 
     def proj(x, w, b):
         y = torch.einsum("bse,fe->bsf", x, w)
         return y if b is None else y + b
 
-    with matmul_precision(precision):
-        q = proj(q_in, w_q, b_q).reshape(B, T, heads, dh)
-        k = proj(kv_in, w_k, b_k).reshape(B, S, heads, dh)
-        v = proj(kv_in, w_v, b_v).reshape(B, S, heads, dh)
+    def local_heads(qx, x, in_w, in_b, out_w):
+        w_q, w_k, w_v = in_w.chunk(3, dim=0)
+        b_q = b_k = b_v = None
+        if in_b is not None:
+            b_q, b_k, b_v = in_b.chunk(3, dim=0)
+        q = proj(qx, w_q, b_q).reshape(B, T, heads, dh)
+        k = proj(x, w_k, b_k).reshape(B, S, heads, dh)
+        v = proj(x, w_v, b_v).reshape(B, S, heads, dh)
         scores = torch.einsum("bthd,bshd->bhts", q * float(dh) ** -0.5, k)
         attn = torch.softmax(_merge_masks(scores, key_padding_mask, None),
                              dim=-1)
         context = torch.einsum("bhts,bshd->bthd", attn, v).reshape(
             B, T, heads * dh)
-        partial = torch.einsum("bte,fe->btf", context, params.out_proj_weight)
+        return torch.einsum("bte,fe->btf", context, out_w), attn
+
+    # the collectives stay outside the block: only the heads' products
+    # run (forward and backward) at precision's mode
+    partial, attn = run_at(precision, local_heads, q_in, kv_in,
+                           params.in_proj_weight, params.in_proj_bias,
+                           params.out_proj_weight)
     out = _ReduceFromModel.apply(partial, group)
     if params.out_proj_bias is not None:
         out = out + params.out_proj_bias

@@ -54,7 +54,12 @@ the resident forward, backward and step):
    version with ``tf32=True`` — the eval and training forward (#1, #2), the
    backward (#4), the step (#8) —, int8 against f32 on ``q.float() * s``
    and two calls bit for bit, then the streamed split with bf16 ``mix`` and
-   ``d_mix`` (#3, #5, #6) at slices (f), (g), (h) (3n, 6g);
+   ``d_mix`` (#3, #5, #6) at slices (f), (g), (h) (3n, 6g); the backward's
+   matmul mode (3o): with the process at torch's ``'high'`` (TF32), the
+   per-row kernel's gradients and the torch route's at ``'highest'``
+   equal those of an IEEE process, and the same backward left at
+   ``'high'`` differs from them by a printed gap (the Quick start's width,
+   H=1 and 8);
 4. the serving slice at full width: ``VisionLanguageModel`` (img 2048 +
    txt 768 → 512 → 1000 classes) with seeded random parameters, behind
    ``FusionPredictor(buckets=(32, 256))`` → ``MicroBatcher`` →
@@ -121,9 +126,11 @@ the resident forward, backward and step):
    ``make_pool_scan_train_step`` (its graph against eager steps, bit for
    bit), ``measure.build_chunk``, ``fused_fusion_pool_shared`` under
    autograd (resident and streamed, f32 and int8) and ``ops.fusion_pool``
-   (the per-row kernel #7 bit for bit its 'highest' self), and the
+   (the per-row kernel #7 bit for bit its 'highest' self), the
    profiler's count of TF32 and SIMT GEMM kernels in a step at each
-   precision; the tuner (5j: ``python -m
+   precision, and the int8 one-pass step (``fused_pool_head_train_step(
+   kv_scales=)``, 3 SGD steps at the north star, bit for bit the f32
+   'default' step on ``q.float() * s``); the tuner (5j: ``python -m
    aecf_tpu_torch.tune`` at the north star, ``--impl fused-step`` with
    ``--dry-run`` and with ``--out build/tiles_smoke.json``, read back by
    a fresh process, and ``--impl kernel --dry-run``; each JSON
@@ -132,8 +139,8 @@ the resident forward, backward and step):
    the scope), ``StepTimer``'s p50, ``debug_nans`` passing a clean
    ``'torch'`` step and raising on NaN features;
    then the module API at the README Quick start's width (B=4096, M=3,
-   E=512, H=1): ``create_fusion_pool`` with the fusion query expanded per
-   row, 30 AdamW steps under a warmup-then-ramp mask schedule, the first 10
+   E=512, H=1): ``create_fusion_pool`` with no ``device=`` (the card by
+   default) and the fusion query expanded per row, 30 AdamW steps under a warmup-then-ramp mask schedule, the first 10
    in lockstep with the same pool forced to ``implementation='torch'``;
    and the repo's large configuration (B=8192, M=4, E=1024, H=2): one eval
    call and one gradient step against the torch path;
@@ -1554,7 +1561,8 @@ def _traced(torch, cpu=False):
     as three; 0.45 to 0.965 launches a call over 20 or 200 calls, with the
     window's edges padded by a quarter second or not), so a count read
     here is a lower bound: a check that needs an exact count traces again
-    (:func:`_gemm_instance_check`)."""
+    (:func:`_gemm_instance_check`), in a fresh process
+    (:func:`_gemm_probe`)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + (
@@ -1980,6 +1988,110 @@ def check_fused_pool_grads(torch) -> None:
     print(f"per-row gradients, kernel forward vs plain forward: 3 shapes "
           f"within {TOL_SUM_REL:g}*max|ref| for the loss, every parameter, "
           f"the query and kv; max abs err {worst:.3e}")
+
+
+GRAD_MODE_SHAPES = ((QS_B, QS_M, QS_E, 1), (QS_B, QS_M, QS_E, 8))
+
+
+def _no_block(precision):
+    """A stand-in for ``matmul_precision`` that enters no mode: the block
+    runs at the process's."""
+    return contextlib.nullcontext()
+
+
+def check_grad_modes(torch) -> dict:
+    """Phase 3o: the backward's matmul mode on the card, at the Quick start
+    (B=4096, M=3, E=512, H=1) and at H=8.  With the process at torch's
+    ``'high'`` (TF32 cuBLAS): (i) the per-row kernel's (#7,
+    ``fused_fusion_pool``) gradients and the torch route's at
+    ``precision='highest'`` (``ops.fusion_pool(implementation='torch')``,
+    shared query) equal the same calls under an IEEE process bit for bit,
+    or within ``TOL_SUM_REL`` of max|ref| where cuBLAS picks another
+    algorithm; (ii) the same gradients with the backward left at the
+    process's ``'high'`` — #7's backward without its block, the torch
+    route's forward block without ``run_at`` (the code before the repair)
+    — differ from the IEEE ones: the gap printed is what the check would
+    see of TF32.  Loss ``(out²).mean() + (w²).mean()``, padded slots
+    included.  The process's mode is restored afterwards.  Returns the
+    gaps by route and shape."""
+    from aecf_tpu_torch.core import attention_pool_core, matmul_precision
+    from aecf_tpu_torch.kernels import fused_fusion_pool
+    from aecf_tpu_torch.ops import fusion_pool
+
+    fp = sys.modules["aecf_tpu_torch.kernels.fused_pool"]
+    rng = np.random.default_rng(33)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def grads(route, H, params, q, kv, kpm, forced):
+        for t in params.parameters():
+            t.grad = None
+        tq = q.clone().requires_grad_()
+        tkv = kv.clone().requires_grad_()
+        if route == "#7":
+            saved = fp.matmul_precision
+            fp.matmul_precision = _no_block if forced else saved
+            try:
+                out, w, _, _ = fused_fusion_pool(
+                    params, tq, tkv, num_heads=H, key_padding_mask=kpm)
+                ((out ** 2).mean() + (w ** 2).mean()).backward()
+            finally:
+                fp.matmul_precision = saved
+        else:
+            if forced:
+                with matmul_precision("highest"):
+                    out, w = attention_pool_core(
+                        params, tq.expand(kv.shape[0], 1, -1), tkv, tkv,
+                        num_heads=H, key_padding_mask=kpm)
+            else:
+                out, w, _, _ = fusion_pool(
+                    params, tq, tkv, num_heads=H, key_padding_mask=kpm,
+                    implementation="torch", precision="highest")
+            ((out ** 2).mean() + (w ** 2).mean()).backward()
+        got = {n: t.grad.clone() for n, t in params.named_parameters()}
+        got.update(query=tq.grad, kv=tkv.grad)
+        return got
+
+    before = torch.get_float32_matmul_precision()
+    gaps = {}
+    try:
+        for B, M, E, H in GRAD_MODE_SHAPES:
+            params = _pool_params(torch, rng, E, "cuda")
+            rows = torch.randn((B, 1, E), generator=gen, device="cuda")
+            kv = torch.randn((B, M, E), generator=gen, device="cuda")
+            kpm = torch.rand((B, M), generator=gen, device="cuda") < 0.3
+            kpm[:, 0] = False
+            for route, q in (("#7", rows), ("torch", rows[:1])):
+                got = {}
+                for process, forced in (("highest", False), ("high", False),
+                                        ("high", True)):
+                    torch.set_float32_matmul_precision(process)
+                    got[process, forced] = grads(route, H, params, q, kv, kpm,
+                                                 forced)
+                torch.cuda.synchronize()
+                ieee = got["highest", False]
+                where = f"{route} B={B} M={M} E={E} H={H} 'high' process"
+                same = all(torch.equal(got["high", False][k], v)
+                           for k, v in ieee.items())
+                if not same:
+                    for k, v in ieee.items():
+                        _hold(k, got["high", False][k], v, _sum_tol(v), where)
+                gap = max(
+                    ((got["high", True][k] - v).abs().max()
+                     / v.abs().max()).item() for k, v in ieee.items())
+                check(gap > 0, f"{where}: the backward left at 'high' equals "
+                               "the IEEE backward; the check cannot see TF32")
+                gaps[f"{route} H={H}"] = gap
+                print(f"grad modes {where}: 'highest' gradients "
+                      + ("equal the IEEE process's bit for bit" if same else
+                         f"within {TOL_SUM_REL:g}*max|ref| of the IEEE "
+                         "process's (not bit for bit)")
+                      + f"; backward left at 'high': largest gap "
+                      f"{gap:.3e} of max|ref| (TF32)")
+    finally:
+        torch.set_float32_matmul_precision(before)
+    check(torch.get_float32_matmul_precision() == before,
+          "the process's matmul mode was not restored")
+    return gaps
 
 
 def _model_params(model, rng):
@@ -2591,13 +2703,16 @@ def _quick_start_schedule(step, warmup=10, steps=30):
 def _quick_start(torch, impl, seed=41):
     """The README Quick start at full width on the card: the fusion query,
     the pool (``impl``) with the ramp schedule, features, a target and an
-    AdamW(1e-3) optimizer."""
+    AdamW(1e-3) optimizer.  No ``device=``, as the README writes it: the
+    module API places the pool and the query on the card by default."""
     from aecf_tpu_torch import create_fusion_pool
 
     query, pool = create_fusion_pool(
         QS_E, QS_M, generator=torch.Generator().manual_seed(seed),
-        implementation=impl, device="cuda",
+        implementation=impl,
     )
+    check(query.is_cuda and all(p.is_cuda for p in pool.parameters()),
+          "create_fusion_pool with no device= left the pool off the card")
     pool.curriculum_masking.schedule = _quick_start_schedule
     data = torch.Generator(device="cuda").manual_seed(seed + 1)
     kv = torch.randn((QS_B, QS_M, QS_E), generator=data, device="cuda")
@@ -6203,6 +6318,40 @@ def _gemm_instance_check(torch, fn, want: str, calls=4, tries=3) -> dict:
         f"instance in {tries} windows of {calls} steps, not {4 * calls}")
 
 
+GEMM_PROBE_TIMEOUT_S = 300
+
+
+def _gemm_probe(out_path: str) -> None:
+    """``default_slice`` (f) in a spawned process on the same card: which
+    GEMM instance a north-star step (C=14, SGD) launches at each precision
+    (:func:`_gemm_instance_check`), written to ``out_path`` as JSON.  A
+    process of its own, because late in a long run the profiler loses
+    kernel records (``_traced``); a fresh process has lost none."""
+    import torch
+
+    from aecf_tpu_torch.train import make_pool_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, M, E, C = NS_B, NS_M, NS_E, NS_C
+    rng = np.random.default_rng(63)
+    kv = torch.tensor(rng.standard_normal((B, M, E)), dtype=torch.float32,
+                      device="cuda")
+    labels = torch.tensor((rng.random((B, C)) < 0.3), dtype=torch.float32,
+                          device="cuda")
+    state = _state(torch, _classifier_flat(rng, E, C),
+                   lambda ps: torch.optim.SGD(ps, lr=1e-2))
+    gen = torch.Generator().manual_seed(5)
+    used = {}
+    for precision, want in (("default", "tf32"), ("highest", "simt")):
+        step = make_pool_train_step(impl="fused-step", precision=precision)
+        used[precision] = _gemm_instance_check(
+            torch, lambda: step(state, kv, labels, gen), want)
+    with open(out_path, "w") as f:
+        json.dump(used, f)
+
+
 def default_slice(torch, smi: str) -> dict:
     """Phase 5k: precision='default' through the entry points a user calls,
     the counts set to 0 first and read at the end.  (a) 10 SGD(1e-2) steps
@@ -6219,20 +6368,36 @@ def default_slice(torch, smi: str) -> dict:
     'highest' within the bf16 step; (e) ``ops.fusion_pool(precision=
     'default')`` on the card: the shared query (the forward chain) and a
     per-row query (kernel #7, equal bit for bit to its 'highest' call); (f)
-    the profiler: 4 'default' steps launch the TF32 GEMM only, 16 times,
-    4 'highest' steps the SIMT GEMM only, 16 times.  The 'highest' references of (d),
-    (e) and (f) run outside the counts (:func:`_uncounted`), so the counts
-    read at the end are the 'default' path's own."""
-    from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    the profiler, in a spawned process (:func:`_gemm_probe`): 4 'default'
+    steps launch the TF32 GEMM only, 16 times, 4 'highest' steps the SIMT
+    GEMM only, 16 times; (g) the int8 one-pass
+    step: 3 SGD(1e-2) steps of ``fused_pool_head_train_step(kv_scales=,
+    precision='default')`` at the north star (C=14 head), each step's
+    loss and gradients equal bit for bit to the f32 'default' step's on
+    ``q.float() * s``.  The 'highest' references of (d) and (e) and the
+    f32 twin of (g) run outside the counts (:func:`_uncounted`), (f) in
+    its own process, so the counts read at the end are the 'default'
+    path's own."""
+    from aecf_tpu_torch.convert import (
+        pool_classifier_params_from_numpy,
+        pool_classifier_params_to_numpy,
+    )
     from aecf_tpu_torch.core import AttentionPoolParams
-    from aecf_tpu_torch.kernels import fused_fusion_pool_shared
+    from aecf_tpu_torch.kernels import (
+        fused_fusion_pool_shared,
+        fused_pool_head_train_step,
+        quantize_features,
+        train_step,
+    )
     from aecf_tpu_torch.kernels.draws import fold_seed_words
     from aecf_tpu_torch.measure import build_chunk
     from aecf_tpu_torch.ops import fusion_pool
     from aecf_tpu_torch.train import (
         make_pool_scan_train_step,
         make_pool_train_step,
+        param_leaves,
     )
+    from aecf_tpu_torch.train.pool_step import _flat_grads
 
     B, M, E, C = NS_B, NS_M, NS_E, NS_C
     rng = np.random.default_rng(61)
@@ -6352,25 +6517,74 @@ def default_slice(torch, smi: str) -> dict:
           "shared query's forward chain within 2^-10 of 'highest'; the per-row"
           " kernel (#7) equal bit for bit at both precisions")
 
-    # (f) the profiler: which GEMM instance a step launches
-    state = _state(torch, _classifier_flat(rng, E, C), sgd)
-    gen = torch.Generator().manual_seed(5)
-    step_at = {p: make_pool_train_step(impl="fused-step", precision=p)
-               for p in ("default", "highest")}
-    used = {"default": _gemm_instance_check(
-        torch, lambda: step_at["default"](state, kv, labels, gen), "tf32")}
-    used["highest"] = _uncounted(lambda: _gemm_instance_check(
-        torch, lambda: step_at["highest"](state, kv, labels, gen), "simt"))
-    print("default (f) torch.profiler, 4 north-star steps a window: "
+    # (f) the profiler, in a process of its own: which GEMM instance a
+    # step launches
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = os.path.join(d, "gemm_instances.json")
+        probe = ctx.Process(target=_gemm_probe, args=(path,))
+        probe.start()
+        probe.join(timeout=GEMM_PROBE_TIMEOUT_S)
+        if probe.is_alive():
+            probe.kill()
+            probe.join(timeout=30)
+        check(probe.exitcode == 0,
+              f"(f) the profiler's process exited {probe.exitcode} (None: "
+              f"killed at {GEMM_PROBE_TIMEOUT_S} s; its traceback above)")
+        with open(path) as f:
+            used = json.load(f)
+    print("default (f) torch.profiler (a fresh process), 4 north-star steps a "
+          "window: "
           + "; ".join(f"'{p}' launches {u['used']} (windows traced: "
                       f"{len(u['windows'])}, launches seen {u['windows']})"
                       for p, u in used.items()))
 
+    # (g) the int8 one-pass step at 'default' against the f32 step
+    kv8, scales = quantize_features(kv)
+    kv_deq = kv8.float() * scales[..., None]
+    flat = _classifier_flat(rng, E, C)
+    twins = {f: pool_classifier_params_from_numpy(flat, device="cuda")
+             for f in ("int8", "f32")}
+    opts = {f: sgd(param_leaves(p)) for f, p in twins.items()}
+    gens = {f: torch.Generator().manual_seed(19) for f in twins}
+    q8_launches = train_step.launches_q8
+    for n in range(3):
+        got = {}
+        for f, x, s in (("int8", kv8, scales), ("f32", kv_deq, None)):
+            p = twins[f]
+            run = lambda: fused_pool_head_train_step(  # noqa: E731
+                p["pool"], p["query"], p["head"], x, labels,
+                generator=gens[f], training=True, kv_scales=s,
+                precision="default")
+            loss, grads, _, _ = run() if f == "int8" else _uncounted(run)
+            got[f] = (loss, _flat_grads(grads, p))
+            for leaf, g in zip(param_leaves(p), got[f][1]):
+                leaf.grad = g
+            opts[f].step()
+        torch.cuda.synchronize()
+        check(torch.equal(got["int8"][0], got["f32"][0])
+              and all(torch.equal(a, b)
+                      for a, b in zip(got["int8"][1], got["f32"][1])),
+              f"int8 one-pass step at 'default' differs from the f32 step on "
+              f"q.float() * s at step {n}")
+        check(math.isfinite(float(got["int8"][0])),
+              f"int8 'default' step loss at step {n}")
+    q8_launches = train_step.launches_q8 - q8_launches
+    check(q8_launches == 3, f"(g) launched {q8_launches} int8 steps, not 3")
+    print(f"default (g) fused_pool_head_train_step(kv_scales=, precision="
+          f"'default') B={B} M={M} E={E} C={C} int8, 3 SGD(1e-2) steps: "
+          f"loss and gradients equal bit for bit to the f32 'default' step "
+          f"on q.float() * s at every step; last loss "
+          f"{float(got['int8'][0]):.6f}")
+
     launches = _counts()
     for name in ("shared_query_fwd", "shared_query_fwd_q8",
                  "shared_query_bwd", "shared_query_bwd_q8", "train_step",
-                 "stream_mix", "stream_mix_q8", "stream_bwd", "stream_bwd_q8",
-                 "stream_bwd_mh", "stream_bwd_mh_q8", "fused_pool_fwd"):
+                 "train_step_q8", "stream_mix", "stream_mix_q8",
+                 "stream_bwd", "stream_bwd_q8", "stream_bwd_mh",
+                 "stream_bwd_mh_q8", "fused_pool_fwd"):
         check(launches[name] > 0,
               f"{name} was not launched on the 'default' main path")
     print(f"default slice launches: {launches} ({smi})")
@@ -6576,6 +6790,7 @@ def main() -> None:
     check_candidate_plans(torch)
     check_plan_reaches_kernel(torch)
     check_fused_pool_grads(torch)
+    check_grad_modes(torch)
     errs.update(check_stream_mix(torch, same))
     errs.update(check_stream_bwd(torch, same))
     check_stream_masks(torch)

@@ -58,7 +58,7 @@ def _pair(E=16, H=1, *, bias=True, cm=None, impl="auto", seed=0, **kw):
     )
     tp = MultimodalAttentionPool(
         E, num_heads=H, bias=bias, curriculum_masking=tcm,
-        implementation=impl, **kw,
+        implementation=impl, device="cpu", **kw,
     )
     return jp, attention_pool_from_numpy(tp, _flat(jp.params))
 
@@ -85,20 +85,22 @@ def _gen(seed=0):
 @pytest.mark.parametrize(
     "make,match",
     [
-        (lambda: MultimodalAttentionPool(embed_dim=0), "embed_dim"),
-        (lambda: MultimodalAttentionPool(8, num_heads=0), "num_heads"),
-        (lambda: MultimodalAttentionPool(10, num_heads=3), "divisible"),
-        (lambda: MultimodalAttentionPool(8, dropout=1.5), "dropout"),
-        (lambda: MultimodalAttentionPool(8, precision="fast"), "precision"),
-        (lambda: MultimodalAttentionPool(8, implementation="xla"),
+        (lambda: MultimodalAttentionPool(embed_dim=0, device="cpu"), "embed_dim"),
+        (lambda: MultimodalAttentionPool(8, num_heads=0, device="cpu"), "num_heads"),
+        (lambda: MultimodalAttentionPool(10, num_heads=3, device="cpu"), "divisible"),
+        (lambda: MultimodalAttentionPool(8, dropout=1.5, device="cpu"), "dropout"),
+        (lambda: MultimodalAttentionPool(8, precision="fast",
+                                         device="cpu"), "precision"),
+        (lambda: MultimodalAttentionPool(8, implementation="xla",
+                                         device="cpu"),
          "implementation"),
         (lambda: CurriculumMasking(base_mask_prob=0.0), "base_mask_prob"),
         (lambda: CurriculumMasking(entropy_target=1.5), "entropy_target"),
         (lambda: CurriculumMasking(min_active=0), "min_active"),
-        (lambda: create_fusion_pool(0, 2), "embed_dim"),
-        (lambda: create_fusion_pool(5.0, 2), "embed_dim"),
-        (lambda: create_fusion_pool(8, 0), "num_modalities"),
-        (lambda: create_fusion_pool(8, 2, mask_prob=0.0), "mask_prob"),
+        (lambda: create_fusion_pool(0, 2, device="cpu"), "embed_dim"),
+        (lambda: create_fusion_pool(5.0, 2, device="cpu"), "embed_dim"),
+        (lambda: create_fusion_pool(8, 0, device="cpu"), "num_modalities"),
+        (lambda: create_fusion_pool(8, 2, mask_prob=0.0, device="cpu"), "mask_prob"),
     ],
 )
 def test_constructor_checks(make, match):
@@ -117,7 +119,7 @@ def test_constructor_checks(make, match):
     ],
 )
 def test_forward_validation(q_shape, k_shape, v_shape, exc, match):
-    pool = MultimodalAttentionPool(8, generator=_gen()).eval()
+    pool = MultimodalAttentionPool(8, generator=_gen(), device="cpu").eval()
     q = "not a tensor" if q_shape is None else torch.zeros(q_shape)
     v = None if v_shape is None else torch.zeros(v_shape)
     with pytest.raises(exc, match=match):
@@ -125,14 +127,15 @@ def test_forward_validation(q_shape, k_shape, v_shape, exc, match):
 
 
 def test_state_dict_is_the_reference_layout():
-    _, pool = create_fusion_pool(8, 2, generator=_gen())
+    _, pool = create_fusion_pool(8, 2, generator=_gen(), device="cpu")
     assert set(pool.state_dict()) == {
         "curriculum_masking._eps", "attention.in_proj_weight",
         "attention.in_proj_bias", "attention.out_proj.weight",
         "attention.out_proj.bias",
     }
     assert float(pool.state_dict()["curriculum_masking._eps"]) == pytest.approx(1e-8)
-    bare = MultimodalAttentionPool(8, bias=False, generator=_gen())
+    bare = MultimodalAttentionPool(8, bias=False, generator=_gen(),
+                                   device="cpu")
     assert set(bare.state_dict()) == {"attention.in_proj_weight",
                                       "attention.out_proj.weight"}
     jp, _ = _pair(8)
@@ -259,7 +262,8 @@ def test_training_masking_needs_a_generator(impl):
     _, tp = _pair(8, cm={}, impl=impl)
     with pytest.raises(ValueError, match="generator"):
         tp.train()(torch.ones(2, 1, 8), torch.ones(2, 3, 8))
-    dropout = MultimodalAttentionPool(8, dropout=0.5, generator=_gen()).train()
+    dropout = MultimodalAttentionPool(8, dropout=0.5, generator=_gen(),
+                                      device="cpu").train()
     with pytest.raises(ValueError, match="generator"):
         dropout(torch.ones(2, 1, 8), torch.ones(2, 3, 8))
     tp.eval()(torch.ones(2, 1, 8), torch.ones(2, 3, 8))  # eval draws nothing
@@ -271,7 +275,8 @@ def test_schedule_sets_the_mask_prob(impl):
     scheduled training call without ``step`` raises, eval needs none."""
     cm = CurriculumMasking(schedule=lambda s: 1e-3 if s < 5 else 1.0)
     pool = MultimodalAttentionPool(16, curriculum_masking=cm,
-                                   implementation=impl, generator=_gen())
+                                   implementation=impl, generator=_gen(),
+                                   device="cpu")
     assert cm.mask_prob_at(0) == 1e-3 and cm.mask_prob_at(9) == 1.0
     q, kv = map(torch.from_numpy, _data(8, 64, 3, 16))
     rates = {}
@@ -323,7 +328,8 @@ def test_use_checkpoint_same_values_and_grads(dropout):
     q, kv = map(torch.from_numpy, _data(10, 4, 3, 16))
     grads = []
     for ckpt in (False, True):
-        pool = MultimodalAttentionPool(16, dropout=dropout, generator=_gen(3))
+        pool = MultimodalAttentionPool(16, dropout=dropout, generator=_gen(3),
+                                       device="cpu")
         out = pool.train()(q, kv, use_checkpoint=ckpt, generator=_gen(4))
         (out ** 2).sum().backward()
         grads.append((out.detach(), pool.attention.in_proj_weight.grad))
@@ -359,7 +365,8 @@ def test_curriculum_masking_module_matches_jax():
     assert CurriculumMasking.compute_entropy_fused is CurriculumMasking.compute_entropy
     _close(tm.compute_entropy(torch.from_numpy(w)), jm.compute_entropy(jnp.asarray(w)))
     assert "base_mask_prob=0.6" in repr(tm)
-    assert "embed_dim=8" in repr(MultimodalAttentionPool(8, generator=_gen()))
+    assert "embed_dim=8" in repr(MultimodalAttentionPool(8, generator=_gen(),
+                                                           device="cpu"))
 
 
 # ---- the reference's own checkpoints ---------------------------------------
@@ -386,7 +393,7 @@ def test_random_pool_golden(random_golden, idx):
             base_mask_prob=c["base_mask_prob"],
             entropy_target=c["entropy_target"], min_active=c["min_active"],
         ),
-        generator=_gen(),
+        generator=_gen(), device="cpu",
     ).train(c["training"])
     prefix = f"{name}_sd."
     pool.load_state_dict(
@@ -427,7 +434,7 @@ def ckpt_golden():
         num_heads=int(g["num_heads"]),
         curriculum_masking=CurriculumMasking(base_mask_prob=0.5,
                                              entropy_target=0.7),
-        generator=_gen(),
+        generator=_gen(), device="cpu",
     )
     pool.load_state_dict(sd, strict=True)
     return g, pool
@@ -476,18 +483,57 @@ def test_slow_path_builds_a_fresh_module():
 
 
 def test_create_fusion_pool_wiring_and_init():
-    query, pool = create_fusion_pool(32, 3, mask_prob=0.25, generator=_gen())
+    query, pool = create_fusion_pool(32, 3, mask_prob=0.25, generator=_gen(),
+                                     device="cpu")
     assert isinstance(query, torch.nn.Parameter) and query.shape == (1, 1, 32)
     assert pool.curriculum_masking.base_mask_prob == 0.25
     assert pool.num_heads == 1
-    _, heads8 = create_fusion_pool(32, 2, num_heads=8, generator=_gen())
+    _, heads8 = create_fusion_pool(32, 2, num_heads=8, generator=_gen(),
+                                   device="cpu")
     assert heads8.num_heads == 8
-    big, _ = create_fusion_pool(4096, 2, generator=_gen())
+    big, _ = create_fusion_pool(4096, 2, generator=_gen(), device="cpu")
     std = float(big.detach().std())
     assert abs(std - math.sqrt(2.0 / 4096)) < 0.1 * math.sqrt(2.0 / 4096)
-    a, _ = create_fusion_pool(8, 2)
-    b, _ = create_fusion_pool(8, 2)
+    a, _ = create_fusion_pool(8, 2, device="cpu")
+    b, _ = create_fusion_pool(8, 2, device="cpu")
     assert not torch.equal(a, b)  # default seeds advance per call
+
+
+def test_pool_and_query_default_to_the_card(monkeypatch):
+    """With no ``device=`` the pool's parameters and the fusion query go
+    to ``'cuda'``: the pool's move is recorded and made to the meta device
+    here, so no CUDA call is made, and the query follows the pool."""
+    moved = []
+
+    def to(self, device):
+        moved.append(str(device))
+        return torch.nn.Module.to(self, "meta")
+
+    monkeypatch.setattr(MultimodalAttentionPool, "to", to)
+    pool = MultimodalAttentionPool(8, generator=_gen())
+    query, fused = create_fusion_pool(8, 2, generator=_gen())
+    assert moved == ["cuda", "cuda"]
+    assert {p.device.type for p in [*pool.parameters(), *fused.parameters(),
+                                    query]} == {"meta"}
+    MultimodalAttentionPool(8, generator=_gen(), device="cpu")
+    assert moved[2:] == ["cpu"]
+
+
+def test_params_on_the_cpu_keep_the_pool_there(monkeypatch):
+    """``params=`` on the CPU with no ``device=`` is the caller's choice:
+    the pool makes no move, and its parameters and the fusion query stay
+    on the CPU."""
+    from aecf_tpu_torch.core import init_attention_pool_params
+
+    moved = []
+    monkeypatch.setattr(MultimodalAttentionPool, "to",
+                        lambda self, device: moved.append(device) or self)
+    params = init_attention_pool_params(_gen(), 8)
+    pool = MultimodalAttentionPool(8, params=params)
+    query, fused = create_fusion_pool(8, 2, params=params, generator=_gen())
+    assert moved == []
+    assert {p.device.type for p in [*pool.parameters(), *fused.parameters(),
+                                    query]} == {"cpu"}
 
 
 @pytest.mark.parametrize("impl", ["auto", "kernel"])
@@ -495,7 +541,8 @@ def test_quick_start_trains(impl):
     """The README Quick start in torch: the query expanded per row, a
     training call, the entropy regularizer, AdamW; the loss falls."""
     g = _gen(0)
-    query, pool = create_fusion_pool(16, 3, implementation=impl, generator=g)
+    query, pool = create_fusion_pool(16, 3, implementation=impl, generator=g,
+                                      device="cpu")
     pool.train()
     modalities = torch.randn(8, 3, 16, generator=g)
     target = torch.randn(8, 1, 16, generator=g)

@@ -20,6 +20,8 @@ import time
 from typing import Dict, List
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # A case's ranks run well inside this; a hung collective is killed after it.
@@ -58,6 +60,47 @@ def run_ranks(case: str, world: int, workdir, inputs: Dict[str, np.ndarray],
         outs[r][-4000:] for r in bad)
     return [dict(np.load(os.path.join(workdir, f"out{r}.npz")))
             for r in range(world)]
+
+
+class MatmulModeSpy(TorchDispatchMode):
+    """Records torch's float32 matmul mode (``seen``) at every ``aten.mm``,
+    ``bmm`` and ``addmm`` dispatched while it is on; with ``fail=True`` it
+    raises at the first instead, to stand for a backward that raises."""
+
+    PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                torch.ops.aten.addmm.default)
+
+    def __init__(self, fail: bool = False):
+        super().__init__()
+        self.fail = fail
+        self.seen: List[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.PRODUCTS:
+            self.seen.append(torch.get_float32_matmul_precision())
+            if self.fail:
+                raise RuntimeError("spied product fails")
+        return func(*args, **(kwargs or {}))
+
+
+def backward_under_spy(loss, kind: str, wrt=()) -> MatmulModeSpy:
+    """``loss``'s backward under a :class:`MatmulModeSpy`: ``'full'``
+    (``loss.backward()``), ``'partial'`` (``torch.autograd.grad`` with
+    respect to ``wrt`` only) or ``'raise'`` (a full backward whose first
+    product raises; the error is swallowed here)."""
+    spy = MatmulModeSpy(fail=kind == "raise")
+    try:
+        with spy:
+            if kind == "partial":
+                torch.autograd.grad(loss, list(wrt))
+            else:
+                loss.backward()
+    except RuntimeError as e:
+        if kind != "raise" or "spied product fails" not in str(e):
+            raise
+    else:
+        assert kind != "raise", "the spied backward did not raise"
+    return spy
 
 
 # ---- the ranks' side --------------------------------------------------------
@@ -488,7 +531,42 @@ def case_env(rank, world, inputs, workdir):
     return out
 
 
-CASES = {"dp": case_dp, "tp": case_tp, "fit": case_fit, "env": case_env}
+GRAD_PROCESS_MODES = ("high", "medium", "highest")
+GRAD_PRECISIONS = ("highest", "default")
+GRAD_KINDS = ("full", "partial", "raise")
+
+
+def case_grad_modes(rank, world, inputs, workdir):
+    """The TP pool (H=4 over the ranks' ('model',) mesh) under a
+    :class:`MatmulModeSpy`: for each process mode, precision and kind of
+    backward, the mode at each backward product and the process's mode
+    afterwards."""
+    from aecf_tpu_torch import ops, parallel
+    from aecf_tpu_torch.core import AttentionPoolParams
+
+    mesh = parallel.make_mesh((world,), ("model",), device_type="cpu")
+    pool = parallel.shard_params_tp(mesh, AttentionPoolParams(
+        **{k: _t(v) for k, v in _sub(inputs, "pool:").items()}))
+    out = {}
+    for process in GRAD_PROCESS_MODES:
+        for precision in GRAD_PRECISIONS:
+            for kind in GRAD_KINDS:
+                torch.set_float32_matmul_precision(process)
+                q = _t(inputs["q"]).requires_grad_()
+                kv = _t(inputs["kv"]).requires_grad_()
+                o, w, _, _ = ops.fusion_pool(pool, q, kv, num_heads=4,
+                                             precision=precision)
+                spy = backward_under_spy((o ** 2).sum() + w.sum(), kind,
+                                         wrt=[q])
+                tag = f"{process}:{precision}:{kind}"
+                out[f"{tag}:modes"] = np.asarray(spy.seen, dtype=str)
+                out[f"{tag}:after"] = np.asarray(
+                    torch.get_float32_matmul_precision())
+    return out
+
+
+CASES = {"dp": case_dp, "tp": case_tp, "fit": case_fit, "env": case_env,
+         "grad_modes": case_grad_modes}
 
 
 def main():
