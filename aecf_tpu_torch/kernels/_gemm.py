@@ -30,6 +30,8 @@ from ..core.precision import matmul_precision, round_tf32
 from ._build import load_library
 from .shared_query import _precision_code, _ptr, _raise_on_error
 
+_TF32 = _precision_code("default")  # the TF32 instance's gemm::Precision
+
 __all__ = ["gemm_f32", "gemm_f32_plain"]
 
 
@@ -138,9 +140,6 @@ def gemm_f32(
     if bias is not None and (tuple(bias.shape) != (G, N)
                              or bias.stride(1) != 1):
         raise ValueError(f"bias must be ({G}, {N}) with unit last stride")
-    for t in named.values():
-        if t is not None and t.device.type != "cuda":
-            raise ValueError(f"no kernel for device {t.device}")
     gstride = {"a": a.stride(0) if G > 1 else 0,
                "w": w.stride(0) if G > 1 else 0}
     for name, t in (("a", a), ("w", w)):
@@ -150,6 +149,15 @@ def gemm_f32(
                 f"{name} must have unit last stride, the others multiples "
                 "of 4, and a 16-byte aligned start"
             )
+        if code == _TF32 and G > 1 and gstride[name] == 0:
+            raise ValueError(
+                f"{name} repeats one matrix over its {G} groups (group "
+                "stride 0): the TF32 instance's tensor maps step groups by "
+                "a nonzero stride; pass a materialised copy"
+            )
+    for t in named.values():
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"no kernel for device {t.device}")
     bn, splits = plan if plan is not None else (0, 0)
     out = torch.empty((G, rows, N), dtype=torch.float32, device=a.device)
     lib = _library()

@@ -8,7 +8,7 @@
 // cores cannot give; a SIMT GEMM built for the card is the lever.  At
 // precision='default' the chains run the block's tensor-core instance
 // instead (gemm_tf32.cuh: the same interface, plans and epilogues, TF32
-// mma.sync).  Design:
+// wgmma fed by TMA).  Design:
 //
 //   * 256-thread blocks, block tiles of 128 x 128 or 128 x 64 (gemm_plan
 //     picks per shape so that the grid fills the device's SMs, unless the

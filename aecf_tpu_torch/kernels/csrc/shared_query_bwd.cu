@@ -82,7 +82,7 @@ struct Workspace {
   float* dout;  // B x E4: d_out in rows of E4 (E % 4 != 0)
   float* wvo;   // E x E4: W_vo in rows of E4 (E % 4 != 0)
   float* part;  // warp_blocks(B) x (2E + 1): R2's partial rows
-  float* scr;   // split partials, the larger of G2's and G3's
+  float* scr;   // G2's and G3's scratch (gemm::product_scratch)
 };
 
 constexpr int kPieces = 7;
@@ -107,7 +107,7 @@ void workspace_sizes(int B, int E, const gemm::GemmTile* t,
   n[3] = ragged ? B * E4 : 0;
   n[4] = ragged ? E * E4 : 0;
   n[5] = (size_t)warp_blocks(B) * part_cols(E, 0, false);
-  n[6] = gemm::scratch_floats(q, t, products(B, E, q));
+  n[6] = gemm::product_scratch(q, t, products(B, E, q));
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 

@@ -96,7 +96,7 @@ struct Workspace {
   float* a;        // B x H x M: the heads' weights (H > kMaxH)
   float* wctx;     // E x E4: wctx in rows of E4 (E % 4 != 0)
   float* wo;       // E x E4: wo in rows of E4 (E % 4 != 0, H > 1)
-  float* scratch;  // split partials, the larger of the products'
+  float* scratch;  // the products' scratch (gemm::product_scratch)
 };
 
 constexpr int kPieces = 6;
@@ -128,7 +128,7 @@ void workspace_sizes(int B, int M, int E, int H, const gemm::GemmTile* t,
   n[3] = ragged ? E * E4 : 0;
   n[4] = ragged && H > 1 ? E * E4 : 0;
   gemm::Product q[kProducts];
-  n[5] = gemm::scratch_floats(q, t, products(B, E, H, q));
+  n[5] = gemm::product_scratch(q, t, products(B, E, H, q));
   for (int i = 0; i < kPieces; ++i) n[i] = (n[i] + 63) & ~(size_t)63;
 }
 

@@ -143,7 +143,7 @@ struct Workspace {
   float* lrow;     // B: row loss (head)
   float* dlogits;  // B x ldl (head)
   float* part;     // warp_blocks(B) x part_cols(E, C, true): R2's rows
-  float* scr;      // split partials, the largest GEMM's (one at a time)
+  float* scr;      // the GEMMs' scratch (gemm::product_scratch)
   float* wvo;      // E x E4: W_vo in rows of E4 (E % 4 != 0)
   int sq_ld;       // G1's column tiles
 };
@@ -176,11 +176,12 @@ inline int out_tiles(int B, int E, const gemm::GemmTile* t) {
 
 constexpr int kPieces = 11;
 
-// Floats of split partials the chain's GEMMs need under their plans, the
+// Floats of scratch the chain's GEMMs need under their plans (split
+// partials; at precision='default' also W rounded once a call), the
 // largest of them: they run one after another on one stream.
 size_t scratch_floats(int B, int E, int C, const gemm::GemmTile* t) {
   gemm::Product q[kProducts];
-  return gemm::scratch_floats(q, t, products(B, E, C, q));
+  return gemm::product_scratch(q, t, products(B, E, C, q));
 }
 
 // Floats of each workspace piece, in carve order; each rounded up to 64
@@ -379,7 +380,7 @@ cudaError_t launch(const StepParams& p, int vec, cudaStream_t stream) {
     g1.C = ws.dout;
     err = gemm::gemm<false, false>(
         p.precision, g1, gemm::EpiQuadLoss{p.bctx, p.two_inv, ws.sq, ws.sq_ld},
-        p.plans[0], nullptr, stream);
+        p.plans[0], ws.scr, stream);
   } else {
     g1.C = ws.out;
     gemm::EpiAffine bias;
@@ -555,7 +556,7 @@ struct GemmCall {
 
 size_t aecf_gemm_f32_scratch(int rows, int N, int K, int groups,
                              int w_kmajor, int bn, int splits) {
-  return gemm::scratch_floats(
+  return gemm::product_scratch(
       gemm::Product{rows, N, K, groups, w_kmajor != 0, true},
       gemm::GemmTile{bn, splits});
 }

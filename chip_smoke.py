@@ -47,10 +47,13 @@ the resident forward, backward and step):
    profiler's ``gemm_kernel<128, …>`` and split-K reduces), the streamed
    kernels' grids, and refused plans raising (3k); precision='default'
    (every check above runs at 'highest', IEEE f32): the GEMM block's TF32
-   tensor-core instance (``csrc/gemm_tf32.cuh``) against its plain version
-   (``round_tf32`` operands) at the chain shapes under every plan, at
-   ragged shapes and at each chain product at E=512, 30 and 258 under the
-   tuner's candidate plans (3m); every chain at 'default' against its plain
+   tensor-core instance (``csrc/gemm_tf32.cuh``: wgmma fed by TMA) against
+   its plain version (``round_tf32`` operands) at the chain shapes under
+   every plan, at ragged shapes, at TMA's edges (``TF32_EDGE``: one row,
+   fewer than 64, a 16-byte offset, a split's partial last box, N=14, two
+   groups in each layout, W rounded once a call) and at each chain product
+   at E=512, 30 and 258 under the tuner's candidate plans (3m); every
+   chain at 'default' against its plain
    version with ``tf32=True`` — the eval and training forward (#1, #2), the
    backward (#4), the step (#8) —, int8 against f32 on ``q.float() * s``
    and two calls bit for bit, then the streamed split with bf16 ``mix`` and
@@ -1250,13 +1253,16 @@ GEMM_RAGGED = (
 )
 
 
-def _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor):
+def _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor,
+                   offset=False):
     """Random operands in the given layouts, each a view whose rows are
-    padded to a multiple of 4 floats (the GEMM's 16-byte chunks)."""
+    padded to a multiple of 4 floats (the GEMM's 16-byte chunks); with
+    ``offset``, one that starts at its storage's second 16-byte chunk."""
     def view(d0, d1):
-        pad = -d1 % 4
+        pad = -d1 % 4 + (4 if offset else 0)
+        skip = 4 if offset else 0
         return torch.randn((G, d0, d1 + pad), generator=gen,
-                           device="cuda")[:, :, :d1]
+                           device="cuda")[:, :, skip:skip + d1]
     a = view(K, rows) if a_trans else view(rows, K)
     w = view(K, N) if w_kmajor else view(N, K)
     return a, w
@@ -5869,19 +5875,22 @@ def cuda_ms(torch, fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, kernel: str, calls=200) -> str:
+def _device_ms(torch, fn, kernel, calls=200) -> str:
     """Mean device time a call of ``fn`` spends in the CUDA kernels whose
-    name holds ``kernel`` (``torch.profiler``), host time excluded, as
-    text: "not measured" where the profiler saw no such kernel."""
+    name holds ``kernel`` (or any of a tuple of names; ``torch.profiler``),
+    host time excluded, as text: "not measured" where the profiler saw no
+    such kernel."""
     from torch.autograd import DeviceType
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for _ in range(20):
         fn()
     with _traced(torch, cpu=True) as prof:
         for _ in range(calls):
             fn()
     total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
+                if e.device_type == DeviceType.CUDA
+                and any(k in e.key for k in names))
     return f"{total / calls / 1e3:.5f}" if total > 0 else "not measured"
 
 
@@ -6063,6 +6072,34 @@ def time_export(torch, smi: str, exported) -> None:
 # Each kernel's source and the TPU kernel it replaces.
 # ---- precision='default': the TF32 instance of the GEMM block ---------------
 
+# TMA's edges for the TF32 instance, each (label, G, rows, N, K, a_trans,
+# w_kmajor, plan or None, offset): one row and fewer than 64 (boxes past
+# the rows), views starting 16 bytes into their storage, a split whose
+# last box runs past K (k_per_split 224 of K=1000, 32 of 4100), N=14 (the
+# head's dW_head), two groups in each layout the chains run, and products
+# of 1024 rows or more, whose W is rounded once a call into a K-major copy
+# (with splits, bn 128 and K not a multiple of 4 floats' worth of stages).
+_LAYOUTS = ((False, False), (False, True), (True, True))
+TF32_EDGE = tuple(
+    [("one row", 1, 1, 200, 96, at, wk, None, False) for at, wk in _LAYOUTS]
+    + [("37 rows", 1, 37, 70, 100, at, wk, None, False)
+       for at, wk in _LAYOUTS]
+    + [("16-byte offset", 1, 300, 100, 132, at, wk, None, True)
+       for at, wk in _LAYOUTS]
+    + [("two groups", 2, 300, 100, 132, at, wk, None, False)
+       for at, wk in _LAYOUTS]
+    + [("partial last box", 1, 300, 200, 1000, False, True, (64, 5), False),
+       ("partial last box", 1, 300, 200, 1000, False, False, (64, 5), False),
+       ("partial last box", 1, 512, 512, 4100, True, True, (64, 129), False),
+       ("N=14", 1, 512, 14, 4100, True, True, None, False),
+       ("W once", 1, 1100, 200, 1000, False, False, (64, 5), False),
+       ("W once", 1, 1024, 300, 1000, False, True, (128, 3), False),
+       ("W once", 1, 1030, 70, 4100, True, True, (128, 7), False),
+       ("W once", 3, 1030, 100, 132, False, False, None, False),
+       ("W once", 2, 1500, 72, 130, False, True, None, True),
+       ("W once", 1, 2000, 30, 30, False, True, None, False)])
+
+
 # The chains' own products beyond GEMM_SHAPES, each (chain, its Product):
 # the step's (with the C=14 head), the forward's at H = 2 and the
 # backward's at the north star, and every chain's at the ragged widths
@@ -6095,16 +6132,24 @@ def check_gemm_tf32(torch) -> float:
     sms = _plan.sm_count("cuda")
     gen = torch.Generator(device="cuda").manual_seed(19)
     shapes = [(label, G, rows, N, K, a_trans, w_kmajor,
-               _gemm_plans(K, w_kmajor) if label != "ragged" else [])
+               _gemm_plans(K, w_kmajor) if label != "ragged" else [], False)
               for label, G, rows, N, K, a_trans, w_kmajor
               in GEMM_SHAPES + GEMM_RAGGED]
+    shapes += [(label, G, rows, N, K, a_trans, w_kmajor,
+                [plan] if plan else [], offset)
+               for label, G, rows, N, K, a_trans, w_kmajor, plan, offset
+               in TF32_EDGE]
     for chain, q in _tf32_products():
         shapes.append((f"{chain} {q.name}", q.groups, q.rows, q.N, q.K,
                        q.name in ("g", "dw_head"), q.w_kmajor,
-                       _plan.candidates(q, *_plan.gemm_plan(q, sms))))
-    worst, ratio, launches = 0.0, 0.0, 0
-    for label, G, rows, N, K, a_trans, w_kmajor, plans in shapes:
-        a, w = _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor)
+                       _plan.candidates(q, *_plan.gemm_plan(q, sms)), False))
+    worst, ratio, launches, same = 0.0, 0.0, 0, 0
+    for label, G, rows, N, K, a_trans, w_kmajor, plans, offset in shapes:
+        a, w = _gemm_operands(torch, gen, G, rows, N, K, a_trans, w_kmajor,
+                              offset)
+        if offset:
+            check(a.data_ptr() % 16 == 0 and a.storage_offset() == 4,
+                  f"{label}: the operand view starts 16 bytes in")
         bias = torch.randn((G, N), generator=gen, device="cuda")
         kw = dict(scale=0.5, a_trans=a_trans, w_kmajor=w_kmajor)
         want = gemm_f32_plain(a, w, bias, tf32=True, **kw)
@@ -6115,21 +6160,28 @@ def check_gemm_tf32(torch) -> float:
         tol = TOL_GEMM_TF32 * K * 0.5 * mag + 2.0 ** -23 * want.abs()
         for plan in [None] + list(plans):
             got = gemm_f32(a, w, bias, plan=plan, precision="default", **kw)
+            again = gemm_f32(a, w, bias, plan=plan, precision="default",
+                             **kw)
             torch.cuda.synchronize()
             where = (f"{label} G={G} rows={rows} N={N} K={K} "
                      f"a_trans={a_trans} w_kmajor={w_kmajor} "
-                     f"plan={plan or 'default'}")
+                     f"plan={plan or 'default'} offset={offset}")
             worst = max(worst, _hold("gemm_f32 tf32", got, want, tol, where))
             ratio = max(ratio, ((got - want).abs() / tol).max().item())
-            launches += 1
-    print(f"gemm_f32 TF32 instance vs plain (round_tf32 operands, IEEE f32 "
-          f"product): {len(shapes)} shapes ({len(GEMM_SHAPES)} chain shapes "
-          f"under every plan, {len(GEMM_RAGGED)} ragged, "
-          f"{len(shapes) - len(GEMM_SHAPES) - len(GEMM_RAGGED)} chain "
-          f"products at E=512, 30, 258 under the tuner's candidates), "
+            check(torch.equal(got, again),
+                  f"gemm_f32 tf32: two calls differ at {where}")
+            launches += 2
+            same += 1
+    n_chain = (len(shapes) - len(GEMM_SHAPES) - len(GEMM_RAGGED)
+               - len(TF32_EDGE))
+    print(f"gemm_f32 TF32 instance (wgmma, TMA) vs plain (round_tf32 "
+          f"operands, IEEE f32 product): {len(shapes)} shapes "
+          f"({len(GEMM_SHAPES)} chain shapes under every plan, "
+          f"{len(GEMM_RAGGED)} ragged, {len(TF32_EDGE)} TMA edges, {n_chain} "
+          f"chain products at E=512, 30, 258 under the tuner's candidates), "
           f"{launches} launches, within {TOL_GEMM_TF32:g}*K*scale*sum|a||w| "
-          f"+ 2^-23|ref| (largest error {ratio:.4f} of it); max abs err "
-          f"{worst:.3e}")
+          f"+ 2^-23|ref| (largest error {ratio:.4f} of it); two calls equal "
+          f"bit for bit at {same} of {same}; max abs err {worst:.3e}")
     return worst
 
 
@@ -6274,7 +6326,7 @@ def check_default(torch) -> dict:
 
 def _gemm_kernels(torch, fn, calls=4) -> dict:
     """Launches of the GEMM block's SIMT (``gemm_kernel``) and TF32
-    (``gemm_tf32_kernel``) instances in ``calls`` calls of ``fn``
+    (``gemm_wgmma_kernel``) instances in ``calls`` calls of ``fn``
     (``torch.profiler``), by template instance."""
     from torch.autograd import DeviceType
 
@@ -6286,7 +6338,7 @@ def _gemm_kernels(torch, fn, calls=4) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for kind, name in (("tf32", "gemm::gemm_tf32_kernel<"),
+        for kind, name in (("tf32", "gemm::gemm_wgmma_kernel<"),
                            ("simt", "gemm::gemm_kernel<")):
             if name in e.key:
                 inst = e.key[e.key.index(name) + len(name):].split(">")[0]
@@ -6319,6 +6371,10 @@ def _gemm_instance_check(torch, fn, want: str, calls=4, tries=3) -> dict:
 
 
 GEMM_PROBE_TIMEOUT_S = 300
+# The kernels a TF32 product of a chain launches (gemm_tf32.cuh): the
+# wgmma GEMM, W rounded once a call, the split sums.
+TF32_GEMM_KERNELS = ("gemm_wgmma_kernel", "round_w_once_kernel",
+                     "splitk_reduce_kernel")
 
 
 def _gemm_probe(out_path: str) -> None:
@@ -6617,6 +6673,8 @@ def time_default(torch, smi: str, trained: dict, sliced: dict) -> dict:
         stream_mix,
         train_step,
     )
+    from aecf_tpu_torch.core import matmul_precision
+    from aecf_tpu_torch.kernels import _plan
     from aecf_tpu_torch.kernels.shared_query import _prep
     from aecf_tpu_torch.measure import build_chunk
 
@@ -6710,6 +6768,36 @@ def time_default(torch, smi: str, trained: dict, sliced: dict) -> dict:
             if name in ("shared_query_fwd", "shared_query_bwd", "train_step"):
                 print(f"launches {name} {what} default: CUDA kernels a call "
                       + _launches_per_call(torch, lambda: call("default")))
+
+        # each chain's TF32 GEMMs (the wgmma kernel, its once-a-call W
+        # rounding, its split sums) beside one torch.matmul under TF32 a
+        # product on operands of the same shapes and layouts (cuBLAS: the
+        # yardstick, never called by the port)
+        chain_products = {
+            "shared_query_fwd": _plan.sq_fwd_products(B, E, 1),
+            "shared_query_bwd": _plan.sq_bwd_products(B, E),
+            "train_step": _plan.step_products(B, E, C),
+        }
+        for name, prods in chain_products.items():
+            call = next(c for n, _, c, _ in runs if n == name)
+            ours = _device_ms(torch, lambda call=call: call("default"),
+                              TF32_GEMM_KERNELS)
+            mats = []
+            for q in prods:
+                at = q.name in ("g", "dw_head")
+                a, w = _gemm_operands(torch, gen, q.groups, q.rows, q.N, q.K,
+                                      at, q.w_kmajor)
+                mats.append((a.transpose(1, 2) if at else a,
+                             w if q.w_kmajor else w.transpose(1, 2)))
+
+            def lib(mats=mats):
+                with matmul_precision("default"):
+                    for A, W in mats:
+                        torch.matmul(A, W)
+            print(f"time {name} TF32 GEMMs at 'default' "
+                  f"({', '.join(q.name for q in prods)}): device {ours} ms "
+                  f"a call, cuBLAS TF32 {_device_ms(torch, lib, '')} ms "
+                  f"(torch.profiler over 200 calls; {smi})")
 
     # the harness chunk: ms an update and samples/s, in turns
     K = 16

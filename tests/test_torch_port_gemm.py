@@ -1,5 +1,6 @@
-"""The f32 GEMM building block of the port (``csrc/gemm_f32.cuh``), through
-its private entry ``aecf_tpu_torch.kernels._gemm``.
+"""The f32 GEMM building block of the port (``csrc/gemm_f32.cuh``, and its
+TF32 instance ``csrc/gemm_tf32.cuh``), through its private entry
+``aecf_tpu_torch.kernels._gemm``.
 
 On the CPU only the plain version runs: it is held to numpy in float64
 (atol 1e-5; f32 sums of at most 300 terms of size ~1) at ragged shapes
@@ -96,12 +97,68 @@ def test_wrapper_launches_or_raises(case, exc, match):
     assert gemm_f32.launches == before  # the CPU never launches
 
 
+@pytest.mark.parametrize("operand", ["a", "w"])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_wrapper_checks_group_strides_before_the_device(operand, precision):
+    """An operand that repeats one matrix over its groups (group stride 0,
+    an expanded tensor) is refused at 'default' before any device check —
+    the TF32 instance's tensor maps step groups by a nonzero stride — and
+    reaches the device check at 'highest'."""
+    a = torch.zeros(2, 8, 16)
+    w = torch.zeros(2, 16, 4)
+    if operand == "a":
+        a = torch.zeros(1, 8, 16).expand(2, 8, 16)
+    else:
+        w = torch.zeros(1, 16, 4).expand(2, 16, 4)
+    match = ("group stride 0" if precision == "default"
+             else "no kernel for device cpu")
+    before = gemm_f32.launches
+    with pytest.raises(ValueError, match=match):
+        gemm_f32(a, w, precision=precision)
+    assert gemm_f32.launches == before
+
+
+@pytest.mark.parametrize("mode,bn", [
+    ("in_place", 64), ("transpose", 64), ("transpose", 128), ("ready", 64),
+    ("ready", 128)])
+def test_tf32_ring_fits_the_chains_count(mode, bn):
+    """Each ring of the TF32 instance, as ``csrc/gemm_tf32.cuh`` builds it
+    (its stage rule and byte count read there: 1024 bytes of alignment,
+    128 x 32 floats of A and bn x 32 of W a stage, a transposed W's double
+    buffer, a barrier a stage), fits the count the step's wrapper checks
+    (``_GEMM_SMEM``, the SIMT ring), so the chains' shared-memory counts
+    hold at 'default'."""
+    import importlib
+    import re
+
+    ts_mod = importlib.import_module("aecf_tpu_torch.kernels.train_step")
+    src = (_build._CSRC / "gemm_tf32.cuh").read_text()
+    rule = re.search(
+        r"return M == kWTranspose \? \(BN == 64 \? (\d+) : (\d+)\)\s*"
+        r": \(BN == 64 \? (\d+) : (\d+)\);", src)
+    assert rule, "tc::stages' rule not found"
+    t64, t128, o64, o128 = map(int, rule.groups())
+    stages = {("transpose", 64): t64, ("transpose", 128): t128,
+              ("in_place", 64): o64, ("ready", 64): o64,
+              ("ready", 128): o128}[(mode, bn)]
+    assert re.search(
+        r"return 1024 \+ \(size_t\)stages<BN, M>\(\) \* \(kABytes \+ "
+        r"w_bytes<BN>\(\)\) \+\s*\(M == kWTranspose \? 2 \* w_bytes<BN>\(\) "
+        r": 0\) \+ 8 \* stages<BN, M>\(\);", src)
+    w = 4 * bn * 32
+    ring = (1024 + stages * (4 * 128 * 32 + w)
+            + (2 * w if mode == "transpose" else 0) + 8 * stages)
+    assert ring <= ts_mod._GEMM_SMEM
+
+
 # Each shared header and the sources that include it: the GEMM building
-# block, the chains' row kernels and part_sum (pool_rows.cuh), and the
-# streamed kernels' staging (stream_stage.cuh).
+# block (its SIMT and TF32 instances), the chains' row kernels and
+# part_sum (pool_rows.cuh), and the streamed kernels' staging
+# (stream_stage.cuh).
 INCLUDERS = {
     "gemm_f32.cuh": ("fused_pool_fwd", "shared_query_bwd", "shared_query_fwd",
                      "train_step"),
+    "gemm_tf32.cuh": ("shared_query_bwd", "shared_query_fwd", "train_step"),
     "pool_rows.cuh": ("shared_query_bwd", "shared_query_fwd", "stream_bwd",
                       "train_step"),
     "stream_stage.cuh": ("stream_bwd", "stream_mix"),

@@ -163,9 +163,9 @@ def _randn(gen, *shape):
     return torch.randn(shape, generator=gen)
 
 
-def _call(site, dtype=torch.float32):
-    """One call of the wrapper behind ``site`` on CPU tensors; returns the
-    key it must record under."""
+def _call(site, dtype=torch.float32, precision="highest"):
+    """One call of the wrapper behind ``site`` on CPU tensors (the resident
+    GEMM chains at ``precision``); returns the key it must record under."""
     g = torch.Generator().manual_seed(0)
     kv = _randn(g, B, M, E)
     scales = None
@@ -175,7 +175,8 @@ def _call(site, dtype=torch.float32):
     w = _randn(g, E, E) / E ** 0.5
     name = _plan.dtype_name(dtype)
     if site == "fwd_resident":
-        shared_query_fwd(kv, u, c, None, w, _randn(g, E), kv_scales=scales)
+        shared_query_fwd(kv, u, c, None, w, _randn(g, E), kv_scales=scales,
+                         precision=precision)
         return tiles.site_key(site, M=M, E=E, H=1, kv_dtype=name)
     if site == "fwd_generic":
         params = init_attention_pool_params(g, E)
@@ -186,7 +187,8 @@ def _call(site, dtype=torch.float32):
         return tiles.site_key(site, M=M, E=E, H=1, kv_dtype=name)
     if site == "bwd_resident":
         shared_query_bwd(kv, u[0], c, None, _randn(g, B, E), None, w,
-                         want_dkv=False, kv_scales=scales)
+                         want_dkv=False, kv_scales=scales,
+                         precision=precision)
         return tiles.site_key(site, M=M, E=E, H=1, kv_dtype=name,
                               want_dkv=False)
     if site == "bwd_streamed":
@@ -197,7 +199,8 @@ def _call(site, dtype=torch.float32):
                               want_dkv=False)
     assert site == "step_resident"
     train_step(kv, u[0], c, None, w, _randn(g, E), inv=1.0 / (B * E),
-               want_dkv=False, training=False, kv_scales=scales)
+               want_dkv=False, training=False, kv_scales=scales,
+               precision=precision)
     return tiles.site_key(site, M=M, E=E, H=1, kv_dtype=name, want_dkv=False)
 
 
@@ -260,6 +263,24 @@ class TestPickPlanPrecedence:
         assert source == "env"
         assert plan == {**_defaults(site), **tiles.check_value(entry),
                         **tiles.check_value(env)}
+
+    @pytest.mark.parametrize("site", ["fwd_resident", "bwd_resident",
+                                      "step_resident"])
+    def test_same_plan_at_both_precisions(self, site):
+        """The TF32 instance runs the SIMT instance's plan set: a GEMM
+        chain resolves and records the same key and plan (a table entry
+        over the defaults) at 'default' as at 'highest'."""
+        key = _call(site)
+        tiles.set_table({key: PLANS[site][0]})
+        seen = {}
+        for precision in ("highest", "default"):
+            tiles.start_recording()
+            got = _call(site, precision=precision)
+            seen[precision] = (got, tiles.stop_recording())
+        assert seen["highest"] == seen["default"]
+        (k, plan, source), = seen["default"][1]
+        assert (k, source) == (key, "table")
+        assert plan == {**_defaults(site), **tiles.check_value(PLANS[site][0])}
 
     @pytest.mark.parametrize("site", ["fwd_resident", "bwd_streamed",
                                       "step_resident"])
