@@ -154,6 +154,7 @@ def test_sharded_predictor_matches_single(ranks, request_kind):
                                    out[f"serve-{request_kind}:single"],
                                    atol=1e-6)
     assert list(outs[0]["serve:calls"]) == [7, 7]
+    assert list(outs[0]["serve:staged"]) == [0, 0]
 
 
 def test_sharded_predictor_rejects_indivisible_buckets(ranks):

@@ -492,6 +492,8 @@ def case_fit(rank, world, inputs, workdir):
         out[f"serve-{tag}:sharded"] = sharded(**req)
         out[f"serve-{tag}:single"] = single(**req)
     out["serve:calls"] = np.asarray([sharded.calls, single.calls])
+    # neither a mesh nor the CPU takes the card's pinned route
+    out["serve:staged"] = np.asarray([sharded.staged, single.staged])
     try:
         predictor(mesh, buckets=(3, 32))
     except ValueError as e:
