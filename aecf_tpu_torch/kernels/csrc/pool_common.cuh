@@ -234,8 +234,9 @@ struct MaskParams {
   int training;
   uint32_t seed0, seed1;
   // The two seed words in device memory, read in place of seed0 and seed1
-  // when set (the one-pass step's, so that a replayed CUDA graph draws the
-  // words the host wrote for this replay); null for every other caller.
+  // when set (the one-pass step's and the training forward chain's, so that
+  // a replayed CUDA graph draws the words the host wrote for this replay);
+  // null for every other caller.
   const uint32_t* seeds = nullptr;
 };
 

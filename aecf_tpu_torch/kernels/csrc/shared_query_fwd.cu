@@ -288,7 +288,10 @@ int aecf_shared_query_fwd_plans(int B, int E, int H,
 // aligned; ws holds aecf_shared_query_fwd_workspace(B, M, E, H, plans)
 // floats; plans (one a product, or null: the default plans) are checked
 // before anything launches.  training = 0 is the eval branch (seed words,
-// mask_prob and min_active unread); precision is a gemm::Precision.
+// mask_prob and min_active unread); precision is a gemm::Precision.  seeds,
+// when not null, holds the two seed words in device memory, read by the row
+// kernel in place of seed0 and seed1: a captured CUDA graph's replays draw
+// what the buffer holds then.
 int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           const float* u, const float* c, const float* pad,
                           const float* wctx, const float* wo,
@@ -298,7 +301,7 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
                           float max_entropy, int training, unsigned int seed0,
                           unsigned int seed1, float mask_prob, int min_active,
                           int precision, const gemm::GemmTile* plans,
-                          void* stream) {
+                          void* stream, const uint32_t* seeds) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || E < 1 || E % H != 0 ||
       (kv_dtype == kKvInt8 && scales == nullptr) ||
       (H > 1 && (wo == nullptr || bo == nullptr)) || !gemm::aligned16(wctx) ||
@@ -318,6 +321,7 @@ int aecf_shared_query_fwd(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
+  mp.seeds = seeds;
   const FwdCall p{kv, scales, u,  c,  pad, wctx, wo, bctx,      bo,   out,
                   w,  mw,     ent, rate, ws, B, M, E, H, precision, plans};
   const int vec = kv_vec(kv, kv_dtype, u, E);

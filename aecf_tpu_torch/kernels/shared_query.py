@@ -538,6 +538,7 @@ def shared_query_fwd(
     mask_prob: float = 0.15,
     min_active: int = 1,
     precision: str = "highest",
+    seed_words: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/shared_query_fwd.cu`` (``_shared_kernel``, and
     ``_shared_kernel_q8`` for int8 ``kv`` with ``kv_scales``); operands as
@@ -545,6 +546,9 @@ def shared_query_fwd(
     ``precision='default'`` runs the chain's products on the TF32 tensor
     cores (the plain version with ``tf32=True`` is their function); the
     CPU's plain version computes them in IEEE f32 at both.
+    ``seed_words``, a ``(2,)`` int32 tensor on kv's device, replaces
+    ``seed``: the row kernel reads the words from it, so a captured CUDA
+    graph draws what the tensor holds at replay.
 
     It validates the operands and calls the custom op
     ``aecf_tpu_torch::shared_query_fwd``, so ``torch.export`` records the
@@ -558,10 +562,18 @@ def shared_query_fwd(
     """
     _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales)
     _require_device(kv)
+    if seed_words is not None and (
+            tuple(seed_words.shape) != (2,) or seed_words.dtype != torch.int32
+            or seed_words.device != kv.device):
+        raise ValueError(
+            f"seed_words must be a (2,) int32 tensor on {kv.device}, got "
+            f"{seed_words.dtype} {tuple(seed_words.shape)} on "
+            f"{seed_words.device}"
+        )
     return _shared_query_fwd_op(
         kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales, bool(training),
         int(seed[0]), int(seed[1]), float(mask_prob), int(min_active),
-        _precision_code(precision),
+        _precision_code(precision), seed_words,
     )
 
 
@@ -569,11 +581,12 @@ def shared_query_fwd(
     "aecf_tpu_torch::shared_query_fwd", mutates_args=(),
     schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, Tensor wctx, "
            "Tensor bctx, Tensor? wo, Tensor? bo, Tensor? kv_scales, "
-           f"{_MASK_ARGS}, int precision=0) -> {_FWD_OUTS}",
+           f"{_MASK_ARGS}, int precision=0, Tensor? seed_words=None) -> "
+           f"{_FWD_OUTS}",
 )
 def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
                          training, seed0, seed1, mask_prob, min_active,
-                         precision=0):
+                         precision=0, seed_words=None):
     B, M, E = kv.shape
     H = u.shape[0]
     # resolved in the op's body: a frozen program follows the table of the
@@ -581,6 +594,8 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
     plans = _pick_plan("fwd_resident", sq_fwd_products(B, E, H), M=M, E=E,
                        H=H, kv_dtype=dtype_name(kv.dtype), device=kv.device)
     if kv.device.type == "cpu":
+        if seed_words is not None:
+            seed0, seed1 = (int(x) & 0xFFFFFFFF for x in seed_words.tolist())
         return shared_query_fwd_plain(
             kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales=kv_scales,
             training=training, seed=(seed0, seed1), mask_prob=mask_prob,
@@ -607,6 +622,7 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
             math.log(M) if M > 1 else 0.0,
             int(training), seed0, seed1, mask_prob, min_active, precision,
             plans, torch.cuda.current_stream(kv.device).cuda_stream,
+            _ptr(seed_words),
         )
     _raise_on_error(lib, err, "shared_query_fwd")
     _count_launch(shared_query_fwd, kv)
@@ -668,7 +684,8 @@ def _fwd_library() -> ctypes.CDLL:
     lib.aecf_shared_query_fwd_plans.argtypes = [ctypes.c_int] * 3 + [
         _TILES, ctypes.POINTER(ctypes.c_int)]
     lib.aecf_shared_query_fwd_plans.restype = ctypes.c_int
-    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(13, _TILES)
+    lib.aecf_shared_query_fwd.argtypes = _fwd_argtypes(13, _TILES) + [
+        ctypes.c_void_p]
     lib.aecf_shared_query_fwd.restype = ctypes.c_int
     lib.aecf_philox4x32_10.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_void_p,

@@ -330,8 +330,9 @@ def train_step(
                 f"{seed_words.dtype} {tuple(seed_words.shape)} on "
                 f"{seed_words.device}"
             )
-        if row_loss is not None or kv.device.type == "cpu":
+        if kv.device.type == "cpu":
             seed = tuple(int(x) & 0xFFFFFFFF for x in seed_words.tolist())
+            seed_words = None
     operands = dict(kv=kv, kv_scales=kv_scales, u=u, c=c, pad_bias=pad_bias,
                     wvo=wvo, bctx=bctx, head_w=head_w, head_b=head_b,
                     labels=labels)
@@ -346,7 +347,8 @@ def train_step(
             raise ValueError("row_extras without a row_loss")
         return _row_loss_step(kv, u, c, pad_bias, wvo, bctx, row_loss=row_loss,
                               row_extras=tuple(row_extras),
-                              precision=precision, **kw)
+                              precision=precision, seed_words=seed_words,
+                              **kw)
     plans = step_plan(B, M, E, C, kv.dtype, want_dkv, kv.device)
     if kv.device.type == "cpu":
         return train_step_plain(kv, u, c, pad_bias, wvo, bctx, inv=inv, **kw)
@@ -392,11 +394,13 @@ def train_step(
 
 def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
                    seed, mask_prob, min_active, head_w, head_b, labels,
-                   row_loss, row_extras, kv_scales, precision):
+                   row_loss, row_extras, kv_scales, precision,
+                   seed_words=None):
     """:func:`train_step` with a custom ``row_loss``, through the two-pass
     kernels (their plain versions on CPU tensors): the training forward
     gives ``out`` and the side outputs (the step's mask for the same seed
-    words), ``row_loss`` gives the row losses and ``d_out`` (through the
+    words, read from ``seed_words`` on the card when given), ``row_loss``
+    gives the row losses and ``d_out`` (through the
     head's logits when there is one: the head's products run on the GEMM
     block, three launches of :func:`~._gemm.gemm_f32`), and the H=1
     backward gives ``d_kv`` and the batch sums.  The same results as
@@ -405,7 +409,7 @@ def _row_loss_step(kv, u, c, pad_bias, wvo, bctx, *, want_dkv, training,
     out, w, mw, ent, rate = shared_query_fwd(
         kv, u[None], c, pad_bias, wvo, bctx, kv_scales=kv_scales,
         training=training, seed=seed, mask_prob=mask_prob,
-        min_active=min_active, precision=precision,
+        min_active=min_active, precision=precision, seed_words=seed_words,
     )
     res: Dict[str, Optional[torch.Tensor]] = {}
     if head_w is not None:

@@ -4,11 +4,18 @@ gloo groups reduce host memory: a card tensor given to a gloo collective
 is copied to pinned host memory, reduced there and copied back, explicitly
 (so two ranks sharing one card can run over gloo, where NCCL refuses two
 ranks on one device).  NCCL groups take card tensors as they are — and a
-CUDA graph can capture them, which the K-step chunk does.
+CUDA graph can capture them, which the K-step chunks do.
+
+:data:`counted` counts the collectives issued — ``all_reduce``,
+``all_gather`` and ``reduce_scatter``, each with its bytes by NCCL's
+convention (the buffer for an all-reduce, the whole gathered output for an
+all-gather, the whole input for a reduce-scatter) — on any backend; a
+captured graph's replays add what its capture counted.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -16,11 +23,25 @@ import torch.distributed as dist
 
 from ..kernels.draws import draw_seed_words, fold_seed_words, seed_words_of
 
-__all__ = ["MeshAxis", "all_reduce_", "broadcast_", "gather_rows"]
+__all__ = ["MeshAxis", "all_gather_rows", "all_reduce_", "broadcast_",
+           "counted", "gather_rows"]
 
-# Newer torch names all_gather_into_tensor all_gather_single (the same
-# arguments) and warns on the old name; older torch has only the old one.
+# Newer torch names all_gather_into_tensor all_gather_single and
+# reduce_scatter_tensor reduce_scatter_single (the same arguments) and warns
+# on the old names; older torch has only the old ones.
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+counted = types.SimpleNamespace(**{
+    k: 0 for name in COLLECTIVES for k in (name, f"{name}_bytes")})
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    setattr(counted, name, getattr(counted, name) + 1)
+    key = f"{name}_bytes"
+    setattr(counted, key, getattr(counted, key) + t.numel() * t.element_size())
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
@@ -29,6 +50,7 @@ def _via_host(t: torch.Tensor, group) -> bool:
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
+    _count("all_reduce", t)
     if _via_host(t, group):
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
@@ -59,7 +81,47 @@ def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
         src = src.cpu()
     out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
     _all_gather(out, src, group=group)
+    _count("all_gather", out)
     return out.to(t.device)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """All-gather forward; its transpose, a reduce-scatter of the
+    cotangent, backward: each rank's rows get the sum of every rank's
+    cotangent for them."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return gather_rows(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        g = g.contiguous()
+        rows = g.shape[0] // size
+        _count("reduce_scatter", g)
+        if dist.get_backend(group) == "gloo":
+            # the whole cotangent summed over the ranks, then this rank's
+            # rows: the reduce-scatter's result on any gloo build
+            host = g.cpu() if g.is_cuda else g.clone()
+            dist.all_reduce(host, group=group)
+            return host[rank * rows:(rank + 1) * rows].to(g.device), None
+        out = g.new_empty((rows,) + tuple(g.shape[1:]))
+        _reduce_scatter(out, g, group=group)
+        return out, None
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`gather_rows`, differentiable: every rank's ``t`` stacked
+    along axis 0 in the group's rank order; in the backward each rank's
+    ``t`` gets the sum over the ranks of the cotangent of its rows (a
+    reduce-scatter; on gloo through the host), as JAX's ``all_gather``
+    transposes to ``psum_scatter``.  Without a group: ``t``."""
+    if group is None:
+        return t
+    return _AllGatherRows.apply(t, group)
 
 
 class MeshAxis:

@@ -18,6 +18,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils.profiling import span
+
 __all__ = [
     "data_mesh",
     "data_model_mesh",
@@ -45,16 +47,18 @@ def maybe_initialize_distributed(
     ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` (read by
     ``init_method='env://'``) name the store, the job's size and this
     rank; the backend is NCCL for ``device_type='cuda'`` and gloo for
-    ``'cpu'``.  A group that is already initialized is tolerated, and
-    nothing else: an unreachable or dead store raises, because swallowing
-    it would leave every rank training alone on its own shard.
+    ``'cpu'``; the joining is the span ``dist.init``.  A group that is
+    already initialized is tolerated, and nothing else: an unreachable or
+    dead store raises, because swallowing it would leave every rank
+    training alone on its own shard.
     """
     if not os.environ.get("MASTER_ADDR"):
         return
     backend = "nccl" if device_type == "cuda" else "gloo"
     try:
-        dist.init_process_group(backend, init_method="env://",
-                                timeout=timeout)
+        with span("dist.init"):
+            dist.init_process_group(backend, init_method="env://",
+                                    timeout=timeout)
     except ValueError as e:
         # torch raises ValueError("trying to initialize the default process
         # group twice!") on re-initialization; a store error is a

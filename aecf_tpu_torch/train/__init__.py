@@ -2,10 +2,17 @@
 checkpoints, metrics and the experiment harness.
 
 Port of :mod:`aecf_tpu.train`; ``mesh=`` runs the steps, the chunk and
-``fit`` over a mesh (:mod:`aecf_tpu_torch.parallel`).
+``fit`` over a mesh (:mod:`aecf_tpu_torch.parallel`).  The contrastive
+steps (:mod:`.contrastive`) port the JAX package's large-batch contrastive
+example (BASELINE config 5), InfoNCE over the global batch.
 """
 
 from .checkpointing import CheckpointManager, load_params, save_params
+from .contrastive import (
+    init_contrastive_params,
+    make_contrastive_scan_train_step,
+    make_contrastive_train_step,
+)
 from .fit import fit, make_epoch_batch_fn
 from .metrics import (
     average_precision,
@@ -50,6 +57,9 @@ __all__ = [
     "macro_map",
     "missing_modality_sweep",
     "modality_subsets",
+    "init_contrastive_params",
+    "make_contrastive_train_step",
+    "make_contrastive_scan_train_step",
     "init_pool_classifier_params",
     "make_pool_train_step",
     "make_pool_scan_train_step",

@@ -513,21 +513,29 @@ def make_pool_scan_train_step(
                     graph = graphs[key] = _ChunkGraph(
                         local_step, state, kv4, labels, axis)
             return graph.run(state, kv4, labels, rng)
-        with span("chunk.eager"):
-            losses, infos = [], {}
-            for i in range(K):
-                state, loss, info = single(
-                    state, kv4[i], None if labels is None else labels[i],
-                    fold_seed_words(rng, state.step),
-                )
-                losses.append(loss.detach().float())
-                for k, v in info.items():
-                    infos.setdefault(k, []).append(v.detach().float().mean())
-            return (state, torch.stack(losses),
-                    {k: torch.stack(v) for k, v in infos.items()})
+        return _eager_chunk(single, state, kv4, labels, rng)
 
     chunk._graphs = graphs  # the captured graphs, for the card's checks
     return chunk
+
+
+def _eager_chunk(single, state: TrainState, kv4, rows, rng):
+    """K calls of the single step ``single(state, kv, rows, seed words)``,
+    step ``i`` on ``kv4[i]`` and ``rows[i]`` (None stays None) with
+    ``fold_seed_words(rng, state.step)``: ``(state, losses (K,), infos)``
+    with each info entry's per-step means."""
+    with span("chunk.eager"):
+        losses, infos = [], {}
+        for i in range(kv4.shape[0]):
+            state, loss, info = single(
+                state, kv4[i], None if rows is None else rows[i],
+                fold_seed_words(rng, state.step),
+            )
+            losses.append(loss.detach().float())
+            for k, v in info.items():
+                infos.setdefault(k, []).append(v.detach().float().mean())
+        return (state, torch.stack(losses),
+                {k: torch.stack(v) for k, v in infos.items()})
 
 
 def _steps_view(kv: torch.Tensor, E: int) -> torch.Tensor:
@@ -553,21 +561,25 @@ def _opt_tensors(optimizer) -> List[torch.Tensor]:
             if torch.is_tensor(v)]
 
 
-def _signature(state: TrainState,
-               kv4: Optional[torch.Tensor] = None) -> tuple:
+def _step_plan_key(state: TrainState, kv4: torch.Tensor) -> tuple:
+    """The plan the one-pass step's kernels resolve for the chunk's
+    ``(K, B, M, E)`` staging (:mod:`..kernels.tiles`)."""
+    head = state.params.get("head")
+    _, B, M, E = kv4.shape
+    return tuple((t.bn, t.splits) for t in step_plan(
+        B, M, E, 0 if head is None else head["w"].shape[1], kv4.dtype,
+        False, kv4.device, record=False))
+
+
+def _signature(state: TrainState, kv4: Optional[torch.Tensor] = None,
+               plan_key: Callable = _step_plan_key) -> tuple:
     """What a captured graph holds fixed: the tensors it reads and writes,
     by address, every param group's non-tensor hyperparameters (all keys
     but ``params``), by value, and — given the chunk's ``(K, B, M, E)``
-    staging — the plan its step kernels resolve (:mod:`..kernels.tiles`:
-    an env or table change recaptures)."""
+    staging — the plan its kernels resolve (``plan_key(state, kv4)``: an
+    env or table change recaptures)."""
     opt = state.optimizer
-    plan = ()
-    if kv4 is not None:
-        head = state.params.get("head")
-        _, B, M, E = kv4.shape
-        plan = tuple((t.bn, t.splits) for t in step_plan(
-            B, M, E, 0 if head is None else head["w"].shape[1], kv4.dtype,
-            False, kv4.device, record=False))
+    plan = () if kv4 is None else plan_key(state, kv4)
     return (id(opt), plan,
             tuple(p.data_ptr() for p in param_leaves(state.params)),
             tuple(t.data_ptr() for t in _opt_tensors(opt)),
@@ -604,22 +616,47 @@ def _check_graph_optimizer(optimizer) -> None:
     )
 
 
+def _counter_cells(chains) -> List[Tuple[Any, str]]:
+    """The counters a replay adds to: each chain wrapper's ``launches``
+    and ``launches_q8``, and every collective's count and bytes
+    (:data:`aecf_tpu_torch.parallel.collectives.counted`)."""
+    from ..parallel.collectives import counted
+
+    return ([(w, a) for w in chains for a in ("launches", "launches_q8")]
+            + [(counted, k) for k in vars(counted)])
+
+
 class _ChunkGraph:
-    """K one-pass steps captured as one CUDA graph, for one shape.
+    """K steps of ``local_step`` captured as one CUDA graph, for one shape.
+
+    ``local_step(params, kv, rows, None, loss_scale, seed_words=,
+    row_offset=, batch_rows=) -> (loss, info, grads)`` reads its step's
+    batch from the staged ``(K·B, M·E)`` features and the staged ``(K·B,
+    width)`` rows beside them (the labels of the pool step, the targets of
+    the contrastive step), and its two seed words from a device buffer.
+    Each wrapper in ``chains`` must count one launch a step at capture
+    (``launches`` + ``launches_q8``: the one-pass step's chain, or the
+    two-pass forward and backward); ``plan_key`` names the kernels' plan
+    in the graph's signature.
 
     ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
-    per-step entries of the last replay, whose means the chunk returns
-    (over a mesh ``axis``: the global means).  ``replays`` counts the
-    graph's replays.  A replay's spans
-    (:mod:`aecf_tpu_torch.utils.profiling`): ``chunk.stage``,
-    ``chunk.wait``, ``chunk.words`` and ``chunk.launch``."""
+    per-step entries of the last replay, this rank's rows; the chunk
+    returns their means (over a mesh ``axis``: the global means).
+    ``replays`` counts the graph's replays; each adds to the chains'
+    launch counters and to the collectives' counters
+    (:data:`aecf_tpu_torch.parallel.collectives.counted`) what the capture
+    counted.  A replay's spans (:mod:`aecf_tpu_torch.utils.profiling`):
+    ``chunk.stage``, ``chunk.wait``, ``chunk.words`` and
+    ``chunk.launch``."""
 
     def __init__(self, local_step, state: TrainState, kv4: torch.Tensor,
-                 labels: Optional[torch.Tensor], axis=None):
+                 labels: Optional[torch.Tensor], axis=None,
+                 chains=(_step_kernel,), plan_key=_step_plan_key):
         dev = kv4.device
         K, B, M, E = kv4.shape
         self.local_step, self.K, self.B = local_step, K, B
         self.axis, self.replays = axis, 0
+        self.chains, self.cells = chains, _counter_cells(chains)
         self.kv = torch.empty((K * B, M * E), dtype=kv4.dtype, device=dev)
         self.labels = None if labels is None else torch.empty(
             (K * B, labels.shape[-1]), dtype=torch.float32, device=dev)
@@ -629,18 +666,22 @@ class _ChunkGraph:
         self.losses = torch.empty((K,), dtype=torch.float32, device=dev)
         self.info: Dict[str, torch.Tensor] = {}
         self.step_info: List[Dict[str, torch.Tensor]] = []
-        self.launched = (0, 0)
+        # what a replay adds to each counter of `cells`; `launched`: the
+        # chains' part, (launches, launches_q8) a chain
+        self.added = [0] * len(self.cells)
+        self.launched: Tuple[int, ...] = ()
         self.graph = torch.cuda.CUDAGraph()
         self._capture(state, kv4, labels)
-        self.signature = _signature(state, kv4)
+        self.signature = _signature(state, kv4, plan_key)
 
     def _step(self, state: TrainState, i: int) -> Dict[str, torch.Tensor]:
         scale = 1.0 if self.axis is None else 1.0 / self.axis.size
-        loss, info, grads = self.local_step(
+        loss, local, grads = self.local_step(
             state.params, self.kv, self.labels, None, scale,
             seed_words=self.seeds[i], row_offset=i * self.B,
             batch_rows=self.B,
         )
+        info = local
         if self.axis is not None:
             loss, info, grads = self.axis.reduce(loss, info, grads)
         _set_grads(param_leaves(state.params), grads)
@@ -649,7 +690,7 @@ class _ChunkGraph:
             self.losses[i].copy_(loss)
             for k, v in info.items():
                 self.info[k][i].copy_(v.float().mean())
-        return info
+        return local
 
     def _capture(self, state: TrainState, kv4, labels) -> None:
         opt = state.optimizer
@@ -684,19 +725,23 @@ class _ChunkGraph:
             k: torch.empty((self.K,), dtype=torch.float32, device=dev)
             for k in info
         }
-        # Capturing launches nothing: what the wrapper counted meanwhile is
-        # what each replay launches, and it must be K step chains.
-        counts = (_step_kernel.launches, _step_kernel.launches_q8)
+        # Capturing launches nothing: what the counters counted meanwhile is
+        # what each replay launches, and each chain must count K.
+        counts = [getattr(o, a) for o, a in self.cells]
         with torch.cuda.graph(self.graph):
             self.step_info = [self._step(state, i) for i in range(self.K)]
-        self.launched = (_step_kernel.launches - counts[0],
-                         _step_kernel.launches_q8 - counts[1])
-        _step_kernel.launches, _step_kernel.launches_q8 = counts
-        if sum(self.launched) != self.K:
-            raise RuntimeError(
-                f"the chunk's capture counted {self.launched} train_step "
-                f"chains (f32/bf16, int8), not one a step of {self.K}"
-            )
+        self.added = [getattr(o, a) - n
+                      for (o, a), n in zip(self.cells, counts)]
+        for (o, a), n in zip(self.cells, counts):
+            setattr(o, a, n)
+        self.launched = tuple(self.added[:2 * len(self.chains)])
+        for j, chain in enumerate(self.chains):
+            got = self.launched[2 * j:2 * j + 2]
+            if sum(got) != self.K:
+                raise RuntimeError(
+                    f"the chunk's capture counted {got} {chain.__name__} "
+                    f"chains (f32/bf16, int8), not one a step of {self.K}"
+                )
 
     def _stage(self, kv4, labels) -> int:
         """Copies the call's batches into the graph's buffers; the bytes
@@ -731,8 +776,9 @@ class _ChunkGraph:
         with span("chunk.launch"):
             self.graph.replay()
         self.replays += 1
-        _step_kernel.launches += self.launched[0]
-        _step_kernel.launches_q8 += self.launched[1]
+        for (o, a), n in zip(self.cells, self.added):
+            if n:
+                setattr(o, a, getattr(o, a) + n)
         state.step += self.K
         return (state, self.losses.clone(),
                 {k: v.clone() for k, v in self.info.items()})

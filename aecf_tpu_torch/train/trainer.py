@@ -48,13 +48,17 @@ def param_leaves(params: Any) -> List[torch.Tensor]:
     """The trainable tensors of ``params`` in a fixed order: a module's
     ``parameters()``, or for a ``{'pool', 'query'[, 'head']}`` dict the
     pool's parameters (``named_parameters`` order), the query, then the
-    head's ``w`` and ``b``."""
+    head's ``w`` and ``b``; a contrastive ``{'pool', 'query', 'proj',
+    'target_proj'}`` dict ends with the two projections' parameters."""
     if isinstance(params, nn.Module):
         return list(params.parameters())
     leaves = list(params["pool"].parameters()) + [params["query"]]
     head = params.get("head")
     if head is not None:
         leaves += [head[k] for k in ("w", "b") if head.get(k) is not None]
+    for name in ("proj", "target_proj"):
+        if params.get(name) is not None:
+            leaves += list(params[name].parameters())
     return leaves
 
 

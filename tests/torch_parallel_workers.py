@@ -567,8 +567,73 @@ def case_grad_modes(rank, world, inputs, workdir):
     return out
 
 
+def case_contrastive(rank, world, inputs, workdir):
+    """The contrastive chunk over ('data',): K eager updates on this rank's
+    rows, each step's masks (recorded from the pool's info) and the
+    collectives counted by one call; then the differentiable row gather's
+    gradient beside autograd through a concatenation."""
+    from aecf_tpu_torch import parallel
+    from aecf_tpu_torch.parallel import collectives
+    from aecf_tpu_torch.train import (
+        TrainState,
+        contrastive,
+        init_contrastive_params,
+        make_contrastive_scan_train_step,
+        param_leaves,
+    )
+
+    mesh = parallel.make_mesh((world,), ("data",), device_type="cpu")
+    E, P = inputs["kv"].shape[-1], inputs["w:proj_w"].shape[0]
+    params = init_contrastive_params(None, E, P, device="cpu")
+    leaves = param_leaves(params)
+    names = [str(n) for n in inputs["leaves"]]
+    with torch.no_grad():
+        for p, name in zip(leaves, names):
+            p.copy_(_t(inputs[f"w:{name}"]).reshape(p.shape))
+    state = TrainState(params, torch.optim.AdamW(
+        leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
+    K, N, M, _ = inputs["kv"].shape
+    B = N // world
+    rows = slice(rank * B, (rank + 1) * B)
+    kv = _t(inputs["kv"][:, rows]).reshape(K, B, M * E)
+    target = _t(inputs["target"][:, rows])
+    masks = []
+    pool_step = contrastive.fused_pool_train_step
+
+    def spy(*args, **kwargs):
+        out = pool_step(*args, **kwargs)
+        masks.append(out[-1]["masked_attention_weights"][:, 0, :] > 0)
+        return out
+
+    contrastive.fused_pool_train_step = spy
+    chunk = make_contrastive_scan_train_step(mesh=mesh)
+    before = dict(vars(collectives.counted))
+    state, losses, infos = chunk(state, kv, target, int(inputs["seed"]))
+    counted = {k: v - before[k] for k, v in vars(collectives.counted).items()}
+    contrastive.fused_pool_train_step = pool_step
+    out = {"losses": losses.numpy(), "masks": torch.stack(masks).numpy(),
+           "entropy": infos["entropy"].numpy()}
+    out.update({f"grad:{n}": p.grad.numpy() for n, p in zip(names, leaves)})
+    out.update({f"param:{n}": p.detach().numpy()
+                for n, p in zip(names, leaves)})
+    out.update({f"counted:{k}": np.asarray(v) for k, v in counted.items()})
+    # the gather: rank r's loss weighs the gathered rows by weights[r]
+    group = mesh.get_group("data")
+    t = _t(inputs["gather_t"][rows]).requires_grad_(True)
+    gathered = collectives.all_gather_rows(t, group)
+    (gathered * _t(inputs["gather_w"][rank])).sum().backward()
+    whole = _t(inputs["gather_t"]).requires_grad_(True)
+    every = sum((torch.cat(whole.split(B)) * _t(w)).sum()
+                for w in inputs["gather_w"])
+    every.backward()
+    out["gather"] = gathered.detach().numpy()
+    out["gather_grad"] = t.grad.numpy()
+    out["concat_grad"] = whole.grad[rows].numpy()
+    return out
+
+
 CASES = {"dp": case_dp, "tp": case_tp, "fit": case_fit, "env": case_env,
-         "grad_modes": case_grad_modes}
+         "grad_modes": case_grad_modes, "contrastive": case_contrastive}
 
 
 def main():
