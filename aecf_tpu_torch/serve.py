@@ -4,8 +4,9 @@ Port of :mod:`aecf_tpu.serve` (``pad_to_bucket``, ``FusionPredictor``,
 ``MicroBatcher``) with the same validation, bucketing, zero-fill and
 ``calls`` contract.  Every device call runs at a padded bucket shape under
 ``torch.inference_mode()`` on an explicit ``device``; on the card the
-buckets pass through reused pinned slots, one bucket ahead of the device;
-``mesh=`` shards each bucket's rows over a mesh's data axis.
+buckets pass through reused pinned slots, one bucket ahead of the device,
+and each bucket shape's forward replays one CUDA graph; ``mesh=`` shards
+each bucket's rows over a mesh's data axis.
 ``export_predictor`` freezes a predictor into one ``.npz`` of
 ``torch.export`` programs, one a bucket, which ``load_exported_predictor``
 serves with no model code.
@@ -39,7 +40,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from .utils.profiling import record, span, stamp
+from .utils.profiling import ReplayCounts, record, span, stamp
 
 __all__ = [
     "ExportedFusionPredictor",
@@ -83,7 +84,27 @@ class FusionPredictor:
 
     ``calls`` counts the bucket calls whose answer arrived; ``staged`` those
     of them that took the card's pinned route (:meth:`_staged_call`: on
-    CUDA without a mesh).
+    CUDA without a mesh); ``graphed`` those of them answered by a CUDA
+    graph's replay (``graphed / calls`` is the hit share); ``captures``
+    the graphs captured.
+
+    On the pinned route each bucket call's device work (``apply_fn``, the
+    sigmoid, ``.float()``) is captured once a key — the bucket, the
+    modalities provided and their widths — as a CUDA graph, at the key's
+    second call (its first runs eagerly and initialises the libraries),
+    and replayed after that.  A replay reads its inputs from the graph's
+    static device buffers and the parameters and buffers of the
+    ``nn.Module`` s that ``apply_fn`` reaches (``apply_fn`` itself, a bound
+    method's ``__self__``, a Module in its closure cells) at the addresses
+    they had at capture: in-place updates (``load_state_dict``, ``copy_``,
+    an optimizer step) are seen by the next replay; a replaced parameter or
+    buffer, a Module switched between ``train()`` and ``eval()``, another
+    ``apply_fn`` or ``apply_sigmoid`` recaptures.  What else ``apply_fn``
+    reads on the host (Python numbers, draws from a CPU generator) is
+    frozen at capture.  An ``apply_fn`` that reaches no Module stays eager;
+    so, for good, does a key whose capture fails (``apply_fn`` syncs the
+    host, touches the CPU or changes shape with the data): that call is
+    answered eagerly and nothing is raised.
     """
 
     def __init__(
@@ -101,11 +122,8 @@ class FusionPredictor:
         self.modality_names = tuple(modality_names)
         self.buckets = tuple(sorted(buckets))
         self.apply_sigmoid = apply_sigmoid
-        self.calls = 0
-        self.staged = 0
-        self._requests = itertools.count()  # span request ids
+        self._fresh()
         self._dims: Dict[str, int] = {}
-        self._staging = _Staging()
         self._axis = None
         if mesh is not None:
             from .parallel.data_parallel import _data_axis
@@ -122,6 +140,13 @@ class FusionPredictor:
             if device is None:
                 device = default_device()
         self.device = torch.device("cuda" if device is None else device)
+
+    def _fresh(self) -> None:
+        """The counters and the card's staging and graphs, empty."""
+        self.calls = self.staged = self.graphed = self.captures = 0
+        self._requests = itertools.count()  # span request ids
+        self._staging = _Staging()
+        self._graphs: Dict[tuple, _BucketGraph] = {}
 
     def __call__(self, **modalities: np.ndarray) -> np.ndarray:
         """Predict for any subset of modalities; absent ones are zeroed.
@@ -224,11 +249,22 @@ class FusionPredictor:
         (``predictor.apply``); then bucket i-1's answer is awaited and its
         rows copied into the request's answer (``predictor.d2h``).  A
         missing modality is a zero bucket resident on the card.  Bucket
-        for bucket the model sees what :meth:`_bucket_calls` gives it."""
+        for bucket the model sees what :meth:`_bucket_calls` gives it.
+
+        Where the key's graph is captured (class docstring), ``predictor.h2d``
+        copies the rows into the graph's static inputs and
+        ``predictor.apply`` replays it, then queues the copy of its static
+        answer; a capture (a warm-up on a side stream, then the capture)
+        is the span ``predictor.capture`` between the two.  One static
+        input and answer a graph is safe: a request's copies, replays and
+        answer copies run in the order of one stream, so bucket i's answer
+        copy is queued before bucket i+1's input copy and replay; the lock
+        and each request's wait for its last answer keep requests apart.
+        Each graph allocates from its own memory pool."""
         st = self._staging
         with st.lock, torch.inference_mode():
             answer: Optional[np.ndarray] = None
-            issued: Optional[Tuple[_Slot, int, int]] = None
+            issued: Optional[Tuple[_Slot, int, int, bool]] = None
             try:
                 for i, (start, chunk_n, bucket) in enumerate(
                         self._chunks(n)):
@@ -240,24 +276,13 @@ class FusionPredictor:
                             if k in provided else None
                             for j, k in enumerate(self.modality_names)
                         ]
-                    with span("predictor.h2d", bytes=sum(
-                            h.nbytes for h in hosts if h is not None)):
-                        xs = [
-                            st.zeros(bucket, self._width(k, provided),
-                                     self.device)
-                            if h is None else
-                            h.to(self.device, non_blocking=True)
-                            for k, h in zip(self.modality_names, hosts)
-                        ]
-                    with span("predictor.apply"):
-                        out = self._apply(bucket, xs).float()
-                        slot.queue_answer(out)
+                    replayed = self._issue(slot, bucket, provided, hosts)
                     if answer is None:
-                        answer = np.empty((n,) + tuple(out.shape[1:]),
-                                          np.float32)
+                        answer = np.empty(
+                            (n,) + tuple(slot.answer.shape[1:]), np.float32)
                     if issued is not None:
                         self._finish(issued, answer)
-                    issued = slot, start, chunk_n
+                    issued = slot, start, chunk_n, replayed
                 self._finish(issued, answer)
             except BaseException:
                 # Queued copies may still read or write pinned slots: let
@@ -267,16 +292,78 @@ class FusionPredictor:
                 raise
             return answer
 
-    def _finish(self, issued: Tuple[_Slot, int, int],
+    def _issue(self, slot: _Slot, bucket: int,
+               provided: Dict[str, np.ndarray],
+               hosts: List[Optional[torch.Tensor]]) -> bool:
+        """Queue a staged bucket's copies to the card (``predictor.h2d``),
+        its forward and its answer's copy into the slot
+        (``predictor.apply``), capturing the key's graph first where it is
+        due (``predictor.capture``).  True where a replay answers it."""
+        st = self._staging
+        zeros = [
+            st.zeros(bucket, self._width(k, provided), self.device)
+            if h is None else None
+            for k, h in zip(self.modality_names, hosts)
+        ]
+        key = (bucket,) + tuple((k in provided, self._width(k, provided))
+                                for k in self.modality_names)
+        state = self._graph_state(bucket)
+        graph = None if state is None else self._graphs.get(key)
+        replay = graph is not None and not graph.failed
+        with span("predictor.h2d", bytes=sum(
+                h.nbytes for h in hosts if h is not None)):
+            if replay:
+                xs = graph.stage(hosts, zeros)
+            else:
+                xs = [z if h is None else h.to(self.device, non_blocking=True)
+                      for h, z in zip(hosts, zeros)]
+        if replay and graph.state != state:
+            with span("predictor.capture"):
+                replay = graph.capture(
+                    lambda xs: self._apply(bucket, xs).float(), state)
+            self.captures += replay
+        with span("predictor.apply"):
+            out = graph.replay() if replay else self._apply(bucket, xs).float()
+            slot.queue_answer(out)
+        if state is not None and key not in self._graphs:
+            # the key's first call ran eagerly; its next captures
+            self._graphs[key] = _BucketGraph(self.device)
+        return replay
+
+    def _finish(self, issued: Tuple[_Slot, int, int, bool],
                 answer: np.ndarray) -> None:
         """Await an issued bucket's answer and copy its rows out."""
-        slot, start, chunk_n = issued
+        slot, start, chunk_n, replayed = issued
         with span("predictor.d2h", bytes=slot.answer.nbytes):
             slot.wait()
             torch.from_numpy(answer[start : start + chunk_n]).copy_(
                 slot.answer[:chunk_n])
         self.calls += 1
         self.staged += 1
+        self.graphed += replayed
+
+    def _reached(self, bucket: int) -> List[torch.nn.Module]:
+        """The ``nn.Module`` s a bucket call's graph reads from."""
+        return _modules_of(self.apply_fn)
+
+    def _graph_state(self, bucket: int) -> Optional[tuple]:
+        """What a bucket call's graph reads that the predictor can observe
+        (class docstring): ``apply_fn`` and ``apply_sigmoid``, and the
+        ``training`` flag of every Module it reaches and their submodules,
+        and the address, shape and dtype of their parameters and buffers.
+        None where the call stays eager: no Module is reached."""
+        modules = self._reached(bucket)
+        if not modules:
+            return None
+        state: List[Any] = [self.apply_fn, self.apply_sigmoid]
+        for module in modules:
+            for m in module.modules():
+                state.append(m.training)
+                for t in itertools.chain(m._parameters.values(),
+                                         m._buffers.values()):
+                    if t is not None:
+                        state.append((t.data_ptr(), t.shape, t.dtype))
+        return tuple(state)
 
     def _check_dims(self, provided: Dict[str, np.ndarray]) -> None:
         """Reject widths that contradict an already-committed dim
@@ -327,6 +414,85 @@ def _to_host(out: torch.Tensor) -> np.ndarray:
     out = out.float()
     with span("predictor.d2h", bytes=out.numel() * out.element_size()):
         return out.cpu().numpy()
+
+
+def _modules_of(fn: Any) -> List[torch.nn.Module]:
+    """The ``nn.Module`` s a callable reaches: itself if it is one, a bound
+    method's ``__self__``, and any Module in its closure cells."""
+    if isinstance(fn, torch.nn.Module):
+        return [fn]
+    found = [getattr(fn, "__self__", None)]
+    for cell in getattr(fn, "__closure__", None) or ():
+        with contextlib.suppress(ValueError):  # a cell not yet filled
+            found.append(cell.cell_contents)
+    return [m for m in found if isinstance(m, torch.nn.Module)]
+
+
+class _BucketGraph:
+    """One key's bucket call on the card (:meth:`FusionPredictor.
+    _staged_call`) as a CUDA graph: ``inputs`` its static device buckets
+    (a missing modality's the staging's resident zeros, captured by
+    address), ``out`` the answer its replays write, ``state`` what it read
+    at capture (:meth:`FusionPredictor._graph_state`; None before the
+    first), ``failed`` once a capture failed: the key stays eager."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.inputs: List[torch.Tensor] = []
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.state: Optional[tuple] = None
+        self.failed = False
+        self.counts = None
+
+    def stage(self, hosts: List[Optional[torch.Tensor]],
+              zeros: List[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+        """Queue the pinned buckets' copies into the static inputs (made at
+        the first call)."""
+        if not self.inputs:
+            self.inputs = [
+                z if h is None else torch.empty_like(h, device=self.device)
+                for h, z in zip(hosts, zeros)]
+        for x, h in zip(self.inputs, hosts):
+            if h is not None:
+                x.copy_(h, non_blocking=True)
+        return self.inputs
+
+    def capture(self, forward: Callable[[List[torch.Tensor]], torch.Tensor],
+                state: tuple) -> bool:
+        """Capture ``forward(inputs)`` after one warm-up run of it on a side
+        stream (as the training chunk's graph does), to be read against
+        ``state``; the kernel wrappers' counts of the capture become what
+        each replay adds.  Both run under the route's
+        ``torch.inference_mode()``, which capture works under.  A warm-up that raises raises, as an eager call
+        would; a capture that raises leaves the key eager for good
+        (``failed``) and returns False: the caller answers eagerly."""
+        from .kernels import fused_pool_fwd, shared_query_fwd, stream_mix
+
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            forward(self.inputs)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        counts = ReplayCounts((shared_query_fwd, stream_mix, fused_pool_fwd))
+        self.graph = self.out = None
+        try:
+            with counts.capturing(), torch.cuda.graph(graph):
+                out = forward(self.inputs)
+        except RuntimeError:  # what torch and CUDA raise under capture
+            torch.cuda.synchronize(self.device)
+            self.failed = True
+            return False
+        self.graph, self.out, self.state, self.counts = (
+            graph, out, state, counts)
+        return True
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        self.counts.replayed()
+        return self.out
 
 
 class _Slot:
@@ -637,17 +803,15 @@ class ExportedFusionPredictor(FusionPredictor):
     zero-fill and ``calls`` count, no Python model.  Its feature dims are
     the artifact's and never change; each bucket call runs that bucket's
     program under ``torch.inference_mode()`` on the device type it was
-    traced for."""
+    traced for.  On the card a bucket's program is the Module its graphs
+    read from (:class:`FusionPredictor`)."""
 
     def __init__(self, blobs: Dict[int, bytes], config: Dict[str, Any]):
         self.apply_fn = None
         self.modality_names = tuple(config["modality_names"])
         self.buckets = tuple(sorted(config["buckets"]))
         self.apply_sigmoid = bool(config["apply_sigmoid"])
-        self.calls = 0
-        self.staged = 0
-        self._requests = itertools.count()
-        self._staging = _Staging()
+        self._fresh()
         self._dims = {k: int(v) for k, v in config["feature_dims"].items()}
         self._axis = None  # frozen programs are single-device
         self.device = torch.device(config["device"])
@@ -681,6 +845,9 @@ class ExportedFusionPredictor(FusionPredictor):
 
     def _commit_dims(self, provided: Dict[str, np.ndarray]) -> None:
         pass  # the artifact's dims are authoritative and never updated
+
+    def _reached(self, bucket: int) -> List[torch.nn.Module]:
+        return [self._programs[bucket]]
 
     def _apply(self, bucket: int, xs: List[torch.Tensor]) -> torch.Tensor:
         return self._programs[bucket](*xs)

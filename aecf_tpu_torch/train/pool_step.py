@@ -45,7 +45,7 @@ from ..kernels import (
 )
 from ..kernels.draws import device_generator, draw_seed_words, fold_seed_words
 from ..kernels.train_step import step_plan
-from ..utils.profiling import span
+from ..utils.profiling import ReplayCounts, span
 from .trainer import TrainState, param_leaves
 
 __all__ = [
@@ -616,16 +616,6 @@ def _check_graph_optimizer(optimizer) -> None:
     )
 
 
-def _counter_cells(chains) -> List[Tuple[Any, str]]:
-    """The counters a replay adds to: each chain wrapper's ``launches``
-    and ``launches_q8``, and every collective's count and bytes
-    (:data:`aecf_tpu_torch.parallel.collectives.counted`)."""
-    from ..parallel.collectives import counted
-
-    return ([(w, a) for w in chains for a in ("launches", "launches_q8")]
-            + [(counted, k) for k in vars(counted)])
-
-
 class _ChunkGraph:
     """K steps of ``local_step`` captured as one CUDA graph, for one shape.
 
@@ -652,11 +642,15 @@ class _ChunkGraph:
     def __init__(self, local_step, state: TrainState, kv4: torch.Tensor,
                  labels: Optional[torch.Tensor], axis=None,
                  chains=(_step_kernel,), plan_key=_step_plan_key):
+        from ..parallel.collectives import counted
+
         dev = kv4.device
         K, B, M, E = kv4.shape
         self.local_step, self.K, self.B = local_step, K, B
         self.axis, self.replays = axis, 0
-        self.chains, self.cells = chains, _counter_cells(chains)
+        # the chains' launches, and every collective's count and bytes
+        self.chains, self.counts = chains, ReplayCounts(
+            chains, [(counted, k) for k in vars(counted)])
         self.kv = torch.empty((K * B, M * E), dtype=kv4.dtype, device=dev)
         self.labels = None if labels is None else torch.empty(
             (K * B, labels.shape[-1]), dtype=torch.float32, device=dev)
@@ -666,9 +660,8 @@ class _ChunkGraph:
         self.losses = torch.empty((K,), dtype=torch.float32, device=dev)
         self.info: Dict[str, torch.Tensor] = {}
         self.step_info: List[Dict[str, torch.Tensor]] = []
-        # what a replay adds to each counter of `cells`; `launched`: the
-        # chains' part, (launches, launches_q8) a chain
-        self.added = [0] * len(self.cells)
+        # the chains' part of what a replay adds to the counters,
+        # (launches, launches_q8) a chain
         self.launched: Tuple[int, ...] = ()
         self.graph = torch.cuda.CUDAGraph()
         self._capture(state, kv4, labels)
@@ -725,16 +718,11 @@ class _ChunkGraph:
             k: torch.empty((self.K,), dtype=torch.float32, device=dev)
             for k in info
         }
-        # Capturing launches nothing: what the counters counted meanwhile is
-        # what each replay launches, and each chain must count K.
-        counts = [getattr(o, a) for o, a in self.cells]
-        with torch.cuda.graph(self.graph):
+        # What the counters counted during the capture is what each replay
+        # launches, and each chain must count K.
+        with self.counts.capturing(), torch.cuda.graph(self.graph):
             self.step_info = [self._step(state, i) for i in range(self.K)]
-        self.added = [getattr(o, a) - n
-                      for (o, a), n in zip(self.cells, counts)]
-        for (o, a), n in zip(self.cells, counts):
-            setattr(o, a, n)
-        self.launched = tuple(self.added[:2 * len(self.chains)])
+        self.launched = tuple(self.counts.added[:2 * len(self.chains)])
         for j, chain in enumerate(self.chains):
             got = self.launched[2 * j:2 * j + 2]
             if sum(got) != self.K:
@@ -776,9 +764,7 @@ class _ChunkGraph:
         with span("chunk.launch"):
             self.graph.replay()
         self.replays += 1
-        for (o, a), n in zip(self.cells, self.added):
-            if n:
-                setattr(o, a, getattr(o, a) + n)
+        self.counts.replayed()
         state.step += self.K
         return (state, self.losses.clone(),
                 {k: v.clone() for k, v in self.info.items()})

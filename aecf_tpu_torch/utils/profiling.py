@@ -20,7 +20,8 @@ import os
 import tempfile
 import threading
 import time
-from typing import Dict, Iterator, NamedTuple, Optional
+from typing import (Any, Dict, Iterator, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -202,6 +203,39 @@ def recording() -> Iterator[None]:
     finally:
         with _RECORDER.lock:
             _RECORDER.forced -= 1
+
+
+class ReplayCounts:
+    """What each replay of a CUDA graph adds to the counters it read while
+    it was captured: the kernel wrappers' ``launches`` and ``launches_q8``
+    (those of the two each has) and the ``(object, attribute)`` pairs
+    ``cells``.  Capturing launches nothing, so :meth:`capturing` takes
+    what the counters counted meanwhile as ``added`` and puts them back as
+    they were, even where the capture raises; :meth:`replayed` adds
+    ``added``."""
+
+    def __init__(self, wrappers: Sequence[Any] = (),
+                 cells: Sequence[Tuple[Any, str]] = ()):
+        self.cells = [(w, a) for w in wrappers
+                      for a in ("launches", "launches_q8") if hasattr(w, a)]
+        self.cells += cells
+        self.added = [0] * len(self.cells)
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator[None]:
+        before = [getattr(o, a) for o, a in self.cells]
+        try:
+            yield
+        finally:
+            self.added = [getattr(o, a) - n
+                          for (o, a), n in zip(self.cells, before)]
+            for (o, a), n in zip(self.cells, before):
+                setattr(o, a, n)
+
+    def replayed(self) -> None:
+        for (o, a), n in zip(self.cells, self.added):
+            if n:
+                setattr(o, a, getattr(o, a) + n)
 
 
 @contextlib.contextmanager

@@ -3,7 +3,8 @@ the spans the serving and training host paths record: off by default and
 then one shared no-op, parents and self times inside ``recording()`` and
 across threads, the profiler's clock, the predictor's per-bucket spans, the
 batcher's queue spans, ``fit``'s gathers and stages, and (on the card) the
-chunk graph's.
+chunk graph's.  Beside them, ``ReplayCounts``: what a graph's replay adds
+to the counters its capture read.
 
 This file imports no JAX, so the ``card`` test runs on a machine without it:
 ``python -m pytest --noconftest tests/test_torch_port_spans.py -m card``.
@@ -309,3 +310,32 @@ def test_chunk_graph_spans(card):
     assert [r.counts["bytes"] for r in _named(recs, "chunk.stage")] == [
         kv.nbytes + labels.nbytes] * 3
     assert not _named(recs, "chunk.eager")
+
+
+def test_replay_counts_take_what_the_capture_counted():
+    import types
+
+    both = types.SimpleNamespace(launches=5, launches_q8=1)
+    one = types.SimpleNamespace(launches=2)  # no launches_q8
+    other = types.SimpleNamespace(calls=10)
+    counts = profiling.ReplayCounts((both, one), [(other, "calls")])
+    assert counts.cells == [(both, "launches"), (both, "launches_q8"),
+                            (one, "launches"), (other, "calls")]
+    with counts.capturing():
+        both.launches += 3
+        one.launches += 1
+        other.calls += 2
+    # capturing launched nothing: the counts are back, and each replay adds
+    assert (both.launches, both.launches_q8, one.launches, other.calls) == (
+        5, 1, 2, 10)
+    assert counts.added == [3, 0, 1, 2]
+    counts.replayed()
+    counts.replayed()
+    assert (both.launches, both.launches_q8, one.launches, other.calls) == (
+        11, 1, 4, 14)
+    # a capture that raises leaves the counts as they were, too
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with counts.capturing():
+            both.launches += 7
+            raise RuntimeError("capture failed")
+    assert both.launches == 11 and counts.added == [7, 0, 0, 0]
