@@ -35,6 +35,7 @@ from aecf_tpu_torch.train import (
     make_pool_train_step,
     param_leaves,
 )
+from aecf_tpu_torch.kernels.draws import fold_seed_words
 
 E, M, B, C = 64, 3, 64, 6
 STEPS = 12
@@ -149,20 +150,57 @@ def test_init_shapes_and_leaves():
     assert "head" not in init_pool_classifier_params(g, E, device="cpu")
 
 
-@pytest.mark.parametrize("impl", ["torch", "fused-step"])
-def test_accumulation_equals_the_full_batch(impl):
+@pytest.mark.parametrize("impl, rng", [
+    ("torch", None), ("fused-step", None),
+    ("torch", "generator"), ("torch", "words"),
+], ids=["torch", "fused-step", "torch-generator", "torch-words"])
+def test_accumulation_equals_the_full_batch(impl, rng):
+    """Microbatching takes the full batch's means.  Without a draw
+    (``training=False``) the accumulated step equals one full-batch step.
+    In training, microbatch ``i`` of the pool route draws from the step's
+    CPU generator passed through whole (each microbatch takes its own seed
+    words from it, in order), or from the step's seed words folded with
+    ``i``: loss, gradients and masks equal the means of single steps on the
+    microbatches fed those draws."""
     flat0, _, _ = _jax_trajectory(True)
     kv, labels = (torch.from_numpy(a) for a in _data(True))
-    full = _port_state(flat0)
+    if rng is None:
+        full = _port_state(flat0)
+        acc = _port_state(flat0)
+        s1 = make_pool_train_step(impl=impl, training=False)
+        s2 = make_pool_train_step(impl=impl, training=False, accum_steps=4)
+        full, l1, i1 = s1(full, kv, labels, None)
+        acc, l2, i2 = s2(acc, kv, labels, None)
+        torch.testing.assert_close(l1, l2)
+        for a, b in zip(param_leaves(full.params), param_leaves(acc.params)):
+            torch.testing.assert_close(a, b)
+        assert i2["entropy"].shape == i1["entropy"].shape
+        return
+
+    def draws():
+        return (torch.Generator().manual_seed(5) if rng == "generator"
+                else (7, 11))
+
     acc = _port_state(flat0)
-    s1 = make_pool_train_step(impl=impl, training=False)
-    s2 = make_pool_train_step(impl=impl, training=False, accum_steps=4)
-    full, l1, i1 = s1(full, kv, labels, None)
-    acc, l2, i2 = s2(acc, kv, labels, None)
-    torch.testing.assert_close(l1, l2)
-    for a, b in zip(param_leaves(full.params), param_leaves(acc.params)):
-        torch.testing.assert_close(a, b)
-    assert i2["entropy"].shape == i1["entropy"].shape
+    acc, loss, info = make_pool_train_step(impl=impl, accum_steps=2)(
+        acc, kv, labels, draws())
+    single = make_pool_train_step(impl=impl)
+    ref, half = draws(), B // 2
+    losses, grads, masked = [], [], []
+    for i in range(2):
+        state = _port_state(flat0, lambda ps: torch.optim.SGD(ps, lr=0.0))
+        rows = slice(i * half, (i + 1) * half)
+        state, loss_i, info_i = single(
+            state, kv[rows], labels[rows],
+            ref if rng == "generator" else fold_seed_words(ref, i))
+        losses.append(loss_i)
+        grads.append([p.grad for p in param_leaves(state.params)])
+        masked.append(info_i["masked_attention_weights"])
+    torch.testing.assert_close(loss, torch.stack(losses).mean())
+    for got, a, b in zip(param_leaves(acc.params), *grads):
+        torch.testing.assert_close(got.grad, (a + b) / 2)
+    assert (masked[0] == 0).any() and (masked[1] == 0).any()
+    assert torch.equal(info["masked_attention_weights"], torch.cat(masked))
 
 
 def test_training_draws_from_the_generator_and_fit_step_stacks():

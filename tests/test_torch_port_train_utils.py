@@ -208,6 +208,55 @@ def test_scan_chunk_equals_steps_and_accumulation():
     assert info["entropy"].shape[0] == stacked[0].shape[1]
 
 
+def _train_apply(model, images, texts, generator):
+    model.train()  # the pool draws its curriculum mask from generator
+    return model(images, texts, generator=generator, return_info=True)
+
+
+@pytest.mark.parametrize("rng", ["generator", "words"])
+def test_accumulated_step_draws_fresh_words_a_microbatch(rng):
+    """``make_train_step(accum_steps=2)`` in training: microbatch ``i``
+    draws from a CPU generator seeded with fresh seed words of ``rng`` (two
+    words drawn from a CPU generator, or the words given) folded with
+    ``i``; loss, gradients and masks equal the means of single steps on
+    the microbatches fed those words."""
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+
+    img, txt, lab = map(torch.from_numpy, _batches(6, steps=1, B=16)[0])
+
+    def draws():
+        return (torch.Generator().manual_seed(5) if rng == "generator"
+                else (7, 11))
+
+    def fresh(ref):
+        if rng == "words":
+            return ref
+        words = torch.randint(0, 2**32, (2,), generator=ref)
+        return int(words[0]), int(words[1])
+
+    _, _, model = _vlm(3)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-1))
+    state, loss, info = make_train_step(_train_apply, accum_steps=2)(
+        state, img, txt, lab, draws())
+    single = make_train_step(_train_apply)
+    ref, half = draws(), img.shape[0] // 2
+    losses, grads, masked = [], [], []
+    for i in range(2):
+        _, _, m = _vlm(3)
+        s = TrainState(m, torch.optim.SGD(m.parameters(), lr=0.0))
+        rows = slice(i * half, (i + 1) * half)
+        s, loss_i, info_i = single(s, img[rows], txt[rows], lab[rows],
+                                   fold_seed_words(fresh(ref), i))
+        losses.append(loss_i)
+        grads.append([p.grad for p in m.parameters()])
+        masked.append(info_i["masked_attention_weights"])
+    torch.testing.assert_close(loss, torch.stack(losses).mean())
+    for got, a, b in zip(model.parameters(), *grads):
+        torch.testing.assert_close(got.grad, (a + b) / 2)
+    assert (masked[0] == 0).any() and (masked[1] == 0).any()
+    assert torch.equal(info["masked_attention_weights"], torch.cat(masked))
+
+
 @pytest.mark.parametrize("mask_type", ["none", "images", "texts"])
 def test_evaluate_model_equals_jax(mask_type):
     jm, jp, tm = _vlm(3)
