@@ -170,7 +170,7 @@ def _wrapper_step(impl, kv, scales, step_kw, *, kv_grad):
     from .core.masking import entropy_loss
     from .kernels import fused_fusion_pool_shared, fused_pool_train_step
     from .train import param_leaves
-    from .train.pool_step import _flat_grads, _set_grads
+    from .train.update import _flat_grads, _make_step
 
     M = kv.shape[1]
     kw = dict(training=step_kw["training"], precision=step_kw["precision"],
@@ -179,21 +179,22 @@ def _wrapper_step(impl, kv, scales, step_kw, *, kv_grad):
     # requires grad, so the two-pass backward writes d_kv
     kv = kv.detach().requires_grad_(kv_grad and impl != "fused-step")
 
-    def step(state, words):
-        p = state.params
+    def local_step(p, words, loss_scale):
         if impl == "fused-step":
             loss, d_pool, d_query, _, info = fused_pool_train_step(
                 p["pool"], p["query"], kv, generator=words, **kw)
-            grads = _flat_grads({"pool": d_pool, "query": d_query}, p)
-        else:
-            out, _, _, info = fused_fusion_pool_shared(
-                p["pool"], p["query"], kv, generator=words,
-                num_heads=step_kw["num_heads"], **kw)
-            loss = (out * out).mean()
-            grads = torch.autograd.grad(loss, param_leaves(p))
-        _set_grads(param_leaves(p), grads)
-        state.optimizer.step()
-        state.step += 1
+            return loss, info, _flat_grads({"pool": d_pool, "query": d_query},
+                                           p)
+        out, _, _, info = fused_fusion_pool_shared(
+            p["pool"], p["query"], kv, generator=words,
+            num_heads=step_kw["num_heads"], **kw)
+        loss = (out * out).mean()
+        return loss, info, torch.autograd.grad(loss, param_leaves(p))
+
+    update = _make_step(local_step)
+
+    def step(state, words):
+        state, loss, info = update(state, words)
         return state, loss.detach() + entropy_loss(
             info["entropy"].detach(), seq_len=M)
 

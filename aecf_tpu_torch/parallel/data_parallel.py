@@ -20,17 +20,22 @@ its own rows.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..train.trainer import (
+from ..train.trainer import bce_with_logits_loss
+from ..train.update import (
     TrainState,
-    _chunk_of,
-    _grad_step,
-    bce_with_logits_loss,
+    _data_axis,
+    _eager_chunk,
+    _fold_fresh,
+    _loss_step,
+    _make_step,
+    _opt_tensors,
 )
 from .collectives import MeshAxis, broadcast_
 from .mesh import default_device
@@ -84,9 +89,7 @@ def _tensors(tree):
     if isinstance(tree, nn.Module):
         return list(tree.parameters()) + list(tree.buffers())
     if isinstance(tree, TrainState):
-        opt = tree.optimizer.state.values()
-        return _tensors(tree.params) + [
-            v for st in opt for v in st.values() if torch.is_tensor(v)]
+        return _tensors(tree.params) + _opt_tensors(tree.optimizer)
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
     if isinstance(tree, (tuple, list)):
@@ -103,16 +106,6 @@ def replicate(mesh, tree: Any) -> Any:
     for t in _tensors(tree):
         broadcast_(t, src)
     return tree
-
-
-def _data_axis(mesh, axis_name: str) -> MeshAxis:
-    axis = MeshAxis(mesh, axis_name)
-    if axis.group is None:
-        raise ValueError(
-            f"mesh axes {getattr(mesh, 'mesh_dim_names', None)} have no "
-            f"{axis_name!r} axis"
-        )
-    return axis
 
 
 def make_dp_eval_step(
@@ -144,14 +137,9 @@ def _mesh_step(apply_fn, axis: MeshAxis, loss_fn, accum_steps) -> Callable:
 
     def loss_on(params, images, texts, labels, generator):
         logits, info = apply_fn(params, images, texts, generator)
-        return loss_fn(logits, labels) / axis.size, info
+        return loss_fn(logits, labels), info
 
-    def step(state: TrainState, images, texts, labels, rng):
-        return _grad_step(state, images, texts, labels, axis.fold(rng),
-                          loss_on=loss_on, accum_steps=accum_steps,
-                          reduce=axis.reduce)
-
-    return step
+    return _make_step(_loss_step(loss_on), accum_steps, axis, _fold_fresh)
 
 
 def make_dp_train_step(
@@ -193,6 +181,6 @@ def make_dp_scan_train_step(
     fold_seed_words(rng, state.step + i), s)`` — the global step, then the
     shard — so chunks chain and resume exactly like single steps fed
     ``fold_seed_words(rng, step)``."""
-    return _chunk_of(make_dp_train_step(
+    return functools.partial(_eager_chunk, make_dp_train_step(
         apply_fn, mesh, axis_name=axis_name, loss_fn=loss_fn,
         accum_steps=accum_steps))

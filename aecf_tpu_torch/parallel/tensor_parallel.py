@@ -34,6 +34,7 @@ leaves alike) are reduced over ``data`` only.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -44,7 +45,8 @@ from ..core.attention import AttentionPoolParams, _merge_masks
 from ..core.masking import curriculum_mask
 from ..core.precision import run_at
 from ..kernels.draws import generator_on
-from ..train.trainer import _chunk_of, bce_with_logits_loss
+from ..train.trainer import bce_with_logits_loss
+from ..train.update import _eager_chunk
 from .collectives import MeshAxis, all_reduce_, gather_rows
 from .data_parallel import _mesh_step
 
@@ -335,6 +337,6 @@ def make_tp_scan_train_step(
     ``(K, B, ...)`` and its K steps run eagerly in one call; step ``i``
     draws from ``fold_seed_words(rng, state.step + i)`` (then folded with
     the data index), so chunks chain and resume like single steps."""
-    return _chunk_of(make_tp_train_step(
+    return functools.partial(_eager_chunk, make_tp_train_step(
         apply_fn, mesh, data_axis=data_axis, loss_fn=loss_fn,
         accum_steps=accum_steps))

@@ -42,16 +42,7 @@ from ..core.init import init_attention_pool_params, init_fusion_query
 from ..kernels import fused_pool_train_step, shared_query_bwd, shared_query_fwd
 from ..models.layers import init_linear
 from ..parallel.collectives import all_gather_rows
-from ..utils.profiling import span
-from .pool_step import (
-    _ChunkGraph,
-    _axis,
-    _eager_chunk,
-    _make_step,
-    _signature,
-    _steps_view,
-)
-from .trainer import TrainState
+from .update import _axis, _graph_chunk, _make_step
 
 __all__ = [
     "init_contrastive_params",
@@ -90,7 +81,7 @@ def _normalise(x: torch.Tensor) -> torch.Tensor:
 def _make_local_step(*, axis, temperature, precision, base_mask_prob,
                      entropy_target, min_active) -> Callable:
     """``(params, kv, target, generator, loss_scale, **staged) -> (loss,
-    info, grads)``, grads in :func:`~.trainer.param_leaves` order; the
+    info, grads)``, grads in :func:`~.update.param_leaves` order; the
     staged addressing (``seed_words``, ``row_offset``, ``batch_rows``) is
     :func:`~aecf_tpu_torch.kernels.fused_pool_train_step`'s, applied to
     ``kv`` and ``target`` alike."""
@@ -149,7 +140,7 @@ def make_contrastive_train_step(
     generator) -> (state, loss, info)``.
 
     ``state`` is a :class:`TrainState` over :func:`init_contrastive_params`'
-    leaves (:func:`~.trainer.param_leaves`); ``generator`` is a CPU
+    leaves (:func:`~.update.param_leaves`); ``generator`` is a CPU
     ``torch.Generator`` or a step's two seed words.  ``precision`` is the
     pool kernels' (``'default'``: TF32 products on the card) and the
     projections' matmul mode.  ``mesh=`` makes the step data-parallel over
@@ -161,11 +152,6 @@ def make_contrastive_train_step(
         base_mask_prob=base_mask_prob, entropy_target=entropy_target,
         min_active=min_active)
     return _make_step(local_step, 1, axis)
-
-
-def _no_plan(state, kv4) -> tuple:
-    # the two-pass kernels resolve their plans inside their ops
-    return ()
 
 
 def make_contrastive_scan_train_step(
@@ -186,45 +172,19 @@ def make_contrastive_scan_train_step(
     Keywords as :func:`make_contrastive_train_step`.
 
     On the card, without a mesh or over an NCCL group, the K updates are
-    ONE CUDA graph a call (the chunk graph of
-    :func:`~.pool_step.make_pool_scan_train_step`: the batches and targets
-    staged in the graph's buffers, the seed words through pinned memory,
-    the all-gather, its reduce-scatter and the gradients' all-reduce
-    captured with the kernels and the optimizer's update), captured at the
-    first call for a shape under the span ``contrastive.capture`` and
-    replayed after that.  The optimizer must update inside a graph
-    (``Adam``/``AdamW`` with ``capturable=True``, or ``SGD``).  Each replay
-    adds K to ``shared_query_fwd.launches`` and ``shared_query_bwd.launches``
-    and, over a mesh, K of each collective to
+    ONE CUDA graph a call, captured under the span ``contrastive.capture``
+    (the graph route of :mod:`aecf_tpu_torch.train.update`, which says
+    what is captured and what recaptures): the targets staged beside the
+    features, and the all-gather, its reduce-scatter and the gradients'
+    all-reduce captured with the kernels.  Each replay adds K to
+    ``shared_query_fwd.launches`` and ``shared_query_bwd.launches`` and,
+    over a mesh, K of each collective to
     :data:`aecf_tpu_torch.parallel.collectives.counted`.  On the CPU and
     over gloo the K updates run eagerly."""
     axis, local_step = _axis_and_step(
         mesh, axis_name, temperature=temperature, precision=precision,
         base_mask_prob=base_mask_prob, entropy_target=entropy_target,
         min_active=min_active)
-    single = _make_step(local_step, 1, axis)
-    graphs: Dict[tuple, _ChunkGraph] = {}
-
-    def chunk(state: TrainState, kv, target, rng):
-        E = state.params["query"].shape[-1]
-        kv4 = _steps_view(kv, E)
-        K, B = kv4.shape[:2]
-        if tuple(target.shape[:2]) != (K, B) or target.ndim != 3:
-            raise ValueError(
-                f"target must be (K={K}, B={B}, width), got "
-                f"{tuple(target.shape)}")
-        if kv4.is_cuda and (axis is None or axis.backend == "nccl"):
-            key = (tuple(kv4.shape), kv4.dtype, target.shape[-1])
-            graph = graphs.get(key)
-            if graph is None or graph.signature != _signature(
-                    state, kv4, _no_plan):
-                with span("contrastive.capture"):
-                    graph = graphs[key] = _ChunkGraph(
-                        local_step, state, kv4, target, axis,
-                        chains=(shared_query_fwd, shared_query_bwd),
-                        plan_key=_no_plan)
-            return graph.run(state, kv4, target, rng)
-        return _eager_chunk(single, state, kv4, target, rng)
-
-    chunk._graphs = graphs  # the captured graphs, for the card's checks
-    return chunk
+    return _graph_chunk(
+        local_step, axis, chains=(shared_query_fwd, shared_query_bwd),
+        capture_span="contrastive.capture", rows=("target", "width"))

@@ -16,7 +16,8 @@ with the step index as JAX folds keys) or a generator.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +25,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.masking import entropy_loss
-from ..kernels.draws import device_generator, fold_seed_words, seed_words_of
+from ..kernels.draws import fold_seed_words, seed_words_of
 from .metrics import calculate_metrics
 from .staging import Stager
+from .update import (
+    RngLike,
+    TrainState,
+    _accumulate,
+    _eager_chunk,
+    _fold_fresh,
+    _loss_step,
+    _make_step,
+    param_leaves,
+)
 
 __all__ = [
     "TrainState",
@@ -41,46 +52,6 @@ __all__ = [
     "train_parallel_experiment",
 ]
 
-RngLike = Union[int, Tuple[int, int], torch.Generator, None]
-
-
-def param_leaves(params: Any) -> List[torch.Tensor]:
-    """The trainable tensors of ``params`` in a fixed order: a module's
-    ``parameters()``, or for a ``{'pool', 'query'[, 'head']}`` dict the
-    pool's parameters (``named_parameters`` order), the query, then the
-    head's ``w`` and ``b``; a contrastive ``{'pool', 'query', 'proj',
-    'target_proj'}`` dict ends with the two projections' parameters."""
-    if isinstance(params, nn.Module):
-        return list(params.parameters())
-    leaves = list(params["pool"].parameters()) + [params["query"]]
-    head = params.get("head")
-    if head is not None:
-        leaves += [head[k] for k in ("w", "b") if head.get(k) is not None]
-    for name in ("proj", "target_proj"):
-        if params.get(name) is not None:
-            leaves += list(params[name].parameters())
-    return leaves
-
-
-@dataclasses.dataclass
-class TrainState:
-    """``params`` (see :func:`param_leaves`), ``optimizer`` over their
-    leaves, e.g. ``torch.optim.AdamW(param_leaves(params), lr=1e-4,
-    weight_decay=0.01)`` (pass the decay: torch's default is 1e-2,
-    optax's 1e-4), and ``step``, the number of updates taken."""
-
-    params: Any
-    optimizer: torch.optim.Optimizer
-    step: int = 0
-
-
-def _generator(rng: RngLike) -> Optional[torch.Generator]:
-    """A CPU generator for ``apply_fn``: ``rng`` itself, or one seeded
-    from its two words."""
-    if rng is None or isinstance(rng, torch.Generator):
-        return rng
-    return device_generator(seed_words_of(rng), "cpu")
-
 
 def _params_device(params: Any) -> torch.device:
     return param_leaves(params)[0].device
@@ -90,22 +61,6 @@ def bce_with_logits_loss(logits: torch.Tensor,
                          labels: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy on logits (torch ``BCEWithLogitsLoss``)."""
     return F.binary_cross_entropy_with_logits(logits, labels.to(logits.dtype))
-
-
-def _set_grads(leaves, grads) -> None:
-    for p, g in zip(leaves, grads):
-        p.grad = None if g is None else g.detach().to(p.dtype)
-
-
-def _unstack_info(infos: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """The per-sample info contract after microbatching: per-row leaves
-    concatenated in microbatch order, per-microbatch scalars stacked."""
-    return {
-        k: torch.cat([d[k] for d in infos]) if torch.as_tensor(
-            infos[0][k]).ndim else torch.stack([torch.as_tensor(d[k])
-                                                for d in infos])
-        for k in infos[0]
-    }
 
 
 def accumulate_grads(
@@ -122,42 +77,12 @@ def accumulate_grads(
     Returns ``(loss, info, grads)``: ``loss`` and ``grads`` (in
     :func:`param_leaves` order) are the full-batch means (equal microbatches
     of a mean loss), ``info`` is full-batch shaped.  Microbatch ``i`` draws
-    from the fold of ``rng`` and ``i`` (JAX's ``fold_in(rng, i)``), so the
-    draws are i.i.d. across microbatches.
+    from fresh seed words of ``rng`` (drawn anew from a generator) folded
+    with ``i`` (JAX's ``fold_in(rng, i)``), so the draws are i.i.d. across
+    microbatches.
     """
-    leaves = param_leaves(params)
-    gsum, losses, infos = None, [], []
-    for i in range(accum_steps):
-        micro = tuple(stream[i] for stream in microbatches)
-        gen = _generator(fold_seed_words(_seed_of(rng), i))
-        loss, info = loss_fn(params, *micro, gen)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        gsum = list(grads) if gsum is None else [
-            b if a is None else (a if b is None else a + b)
-            for a, b in zip(gsum, grads)
-        ]
-        losses.append(loss.detach())
-        infos.append({k: v.detach() for k, v in info.items()})
-    grads = [None if g is None else g / accum_steps for g in gsum]
-    return torch.stack(losses).mean(), _unstack_info(infos), grads
-
-
-def _seed_of(rng: RngLike):
-    """Two seed words of ``rng`` (drawn from it when it is a generator)."""
-    if isinstance(rng, torch.Generator):
-        words = torch.randint(0, 2**32, (2,), generator=rng)
-        return int(words[0]), int(words[1])
-    return seed_words_of(0 if rng is None else rng)
-
-
-def _split_microbatches(arrays, accum_steps: int):
-    batch = arrays[0].shape[0]
-    if batch % accum_steps:
-        raise ValueError(
-            f"batch size {batch} is not divisible by accum_steps="
-            f"{accum_steps}"
-        )
-    return tuple(torch.chunk(x, accum_steps) for x in arrays)
+    return _accumulate(_loss_step(loss_fn), params, microbatches, rng, 1.0,
+                       accum_steps, _fold_fresh)
 
 
 def _make_loss_on(apply_fn, entropy_coeff, entropy_seq_len):
@@ -176,32 +101,6 @@ def _make_loss_on(apply_fn, entropy_coeff, entropy_seq_len):
     return loss_on
 
 
-def _grad_step(state, images, texts, labels, rng, *, loss_on, accum_steps,
-               reduce=None):
-    """One ``(state, batch, rng) -> (state, loss, info)`` update: the body
-    of :func:`make_train_step` and :func:`make_scan_train_step`, and of the
-    parallel steps, whose ``reduce(loss, info, grads)`` makes the
-    cross-rank sums before the optimizer's update."""
-    leaves = param_leaves(state.params)
-    if accum_steps == 1:
-        loss, info = loss_on(state.params, images, texts, labels,
-                             _generator(rng))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        loss = loss.detach()
-        info = {k: v.detach() for k, v in info.items()}
-    else:
-        mbs = _split_microbatches((images, texts, labels), accum_steps)
-        loss, info, grads = accumulate_grads(
-            loss_on, state.params, mbs, rng, accum_steps
-        )
-    if reduce is not None:
-        loss, info, grads = reduce(loss, info, grads)
-    _set_grads(leaves, grads)
-    state.optimizer.step()
-    state.step += 1
-    return state, loss, info
-
-
 def make_train_step(
     apply_fn: Callable[..., Any],
     *,
@@ -218,13 +117,9 @@ def make_train_step(
     microbatches (:func:`accumulate_grads`) for one update."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    loss_on = _make_loss_on(apply_fn, entropy_coeff, entropy_seq_len)
-
-    def step(state: TrainState, images, texts, labels, rng):
-        return _grad_step(state, images, texts, labels, rng,
-                          loss_on=loss_on, accum_steps=accum_steps)
-
-    return step
+    return _make_step(
+        _loss_step(_make_loss_on(apply_fn, entropy_coeff, entropy_seq_len)),
+        accum_steps, fold=_fold_fresh)
 
 
 def make_scan_train_step(
@@ -241,28 +136,9 @@ def make_scan_train_step(
     of ``rng`` and the global ``state.step`` — JAX's ``fold_in(rng,
     state.step)`` — so chunks chain and resume exactly like single steps
     fed those words.  ``infos`` are per-step means."""
-    return _chunk_of(make_train_step(apply_fn, entropy_coeff=entropy_coeff,
-                                     entropy_seq_len=entropy_seq_len,
-                                     accum_steps=accum_steps))
-
-
-def _chunk_of(step: Callable) -> Callable:
-    """The K-step chunk over ``step``: step ``i`` fed the fold of ``rng``
-    and the global ``state.step``."""
-
-    def chunk(state: TrainState, images, texts, labels, rng):
-        losses, infos = [], {}
-        for i in range(images.shape[0]):
-            state, loss, info = step(state, images[i], texts[i], labels[i],
-                                     fold_seed_words(_seed_of(rng),
-                                                     state.step))
-            losses.append(loss)
-            for k, v in info.items():
-                infos.setdefault(k, []).append(v.float().mean())
-        return (state, torch.stack(losses),
-                {k: torch.stack(v) for k, v in infos.items()})
-
-    return chunk
+    return functools.partial(_eager_chunk, make_train_step(
+        apply_fn, entropy_coeff=entropy_coeff,
+        entropy_seq_len=entropy_seq_len, accum_steps=accum_steps))
 
 
 def mask_modality(

@@ -3242,7 +3242,7 @@ def _q8_step(torch, impl, params, kv, scales, labels, gen, num_heads=1):
     from aecf_tpu_torch.kernels.draws import device_generator, draw_seed_words
     from aecf_tpu_torch.ops import fusion_pool
     from aecf_tpu_torch.train import param_leaves
-    from aecf_tpu_torch.train.pool_step import _flat_grads
+    from aecf_tpu_torch.train.update import _flat_grads
 
     M = kv.shape[1]
     head = params.get("head")
@@ -6453,7 +6453,7 @@ def default_slice(torch, smi: str) -> dict:
         make_pool_train_step,
         param_leaves,
     )
-    from aecf_tpu_torch.train.pool_step import _flat_grads
+    from aecf_tpu_torch.train.update import _flat_grads
 
     B, M, E, C = NS_B, NS_M, NS_E, NS_C
     rng = np.random.default_rng(61)

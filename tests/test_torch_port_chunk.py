@@ -49,7 +49,8 @@ from aecf_tpu_torch.train import (
     make_pool_train_step,
     param_leaves,
 )
-from aecf_tpu_torch.train.pool_step import _check_graph_optimizer, _signature
+from aecf_tpu_torch.train.pool_step import _step_plan_key
+from aecf_tpu_torch.train.update import _check_graph_optimizer, _signature
 
 E, M, B, C, K = 32, 3, 24, 5, 4
 
@@ -361,19 +362,19 @@ def test_signature_follows_the_plan(how, monkeypatch, tmp_path):
     tiles.set_table(None)
     state = _state(_flat(jax_init(jax.random.key(0), E, C)))
     kv4 = torch.zeros((K, B, M, E))
-    before = _signature(state, kv4)
-    assert _signature(state, kv4) == before
+    before = _signature(state, kv4, _step_plan_key)
+    assert _signature(state, kv4, _step_plan_key) == before
     key = tiles.site_key("step_resident", M=M, E=E, H=1, kv_dtype="float32",
                          want_dkv=False)
     plan = {"d_mix": [128, 1]}  # the step's products can take it
     tiles.set_table({key.replace("E=", "E=1"): plan})
-    assert _signature(state, kv4) == before
+    assert _signature(state, kv4, _step_plan_key) == before
     if how == "table":
         tiles.set_table({key: plan})
     else:
         monkeypatch.setenv("AECF_TORCH_STEP_PLAN", json.dumps(plan))
     try:
-        assert _signature(state, kv4) != before
+        assert _signature(state, kv4, _step_plan_key) != before
     finally:
         tiles.set_table(None)
 
