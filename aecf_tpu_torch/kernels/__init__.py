@@ -14,6 +14,7 @@ from .fused_pool import (
     prefers_fused,
     supports_fused,
 )
+from .infonce import infonce_rows, infonce_rows_plain
 from .shared_query import (
     fused_fusion_pool_shared,
     quantize_features,
@@ -43,6 +44,8 @@ __all__ = [
     "fused_pool_fwd_plain",
     "fused_pool_head_train_step",
     "fused_pool_train_step",
+    "infonce_rows",
+    "infonce_rows_plain",
     "prefers_fused",
     "quantize_features",
     "shared_query_bwd",

@@ -24,8 +24,12 @@ an all-gather forward and a reduce-scatter of the cotangent backward, so
 The pool runs the two-pass kernels through the one-pass step's custom-loss
 route (:func:`aecf_tpu_torch.kernels.fused_pool_train_step` with
 ``row_loss=``): the training forward (its mask drawn from seed words in
-device memory), the projections, the gather and InfoNCE in torch under
-autograd, then the pool's backward kernel on ``d_out``.  The one-pass
+device memory), the projections and the gather in torch under autograd,
+InfoNCE's loss and its gradient in one kernel
+(:func:`aecf_tpu_torch.kernels.infonce_rows`, over the raw product ``z
+t_allᵀ``, which it overwrites with the gradient), the products back to
+``z`` and ``t_all`` in torch, autograd through the projections and the
+gather, then the pool's backward kernel on ``d_out``.  The one-pass
 chain's built-in losses are row-local, which InfoNCE over gathered targets
 is not.  On the CPU every kernel runs its plain version.
 """
@@ -39,7 +43,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.init import init_attention_pool_params, init_fusion_query
-from ..kernels import fused_pool_train_step, shared_query_bwd, shared_query_fwd
+from ..kernels import (
+    fused_pool_train_step,
+    infonce_rows,
+    shared_query_bwd,
+    shared_query_fwd,
+)
 from ..models.layers import init_linear
 from ..parallel.collectives import all_gather_rows
 from .update import _axis, _graph_chunk, _make_step
@@ -100,13 +109,17 @@ def _make_local_step(*, axis, temperature, precision, base_mask_prob,
                 x = out.detach().requires_grad_(True)
                 z = _normalise(F.linear(x, proj.weight, proj.bias))
                 t = _normalise(F.linear(tgt, tproj.weight, tproj.bias))
-                logits = z @ all_gather_rows(t, group).T / temperature
-                labels = torch.arange(B, device=out.device) + shard * B
-                rows = F.cross_entropy(logits, labels, reduction="none")
-                rows = rows * (loss_scale / B)
-                grads = torch.autograd.grad(rows.sum(), [x] + leaves)
+                t_all = all_gather_rows(t, group)
+            zd, td = z.detach(), t_all.detach()
+            # infonce_rows overwrites the raw product with the gradient of
+            # the losses with respect to it
+            raw = zd @ td.T
+            rows = infonce_rows(raw, label_offset=shard * B,
+                                temperature=temperature, scale=loss_scale / B)
+            grads = torch.autograd.grad([z, t_all], [x] + leaves,
+                                        grad_outputs=[raw @ td, raw.T @ zd])
             head_grads.extend(grads[1:])
-            return rows.detach(), grads[0]
+            return rows, grads[0]
 
         loss, d_pool, d_query, _, info = fused_pool_train_step(
             params["pool"], params["query"], kv, generator=generator,
@@ -177,7 +190,8 @@ def make_contrastive_scan_train_step(
     what is captured and what recaptures): the targets staged beside the
     features, and the all-gather, its reduce-scatter and the gradients'
     all-reduce captured with the kernels.  Each replay adds K to
-    ``shared_query_fwd.launches`` and ``shared_query_bwd.launches`` and,
+    ``shared_query_fwd.launches``, ``shared_query_bwd.launches`` and
+    ``infonce_rows.launches`` and,
     over a mesh, K of each collective to
     :data:`aecf_tpu_torch.parallel.collectives.counted`.  On the CPU and
     over gloo the K updates run eagerly."""
@@ -186,5 +200,6 @@ def make_contrastive_scan_train_step(
         base_mask_prob=base_mask_prob, entropy_target=entropy_target,
         min_active=min_active)
     return _graph_chunk(
-        local_step, axis, chains=(shared_query_fwd, shared_query_bwd),
+        local_step, axis,
+        chains=(shared_query_fwd, shared_query_bwd, infonce_rows),
         capture_span="contrastive.capture", rows=("target", "width"))

@@ -379,9 +379,10 @@ class _ChunkGraph:
     width)`` rows beside them (the labels of the pool step, the targets of
     the contrastive step), and its two seed words from a device buffer.
     Each wrapper in ``chains`` must count one launch a step at capture
-    (``launches`` + ``launches_q8``: the one-pass step's chain, or the
-    two-pass forward and backward); ``plan_key`` (or None) names the
-    kernels' plan in the graph's signature.
+    (``launches`` + ``launches_q8`` where it has both: the one-pass step's
+    chain, or the two-pass forward and backward and InfoNCE's kernel);
+    ``plan_key`` (or None) names the kernels' plan in the graph's
+    signature.
 
     ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
     per-step entries of the last replay, this rank's rows; the chunk
@@ -414,8 +415,8 @@ class _ChunkGraph:
         self.losses = torch.empty((K,), dtype=torch.float32, device=dev)
         self.info: Dict[str, torch.Tensor] = {}
         self.step_info: List[Dict[str, torch.Tensor]] = []
-        # the chains' part of what a replay adds to the counters,
-        # (launches, launches_q8) a chain
+        # the chains' part of what a replay adds to the counters: each
+        # chain's launches, then its launches_q8 where it has one
         self.launched: Tuple[int, ...] = ()
         self.graph = torch.cuda.CUDAGraph()
         self._capture(state, kv4, labels)
@@ -470,13 +471,15 @@ class _ChunkGraph:
         # launches, and each chain must count K.
         with self.counts.capturing(), torch.cuda.graph(self.graph):
             self.step_info = [self._step(state, i) for i in range(self.K)]
-        self.launched = tuple(self.counts.added[:2 * len(self.chains)])
-        for j, chain in enumerate(self.chains):
-            got = self.launched[2 * j:2 * j + 2]
+        cells = list(zip(self.counts.cells, self.counts.added))
+        self.launched = tuple(n for (o, _), n in cells if o in self.chains)
+        for chain in self.chains:
+            got = tuple(n for (o, _), n in cells if o is chain)
             if sum(got) != self.K:
                 raise RuntimeError(
                     f"the chunk's capture counted {got} {chain.__name__} "
-                    f"chains (f32/bf16, int8), not one a step of {self.K}"
+                    f"launches (launches, launches_q8), not one a step of "
+                    f"{self.K}"
                 )
 
     def _stage(self, kv4, labels) -> int:

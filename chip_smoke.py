@@ -177,7 +177,12 @@ the resident forward, backward and step):
    against the CPU path and AdamW steps of ``'auto'`` (the torch path at
    H > 2) in lockstep with the model forced onto the kernel; (q)
    ``MultiScaleFusion`` (256/512/1024, H=1), eval and AdamW steps of
-   ``'auto'`` (the kernels) against ``'torch'``;
+   ``'auto'`` (the kernels) against ``'torch'``; then InfoNCE's kernel
+   (5s, ``infonce_slice``) at the contrastive cell's (2048, 8192) against
+   its plain version, two calls bit for bit, its time beside its bound,
+   its plain version and ATen's route, and a contrastive chunk on the
+   card counting as many ``infonce_rows`` launches as
+   ``shared_query_fwd`` ones, with no ATen softmax in its replay;
 7. times (CUDA events) of each kernel and its plain version at the slice
    shapes (each int8 kernel beside the f32 kernel at its shape; the
    per-row forward also with distinct query rows; with the CUDA kernels one
@@ -377,7 +382,7 @@ STREAM_EDGE = (
     (8192, [(1, 8), (3, 8)]),
 )
 SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
-           "fused_pool_fwd", "stream_mix", "stream_bwd")
+           "fused_pool_fwd", "stream_mix", "stream_bwd", "infonce")
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): device
 # memory, f32 outside the tensor cores — every kernel here runs SIMT f32
 # FMAs at precision='highest' — and dense TF32 on the tensor cores, the
@@ -2523,6 +2528,7 @@ def _state(torch, flat, opt):
 def _kernel_wrappers():
     from aecf_tpu_torch.kernels import (
         fused_pool_fwd,
+        infonce_rows,
         shared_query_bwd,
         shared_query_fwd,
         stream_bwd,
@@ -2539,6 +2545,7 @@ def _kernel_wrappers():
         "stream_mix": stream_mix,
         "stream_bwd": stream_bwd,
         "stream_bwd_mh": stream_bwd_mh,
+        "infonce_rows": infonce_rows,
     }
 
 
@@ -6823,6 +6830,130 @@ def time_default(torch, smi: str, trained: dict, sliced: dict) -> dict:
     return times
 
 
+# InfoNCE on one card of the contrastive cell: its 2048 rows against the
+# global batch's 8192 targets, at the configuration's temperature
+NCE_B, NCE_N, NCE_TAU = 2048, 8192, 0.1
+TOL_NCE_REL = 1e-5  # kernel vs plain: the sums' order, a few ulps of log s
+
+
+def infonce_slice(torch, smi: str) -> dict:
+    """Phase 5s: InfoNCE's kernel (``infonce_rows``) at the contrastive
+    cell's shape on one card, (2048, 8192) at τ = 0.1, against its plain
+    version on the card with the labels of the first and the last shard
+    (``TOL_NCE_REL`` of the largest entry), two calls bit for bit; its
+    time beside its bound (the raw product read and its gradient written
+    once), the plain version's, and the route the step took before it
+    (``library_ms``: ATen's division, cross-entropy and autograd's
+    gradient of the raw product); its device time under the profiler;
+    then a contrastive chunk on the card (K=4, B=1024, M=4, E=1024, P=256,
+    world 1), whose two calls add as many ``infonce_rows`` launches as
+    ``shared_query_fwd`` ones, K the second, with an ``infonce`` kernel
+    and no softmax kernel of ATen in its replay."""
+    import torch.nn.functional as F
+
+    from aecf_tpu_torch.kernels import (
+        infonce_rows,
+        infonce_rows_plain,
+        shared_query_fwd,
+    )
+    from aecf_tpu_torch.train import (
+        TrainState,
+        init_contrastive_params,
+        make_contrastive_scan_train_step,
+        param_leaves,
+    )
+
+    B, N, tau = NCE_B, NCE_N, NCE_TAU
+    scale = 0.25 / B
+    g = torch.Generator("cuda").manual_seed(61)
+    z = F.normalize(torch.randn((B, 256), generator=g, device="cuda"), dim=1)
+    t = F.normalize(torch.randn((N, 256), generator=g, device="cuda"), dim=1)
+    raw0 = z @ t.T
+    kw = dict(temperature=tau, scale=scale)
+    phase = before = infonce_rows.launches
+    worst = 0.0
+    for offset in (0, N - B):
+        raw, plain = raw0.clone(), raw0.clone()
+        got = infonce_rows(raw, label_offset=offset, **kw)
+        want = infonce_rows_plain(plain, label_offset=offset, **kw)
+        again = raw0.clone()
+        got2 = infonce_rows(again, label_offset=offset, **kw)
+        torch.cuda.synchronize()
+        where = f"B={B} N={N} label_offset={offset}"
+        worst = max(
+            worst,
+            _hold("infonce_rows loss", got, want,
+                  TOL_NCE_REL * want.abs().max().item(), where),
+            _hold("infonce_rows gradient", raw, plain,
+                  TOL_NCE_REL * plain.abs().max().item(), where))
+        check(torch.equal(got, got2) and torch.equal(raw, again),
+              f"two infonce_rows calls differ at {where}")
+    check(infonce_rows.launches - before == 4,
+          f"infonce_rows counted {infonce_rows.launches - before} of 4")
+    print(f"infonce_rows vs plain at B={B} N={N}: max abs err {worst:.3e}; "
+          "two calls equal bit for bit")
+
+    raw, plain = raw0.clone(), raw0.clone()
+    leaf = raw0.clone().requires_grad_(True)
+    labels = torch.arange(B, device="cuda")
+
+    def aten():
+        rows = F.cross_entropy(leaf / tau, labels, reduction="none") * scale
+        return torch.autograd.grad(rows.sum(), leaf)
+
+    # each element: /τ, −m, exp, +, −m, −log s, exp, ·, −, /τ
+    work = (2 * B * N * 4, 10 * B * N)
+    times = _time_pair(
+        torch, f"infonce_rows (loss and gradient in place) B={B} N={N}",
+        lambda: infonce_rows(raw, label_offset=0, **kw),
+        lambda: infonce_rows_plain(plain, label_offset=0, **kw), work, smi)
+    a1, a2 = (cuda_ms(torch, aten, iters=50, warmup=5) for _ in range(2))
+    library_ms = (a1 + a2) / 2
+    device = _device_ms(torch, lambda: infonce_rows(raw, label_offset=0,
+                                                    **kw), "infonce")
+    print(f"time infonce_rows library (ATen: /τ, cross_entropy, autograd) "
+          f"B={B} N={N}: {a1:.5f}/{a2:.5f} ms (mean {library_ms:.5f}); "
+          f"kernel device {device} ms; {smi}")
+
+    K, Bc, M, E, P = 4, 1024, 4, 1024, 256
+    params = init_contrastive_params(torch.Generator().manual_seed(62), E, P,
+                                     device="cuda")
+    state = TrainState(params, torch.optim.AdamW(
+        param_leaves(params), lr=3e-4, weight_decay=1e-4, capturable=True))
+    gc = torch.Generator("cuda").manual_seed(63)
+    base = torch.randn((K, Bc, 1, E), generator=gc, device="cuda")
+    kv = (base + 0.5 * torch.randn((K, Bc, M, E), generator=gc,
+                                   device="cuda")).reshape(K, Bc, M * E)
+    target = base[:, :, 0] + 0.3 * torch.randn((K, Bc, E), generator=gc,
+                                               device="cuda")
+    chunk = make_contrastive_scan_train_step(temperature=tau)
+    start = (infonce_rows.launches, shared_query_fwd.launches)
+    for call in range(2):
+        before = (infonce_rows.launches, shared_query_fwd.launches)
+        state, losses, _ = chunk(state, kv, target, 64)
+        torch.cuda.synchronize()
+        added = (infonce_rows.launches - before[0],
+                 shared_query_fwd.launches - before[1])
+        check(infonce_rows.launches - start[0]
+              == shared_query_fwd.launches - start[1]
+              and (call == 0 or added == (K, K))
+              and bool(losses.isfinite().all()),
+              f"contrastive chunk call {call}: added {added} infonce_rows / "
+              f"shared_query_fwd launches (K={K}), losses {losses.tolist()}")
+    names = _kernel_counts(
+        torch, lambda: chunk(state, kv, target, 64), calls=2)
+    check(any("infonce" in n for n in names)
+          and not any("SoftMax" in n for n in names),
+          "the contrastive replay's kernels: "
+          + ", ".join(sorted(n[:60] for n in names)))
+    print(f"contrastive chunk K={K} B={Bc} M={M} E={E} P={P}: "
+          f"{infonce_rows.launches - start[0]} infonce_rows launches, as "
+          "many as shared_query_fwd; its replay runs an infonce kernel and "
+          "no ATen softmax")
+    return {"launches": {"infonce_rows": infonce_rows.launches - phase},
+            "err": worst, "times": (*times, library_ms)}
+
+
 KERNELS = (
     ("shared_query_fwd", "shared_query_fwd.cu",
      "aecf_tpu/kernels/shared_query.py:508"),
@@ -6846,6 +6977,8 @@ KERNELS = (
      "aecf_tpu/kernels/shared_query.py:1479"),
     ("stream_bwd_mh_q8", "stream_bwd.cu",
      "aecf_tpu/kernels/shared_query.py:1532"),
+    # replaces no TPU kernel: the JAX package leaves InfoNCE to XLA
+    ("infonce_rows", "infonce.cu", None),
 )
 
 
@@ -6911,6 +7044,7 @@ def main() -> None:
     sliced = stream_slices(torch)
     quantized = q8_slices(torch)
     families = model_slices(torch)
+    nce = infonce_slice(torch, smi)
     time_kernels(torch, smi, served["gpu_pred"])
     time_export(torch, smi, exported)
     times = time_training(torch, smi, trained)
@@ -6931,16 +7065,18 @@ def main() -> None:
     launches.update(quantized["launches"])
     launches["train_step"] += (auto["train_step"]
                                + chunked["launches"]["train_step"])
+    errs["infonce_rows"] = nce["err"]
+    times["infonce_rows"] = nce["times"]
     for part in (exported, elastic, meshed, two_rank, loaded, measured,
-                 defaulted, profiled):
+                 defaulted, profiled, nce):
         for name, n in part["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name, n in families["launches"].items():
         launches[name] = launches.get(name, 0) + n
-    for name, _, _ in KERNELS:
+    for name, _, replaces in KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was not launched on the main path")
-        check(bool(HELD_AT.get(name)),
+        check(replaces is None or bool(HELD_AT.get(name)),
               f"{name} was not held to its plain version")
     for name in times_default:
         check(name in errs_default,
@@ -6948,9 +7084,9 @@ def main() -> None:
               "version there")
     print(f"GEMM block, TF32 instance vs plain: max abs err "
           f"{tf32_gemm_err:.3e}")
-    # No single PyTorch call computes any of these functions (each fuses a
-    # softmax over M with its entropy, mask or gradient sums), so there is
-    # no library time.  The kernels precision='default' changes (all but
+    # No single PyTorch call computes any of the pool's functions (each
+    # fuses a softmax over M with its entropy, mask or gradient sums), so
+    # they have no library time; InfoNCE's is ATen's route.  The kernels precision='default' changes (all but
     # the per-row forward, which runs IEEE f32 at every precision) also
     # carry their 'default' time, bound (TF32 products) and error.
     print(json.dumps({"kernels": [
@@ -6965,8 +7101,8 @@ def main() -> None:
             "plain_ms": times[name][1],
             "bound_ms": times[name][2],
             "bound_by": times[name][3],
-            "library_ms": None,
-            "heads": sorted(HELD_AT[name]),
+            "library_ms": times[name][4] if len(times[name]) > 4 else None,
+            "heads": sorted(HELD_AT.get(name, ())),
             **({"ms_default": times_default[name][0],
                 "bound_ms_default": times_default[name][1],
                 "bound_by_default": times_default[name][2],
