@@ -114,7 +114,7 @@ def _merge_masks(
     oracle's semantics (the kernel path's ``-1e30`` bias gives uniform
     weights instead; each path keeps its own).
     """
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
+    neg_inf = float("-inf")  # a scalar: no host-to-device copy (a CUDA graph)
     if attn_mask is not None:
         if attn_mask.ndim == 2:
             am = attn_mask[None, None, :, :]

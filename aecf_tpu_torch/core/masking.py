@@ -3,13 +3,14 @@
 Port of :mod:`aecf_tpu.core.masking` with the same 11-step semantics
 contract (branchless ``where`` chains, xlogy entropy clamped to
 ``[0, log L]``, one Bernoulli draw, whole-row ``min_active`` replacement,
-renormalisation with the ``<= 1e-8`` fallback).  Randomness comes from an
-explicit ``torch.Generator``; ``mask_override`` injects a pre-drawn mask,
-which is how tests hold this module to the JAX package and to the goldens.
-
-This is the CPU oracle of the port, and the mask of the torch training
-path (``implementation='torch'``); the kernels draw theirs with Philox
-(``aecf_tpu_torch.kernels.draws``).
+renormalisation with the ``<= 1e-8`` fallback).  The Bernoulli draw is
+``uniform < keep`` with the kernels' uniforms: Philox keyed by the call's
+seed words at counter ``(row, slot // 4, 0, 0)``
+(:func:`aecf_tpu_torch.kernels.draws.uniforms`), so the torch training
+path (``implementation='torch'``) draws the mask the kernels draw for the
+same words, on the card from one launch that reads words held there.
+``mask_override`` injects a pre-drawn mask, which is how tests hold this
+module to the JAX package and to the goldens.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..kernels.draws import draw_key, uniforms
 
 __all__ = [
     "CurriculumMaskingConfig",
@@ -94,7 +97,7 @@ def _top_k_indicator(weights: torch.Tensor, k: int) -> torch.Tensor:
 def curriculum_mask(
     weights: torch.Tensor,
     *,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     training: bool = False,
     base_mask_prob: float = 0.15,
     entropy_target: float = 0.7,
@@ -105,10 +108,14 @@ def curriculum_mask(
     """Apply entropy-driven curriculum masking to ``(..., L)`` weights.
 
     Eval returns the weights untouched with ``{entropy, mask_rate=0}``.
-    Training draws one Bernoulli keep-mask from ``generator`` (required
-    unless ``mask_override``, a pre-drawn mask of ``weights.shape``, is
-    given) and returns ``(masked_weights, {entropy, mask_rate,
-    target_entropy})``.  ``detach_info=False`` lets the entropy carry
+    Training draws one Bernoulli keep-mask keyed by ``generator`` — a
+    ``torch.Generator`` (two seed words drawn from it), seed words, or a
+    ``(2,)`` int32 words tensor on the weights' device
+    (:func:`aecf_tpu_torch.kernels.draws.draw_key`); required unless
+    ``mask_override``, a pre-drawn mask of ``weights.shape``, is given —
+    and returns ``(masked_weights, {entropy, mask_rate,
+    target_entropy})``.  Row ``r`` of the weights flattened to ``(rows,
+    L)`` keeps slot ``l`` where ``uniforms(key, rows, L)[r, l] < keep``.  ``detach_info=False`` lets the entropy carry
     gradient (the opt-in extension; the reference detaches, quirk Q2).
     """
     seq_len = weights.shape[-1]
@@ -153,9 +160,10 @@ def curriculum_mask(
                 "curriculum_mask(training=True) needs a torch.Generator "
                 "(or a `mask_override`)."
             )
-        mask = torch.bernoulli(
-            keep_prob.detach().expand(weights.shape), generator=generator
-        )
+        rows = math.prod(batch_shape)
+        u = uniforms(draw_key(generator), rows, seq_len,
+                     device=weights.device).reshape(weights.shape)
+        mask = (u < keep_prob.detach()).to(dtype)
 
     # Step 7: min_active constraint — whole-row replacement.
     effective_min_active = min(int(min_active), seq_len)

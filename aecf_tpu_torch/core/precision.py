@@ -23,7 +23,8 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["PRECISIONS", "matmul_precision", "round_tf32", "run_at"]
+__all__ = ["PRECISIONS", "matmul_precision", "process_precision",
+           "round_tf32", "run_at"]
 
 PRECISIONS = ("default", "high", "highest")
 
@@ -52,6 +53,14 @@ def _apply() -> None:
         torch.set_float32_matmul_precision("high")
     else:
         torch.set_float32_matmul_precision(_saved)
+
+
+def process_precision() -> str:
+    """The precision the process's float32 matmul mode runs at now:
+    ``'highest'`` (IEEE f32) or ``'default'`` (TF32 tensor cores on a
+    card) — for a call that follows the mode its caller set."""
+    return ("highest" if torch.get_float32_matmul_precision() == "highest"
+            else "default")
 
 
 @contextlib.contextmanager

@@ -111,7 +111,7 @@ from ._plan import (
     sq_bwd_products,
     sq_fwd_products,
 )
-from .draws import draw_seed_words, mask_and_renorm, mask_uniforms
+from .draws import draw_key, draw_seed_words, mask_and_renorm, mask_uniforms
 
 __all__ = [
     "fused_fusion_pool_shared",
@@ -1270,8 +1270,12 @@ def _forward(tensors, kpm, num_heads, mask_kw, *, streamed, precision):
                                     kv_scales=kv_scales, precision=precision,
                                     **mask_kw)
             return outs, None
+        kw = dict(mask_kw)
+        words = kw.pop("seed_words", None)
+        if words is not None:  # the streamed kernel takes its words by value
+            kw["seed"] = tuple(int(x) & 0xFFFFFFFF for x in words.tolist())
         mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, kv_scales=kv_scales,
-                                           precision=precision, **mask_kw)
+                                           precision=precision, **kw)
         return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
 
 
@@ -1370,7 +1374,9 @@ def fused_fusion_pool_shared(
     Returns ``(out (B,1,E), weights (B,1,M), masked (B,1,M), info)`` with
     the JAX function's info contract.  ``training=True`` draws the
     curriculum mask in the kernel from two seed words taken from
-    ``generator`` (a CPU ``torch.Generator``, in place of JAX's ``rng=``).
+    ``generator`` (a CPU ``torch.Generator``, in place of JAX's ``rng=``),
+    or given as a pair, or as a ``(2,)`` int32 tensor on ``kv``'s device
+    that the resident kernel reads when it runs (a CUDA graph's buffer).
     Gradients flow to the pool's parameters, ``query`` (its ``(1, 1, E)``
     shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
     ``precision`` is ``"default"`` or ``"highest"``: ``'highest'`` runs
@@ -1421,9 +1427,13 @@ def fused_fusion_pool_shared(
         )
     _check_kv_scales(kv, kv_scales)
     mask_kw = dict(
-        training=training, seed=draw_seed_words(generator),
+        training=training, seed=(0, 0),
         mask_prob=float(base_mask_prob), min_active=int(min_active),
     )
+    if isinstance(generator, torch.Tensor):
+        mask_kw["seed_words"] = draw_key(generator)
+    else:
+        mask_kw["seed"] = draw_seed_words(generator)
     if not kv_grad:
         kv = kv.detach()
     tensors = (params.in_proj_weight, params.in_proj_bias,

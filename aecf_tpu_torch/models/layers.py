@@ -4,9 +4,11 @@ Port of :mod:`aecf_tpu.models.layers`: ``LinearParams`` is an
 ``nn.Linear`` (weight ``(out, in)``, bias ``(out,)``, the same state-dict
 keys) initialised the JAX package's way, uniform ``±1/√in_dim`` for both,
 from an explicit ``torch.Generator``.  ``dropout`` is inverted dropout
-drawn from a CPU generator (on a card, from a generator there seeded from
-two words drawn from it), and ``mlp_encoder`` the per-modality
-``Linear → ReLU → Dropout`` encoder of every model family.
+keyed by the step's seed words (the next site of a forward's
+:class:`~aecf_tpu_torch.kernels.draws.Draws`, ``docs/prng.md``; on the
+card one Philox launch that reads the words where they lie),
+``fork_generator`` the pool's mask key, and ``mlp_encoder`` the
+per-modality ``Linear → ReLU → Dropout`` encoder of every model family.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels.draws import device_generator, draw_seed_words, generator_on
+from ..kernels.draws import Draws
 
 __all__ = [
     "LinearParams",
@@ -58,33 +60,33 @@ def linear(params: LinearParams, x: torch.Tensor) -> torch.Tensor:
     return y if params.bias is None else y + params.bias
 
 
-def fork_generator(
-    generator: Optional[torch.Generator],
-) -> Optional[torch.Generator]:
-    """A CPU generator seeded from two words drawn from ``generator`` (None
-    for None), as ``jax.random.split`` gives a sub-key: the fusion pool
-    draws from it, so the caller's stream advances by two words whichever
-    path (kernel or torch, CPU or card) the pool takes."""
-    if generator is None:
-        return None
-    return device_generator(draw_seed_words(generator), "cpu")
+def fork_generator(draws):
+    """The pool's mask key: the next site of the forward's draws
+    (:class:`~aecf_tpu_torch.kernels.draws.Draws`), the step's seed words
+    folded with the site's tag — host words for host words, two words on
+    the card for words there.  None for None."""
+    draws = Draws.of(draws)
+    return None if draws is None else draws.fork()
 
 
 def dropout(
     x: torch.Tensor,
     rate: float,
-    generator: Optional[torch.Generator],
+    draws,
     training: bool,
 ) -> torch.Tensor:
-    """Inverted dropout; identity in eval, at rate 0 or when no generator
-    is supplied (the JAX package's no-key rule)."""
-    if not training or rate <= 0.0 or generator is None:
+    """Inverted dropout at the next site of ``draws`` (a
+    :class:`~aecf_tpu_torch.kernels.draws.Draws`, or what
+    :meth:`Draws.of` takes): element ``(r, c)`` of ``x`` flattened to rows
+    of its last axis is kept where its uniform is below ``1 - rate``.
+    Identity in eval, at rate 0 or without draws (the JAX package's no-key
+    rule)."""
+    if not training or rate <= 0.0 or draws is None:
         return x
-    keep = torch.bernoulli(
-        torch.full_like(x, 1.0 - rate),
-        generator=generator_on(generator, x.device),
-    )
-    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
+    keep = 1.0 - rate
+    cols = x.shape[-1]
+    u = Draws.of(draws).uniforms(x.numel() // max(cols, 1), cols, x.device)
+    return torch.where(u.reshape(x.shape) < keep, x / keep, 0.0)
 
 
 def mlp_encoder(
@@ -92,10 +94,10 @@ def mlp_encoder(
     x: torch.Tensor,
     *,
     drop_rate: float = 0.1,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     training: bool = False,
 ) -> torch.Tensor:
     """``Linear → ReLU → Dropout``, the per-modality encoder of every model
-    family."""
+    family (``generator``: the forward's draws)."""
     return dropout(torch.relu(linear(params, x)), drop_rate, generator,
                    training)

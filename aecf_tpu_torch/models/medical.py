@@ -20,6 +20,7 @@ from torch import nn
 
 from ..core.init import init_attention_pool_params, init_fusion_query
 from ..ops import fusion_pool
+from ..kernels.draws import Draws
 from .layers import fork_generator, init_linear, linear, mlp_encoder
 
 __all__ = ["MedicalDiagnosisModel"]
@@ -31,9 +32,11 @@ class MedicalDiagnosisModel(nn.Module):
     Parameters are drawn on the CPU from ``generator`` (a fresh seed-0
     generator by default), then moved to ``device`` (the card unless the
     caller asks for another).  ``forward`` trains after ``self.training``:
-    the encoders' dropout and the curriculum mask (from a generator forked
-    off it, :func:`.layers.fork_generator`) draw from the CPU
-    ``generator`` passed to it, in that order.  The pool is
+    the encoders' dropout and the curriculum mask (keyed by a fold of the
+    words, :func:`.layers.fork_generator`) are keyed by the ``generator``
+    passed to it (a CPU generator, a step's seed words or a ``(2,)`` int32
+    words tensor on the card; :meth:`Draws.of`), site by site in that
+    order.  The pool is
     :func:`aecf_tpu_torch.ops.fusion_pool` with ``'auto'`` dispatch (the
     torch path at H = 8).
     """
@@ -75,7 +78,7 @@ class MedicalDiagnosisModel(nn.Module):
         lab: Optional[torch.Tensor] = None,  # (B, lab_dim)
         clinical: Optional[torch.Tensor] = None,  # (B, clinical_dim)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         return_info: bool = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
         provided = [x for x in (image, lab, clinical) if x is not None]
@@ -83,6 +86,7 @@ class MedicalDiagnosisModel(nn.Module):
             raise ValueError("At least one modality must be provided")
         B = provided[0].shape[0]
         device = provided[0].device
+        draws = Draws.of(generator) if self.training else None
         slots, padding = [], []
         for x, enc in ((image, self.image_encoder), (lab, self.lab_encoder),
                        (clinical, self.clinical_encoder)):
@@ -90,7 +94,7 @@ class MedicalDiagnosisModel(nn.Module):
                 slots.append(torch.zeros((B, self.hidden_dim), device=device))
                 padding.append(torch.ones((B,), dtype=torch.bool, device=device))
             else:
-                slots.append(mlp_encoder(enc, x, generator=generator,
+                slots.append(mlp_encoder(enc, x, generator=draws,
                                          training=self.training))
                 padding.append(torch.zeros((B,), dtype=torch.bool,
                                            device=device))
@@ -102,7 +106,7 @@ class MedicalDiagnosisModel(nn.Module):
             self.fusion_query,
             modalities,
             num_heads=self.num_heads,
-            generator=fork_generator(generator),
+            generator=fork_generator(draws),
             # masking runs whenever training, like the reference module
             training=self.training,
             base_mask_prob=self.mask_prob,

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..core.init import init_attention_pool_params, init_fusion_query
 from ..ops import fusion_pool
+from ..kernels.draws import Draws
 from .layers import fork_generator
 
 __all__ = ["MultiScaleFusion"]
@@ -29,9 +30,10 @@ class MultiScaleFusion(nn.Module):
     Parameters are drawn on the CPU from ``generator`` (a fresh seed-0
     generator by default), query then pool scale by scale, and moved to
     ``device`` (the card unless the caller asks for another).  Training
-    (``self.training``) draws every scale's mask from the one CPU
-    ``generator`` passed to ``forward``, scale by scale (a generator forked
-    off it a scale, :func:`.layers.fork_generator`), and needs it.
+    (``self.training``) keys every scale's mask by the ``generator``
+    passed to ``forward`` (a CPU generator, a step's seed words or a
+    ``(2,)`` int32 words tensor on the card), scale by scale (a fold of the
+    words a scale, :func:`.layers.fork_generator`), and needs it.
     """
 
     def __init__(
@@ -62,7 +64,7 @@ class MultiScaleFusion(nn.Module):
         self,
         scale_modalities: Sequence[torch.Tensor],  # each (B, M, dim_i)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         return_info: bool = False,
     ) -> Union[List[torch.Tensor],
                Tuple[List[torch.Tensor], List[Dict[str, Any]]]]:
@@ -80,6 +82,7 @@ class MultiScaleFusion(nn.Module):
             raise ValueError(
                 "training-mode curriculum masking needs a `generator=`"
             )
+        draws = Draws.of(generator)
         outs: List[torch.Tensor] = []
         infos: List[Dict[str, Any]] = []
         for query, pool, mods in zip(self.queries, self.pools,
@@ -89,7 +92,7 @@ class MultiScaleFusion(nn.Module):
                 query,
                 mods,
                 num_heads=1,
-                generator=fork_generator(generator),
+                generator=fork_generator(draws),
                 training=self.training,
                 base_mask_prob=self.mask_prob,
                 entropy_target=self.entropy_target,

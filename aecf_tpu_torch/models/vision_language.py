@@ -30,8 +30,10 @@ class VisionLanguageModel(nn.Module):
     Parameters are drawn on the CPU from ``generator`` (a fresh seed-0
     generator by default) and then moved to ``device`` (the card unless
     the caller asks for another).  ``forward`` runs in eval or training
-    mode after ``self.training``; training draws its curriculum mask from
-    the ``generator`` passed to ``forward``.
+    mode after ``self.training``; training keys its curriculum mask by a
+    fold of the seed words of the ``generator`` passed to ``forward`` (a
+    CPU generator, a step's seed words or a ``(2,)`` int32 words tensor on
+    the card; :func:`.layers.fork_generator`).
     """
 
     def __init__(
@@ -71,16 +73,16 @@ class VisionLanguageModel(nn.Module):
         image_feats: torch.Tensor,  # (B, img_dim)
         text_feats: torch.Tensor,  # (B, txt_dim)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         return_info: bool = False,
         use_checkpoint: bool = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
         """``use_checkpoint=True`` recomputes the fusion pool in the
         backward (``torch.utils.checkpoint``, training only), as the JAX
-        model's ``jax.checkpoint``.  The pool draws from a generator forked
-        from ``generator`` (:func:`.layers.fork_generator`) before it runs,
-        so the recompute leaves ``generator`` alone and both settings give
-        the same outputs, gradients and generator state."""
+        model's ``jax.checkpoint``.  The pool's mask key is taken from
+        ``generator`` (:func:`.layers.fork_generator`) before it runs, so
+        the recompute leaves ``generator`` alone and both settings give the
+        same outputs, gradients and generator state."""
         img = linear(self.img_proj, image_feats)
         txt = linear(self.txt_proj, text_feats)
         modalities = torch.stack([img, txt], dim=1)  # (B, 2, hidden)

@@ -7,7 +7,10 @@ indexing — so shapes stay static.  Missing-modality simulation keeps the
 reference's semantics (independent drops at ``missing_prob`` per
 modality, a coin flip rescues one of the two where both would drop).
 ``curriculum_enabled`` and ``missing_modality_training`` are per-call
-flags of ``forward``.  Attribute names equal the JAX parameter dataclass
+flags of ``forward``.  Training draws are keyed by the step's seed words
+(:class:`~aecf_tpu_torch.kernels.draws.Draws`, ``docs/prng.md``), so a
+step on the card draws from words held there and captures in a CUDA
+graph.  Attribute names equal the JAX parameter dataclass
 fields, so :func:`aecf_tpu_torch.convert.params_from_numpy` loads a
 flattened JAX pytree.
 """
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 from ..core.init import init_attention_pool_params
-from ..kernels.draws import generator_on
+from ..core.precision import process_precision
+from ..kernels.draws import Draws
 from ..ops import fusion_pool
 from .layers import dropout, fork_generator, init_linear, linear, mlp_encoder
 
@@ -57,8 +61,10 @@ class XrayBaselineModel(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` and moved to
     ``device`` (the card unless the caller asks for another); training
-    (``self.training``) draws its dropout from the CPU ``generator`` passed
-    to ``forward``."""
+    (``self.training``) keys its dropout by the ``generator`` passed to
+    ``forward`` (a CPU generator, a step's seed words, or a ``(2,)`` int32
+    words tensor on the card; :meth:`Draws.of`): the encoders', then the
+    classifier's."""
 
     name = "Concat_Baseline"
 
@@ -90,12 +96,13 @@ class XrayBaselineModel(nn.Module):
         image_features: torch.Tensor,  # (B, image_dim)
         text_features: torch.Tensor,  # (B, text_dim)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
     ) -> torch.Tensor:
+        draws = Draws.of(generator) if self.training else None
         img = mlp_encoder(self.image_encoder, image_features,
-                          generator=generator, training=self.training)
+                          generator=draws, training=self.training)
         txt = mlp_encoder(self.text_encoder, text_features,
-                          generator=generator, training=self.training)
+                          generator=draws, training=self.training)
         img_present = _presence(image_features)
         txt_present = _presence(text_features)
         fused = _route(
@@ -107,7 +114,7 @@ class XrayBaselineModel(nn.Module):
             ~img_present & txt_present,
         )
         hidden = torch.relu(linear(self.classifier_hidden, fused))
-        hidden = dropout(hidden, 0.1, generator, self.training)
+        hidden = dropout(hidden, 0.1, draws, self.training)
         return linear(self.classifier_out, hidden)
 
 
@@ -118,12 +125,18 @@ class XrayAECFModel(nn.Module):
     Parameters are drawn on the CPU from ``generator`` (the fusion query
     from ``0.02·N(0, 1)``, the reference's) and moved to ``device`` (the
     card unless the caller asks for another).  Training (``self.training``)
-    draws from the CPU ``generator`` passed to ``forward``, in this order:
-    the missing-modality simulation, the encoders' dropout, the curriculum
-    mask (from a generator forked off it, :func:`.layers.fork_generator`),
-    the classifier's dropout.  The pool is
+    keys its draws by the ``generator`` passed to ``forward`` — a CPU
+    generator (two seed words drawn from it), a step's seed words, or a
+    ``(2,)`` int32 words tensor on the card (:meth:`Draws.of`) — one site
+    after another in this order: the missing-modality simulation where it
+    runs (one ``(B, 3)`` block), the encoders' dropout, the curriculum
+    mask's key (:func:`.layers.fork_generator`, taken whether or not the
+    curriculum is on), the classifier's dropout.  No draw reads the host, so a step on
+    the card captures in a CUDA graph.  The pool is
     :func:`aecf_tpu_torch.ops.fusion_pool` with ``'auto'`` dispatch (the
-    torch path at H = 4).
+    torch path at H = 4) at the process's float32 matmul mode, as the rest
+    of the model: IEEE f32 by default, the TF32 tensor cores inside
+    ``matmul_precision('default')`` (:func:`aecf_tpu_torch.core.matmul_precision`).
     """
 
     name = "AECF_Model"
@@ -168,19 +181,21 @@ class XrayAECFModel(nn.Module):
 
     def simulate_missing_modalities(
         self,
-        generator: torch.Generator,
+        generator,
         image_features: torch.Tensor,
         text_features: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Drop each modality of a row with probability ``missing_prob``;
-        where both would drop, a coin flip keeps one of them."""
+        where both would drop, a coin flip keeps one of them.  One ``(B,
+        3)`` block of uniforms at the next site of the draws: column 0
+        drops the image (``u < missing_prob``), column 1 the text, column 2
+        is the coin (``u > 0.5`` keeps the image)."""
         B = image_features.shape[0]
-        g = generator_on(generator, image_features.device)
-        dev = image_features.device
-        mask_image = torch.rand(B, generator=g, device=dev) < self.missing_prob
-        mask_text = torch.rand(B, generator=g, device=dev) < self.missing_prob
+        u = Draws.of(generator).uniforms(B, 3, image_features.device)
+        mask_image = u[:, 0] < self.missing_prob
+        mask_text = u[:, 1] < self.missing_prob
         both_masked = mask_image & mask_text
-        keep_image = torch.rand(B, generator=g, device=dev) > 0.5
+        keep_image = u[:, 2] > 0.5
         mask_image = torch.where(both_masked, ~keep_image, mask_image)
         mask_text = torch.where(both_masked, keep_image, mask_text)
         image_features = torch.where(mask_image[:, None], 0.0, image_features)
@@ -192,25 +207,26 @@ class XrayAECFModel(nn.Module):
         image_features: torch.Tensor,  # (B, image_dim)
         text_features: torch.Tensor,  # (B, text_dim)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         curriculum_enabled: bool = False,
         missing_modality_training: bool = False,
         return_info: bool = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
         training = self.training
         info: Dict[str, Any] = {}
+        draws = Draws.of(generator) if training else None
         if training and missing_modality_training:
-            if generator is None:
+            if draws is None:
                 raise ValueError(
                     "missing_modality_training needs a `generator=`"
                 )
             image_features, text_features = self.simulate_missing_modalities(
-                generator, image_features, text_features
+                draws, image_features, text_features
             )
         img = mlp_encoder(self.image_encoder, image_features,
-                          generator=generator, training=training)
+                          generator=draws, training=training)
         txt = mlp_encoder(self.text_encoder, text_features,
-                          generator=generator, training=training)
+                          generator=draws, training=training)
         img_present = _presence(image_features)
         txt_present = _presence(text_features)
         both = img_present & txt_present
@@ -223,11 +239,12 @@ class XrayAECFModel(nn.Module):
             self.fusion_query,
             modalities,
             num_heads=self.num_heads,
-            generator=fork_generator(generator),
+            generator=fork_generator(draws),
             training=training and curriculum_enabled,
             base_mask_prob=self.base_mask_prob,
             entropy_target=self.entropy_target,
             min_active=self.min_active,
+            precision=process_precision(),
         )
         if curriculum_enabled:
             info.update(mask_info)
@@ -249,6 +266,6 @@ class XrayAECFModel(nn.Module):
             ~img_present & txt_present,
         )
         hidden = torch.relu(linear(self.classifier_hidden, fused))
-        hidden = dropout(hidden, 0.1, generator, training)
+        hidden = dropout(hidden, 0.1, draws, training)
         logits = linear(self.classifier_out, hidden)
         return (logits, info) if return_info else logits

@@ -15,9 +15,10 @@ The pool keeps its parameters under ``attention.`` with
 reference checkpoint loads with ``load_state_dict(strict=True)``.
 
 Randomness: one CPU ``torch.Generator`` stands where JAX takes ``rng=``.
-The kernels take two seed words from it; the torch path draws from it on
-the CPU and, on a card, from a generator on the card seeded from two words
-drawn from it (:func:`aecf_tpu_torch.kernels.draws.generator_on`).
+The curriculum mask is keyed by two seed words drawn from it, on the
+kernels' and the torch path alike (Philox, ``docs/prng.md``); attention
+dropout draws from a generator on the features' device seeded from two
+words drawn from it.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from ..kernels import (
     fused_fusion_pool_shared,
     supports_fused,
 )
-from ..kernels.draws import device_generator, draw_seed_words, generator_on
+from ..kernels.draws import device_generator, draw_seed_words
 from ..ops import _wants_kernel
 
 __all__ = ["CurriculumMasking", "MultimodalAttentionPool"]
@@ -131,7 +132,7 @@ class CurriculumMasking(nn.Module):
             self._last_seq_len = int(weights.shape[-1])
         return curriculum_mask(
             weights,
-            generator=generator_on(generator, weights.device),
+            generator=generator,
             training=self.training,
             base_mask_prob=self.mask_prob_at(step),
             entropy_target=self.entropy_target,

@@ -2,13 +2,15 @@
 
 ``fusion_pool`` is the one-call fusion op used by the models — it picks the
 CUDA kernel when the config qualifies and takes the torch oracle path
-otherwise, so model code stays device-agnostic.  The lower layers remain
+otherwise, so model code stays device-agnostic.  ``routes.torch_route``
+and ``routes.kernel_route`` count its calls by the route they took.  The lower layers remain
 importable: :mod:`aecf_tpu_torch.core` (pure math) and
 :mod:`aecf_tpu_torch.kernels` (CUDA kernels).
 """
 
 from __future__ import annotations
 
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,9 +35,11 @@ from ..kernels.shared_query import (
     _dequant,
     _shared_takes,
 )
-from ..kernels.draws import generator_on
 
 __all__ = ["fusion_pool"]
+
+# calls of fusion_pool by route (a CUDA graph's replay adds its capture's)
+routes = types.SimpleNamespace(torch_route=0, kernel_route=0)
 
 
 def _wants_kernel(params, query, kv, *, num_heads, precision):
@@ -102,12 +106,12 @@ def fusion_pool(
     (its plain version for CPU tensors).  A head-sharded pool
     (:func:`aecf_tpu_torch.parallel.shard_params_tp`) runs the torch path
     over this rank's heads (``tensor_parallel.sharded_fusion_pool``).
-    ``generator`` (a CPU ``torch.Generator``) draws the training mask: the
-    kernel takes two seed words from it, the torch path draws
-    ``torch.bernoulli`` from it or, for features on a card, from a
-    generator there seeded from two words drawn from it
-    (:func:`aecf_tpu_torch.kernels.draws.generator_on`; a generator on
-    ``kv``'s device is used as it is).  ``kv_grad=False`` detaches the
+    ``generator`` keys the training mask: a CPU ``torch.Generator`` (two
+    seed words drawn from it), a step's seed words, or a ``(2,)`` int32
+    words tensor on ``kv``'s device (a CUDA graph's buffer,
+    :func:`aecf_tpu_torch.kernels.draws.draw_key`).  Both routes draw the
+    mask by the kernels' Philox rule, so they draw the same mask for the
+    same words.  ``kv_grad=False`` detaches the
     features.  The torch path runs under the float32 matmul mode
     ``precision`` names (:func:`aecf_tpu_torch.core.matmul_precision`:
     ``'highest'`` is IEEE f32 whatever the process set), its backward
@@ -154,6 +158,7 @@ def fusion_pool(
         kv_scales = None
 
     if impl == "kernel":
+        routes.kernel_route += 1
         kwargs = dict(
             num_heads=num_heads,
             generator=generator,
@@ -170,6 +175,7 @@ def fusion_pool(
             )
         return fused_fusion_pool(params, query, kv, **kwargs)
 
+    routes.torch_route += 1
     if sharded:
         return sharded_fusion_pool(
             params, query, kv, num_heads=num_heads, generator=generator,
@@ -194,7 +200,7 @@ def fusion_pool(
     out, weights = run_at(precision, pool, q_full, kv, *PoolTensors.of(params))
     masked, info = curriculum_mask(
         weights,
-        generator=generator_on(generator, kv.device),
+        generator=generator,
         training=training,
         base_mask_prob=base_mask_prob,
         entropy_target=entropy_target,

@@ -44,7 +44,6 @@ from torch.distributed.tensor import Replicate, Shard
 from ..core.attention import AttentionPoolParams, _merge_masks
 from ..core.masking import curriculum_mask
 from ..core.precision import run_at
-from ..kernels.draws import generator_on
 from ..train.trainer import bce_with_logits_loss
 from ..train.update import _eager_chunk
 from .collectives import MeshAxis, all_reduce_, gather_rows
@@ -252,7 +251,7 @@ def sharded_fusion_pool(
     weights = _ReduceFromModel.apply(attn.sum(dim=1), group) / num_heads
     masked, info = curriculum_mask(
         weights,
-        generator=generator_on(generator, kv.device),
+        generator=generator,
         training=training,
         base_mask_prob=base_mask_prob,
         entropy_target=entropy_target,

@@ -51,7 +51,7 @@ from ..kernels import (
 )
 from ..models.layers import init_linear
 from ..parallel.collectives import all_gather_rows
-from .update import _axis, _graph_chunk, _make_step
+from .update import _axis, _graph_chunk, _make_step, _pool_streams
 
 __all__ = [
     "init_contrastive_params",
@@ -90,10 +90,9 @@ def _normalise(x: torch.Tensor) -> torch.Tensor:
 def _make_local_step(*, axis, temperature, precision, base_mask_prob,
                      entropy_target, min_active) -> Callable:
     """``(params, kv, target, generator, loss_scale, **staged) -> (loss,
-    info, grads)``, grads in :func:`~.update.param_leaves` order; the
-    staged addressing (``seed_words``, ``row_offset``, ``batch_rows``) is
-    :func:`~aecf_tpu_torch.kernels.fused_pool_train_step`'s, applied to
-    ``kv`` and ``target`` alike."""
+    info, grads)``, grads in :func:`~.update.param_leaves` order;
+    ``seed_words`` (a device tensor, the graph's) goes on to
+    :func:`~aecf_tpu_torch.kernels.fused_pool_train_step`."""
     group = None if axis is None else axis.group
     shard = 0 if axis is None else axis.index
 
@@ -202,4 +201,5 @@ def make_contrastive_scan_train_step(
     return _graph_chunk(
         local_step, axis,
         chains=(shared_query_fwd, shared_query_bwd, infonce_rows),
-        capture_span="contrastive.capture", rows=("target", "width"))
+        capture_span="contrastive.capture",
+        streams=_pool_streams(("target", "width")))

@@ -42,7 +42,7 @@ from ..kernels import (
     supports_fused_step,
     train_step as _step_kernel,
 )
-from ..kernels.draws import device_generator, draw_seed_words
+from ..kernels.draws import draw_seed_words
 from ..kernels.train_step import step_plan
 from .update import (
     TrainState,
@@ -50,6 +50,7 @@ from .update import (
     _flat_grads,
     _graph_chunk,
     _make_step,
+    _pool_streams,
     param_leaves,
 )
 
@@ -141,9 +142,8 @@ def _make_local_step(
     grads)`` with ``grads`` in :func:`param_leaves` order — the
     impl-dispatched core of the builders.  ``generator`` is a CPU
     ``torch.Generator`` or a step's two seed words; the one-pass route
-    also takes ``seed_words`` (a device tensor) and the staged addressing
-    of :func:`fused_pool_train_step` (``row_offset``, ``batch_rows``, with
-    ``kv`` and ``labels`` holding the staged rows)."""
+    also takes ``seed_words`` (a device tensor, the graph's), passed on to
+    :func:`fused_pool_train_step`."""
 
     def local_step(params, kv, labels, generator, loss_scale, **staged):
         E = params["query"].shape[-1]
@@ -184,9 +184,7 @@ def _make_local_step(
         from ..ops import fusion_pool
 
         if use == "torch" and training and generator is not None:
-            generator = device_generator(
-                draw_seed_words(generator), kv.device
-            )
+            generator = draw_seed_words(generator)
         out, w, mw, info = fusion_pool(
             params["pool"], params["query"], kv,
             num_heads=num_heads,
@@ -254,9 +252,9 @@ def make_pool_train_step(
     E ≤ 1024): loss, gradients and info in one read of the features;
     ``'kernel'`` (JAX's ``'pallas'``) — autodiff through the two-pass
     kernels (training forward + backward); ``'torch'`` (JAX's ``'xla'``)
-    — autodiff through the plain torch oracle, its mask drawn by
-    ``torch.bernoulli`` from a generator on ``kv``'s device seeded with
-    the step's seed words; ``'auto'`` — the one-pass step on CUDA tensors
+    — autodiff through the plain torch oracle, its mask keyed by the
+    step's seed words by the kernels' Philox rule (the mask the kernel
+    routes draw for the same words); ``'auto'`` — the one-pass step on CUDA tensors
     where the config qualifies, else ``ops.fusion_pool``'s own gate (the
     torch path on the CPU, as the JAX builder takes XLA off the TPU).
     On CPU tensors the kernel paths run their plain versions.
@@ -401,7 +399,7 @@ def make_pool_scan_train_step(
     return _graph_chunk(
         local_step, _axis(mesh, axis_name), accum_steps=accum_steps,
         capturable=one_pass, chains=(_step_kernel,), plan_key=_step_plan_key,
-        capture_span="chunk.capture", rows=("labels", "C"))
+        capture_span="chunk.capture", streams=_pool_streams(("labels", "C")))
 
 
 def _step_plan_key(state: TrainState, kv4: torch.Tensor) -> tuple:

@@ -8,15 +8,17 @@ place, so the state holds the parameters, the optimizer over their leaves,
 and the step count.  ``apply_fn(params, images, texts, generator) ->
 (logits, info)`` takes the parameters — a model of
 :mod:`aecf_tpu_torch.models` (an ``nn.Module``) or a pool-classifier dict —
-and a CPU ``torch.Generator`` for the step's draws, in place of JAX's
-``rng``.  A step's ``rng`` is a seed (an int or two 32-bit words, folded
-with the step index as JAX folds keys) or a generator.
+and the step's draw key, in place of JAX's ``rng``: a CPU
+``torch.Generator``, the step's two seed words, or inside a CUDA graph a
+``(2,)`` int32 words tensor on the card — the models key every draw by it
+(:class:`~aecf_tpu_torch.kernels.draws.Draws`).  A step's ``rng`` is a
+seed (an int or two 32-bit words, folded with the step index as JAX folds
+keys) or a generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -32,8 +34,8 @@ from .update import (
     RngLike,
     TrainState,
     _accumulate,
-    _eager_chunk,
     _fold_fresh,
+    _graph_chunk,
     _loss_step,
     _make_step,
     param_leaves,
@@ -131,14 +133,34 @@ def make_scan_train_step(
 ) -> Callable:
     """Build a K-step chunk ``(state, images, texts, labels, rng) ->
     (state, losses (K,), infos)``: the batch streams carry a leading steps
-    axis ``(K, B, ...)`` and the K updates run in one call, eagerly.  Step
-    ``i`` draws from :func:`~aecf_tpu_torch.kernels.draws.fold_seed_words`
-    of ``rng`` and the global ``state.step`` — JAX's ``fold_in(rng,
+    axis ``(K, B, ...)`` and the K updates run in one call.  Step ``i``
+    draws from :func:`~aecf_tpu_torch.kernels.draws.fold_seed_words` of
+    ``rng`` and the global ``state.step`` — JAX's ``fold_in(rng,
     state.step)`` — so chunks chain and resume exactly like single steps
-    fed those words.  ``infos`` are per-step means."""
-    return functools.partial(_eager_chunk, make_train_step(
-        apply_fn, entropy_coeff=entropy_coeff,
-        entropy_seq_len=entropy_seq_len, accum_steps=accum_steps))
+    fed those words.  ``infos`` are per-step means.
+
+    On the card, with ``accum_steps == 1``, the K updates are ONE CUDA
+    graph a call, captured under the span ``chunk.capture`` (the graph
+    route of :mod:`aecf_tpu_torch.train.update`, which says what is
+    captured and what recaptures): the streams staged in the graph's
+    buffers, step ``i``'s seed words read from the card by every draw of
+    the model (:class:`~aecf_tpu_torch.kernels.draws.Draws`), the
+    optimizer's update inside (``Adam``/``AdamW`` need
+    ``capturable=True``).  ``apply_fn`` must not read the card from the
+    host (no ``.item()``, ``int(...)`` or boolean indexing of a card
+    tensor), or the capture raises.  Each replay adds what its capture
+    counted to the draws' and the pool routes' counters
+    (``kernels.draws.counted``, ``ops.routes``) and to the shared-query
+    kernels' launches.  On the CPU, and with ``accum_steps > 1``, the K
+    updates run eagerly."""
+    from ..kernels.shared_query import shared_query_bwd, shared_query_fwd
+
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    return _graph_chunk(
+        _loss_step(_make_loss_on(apply_fn, entropy_coeff, entropy_seq_len)),
+        accum_steps=accum_steps, tallied=(shared_query_fwd, shared_query_bwd),
+        capture_span="chunk.capture", fold=_fold_fresh)
 
 
 def mask_modality(

@@ -5,7 +5,9 @@ A factory supplies its local step, ``local_step(params, *batch, rng,
 loss_scale, **staged) -> (loss, info, grads)``: this rank's loss scaled by
 ``loss_scale`` (``1/axis_size`` over a mesh axis), its info and the
 gradients in :func:`param_leaves` order; how ``rng`` becomes its draws is
-its own.  The model families give a loss instead (:func:`_loss_step`).
+its own.  The model families give a loss instead (:func:`_loss_step`),
+whose draws are keyed by the step's seed words
+(:class:`~aecf_tpu_torch.kernels.draws.Draws`).
 The update body (:func:`_update`) folds the shard's axis index into the
 seed words, takes the local step (over microbatches where asked), sums
 loss, info means and gradients over the axis in one all-reduce, sets every
@@ -16,10 +18,12 @@ steps a call, step ``i`` fed ``fold_seed_words(rng, state.step)`` (JAX's
 The graph route (:func:`_graph_chunk`): where the factory's route can be
 captured, ``accum_steps == 1``, the tensors are on the card and any mesh
 axis is an NCCL group, a chunk's K steps are ONE CUDA graph
-(:class:`_ChunkGraph`) — the features and the rows beside them (labels,
-targets) in static buffers, step ``i`` reading its rows at ``row_offset =
-i·B``, the seed words refilled through pinned memory before each replay,
-and each step's collectives and optimizer update inside the graph.  It is
+(:class:`_ChunkGraph`) — the batch streams (features and the rows beside
+them: labels, targets; the model families' images, texts and labels) in
+static buffers, step ``i`` given its rows as views of them, the seed
+words refilled through pinned memory
+before each replay, and each step's draws, collectives and optimizer
+update inside the graph.  It is
 captured at the first call for a shape, after a warm-up step on a side
 stream that is undone (over NCCL it creates the communicator), and
 replayed after that; a final partial chunk captures its own.  Other
@@ -30,8 +34,10 @@ names one, recapture.  The optimizer must update inside a graph:
 ``Adam``/``AdamW`` with ``capturable=True``, or ``SGD``; any other raises
 a ``ValueError``.  Each replay adds to the factory's chains' launch
 counters what the capture counted — K a chain, or the capture raises —
-and over a mesh K of each collective to
-:data:`aecf_tpu_torch.parallel.collectives.counted`.  Every other case
+and to the draw kernels' (:data:`aecf_tpu_torch.kernels.draws.counted`),
+the pool routes' (:data:`aecf_tpu_torch.ops.routes`) and, over a mesh,
+each collective's counters
+(:data:`aecf_tpu_torch.parallel.collectives.counted`).  Every other case
 (a gloo group included) runs the K steps eagerly, under ``chunk.eager``.
 """
 
@@ -44,7 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.draws import device_generator, fold_seed_words, seed_words_of
+from ..kernels import draws as _draws
+from ..kernels.draws import fold_seed_words, seed_words_of
 from ..utils.profiling import ReplayCounts, span
 
 RngLike = Union[int, Tuple[int, int], torch.Generator, None]
@@ -103,14 +110,6 @@ def _seed_of(rng: RngLike) -> Tuple[int, int]:
     return seed_words_of(0 if rng is None else rng)
 
 
-def _generator(rng: RngLike) -> Optional[torch.Generator]:
-    """A CPU generator for ``apply_fn``: ``rng`` itself, or one seeded
-    from its two words."""
-    if rng is None or isinstance(rng, torch.Generator):
-        return rng
-    return device_generator(seed_words_of(rng), "cpu")
-
-
 def _fold_words(rng, i: int):
     """Microbatch ``i``'s rng on the kernels' routes: seed words folded
     with ``i`` (JAX's ``fold_in(rng, i)``); anything else as given, so a
@@ -126,13 +125,17 @@ def _fold_fresh(rng: RngLike, i: int) -> Tuple[int, int]:
 
 def _loss_step(loss_on: Callable) -> Callable:
     """The local step of a loss ``loss_on(params, *batch, generator) ->
-    (loss, info)``, the model families' route: ``rng`` becomes a CPU
-    generator (:func:`_generator`), the loss is scaled and differentiated
-    by autograd, and loss and info come back detached."""
+    (loss, info)``, the model families' route: ``generator`` is the step's
+    draw key as given — a CPU generator, the step's seed words, or in a
+    graph (``seed_words=``) the ``(2,)`` int32 words on the card that the
+    model's draws read (:meth:`~aecf_tpu_torch.kernels.draws.Draws.of`) —
+    the loss is scaled and differentiated by autograd, and loss and info
+    come back detached."""
 
-    def local_step(params, *args):
+    def local_step(params, *args, seed_words=None):
         *batch, rng, loss_scale = args
-        loss, info = loss_on(params, *batch, _generator(rng))
+        loss, info = loss_on(params, *batch,
+                             rng if seed_words is None else seed_words)
         if loss_scale != 1.0:
             loss = loss * loss_scale
         grads = torch.autograd.grad(loss, param_leaves(params),
@@ -276,23 +279,13 @@ def _steps_view(kv: torch.Tensor, E: int) -> torch.Tensor:
     return kv
 
 
-def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
-                 capturable: Optional[Callable] = None, chains: tuple,
-                 plan_key: Optional[Callable] = None, capture_span: str,
-                 rows: Tuple[str, str]) -> Callable:
-    """The K-step chunk ``(state, kv, rows, rng) -> (state, losses (K,),
-    infos)`` of ``local_step``: ``kv`` ``(K, B, M, E)`` or packed ``(K, B,
-    M·E)``, the rows ``(K, B, width)`` or None, ``infos`` each info entry's
-    per-step (global) means.  One :class:`_ChunkGraph` a shape where the
-    call can be captured (``capturable(state, kv4)``, if given, holds too),
-    recaptured under the span ``capture_span`` when its :func:`_signature`
-    changed; else :func:`_eager_chunk` over :func:`_make_step`.  ``rows``
-    names the rows and their width for the shape error.  The returned chunk
-    keeps its graphs by shape in ``chunk._graphs``."""
-    single = _make_step(local_step, accum_steps, axis)
-    graphs: Dict[tuple, _ChunkGraph] = {}
+def _pool_streams(rows: Tuple[str, str]) -> Callable:
+    """The pool builders' streams: ``kv`` ``(K, B, M, E)`` or packed ``(K,
+    B, M·E)`` as ``(K, B, M, E)``, and the rows beside it ``(K, B,
+    width)`` or None; ``rows`` names the rows and their width for the shape
+    error."""
 
-    def chunk(state: TrainState, kv, staged, rng):
+    def streams(state: TrainState, kv, staged):
         kv4 = _steps_view(kv, state.params["query"].shape[-1])
         K, B = kv4.shape[:2]
         if staged is not None and (tuple(staged.shape[:2]) != (K, B)
@@ -301,20 +294,50 @@ def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
                 f"{rows[0]} must be (K={K}, B={B}, {rows[1]}), got "
                 f"{tuple(staged.shape)}"
             )
-        if (accum_steps == 1 and kv4.is_cuda
+        return kv4, staged
+
+    return streams
+
+
+def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
+                 capturable: Optional[Callable] = None, chains: tuple = (),
+                 tallied: tuple = (), plan_key: Optional[Callable] = None,
+                 capture_span: str, streams: Optional[Callable] = None,
+                 fold: Callable = _fold_words) -> Callable:
+    """The K-step chunk ``(state, *streams, rng) -> (state, losses (K,),
+    infos)`` of ``local_step``: every batch stream ``(K, B, ...)`` (or
+    None), ``infos`` each info entry's per-step (global) means.
+    ``streams(state, *streams)``, if given, checks and reshapes the call's
+    streams (the pool builders': :func:`_pool_streams`).  One
+    :class:`_ChunkGraph` a shape where the call can be captured
+    (``capturable(state, first stream)``, if given, holds too), recaptured
+    under the span ``capture_span`` when its :func:`_signature` changed;
+    else :func:`_eager_chunk` over :func:`_make_step` (microbatch ``i`` fed
+    ``fold(rng, i)``).  ``chains`` must count K launches a capture,
+    ``tallied`` wrappers' launches are added each replay as counted.  The
+    returned chunk keeps its graphs by shape in ``chunk._graphs``."""
+    single = _make_step(local_step, accum_steps, axis, fold)
+    graphs: Dict[tuple, _ChunkGraph] = {}
+
+    def chunk(state: TrainState, *args):
+        *batch, rng = args
+        if streams is not None:
+            batch = streams(state, *batch)
+        first = batch[0]
+        if (accum_steps == 1 and first.is_cuda
                 and (axis is None or axis.backend == "nccl")
-                and (capturable is None or capturable(state, kv4))):
-            key = (tuple(kv4.shape), kv4.dtype,
-                   None if staged is None else staged.shape[-1])
+                and (capturable is None or capturable(state, first))):
+            key = tuple(None if x is None else (tuple(x.shape), x.dtype)
+                        for x in batch)
             graph = graphs.get(key)
             if graph is None or graph.signature != _signature(
-                    state, kv4, plan_key):
+                    state, first, plan_key):
                 with span(capture_span):
                     graph = graphs[key] = _ChunkGraph(
-                        local_step, state, kv4, staged, axis, chains,
-                        plan_key)
-            return graph.run(state, kv4, staged, rng)
-        return _eager_chunk(single, state, kv4, staged, rng)
+                        local_step, state, batch, axis, chains, plan_key,
+                        tallied=tallied)
+            return graph.run(state, batch, rng)
+        return _eager_chunk(single, state, *batch, rng)
 
     chunk._graphs = graphs  # the captured graphs, for the card's checks
     return chunk
@@ -373,42 +396,52 @@ def _check_graph_optimizer(optimizer) -> None:
 class _ChunkGraph:
     """K steps of ``local_step`` captured as one CUDA graph, for one shape.
 
-    ``local_step(params, kv, rows, None, loss_scale, seed_words=,
-    row_offset=, batch_rows=) -> (loss, info, grads)`` reads its step's
-    batch from the staged ``(K·B, M·E)`` features and the staged ``(K·B,
-    width)`` rows beside them (the labels of the pool step, the targets of
-    the contrastive step), and its two seed words from a device buffer.
-    Each wrapper in ``chains`` must count one launch a step at capture
-    (``launches`` + ``launches_q8`` where it has both: the one-pass step's
-    chain, or the two-pass forward and backward and InfoNCE's kernel);
-    ``plan_key`` (or None) names the kernels' plan in the graph's
-    signature.
+    The call's batch streams ``(K, B, ...)`` are staged in static buffers
+    of their shape, the first keeping its dtype (f32, bf16 or int8
+    features), a floating stream its own, any other as f32.  Step ``i``
+    runs ``local_step(params, *rows, None, loss_scale, seed_words=) ->
+    (loss, info, grads)`` on its rows, the buffers' ``[i]`` views, and its
+    two seed words, a row of a device buffer.  Each wrapper in ``chains`` must
+    count one launch a step at capture (``launches`` + ``launches_q8``
+    where it has both: the one-pass step's chain, or the two-pass forward
+    and backward and InfoNCE's kernel); ``plan_key`` (or None) names the
+    kernels' plan in the graph's signature.
 
     ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
     per-step entries of the last replay, this rank's rows; the chunk
     returns their means (over a mesh ``axis``: the global means).
-    ``replays`` counts the graph's replays; each adds to the chains'
-    launch counters and to the collectives' counters
-    (:data:`aecf_tpu_torch.parallel.collectives.counted`) what the capture
-    counted.  A replay's spans (:mod:`aecf_tpu_torch.utils.profiling`):
-    ``chunk.stage``, ``chunk.wait``, ``chunk.words`` and
-    ``chunk.launch``."""
+    ``replays`` counts the graph's replays; each adds to the counters what
+    the capture counted: the launches of ``chains`` and ``tallied``, the
+    draw kernels' launches and bytes
+    (:data:`aecf_tpu_torch.kernels.draws.counted`), the pool's calls by
+    route (:data:`aecf_tpu_torch.ops.routes`) and the collectives'
+    (:data:`aecf_tpu_torch.parallel.collectives.counted`).  A replay's
+    spans (:mod:`aecf_tpu_torch.utils.profiling`): ``chunk.stage``,
+    ``chunk.wait``, ``chunk.words`` and ``chunk.launch``."""
 
-    def __init__(self, local_step, state: TrainState, kv4: torch.Tensor,
-                 labels: Optional[torch.Tensor], axis, chains: tuple,
-                 plan_key: Optional[Callable]):
+    def __init__(self, local_step, state: TrainState, streams: Sequence,
+                 axis, chains: tuple, plan_key: Optional[Callable], *,
+                 tallied: tuple = ()):
+        from ..ops import routes
         from ..parallel.collectives import counted
 
-        dev = kv4.device
-        K, B, M, E = kv4.shape
-        self.local_step, self.K, self.B = local_step, K, B
+        first = streams[0]
+        dev = first.device
+        K = first.shape[0]
+        self.local_step, self.K = local_step, K
         self.axis, self.replays = axis, 0
-        # the chains' launches, and every collective's count and bytes
+        # the chains' launches, the draws', the routes' and every
+        # collective's count and bytes
         self.chains, self.counts = chains, ReplayCounts(
-            chains, [(counted, k) for k in vars(counted)])
-        self.kv = torch.empty((K * B, M * E), dtype=kv4.dtype, device=dev)
-        self.labels = None if labels is None else torch.empty(
-            (K * B, labels.shape[-1]), dtype=torch.float32, device=dev)
+            chains + tallied,
+            [(_draws.counted, k) for k in vars(_draws.counted)]
+            + [(routes, k) for k in vars(routes)]
+            + [(counted, k) for k in vars(counted)])
+        self.views = [None if x is None else torch.empty(
+            tuple(x.shape), dtype=(x.dtype if j == 0
+                                   or x.dtype.is_floating_point
+                                   else torch.float32), device=dev)
+            for j, x in enumerate(streams)]
         self.seeds = torch.zeros((K, 2), dtype=torch.int32, device=dev)
         self.host_seeds = torch.zeros((K, 2), dtype=torch.int32).pin_memory()
         self.copied: Optional[torch.cuda.Event] = None
@@ -419,27 +452,25 @@ class _ChunkGraph:
         # chain's launches, then its launches_q8 where it has one
         self.launched: Tuple[int, ...] = ()
         self.graph = torch.cuda.CUDAGraph()
-        self._capture(state, kv4, labels)
-        self.signature = _signature(state, kv4, plan_key)
+        self._capture(state, streams)
+        self.signature = _signature(state, first, plan_key)
 
     def _step(self, state: TrainState, i: int) -> Dict[str, torch.Tensor]:
-        loss, info, local = _update(
-            self.local_step, state, (self.kv, self.labels), None, self.axis,
-            seed_words=self.seeds[i], row_offset=i * self.B,
-            batch_rows=self.B,
-        )
+        batch = [None if v is None else v[i] for v in self.views]
+        loss, info, local = _update(self.local_step, state, batch, None,
+                                    self.axis, seed_words=self.seeds[i])
         if self.info:
             self.losses[i].copy_(loss)
             for k, v in info.items():
                 self.info[k][i].copy_(v.float().mean())
         return local
 
-    def _capture(self, state: TrainState, kv4, labels) -> None:
+    def _capture(self, state: TrainState, streams) -> None:
         opt = state.optimizer
         leaves = param_leaves(state.params)
         _check_graph_optimizer(opt)
-        self._stage(kv4, labels)
-        dev = self.kv.device
+        self._stage(streams)
+        dev = self.seeds.device
         # One warm-up step on a side stream (lazy initialisation: the
         # optimizer's state, the libraries, the kernels' modules), then the
         # parameters and the optimizer's state are put back as they were:
@@ -482,23 +513,21 @@ class _ChunkGraph:
                     f"{self.K}"
                 )
 
-    def _stage(self, kv4, labels) -> int:
+    def _stage(self, streams) -> int:
         """Copies the call's batches into the graph's buffers; the bytes
         copied."""
         copied = 0
-        src = kv4.reshape(self.kv.shape)
-        if src.data_ptr() != self.kv.data_ptr():
-            self.kv.copy_(src, non_blocking=True)
-            copied += self.kv.nbytes
-        if labels is not None:
-            self.labels.copy_(labels.reshape(self.labels.shape),
-                              non_blocking=True)
-            copied += self.labels.nbytes
+        for view, x in zip(self.views, streams):
+            if view is None:
+                continue
+            if x.data_ptr() != view.data_ptr() or not x.is_contiguous():
+                view.copy_(x, non_blocking=True)
+                copied += view.nbytes
         return copied
 
-    def run(self, state: TrainState, kv4, labels, rng):
+    def run(self, state: TrainState, streams, rng):
         with span("chunk.stage") as s:
-            s.add(bytes=self._stage(kv4, labels))
+            s.add(bytes=self._stage(streams))
         if self.copied is not None:
             with span("chunk.wait"):
                 self.copied.synchronize()  # the last replay's words are read

@@ -182,7 +182,11 @@ the resident forward, backward and step):
    its plain version, two calls bit for bit, its time beside its bound,
    its plain version and ATen's route, and a contrastive chunk on the
    card counting as many ``infonce_rows`` launches as
-   ``shared_query_fwd`` ones, with no ATen softmax in its replay;
+   ``shared_query_fwd`` ones, with no ATen softmax in its replay; then
+   the model families' draw kernels (5d, ``draws_slice``) at the X-ray
+   step's blocks and site tags, the words by value and read from the
+   card, against their plain versions bit for bit, their launches
+   counted and their time beside the plain versions' and their bounds;
 7. times (CUDA events) of each kernel and its plain version at the slice
    shapes (each int8 kernel beside the f32 kernel at its shape; the
    per-row forward also with distinct query rows; with the CUDA kernels one
@@ -382,7 +386,7 @@ STREAM_EDGE = (
     (8192, [(1, 8), (3, 8)]),
 )
 SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
-           "fused_pool_fwd", "stream_mix", "stream_bwd", "infonce")
+           "fused_pool_fwd", "stream_mix", "stream_bwd", "infonce", "draws")
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): device
 # memory, f32 outside the tensor cores — every kernel here runs SIMT f32
 # FMAs at precision='highest' — and dense TF32 on the tensor cores, the
@@ -6954,6 +6958,93 @@ def infonce_slice(torch, smi: str) -> dict:
             "err": worst, "times": (*times, library_ms)}
 
 
+# The X-ray step's draw blocks (B=4096, hidden 256, M=2): the
+# missing-modality block, a dropout block, the curriculum mask's uniforms.
+DRAW_SHAPES = ((4096, 3), (4096, 256), (4096, 2))
+DRAW_TAGS = (0, 1, 5, 2**32 - 1)
+DRAW_FOLDS = (1, 4, 2**33 + 5)
+
+
+def draws_slice(torch, smi: str) -> dict:
+    """Phase 5d: the model families' draw kernels, ``csrc/draws.cu``, at
+    the X-ray step's shapes (``DRAW_SHAPES``) and site tags
+    (``DRAW_TAGS``), the seed words by value and read from a ``(2,)``
+    int32 tensor on the card: ``uniforms`` against its plain version
+    (``uniforms_plain`` on the card) and ``fold_key`` against
+    ``fold_seed_words`` and the same Philox in torch on the card, bit for
+    bit; their launches from ``draws.counted`` set to 0; the time of each
+    beside its plain version's and its bound (the bytes it writes and
+    reads)."""
+    from aecf_tpu_torch.kernels import draws
+    from aecf_tpu_torch.kernels.draws import (
+        fold_key,
+        fold_seed_words,
+        philox4x32_10,
+        uniforms,
+        uniforms_plain,
+    )
+
+    def on_card(words):
+        return torch.tensor(words, dtype=torch.int64).to(torch.int32).cuda()
+
+    def fold_plain(key, n):
+        # Philox at counter (n low, n high, FOLD, 0) in torch, on the card
+        k = key.to(torch.int64) & 0xFFFFFFFF
+        c = torch.tensor([n & 0xFFFFFFFF, n >> 32, draws._FOLD, 0],
+                         dtype=torch.int64, device=key.device)
+        out = philox4x32_10(tuple(c), (k[0], k[1]))
+        return torch.stack(out[:2]).to(torch.int32)
+
+    draws.counted.launches = draws.counted.bytes = 0
+    launches = {"draws_uniforms": 0, "draws_fold": 0}
+    for rows, cols in DRAW_SHAPES:
+        for tag in DRAW_TAGS:
+            words = fold_seed_words(2**40 + 97, rows * cols + tag)
+            want = uniforms_plain(words, rows, cols, tag=tag, device="cuda")
+            for key, how in ((words, "by value"), (on_card(words), "read")):
+                got = uniforms(key, rows, cols, tag=tag, device="cuda")
+                check(torch.equal(got, want),
+                      f"draws_uniforms ({rows}, {cols}) tag {tag}, words "
+                      f"{how}: {int((got != want).sum())} uniforms differ "
+                      "from uniforms_plain")
+                launches["draws_uniforms"] += 1
+    for n in DRAW_FOLDS:
+        words = fold_seed_words(2**40 + 98, n)
+        key = on_card(words)
+        got = fold_key(key, n)
+        launches["draws_fold"] += 1
+        host = tuple(x & 0xFFFFFFFF for x in got.tolist())
+        check(host == fold_seed_words(words, n)
+              and torch.equal(got, fold_plain(key, n)),
+              f"draws_fold of {words} with {n}: {host}, not "
+              f"{fold_seed_words(words, n)}")
+    counted = draws.counted.launches
+    check(counted == sum(launches.values()),
+          f"draws.counted {counted} launches, not {sum(launches.values())}")
+    print(f"draws: uniforms at {DRAW_SHAPES} tags {DRAW_TAGS} (words by "
+          f"value and read) and folds with {DRAW_FOLDS} equal their plain "
+          f"versions bit for bit; {counted} launches counted")
+
+    rows, cols = DRAW_SHAPES[1]
+    words = fold_seed_words(2**40 + 99, 0)
+    key = on_card(words)
+    pairs = {
+        "draws_uniforms": (
+            f"draws_uniforms ({rows}, {cols}), words read",
+            lambda: uniforms(key, rows, cols, tag=3, device="cuda"),
+            lambda: uniforms_plain(words, rows, cols, tag=3, device="cuda"),
+            (4 * rows * cols + 8, 0.0)),
+        "draws_fold": ("draws_fold", lambda: fold_key(key, 7),
+                       lambda: fold_plain(key, 7), (16, 0.0)),
+    }
+    times = {}
+    for name, (label, kernel, plain, work) in pairs.items():
+        before = draws.counted.launches
+        times[name] = _time_pair(torch, label, kernel, plain, work, smi)
+        launches[name] += draws.counted.launches - before
+    return {"launches": launches, "times": times}
+
+
 KERNELS = (
     ("shared_query_fwd", "shared_query_fwd.cu",
      "aecf_tpu/kernels/shared_query.py:508"),
@@ -6979,6 +7070,9 @@ KERNELS = (
      "aecf_tpu/kernels/shared_query.py:1532"),
     # replaces no TPU kernel: the JAX package leaves InfoNCE to XLA
     ("infonce_rows", "infonce.cu", None),
+    # replace no TPU kernel: the JAX package's models draw with jax.random
+    ("draws_uniforms", "draws.cu", None),
+    ("draws_fold", "draws.cu", None),
 )
 
 
@@ -7045,6 +7139,7 @@ def main() -> None:
     quantized = q8_slices(torch)
     families = model_slices(torch)
     nce = infonce_slice(torch, smi)
+    drawn = draws_slice(torch, smi)
     time_kernels(torch, smi, served["gpu_pred"])
     time_export(torch, smi, exported)
     times = time_training(torch, smi, trained)
@@ -7067,8 +7162,11 @@ def main() -> None:
                                + chunked["launches"]["train_step"])
     errs["infonce_rows"] = nce["err"]
     times["infonce_rows"] = nce["times"]
+    for name in drawn["times"]:  # held bit for bit
+        errs[name] = 0.0
+    times.update(drawn["times"])
     for part in (exported, elastic, meshed, two_rank, loaded, measured,
-                 defaulted, profiled, nce):
+                 defaulted, profiled, nce, drawn):
         for name, n in part["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name, n in families["launches"].items():

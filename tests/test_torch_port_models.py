@@ -387,11 +387,16 @@ def test_vision_language_checkpoint_gives_the_same_gradients(monkeypatch,
 
 
 def test_fork_generator_advances_the_stream_by_two_words():
+    """A generator's fork takes two seed words from it and folds them with
+    the first site's tag: the pool's mask key, host words on the CPU."""
+    from aecf_tpu_torch.kernels.draws import fold_seed_words
+
     g, h = torch.Generator().manual_seed(17), torch.Generator().manual_seed(17)
     forked = fork_generator(g)
-    torch.randint(0, 2 ** 32, (2,), generator=h)
+    words = torch.randint(0, 2 ** 32, (2,), generator=h)
     assert torch.equal(g.get_state(), h.get_state())
-    assert forked.device.type == "cpu" and fork_generator(None) is None
+    assert forked == fold_seed_words((int(words[0]), int(words[1])), 1)
+    assert fork_generator(None) is None
 
 
 # ---- precision on the torch path --------------------------------------------
