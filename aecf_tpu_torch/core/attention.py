@@ -5,8 +5,9 @@ Port of :mod:`aecf_tpu.core.attention`.  The parameterization keeps torch's
 ``out_proj_weight`` ``(E, E)`` — and every projection computes
 ``x @ W.T + b``, so parameters move between the two packages 1:1.
 
-Shapes are batch-first: query ``(B, T, E)``, key/value ``(B, S, E)``; the
-returned attention weights are head-averaged ``(B, T, S)``.
+Shapes are batch-first: query ``(B, T, E)`` or, shared by every row,
+``(1, T, E)``; key/value ``(B, S, E)``; the returned attention weights are
+head-averaged ``(B, T, S)``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ __all__ = [
     "apply_pooled_weights",
     "attention_pool_core",
     "scaled_dot_product_attention",
+    "takes_one_query",
 ]
 
 
@@ -135,6 +137,21 @@ def _merge_masks(
     return scores
 
 
+def takes_one_query(query: torch.Tensor,
+                    attn_mask: Optional[torch.Tensor] = None) -> bool:
+    """Whether :func:`attention_pool_core` computes this call in its
+    one-query form: a query of one token and no ``attn_mask``."""
+    return query.shape[1] == 1 and attn_mask is None
+
+
+def _project_shared(query: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor]) -> torch.Tensor:
+    """One query row ``(1, E)`` projected as an f32 product and sum over
+    ``E``: IEEE f32 forward and backward whatever the matmul mode."""
+    y = (query[:, None, :] * w).sum(-1)
+    return y if b is None else y + b
+
+
 def attention_pool_core(
     params: AttentionPoolParams,
     query: torch.Tensor,
@@ -152,13 +169,23 @@ def attention_pool_core(
 
     Computes ``softmax(QKᵀ/√d)V`` through the in/out projection GEMMs and
     returns ``(output (B,T,E), head-averaged weights (B,T,S) | None)``.
-    Attention dropout draws from ``dropout_generator`` and is skipped when
-    no generator is given (the JAX oracle's ``dropout_key=None`` rule).
+    The batch is ``key``'s; a query whose batch is 1 is shared by every
+    row.  Attention dropout draws from ``dropout_generator`` and is
+    skipped when no generator is given (the JAX oracle's
+    ``dropout_key=None`` rule).
+
+    One query token and no ``attn_mask`` (:func:`takes_one_query`): the
+    scores and the context are broadcast products summed over ``Dh`` and
+    ``S``, f32 elementwise work, where batched products of 1×Dh×S would
+    run as ``B·H`` tiny GEMVs; a shared query (batch 1, or a batch of
+    stride 0) is projected once, in IEEE f32.  Otherwise the einsums.
     """
-    B, T, E = query.shape
-    S = key.shape[1]
+    B, S, E = key.shape
+    T = query.shape[1]
     H = num_heads
     Dh = E // H
+    scale = float(Dh) ** -0.5
+    one_query = takes_one_query(query, attn_mask)
 
     w_q, w_k, w_v = params.in_proj_weight.chunk(3, dim=0)
     if params.in_proj_bias is not None:
@@ -170,12 +197,22 @@ def attention_pool_core(
         y = torch.einsum("bse,fe->bsf", x, w)
         return y if b is None else y + b
 
-    q = proj(query, w_q, b_q).reshape(B, T, H, Dh)
     k = proj(key, w_k, b_k).reshape(B, S, H, Dh)
     v = proj(value, w_v, b_v).reshape(B, S, H, Dh)
 
-    scale = float(Dh) ** -0.5
-    scores = torch.einsum("bthd,bshd->bhts", q * scale, k)
+    if one_query:
+        if query.shape[0] == 1 or query.stride(0) == 0:
+            q = _project_shared(query[:1, 0], w_q, b_q)  # (1, E)
+        else:
+            q = proj(query, w_q, b_q)[:, 0]  # (B, E)
+        q = (q * scale).reshape(-1, H, 1, Dh)
+        # (B, H, S, Dh) views of k's rows: the sum writes (B, H, S)
+        scores = (k.transpose(1, 2) * q).sum(-1)[:, :, None, :]
+    else:
+        if query.shape[0] != B:
+            query = query.expand(B, *query.shape[1:])
+        q = proj(query, w_q, b_q).reshape(B, T, H, Dh)
+        scores = torch.einsum("bthd,bshd->bhts", q * scale, k)
     scores = _merge_masks(scores, key_padding_mask, attn_mask)
     attn = torch.softmax(scores, dim=-1)
 
@@ -186,7 +223,12 @@ def attention_pool_core(
         ).bool()
         attn = torch.where(keep, attn / (1.0 - dropout_rate), 0.0)
 
-    context = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, E)
+    if one_query:
+        # (B, H, S, 1) weights times (B, H, S, Dh) values, summed over S
+        context = (attn.transpose(2, 3) * v.transpose(1, 2)).sum(2)
+    else:
+        context = torch.einsum("bhts,bshd->bthd", attn, v)
+    context = context.reshape(B, T, E)
     out = torch.einsum("bte,fe->btf", context, params.out_proj_weight)
     if params.out_proj_bias is not None:
         out = out + params.out_proj_bias

@@ -3,7 +3,10 @@
 ``fusion_pool`` is the one-call fusion op used by the models — it picks the
 CUDA kernel when the config qualifies and takes the torch oracle path
 otherwise, so model code stays device-agnostic.  ``routes.torch_route``
-and ``routes.kernel_route`` count its calls by the route they took.  The lower layers remain
+and ``routes.kernel_route`` count its calls by the route they took,
+``routes.torch_one_query`` the torch-route calls that took
+:func:`~aecf_tpu_torch.core.attention.attention_pool_core`'s one-query
+form.  The lower layers remain
 importable: :mod:`aecf_tpu_torch.core` (pure math) and
 :mod:`aecf_tpu_torch.kernels` (CUDA kernels).
 """
@@ -19,6 +22,7 @@ from ..core.attention import (
     AttentionPoolParams,
     PoolTensors,
     attention_pool_core,
+    takes_one_query,
 )
 from ..core.masking import curriculum_mask
 from ..core.precision import run_at
@@ -39,7 +43,8 @@ from ..kernels.shared_query import (
 __all__ = ["fusion_pool"]
 
 # calls of fusion_pool by route (a CUDA graph's replay adds its capture's)
-routes = types.SimpleNamespace(torch_route=0, kernel_route=0)
+routes = types.SimpleNamespace(torch_route=0, kernel_route=0,
+                               torch_one_query=0)
 
 
 def _wants_kernel(params, query, kv, *, num_heads, precision):
@@ -183,8 +188,8 @@ def fusion_pool(
             entropy_target=entropy_target, min_active=min_active,
             key_padding_mask=key_padding_mask, precision=precision,
         )
-    B = kv.shape[0]
-    q_full = query.expand(B, *query.shape[1:]) if query.shape[0] == 1 else query
+    if takes_one_query(query):
+        routes.torch_one_query += 1
 
     def pool(q, x, *tensors):
         return attention_pool_core(
@@ -197,7 +202,7 @@ def fusion_pool(
             need_weights=True,
         )
 
-    out, weights = run_at(precision, pool, q_full, kv, *PoolTensors.of(params))
+    out, weights = run_at(precision, pool, query, kv, *PoolTensors.of(params))
     masked, info = curriculum_mask(
         weights,
         generator=generator,
