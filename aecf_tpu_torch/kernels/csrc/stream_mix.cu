@@ -402,7 +402,10 @@ extern "C" {
 // (B, M), ent, rate (B,).  All contiguous device buffers.  training = 0 is
 // the eval branch (seed words, mask_prob and min_active unread).
 // blocks_per_sm: the persistent grid's blocks an SM, 1 up to
-// aecf_stream_mix_occupancy, or 0 for that limit.
+// aecf_stream_mix_occupancy, or 0 for that limit.  seeds, when not null,
+// holds the two seed words in device memory, read by the row's side
+// outputs in place of seed0 and seed1 (the same Philox rule): a captured
+// CUDA graph's replays draw what the buffer holds then.
 int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
                     const float* u, const float* c, const float* pad,
                     void* mix, float* w,
@@ -410,7 +413,7 @@ int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
                     int H, float max_entropy, int training,
                     unsigned int seed0, unsigned int seed1, float mask_prob,
                     int min_active, int mix_dtype, int blocks_per_sm,
-                    void* stream) {
+                    void* stream, const uint32_t* seeds) {
   if (B < 1 || M < 1 || M > kMaxM || H < 1 || H > kMaxH || E < 4 ||
       E % 4 != 0 || (kv_dtype == kKvInt8 && scales == nullptr) ||
       (mix_dtype != kKvF32 && mix_dtype != kKvBf16)) {
@@ -423,6 +426,7 @@ int aecf_stream_mix(const void* kv, int kv_dtype, const float* scales,
   mp.training = training;
   mp.seed0 = seed0;
   mp.seed1 = seed1;
+  mp.seeds = seeds;
   MixArgs a = {};
   a.kv = kv;
   a.scales = scales;

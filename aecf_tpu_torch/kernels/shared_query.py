@@ -42,6 +42,14 @@ PyTorch, as the JAX package leaves it to XLA.  Four kernels:
 Both streamed kernels read each kv row (and ``d_mix`` row) from device
 memory once, staged in shared memory (``csrc/stream_stage.cuh``).
 
+Both forwards take the mask's seed words by value or as a ``(2,)`` int32
+device tensor (``seed_words=``) that the kernel reads when it runs, under
+one Philox rule keyed by (row, m/4).  Nothing on the streamed training
+path, forward or backward, reads the card from the host, so the pool
+chunk (:func:`aecf_tpu_torch.train.make_pool_scan_train_step`) captures
+the streamed split's K updates as one CUDA graph, as it does the one-pass
+step's.
+
 ``precision`` — JAX's rule (``_ctx_prec``, ``_dot_prec``,
 ``_stream_mix_dtype``).  ``'highest'``: every product in IEEE f32.
 ``'default'`` on the card: the chains' in-kernel products on TF32 tensor
@@ -111,7 +119,13 @@ from ._plan import (
     sq_bwd_products,
     sq_fwd_products,
 )
-from .draws import draw_key, draw_seed_words, mask_and_renorm, mask_uniforms
+from .draws import (
+    _host_words,
+    draw_key,
+    draw_seed_words,
+    mask_and_renorm,
+    mask_uniforms,
+)
 
 __all__ = [
     "fused_fusion_pool_shared",
@@ -359,13 +373,17 @@ def stream_mix_plain(
     mask_prob: float = 0.15,
     min_active: int = 1,
     precision: str = "highest",
+    seed_words: Optional[torch.Tensor] = None,  # (2,) int32
 ) -> Tuple[torch.Tensor, ...]:
     """The streamed forward kernel's function in plain PyTorch: ``(mix
     (B, H·E), w (B,M), mw (B,M), ent (B,), rate (B,))``, ``mix`` the
     per-head ``Σ_m a_hm kv_m`` side by side, summed in f32 and stored in
     f32, or in bf16 at ``precision='default'`` (:func:`_stream_mix_dtype`).
     Eval: ``mw = w``, ``rate = 0``.  Training (M > 1) masks with the
-    uniforms of :func:`.draws.mask_uniforms` for ``seed``."""
+    uniforms of :func:`.draws.mask_uniforms` for ``seed``, or for the
+    words ``seed_words`` holds where it is given (read here)."""
+    if seed_words is not None:
+        seed = _host_words(seed_words)
     B, M, E = kv.shape
     H = u.shape[0]
     x = _dequant(kv, kv_scales)
@@ -509,6 +527,20 @@ def _require_device(kv: torch.Tensor) -> None:
         raise ValueError(f"no kernel for device {kv.device}")
 
 
+def _check_seed_words(kv: torch.Tensor,
+                      seed_words: Optional[torch.Tensor]) -> None:
+    """A forward's device seed words: a ``(2,)`` int32 tensor on kv's
+    device, or None."""
+    if seed_words is not None and (
+            tuple(seed_words.shape) != (2,) or seed_words.dtype != torch.int32
+            or seed_words.device != kv.device):
+        raise ValueError(
+            f"seed_words must be a (2,) int32 tensor on {kv.device}, got "
+            f"{seed_words.dtype} {tuple(seed_words.shape)} on "
+            f"{seed_words.device}"
+        )
+
+
 # The five outputs of the forward ops: (out or mix, w, mw, ent, rate).
 _FWD_OUTS = "(Tensor, Tensor, Tensor, Tensor, Tensor)"
 _MASK_ARGS = "bool training, int seed0, int seed1, float mask_prob, int min_active"
@@ -562,14 +594,7 @@ def shared_query_fwd(
     """
     _check_operands(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales)
     _require_device(kv)
-    if seed_words is not None and (
-            tuple(seed_words.shape) != (2,) or seed_words.dtype != torch.int32
-            or seed_words.device != kv.device):
-        raise ValueError(
-            f"seed_words must be a (2,) int32 tensor on {kv.device}, got "
-            f"{seed_words.dtype} {tuple(seed_words.shape)} on "
-            f"{seed_words.device}"
-        )
+    _check_seed_words(kv, seed_words)
     return _shared_query_fwd_op(
         kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales, bool(training),
         int(seed[0]), int(seed[1]), float(mask_prob), int(min_active),
@@ -594,12 +619,10 @@ def _shared_query_fwd_op(kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales,
     plans = _pick_plan("fwd_resident", sq_fwd_products(B, E, H), M=M, E=E,
                        H=H, kv_dtype=dtype_name(kv.dtype), device=kv.device)
     if kv.device.type == "cpu":
-        if seed_words is not None:
-            seed0, seed1 = (int(x) & 0xFFFFFFFF for x in seed_words.tolist())
         return shared_query_fwd_plain(
             kv, u, c, pad_bias, wctx, bctx, wo, bo, kv_scales=kv_scales,
             training=training, seed=(seed0, seed1), mask_prob=mask_prob,
-            min_active=min_active,
+            min_active=min_active, seed_words=seed_words,
         )
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias, wctx=wctx, bctx=bctx, wo=wo,
@@ -727,9 +750,14 @@ def stream_mix(
     mask_prob: float = 0.15,
     min_active: int = 1,
     precision: str = "highest",
+    seed_words: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Wrapper of ``csrc/stream_mix.cu``; operands and results as in
     :func:`stream_mix_plain` (``mix`` in bf16 at ``precision='default'``).
+    ``seed_words``, a ``(2,)`` int32 tensor on kv's device, replaces
+    ``seed``: the kernel reads the words from it when it runs, so a
+    captured CUDA graph draws what the tensor holds at replay (the mask
+    of the same words by value, bit for bit).
     It validates the operands and calls the custom op
     ``aecf_tpu_torch::stream_mix``: CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.
@@ -743,19 +771,21 @@ def stream_mix(
                optional=("pad_bias",), why="the streamed forward")
     _require_device(kv)
     _precision_code(precision)
+    _check_seed_words(kv, seed_words)
     return _stream_mix_op(kv, u, c, pad_bias, kv_scales, bool(training),
                           int(seed[0]), int(seed[1]), float(mask_prob),
                           int(min_active),
-                          _KV_DTYPE[_stream_mix_dtype(precision)])
+                          _KV_DTYPE[_stream_mix_dtype(precision)], seed_words)
 
 
 @torch.library.custom_op(
     "aecf_tpu_torch::stream_mix", mutates_args=(),
     schema="(Tensor kv, Tensor u, Tensor c, Tensor? pad_bias, "
-           f"Tensor? kv_scales, {_MASK_ARGS}, int mix_dtype=0) -> {_FWD_OUTS}",
+           f"Tensor? kv_scales, {_MASK_ARGS}, int mix_dtype=0, "
+           f"Tensor? seed_words=None) -> {_FWD_OUTS}",
 )
 def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
-                   mask_prob, min_active, mix_dtype=0):
+                   mask_prob, min_active, mix_dtype=0, seed_words=None):
     B, M, E = kv.shape
     H = u.shape[0]
     per_sm = _pick_grid("fwd_streamed", M=M, E=E, H=H,
@@ -765,6 +795,7 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
             kv, u, c, pad_bias, kv_scales=kv_scales, training=training,
             seed=(seed0, seed1), mask_prob=mask_prob, min_active=min_active,
             precision="default" if mix_dtype else "highest",
+            seed_words=seed_words,
         )
     _require_cuda(kv, dict(kv=kv, kv_scales=kv_scales, u=u, c=c,
                            pad_bias=pad_bias))
@@ -784,6 +815,7 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
             _ptr(rate), B, M, E, H, math.log(M) if M > 1 else 0.0,
             int(training), seed0, seed1, mask_prob, min_active, mix_dtype,
             per_sm, torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(seed_words),
         )
     _raise_on_error(lib, err, "stream_mix")
     _count_launch(stream_mix, kv)
@@ -792,7 +824,7 @@ def _stream_mix_op(kv, u, c, pad_bias, kv_scales, training, seed0, seed1,
 
 @_stream_mix_op.register_fake
 def _(kv, u, c, pad_bias, kv_scales, training, seed0, seed1, mask_prob,
-      min_active, mix_dtype=0):
+      min_active, mix_dtype=0, seed_words=None):
     mix, *rest = _fake_outs(kv, u.shape[0] * kv.shape[2])
     return (mix.to(torch.bfloat16) if mix_dtype else mix, *rest)
 
@@ -803,7 +835,8 @@ stream_mix.launches = stream_mix.launches_q8 = 0
 @functools.cache
 def _mix_library() -> ctypes.CDLL:
     lib = load_library("stream_mix")
-    lib.aecf_stream_mix.argtypes = _fwd_argtypes(8, ctypes.c_int)
+    lib.aecf_stream_mix.argtypes = _fwd_argtypes(8, ctypes.c_int) + [
+        ctypes.c_void_p]
     lib.aecf_stream_mix.restype = ctypes.c_int
     lib.aecf_stream_mix_occupancy.argtypes = [ctypes.c_int] * 5
     lib.aecf_stream_mix_occupancy.restype = ctypes.c_int
@@ -1270,12 +1303,8 @@ def _forward(tensors, kpm, num_heads, mask_kw, *, streamed, precision):
                                     kv_scales=kv_scales, precision=precision,
                                     **mask_kw)
             return outs, None
-        kw = dict(mask_kw)
-        words = kw.pop("seed_words", None)
-        if words is not None:  # the streamed kernel takes its words by value
-            kw["seed"] = tuple(int(x) & 0xFFFFFFFF for x in words.tolist())
         mix, w, mw, ent, rate = stream_mix(kv, u, c, pad, kv_scales=kv_scales,
-                                           precision=precision, **kw)
+                                           precision=precision, **mask_kw)
         return (_context(mix, wctx, bctx, wo, bo), w, mw, ent, rate), mix
 
 
@@ -1376,7 +1405,8 @@ def fused_fusion_pool_shared(
     curriculum mask in the kernel from two seed words taken from
     ``generator`` (a CPU ``torch.Generator``, in place of JAX's ``rng=``),
     or given as a pair, or as a ``(2,)`` int32 tensor on ``kv``'s device
-    that the resident kernel reads when it runs (a CUDA graph's buffer).
+    that the forward kernel, resident or streamed, reads when it runs (a
+    CUDA graph's buffer).
     Gradients flow to the pool's parameters, ``query`` (its ``(1, 1, E)``
     shape: a batch sum) and, unless ``kv_grad=False``, ``kv``.
     ``precision`` is ``"default"`` or ``"highest"``: ``'highest'`` runs

@@ -12,10 +12,11 @@ everywhere else.  All paths run the same protocol and give the same
 parameter trajectory to f32 tolerance.
 
 :func:`make_pool_scan_train_step` runs K updates a call (JAX's
-``lax.scan`` chunk).  On the one-pass route on the card the K steps are one
-CUDA graph — the steps' kernels, torch ops and optimizer updates captured
-once and replayed — so the host launches one graph where it launched tens
-of kernels a step; elsewhere the K steps run eagerly in one call.
+``lax.scan`` chunk).  On the one-pass route and on the streamed split on
+the card the K steps are one CUDA graph — the steps' kernels, torch ops
+and optimizer updates captured once and replayed — so the host launches
+one graph where it launched tens of kernels a step; elsewhere the K steps
+run eagerly in one call.
 
 ``mesh=`` on either builder makes it data-parallel over ``axis_name``:
 each rank steps on its own rows with the ``1/axis_size``-scaled loss
@@ -39,10 +40,15 @@ from ..core.masking import entropy_loss
 from ..kernels import (
     fused_pool_head_train_step,
     fused_pool_train_step,
+    stream_bwd,
+    stream_bwd_mh,
+    stream_mix,
     supports_fused_step,
     train_step as _step_kernel,
 )
+from ..kernels._plan import _pick_grid, dtype_name
 from ..kernels.draws import draw_seed_words
+from ..kernels.shared_query import _vjp_wants_streamed
 from ..kernels.train_step import step_plan
 from .update import (
     TrainState,
@@ -141,9 +147,10 @@ def _make_local_step(
     """``(params, kv, labels, generator, loss_scale) -> (loss, info,
     grads)`` with ``grads`` in :func:`param_leaves` order — the
     impl-dispatched core of the builders.  ``generator`` is a CPU
-    ``torch.Generator`` or a step's two seed words; the one-pass route
-    also takes ``seed_words`` (a device tensor, the graph's), passed on to
-    :func:`fused_pool_train_step`."""
+    ``torch.Generator`` or a step's two seed words; ``seed_words`` (a
+    ``(2,)`` int32 device tensor, the graph's) replaces it: the one-pass
+    route passes it on to :func:`fused_pool_train_step`, the others to
+    ``ops.fusion_pool`` as the mask's key."""
 
     def local_step(params, kv, labels, generator, loss_scale, **staged):
         E = params["query"].shape[-1]
@@ -185,6 +192,8 @@ def _make_local_step(
 
         if use == "torch" and training and generator is not None:
             generator = draw_seed_words(generator)
+        if staged.get("seed_words") is not None:
+            generator = staged["seed_words"]
         out, w, mw, info = fusion_pool(
             params["pool"], params["query"], kv,
             num_heads=num_heads,
@@ -365,19 +374,25 @@ def make_pool_scan_train_step(
     steps fed those words.  ``infos`` holds per-step means ``(K,)`` of every
     info entry.  The builder's keywords are :func:`make_pool_train_step`'s.
 
-    Where the route is the one-pass step on CUDA tensors (``'fused-step'``,
-    or ``'auto'`` at H == 1, E <= 1024) and ``accum_steps == 1``, without
-    a mesh or over an NCCL group, the K steps run as ONE CUDA graph
-    captured under the span ``chunk.capture`` (the graph route of
+    Where the route on CUDA tensors is the one-pass step (``'fused-step'``,
+    or ``'auto'`` at H == 1, E <= 1024) or the streamed split
+    (``'kernel'``, or ``'auto'``, where ``_vjp_wants_streamed`` holds: H ≤
+    2 above E = 1024, H == 2 from E = 512), and ``accum_steps == 1``,
+    without a mesh or over an NCCL group, the K steps run as ONE CUDA
+    graph captured under the span ``chunk.capture`` (the graph route of
     :mod:`aecf_tpu_torch.train.update`, which says what is captured and
-    what recaptures): the kernel reads each step's seed words from the
-    graph's buffer, and a change of the plan the step's kernels resolve
-    (:mod:`aecf_tpu_torch.kernels.tiles`) recaptures.  Each replay adds K
-    to ``train_step.launches`` (with ``launches_q8``) and, over a mesh, K
-    all-reduces to :data:`aecf_tpu_torch.parallel.collectives.counted`.
-    Every other route — two-pass kernels, the torch path, H == 2, the
-    streamed split, ``accum_steps > 1``, CPU tensors, a gloo group — runs
-    its K steps eagerly in one call, as JAX's general per-step path does.
+    what recaptures): the forward kernel reads each step's seed words from
+    the graph's buffer, and a change of the plan the route's kernels
+    resolve (:mod:`aecf_tpu_torch.kernels.tiles`: the step's products, or
+    the streamed kernels' grids) recaptures.  Each replay adds K to
+    ``train_step.launches`` — on the streamed split to
+    ``stream_mix.launches`` and to ``stream_bwd.launches`` (H == 1) or
+    ``stream_bwd_mh.launches`` (H == 2) — each with its ``launches_q8``,
+    and, over a mesh, K all-reduces to
+    :data:`aecf_tpu_torch.parallel.collectives.counted`.  Every other
+    route — the resident two-pass kernels, the torch path,
+    ``accum_steps > 1``, CPU tensors, a gloo group — runs its K steps
+    eagerly in one call, as JAX's general per-step path does.
 
     ``mesh=`` makes each step data-parallel as in
     :func:`make_pool_train_step`: ``kv`` and ``labels`` hold this rank's
@@ -392,14 +407,32 @@ def make_pool_scan_train_step(
         training=training,
     )
 
-    def one_pass(state: TrainState, kv4) -> bool:
-        return _resolve_impl(impl, num_heads, state.params, kv4,
-                             precision) == "fused-step"
+    def route(state: TrainState, kv4) -> Optional[str]:
+        """``'fused-step'`` or ``'streamed'`` where the chunk's steps can
+        be one graph, else None."""
+        # a step's rows (B, M, E): the route the local step takes
+        use = _resolve_impl(impl, num_heads, state.params, kv4[0], precision)
+        if use == "fused-step":
+            return use
+        streamed = use == "kernel" and _vjp_wants_streamed(num_heads,
+                                                           kv4.shape[-1])
+        return "streamed" if streamed else None
+
+    def chains(state: TrainState, kv4) -> tuple:
+        if route(state, kv4) == "fused-step":
+            return (_step_kernel,)
+        return (stream_mix, stream_bwd if num_heads == 1 else stream_bwd_mh)
+
+    def plan_key(state: TrainState, kv4) -> tuple:
+        if route(state, kv4) == "fused-step":
+            return _step_plan_key(state, kv4)
+        return _stream_plan_key(num_heads, kv4)
 
     return _graph_chunk(
         local_step, _axis(mesh, axis_name), accum_steps=accum_steps,
-        capturable=one_pass, chains=(_step_kernel,), plan_key=_step_plan_key,
-        capture_span="chunk.capture", streams=_pool_streams(("labels", "C")))
+        capturable=lambda state, kv4: route(state, kv4) is not None,
+        chains=chains, plan_key=plan_key, capture_span="chunk.capture",
+        streams=_pool_streams(("labels", "C")))
 
 
 def _step_plan_key(state: TrainState, kv4: torch.Tensor) -> tuple:
@@ -410,3 +443,15 @@ def _step_plan_key(state: TrainState, kv4: torch.Tensor) -> tuple:
     return tuple((t.bn, t.splits) for t in step_plan(
         B, M, E, 0 if head is None else head["w"].shape[1], kv4.dtype,
         False, kv4.device, record=False))
+
+
+def _stream_plan_key(num_heads: int, kv4: torch.Tensor) -> tuple:
+    """The grids the streamed kernels resolve for the chunk's ``(K, B,
+    M, E)`` staging (:mod:`..kernels.tiles`): the forward's at kv's dtype,
+    the backward's at the f32 key without ``d_kv``, as the wrappers
+    resolve them."""
+    _, _, M, E = kv4.shape
+    return (_pick_grid("fwd_streamed", M=M, E=E, H=num_heads,
+                       kv_dtype=dtype_name(kv4.dtype), record=False),
+            _pick_grid("bwd_streamed", M=M, E=E, H=num_heads,
+                       kv_dtype="float32", want_dkv=False, record=False))

@@ -300,7 +300,8 @@ def _pool_streams(rows: Tuple[str, str]) -> Callable:
 
 
 def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
-                 capturable: Optional[Callable] = None, chains: tuple = (),
+                 capturable: Optional[Callable] = None,
+                 chains: Union[tuple, Callable] = (),
                  tallied: tuple = (), plan_key: Optional[Callable] = None,
                  capture_span: str, streams: Optional[Callable] = None,
                  fold: Callable = _fold_words) -> Callable:
@@ -313,9 +314,11 @@ def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
     (``capturable(state, first stream)``, if given, holds too), recaptured
     under the span ``capture_span`` when its :func:`_signature` changed;
     else :func:`_eager_chunk` over :func:`_make_step` (microbatch ``i`` fed
-    ``fold(rng, i)``).  ``chains`` must count K launches a capture,
-    ``tallied`` wrappers' launches are added each replay as counted.  The
-    returned chunk keeps its graphs by shape in ``chunk._graphs``."""
+    ``fold(rng, i)``).  ``chains`` — a tuple, or ``chains(state, first
+    stream)`` giving the captured route's — must count K launches a
+    capture, ``tallied`` wrappers' launches are added each replay as
+    counted.  The returned chunk keeps its graphs by shape in
+    ``chunk._graphs``."""
     single = _make_step(local_step, accum_steps, axis, fold)
     graphs: Dict[tuple, _ChunkGraph] = {}
 
@@ -334,8 +337,9 @@ def _graph_chunk(local_step, axis=None, *, accum_steps: int = 1,
                     state, first, plan_key):
                 with span(capture_span):
                     graph = graphs[key] = _ChunkGraph(
-                        local_step, state, batch, axis, chains, plan_key,
-                        tallied=tallied)
+                        local_step, state, batch, axis,
+                        chains(state, first) if callable(chains) else chains,
+                        plan_key, tallied=tallied)
             return graph.run(state, batch, rng)
         return _eager_chunk(single, state, *batch, rng)
 
@@ -403,9 +407,10 @@ class _ChunkGraph:
     (loss, info, grads)`` on its rows, the buffers' ``[i]`` views, and its
     two seed words, a row of a device buffer.  Each wrapper in ``chains`` must
     count one launch a step at capture (``launches`` + ``launches_q8``
-    where it has both: the one-pass step's chain, or the two-pass forward
-    and backward and InfoNCE's kernel); ``plan_key`` (or None) names the
-    kernels' plan in the graph's signature.
+    where it has both: the one-pass step's chain, the streamed forward and
+    backward, or the two-pass forward and backward and InfoNCE's kernel);
+    ``plan_key`` (or None) names the kernels' plan in the graph's
+    signature.
 
     ``step_info[i]`` is step ``i``'s info dict as the graph writes it: the
     per-step entries of the last replay, this rank's rows; the chunk

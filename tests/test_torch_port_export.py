@@ -282,6 +282,16 @@ def test_opcheck_stream_mix(training):
                           (kv, u, c, pad, scales, tr, s0, s1, p, k))
 
 
+def test_opcheck_stream_mix_device_words():
+    """The op's ``seed_words`` argument: the words as a ``(2,)`` int32
+    tensor, read by the op in place of ``seed0`` and ``seed1``."""
+    kv, u, c, pad, *_, scales, _, s0, s1, p, k = _sq_case(
+        1, False, True, True, E=1056, B=4)
+    words = torch.tensor([s0, s1], dtype=torch.int64).to(torch.int32)
+    torch.library.opcheck(shared_query._stream_mix_op,
+                          (kv, u, c, pad, scales, True, 0, 0, p, k, 1, words))
+
+
 def _fused_case(expanded, H=2, E=16, B=6, M=3):
     g = torch.Generator().manual_seed(1)
     q = (torch.randn(1, E, generator=g).expand(B, E) if expanded
