@@ -7,6 +7,13 @@ eval forwards are ``torch.library`` custom ops, registered at import —
 frozen program launches the kernel (``aecf_tpu_torch.serve``).
 """
 
+from .adam import (
+    AdamHyper,
+    adam_optimizer_step,
+    adam_step,
+    adam_step_plain,
+    supports_adam,
+)
 from .fused_pool import (
     fused_fusion_pool,
     fused_pool_fwd,
@@ -38,6 +45,10 @@ from .train_step import (
 )
 
 __all__ = [
+    "AdamHyper",
+    "adam_optimizer_step",
+    "adam_step",
+    "adam_step_plain",
     "fused_fusion_pool",
     "fused_fusion_pool_shared",
     "fused_pool_fwd",
@@ -58,6 +69,7 @@ __all__ = [
     "stream_bwd_plain",
     "stream_mix",
     "stream_mix_plain",
+    "supports_adam",
     "supports_fused",
     "supports_fused_step",
     "train_step",

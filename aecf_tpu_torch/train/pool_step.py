@@ -269,7 +269,9 @@ def make_pool_train_step(
     On CPU tensors the kernel paths run their plain versions.
 
     The step sets every leaf's ``.grad`` from the path's gradients and
-    calls ``optimizer.step()``.  ``accum_steps`` microbatches the batch:
+    updates the optimizer (``train.update._optimizer_step``: the one-pass
+    Adam/AdamW kernel on the card where the optimizer qualifies, else
+    ``optimizer.step()``).  ``accum_steps`` microbatches the batch:
     microbatch ``i`` takes the generator's next seed words, or the step's
     seed words folded with ``i``.
 

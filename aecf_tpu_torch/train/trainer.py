@@ -113,7 +113,8 @@ def make_train_step(
     """Build a ``(state, images, texts, labels, rng) -> (state, loss,
     info)`` step: mean BCE on ``apply_fn``'s logits (plus ``entropy_coeff``
     times the entropy regularizer, a detached value in training), the
-    gradients by autograd, one ``state.optimizer.step()``.  The JAX
+    gradients by autograd, one update of ``state.optimizer`` (the
+    engine's, :func:`~aecf_tpu_torch.train.update._optimizer_step`).  The JAX
     builder's optimizer is ``state.optimizer`` here; ``donate`` has no
     counterpart.  ``accum_steps > 1`` splits the batch into that many equal
     microbatches (:func:`accumulate_grads`) for one update."""

@@ -11,7 +11,11 @@ whose draws are keyed by the step's seed words
 The update body (:func:`_update`) folds the shard's axis index into the
 seed words, takes the local step (over microbatches where asked), sums
 loss, info means and gradients over the axis in one all-reduce, sets every
-``.grad`` and calls ``optimizer.step()``.  :func:`_eager_chunk` runs K
+``.grad`` and steps the optimizer (:func:`_optimizer_step`: on the card an
+``Adam``/``AdamW`` that :func:`~aecf_tpu_torch.kernels.adam.supports_adam`
+takes runs the one-pass kernel on its own state, anything else
+``optimizer.step()``; :data:`optimizer_routes` counts the updates by
+route).  :func:`_eager_chunk` runs K
 steps a call, step ``i`` fed ``fold_seed_words(rng, state.step)`` (JAX's
 ``fold_in``), so chunks chain and resume like single steps.
 
@@ -35,7 +39,9 @@ names one, recapture.  The optimizer must update inside a graph:
 a ``ValueError``.  Each replay adds to the factory's chains' launch
 counters what the capture counted — K a chain, or the capture raises —
 and to the draw kernels' (:data:`aecf_tpu_torch.kernels.draws.counted`),
-the pool routes' (:data:`aecf_tpu_torch.ops.routes`) and, over a mesh,
+the optimizer kernel's (``adam_step.launches``), the pool routes'
+(:data:`aecf_tpu_torch.ops.routes`), the optimizer routes'
+(:data:`optimizer_routes`) and, over a mesh,
 each collective's counters
 (:data:`aecf_tpu_torch.parallel.collectives.counted`).  Every other case
 (a gloo group included) runs the K steps eagerly, under ``chunk.eager``.
@@ -44,6 +50,7 @@ each collective's counters
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -51,10 +58,15 @@ import torch
 from torch import nn
 
 from ..kernels import draws as _draws
+from ..kernels.adam import adam_optimizer_step, adam_step, supports_adam
 from ..kernels.draws import fold_seed_words, seed_words_of
 from ..utils.profiling import ReplayCounts, span
 
 RngLike = Union[int, Tuple[int, int], torch.Generator, None]
+
+# optimizer updates by route: the one-pass kernel or ``optimizer.step()``
+# (a CUDA graph's replay adds its capture's)
+optimizer_routes = types.SimpleNamespace(kernel=0, torch=0)
 
 
 def param_leaves(params: Any) -> List[torch.Tensor]:
@@ -173,11 +185,26 @@ def _accumulate(local_step, params, microbatches: Sequence, rng, loss_scale,
     return torch.stack(losses).mean(), info, grads
 
 
+def _optimizer_step(optimizer: torch.optim.Optimizer) -> None:
+    """One optimizer update from the leaves' ``.grad``: the one-pass kernel
+    (:func:`~aecf_tpu_torch.kernels.adam.adam_optimizer_step`) where
+    :func:`~aecf_tpu_torch.kernels.adam.supports_adam` takes the optimizer
+    as it stands, else ``optimizer.step()``; counted in
+    :data:`optimizer_routes`."""
+    if supports_adam(optimizer):
+        adam_optimizer_step(optimizer)
+        optimizer_routes.kernel += 1
+    else:
+        optimizer.step()
+        optimizer_routes.torch += 1
+
+
 def _update(local_step, state: TrainState, batch: Sequence, rng, axis=None,
             accum_steps: int = 1, fold: Callable = _fold_words, **staged):
     """The update body: ``(loss, info, local info)``, loss and info over
-    the axis, after ``optimizer.step()`` (``state.step`` is the caller's).
-    ``staged`` goes to the local step as it is (the graph's addressing)."""
+    the axis, after the optimizer's update (:func:`_optimizer_step`;
+    ``state.step`` is the caller's).  ``staged`` goes to the local step as
+    it is (the graph's addressing)."""
     scale = 1.0
     if axis is not None:
         rng, scale = axis.fold(rng), 1.0 / axis.size
@@ -200,7 +227,7 @@ def _update(local_step, state: TrainState, batch: Sequence, rng, axis=None,
     if axis is not None:
         loss, info, grads = axis.reduce(loss, info, grads)
     _set_grads(param_leaves(state.params), grads)
-    state.optimizer.step()
+    _optimizer_step(state.optimizer)
     return loss, info, local
 
 
@@ -388,8 +415,8 @@ def _check_graph_optimizer(optimizer) -> None:
                 )
         return
     raise ValueError(
-        "the CUDA-graph chunk runs optimizer.step() inside the graph: pass "
-        "torch.optim.Adam or AdamW built with capturable=True, or "
+        "the CUDA-graph chunk runs the optimizer's update inside the graph: "
+        "pass torch.optim.Adam or AdamW built with capturable=True, or "
         f"torch.optim.SGD (got {type(optimizer).__name__}"
         + (" without capturable=True" if isinstance(
             optimizer, (torch.optim.Adam, torch.optim.AdamW)) else "")
@@ -419,7 +446,10 @@ class _ChunkGraph:
     the capture counted: the launches of ``chains`` and ``tallied``, the
     draw kernels' launches and bytes
     (:data:`aecf_tpu_torch.kernels.draws.counted`), the pool's calls by
-    route (:data:`aecf_tpu_torch.ops.routes`) and the collectives'
+    route (:data:`aecf_tpu_torch.ops.routes`), the optimizer kernel's
+    launches (``adam_step.launches``) and its updates by route
+    (:data:`optimizer_routes`: K kernel-route updates a replay where the
+    optimizer qualifies) and the collectives'
     (:data:`aecf_tpu_torch.parallel.collectives.counted`).  A replay's
     spans (:mod:`aecf_tpu_torch.utils.profiling`): ``chunk.stage``,
     ``chunk.wait``, ``chunk.words`` and ``chunk.launch``."""
@@ -435,12 +465,14 @@ class _ChunkGraph:
         K = first.shape[0]
         self.local_step, self.K = local_step, K
         self.axis, self.replays = axis, 0
-        # the chains' launches, the draws', the routes' and every
-        # collective's count and bytes
+        # the chains' launches, the optimizer kernel's, the draws', the
+        # pool's and the optimizer's routes and every collective's count
+        # and bytes
         self.chains, self.counts = chains, ReplayCounts(
-            chains + tallied,
+            chains + tallied + (adam_step,),
             [(_draws.counted, k) for k in vars(_draws.counted)]
             + [(routes, k) for k in vars(routes)]
+            + [(optimizer_routes, k) for k in vars(optimizer_routes)]
             + [(counted, k) for k in vars(counted)])
         self.views = [None if x is None else torch.empty(
             tuple(x.shape), dtype=(x.dtype if j == 0

@@ -187,6 +187,11 @@ the resident forward, backward and step):
    step's blocks and site tags, the words by value and read from the
    card, against their plain versions bit for bit, their launches
    counted and their time beside the plain versions' and their bounds;
+   then the optimizer kernel (5a, ``adam_slice``) at the omni cell's and
+   ns-train-chunk's leaves, three steps through the update engine against
+   torch's ``AdamW(capturable=True)`` bit for bit, its time beside its
+   bound (28 bytes an element), its plain version's, torch's capturable
+   foreach step's and ``torch._fused_adamw_``'s (``library_ms``);
 7. times (CUDA events) of each kernel and its plain version at the slice
    shapes (each int8 kernel beside the f32 kernel at its shape; the
    per-row forward also with distinct query rows; with the CUDA kernels one
@@ -386,7 +391,8 @@ STREAM_EDGE = (
     (8192, [(1, 8), (3, 8)]),
 )
 SOURCES = ("shared_query_fwd", "shared_query_bwd", "train_step",
-           "fused_pool_fwd", "stream_mix", "stream_bwd", "infonce", "draws")
+           "fused_pool_fwd", "stream_mix", "stream_bwd", "infonce", "draws",
+           "adam")
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): device
 # memory, f32 outside the tensor cores — every kernel here runs SIMT f32
 # FMAs at precision='highest' — and dense TF32 on the tensor cores, the
@@ -3716,13 +3722,17 @@ def chunk_slice(torch) -> dict:
     per-step masked weights, losses and parameters equal the eager steps'
     bit for bit; packed staging equal to 4-D staging; the second replay
     draws the next 16 steps' masks; each replay counts K ``train_step``
-    launches."""
+    launches, 2K ``adam_step`` launches and K kernel-route optimizer
+    updates (none on the torch route), and each call adds those of its
+    capture's warm-up step besides."""
     from aecf_tpu_torch.convert import pool_classifier_params_to_numpy
+    from aecf_tpu_torch.kernels import adam_step
     from aecf_tpu_torch.kernels.draws import fold_seed_words
     from aecf_tpu_torch.train import (
         make_pool_scan_train_step,
         make_pool_train_step,
     )
+    from aecf_tpu_torch.train.update import optimizer_routes
 
     B, M, E, C, K = NS_B, NS_M, NS_E, NS_C, CHUNK_K
     R = 3  # chunk calls: a StepLR step after the first, a plan before the third
@@ -3772,10 +3782,18 @@ def chunk_slice(torch) -> dict:
     schedule = step_lr(graph)
     chunk = make_pool_scan_train_step(impl="auto")
     _reset_counts()
+    adam_step.launches = 0
+    optimizer_routes.kernel = optimizer_routes.torch = 0
+
+    def optimizer_counts():
+        return (adam_step.launches, optimizer_routes.kernel,
+                optimizer_routes.torch)
+
     g_losses, g_mw, graphs, call_s = [], [], [], []
     try:
         for r in range(R):
             staged = kv[r] if r != 1 else kv[r].reshape(K, B, M * E)
+            before = optimizer_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             graph, losses, infos = chunk(graph, staged, labels[r], seed)
@@ -3785,6 +3803,18 @@ def chunk_slice(torch) -> dict:
             # the graph's per-step entries, as this replay wrote them
             (captured,) = chunk._graphs.values()
             graphs.append(captured)
+            # what the replay adds (its capture's count), and the call:
+            # the replay and the capture's warm-up step
+            replayed = tuple(
+                n for (o, _), n in zip(captured.counts.cells,
+                                       captured.counts.added)
+                if o is adam_step or o is optimizer_routes)
+            added = tuple(a - b for a, b in zip(optimizer_counts(), before))
+            check(replayed == (2 * K, K, 0) and added == (2 * K + 2, K + 1, 0),
+                  f"chunk call {r}: a replay adds {replayed} and the call "
+                  f"added {added} adam_step launches, kernel-route and "
+                  f"torch-route updates, not {(2 * K, K, 0)} and "
+                  f"{(2 * K + 2, K + 1, 0)}")
             g_mw.append(torch.stack([d["masked_attention_weights"].clone()
                                      for d in captured.step_info]))
             check(torch.equal(infos["masked_attention_weights"],
@@ -3796,6 +3826,7 @@ def chunk_slice(torch) -> dict:
     finally:
         tiles.set_table(None)
     counts = _counts()
+    adam_launched, kernel_route, _ = optimizer_counts()
     check(graphs[1] is not graphs[0],
           "the chunk replayed a graph captured before the StepLR step")
     check(graphs[2] is not graphs[1],
@@ -3848,8 +3879,11 @@ def chunk_slice(torch) -> dict:
           f"bit for bit in {R * K} of {R * K} steps, losses rel err "
           f"{loss_rel:.3e}, params max abs err {perr:.3e} (losses and params "
           f"bit for bit: {bitwise}); packed == 4-D staging bit for bit; "
-          f"second replay drew steps {K}..{2 * K - 1}; launches {counts}")
-    return {"launches": {"train_step": launched}, "bitwise": bitwise}
+          f"second replay drew steps {K}..{2 * K - 1}; launches {counts}, "
+          f"adam_step {adam_launched} ({kernel_route} kernel-route "
+          f"updates, none through optimizer.step())")
+    return {"launches": {"train_step": launched, "adam_step": adam_launched},
+            "bitwise": bitwise}
 
 
 def _x3_data(rows=4 * X3_B, seed=51):
@@ -7045,6 +7079,117 @@ def draws_slice(torch, smi: str) -> dict:
     return {"launches": launches, "times": times}
 
 
+# The training cells' leaf sets, (E, C) of the pool classifier: the omni
+# cell's (53.29 M parameters) and ns-train-chunk's (1.06 M).
+ADAM_SETS = (("omni", 3584, 527), ("ns", 512, 14))
+ADAM_OPT = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8)
+ADAM_FLOPS = 14  # f32 operations an element: decay, lerp, v, the divisions
+
+
+def adam_slice(torch, smi: str) -> dict:
+    """Phase 5a: the optimizer kernel (``adam_step``) at the omni cell's
+    and ns-train-chunk's leaves: three steps through the engine's
+    dispatch against torch's ``AdamW(capturable=True)`` foreach step from
+    the same state, p, m, v and the step bit for bit; then the kernel's
+    time beside its bound (p, g, m and v read once, p, m and v written
+    once: 28 bytes an element), the plain version's on the card, torch's
+    capturable foreach step's, and ``torch._fused_adamw_``'s
+    (``library_ms``: a yardstick the port never calls), with the kernel's
+    device time under the profiler.  Between the two, one step of the
+    kernel against its plain version on the card, bit for bit."""
+    from aecf_tpu_torch.kernels import AdamHyper, adam_step, adam_step_plain
+    from aecf_tpu_torch.train import init_pool_classifier_params, param_leaves
+    from aecf_tpu_torch.train.update import _optimizer_step, optimizer_routes
+
+    out = {}
+    for name, E, C in ADAM_SETS:
+        params = init_pool_classifier_params(
+            torch.Generator().manual_seed(71), E, C, device="cuda")
+        ours = param_leaves(params)
+        theirs = [p.detach().clone().requires_grad_(True) for p in ours]
+        opt, ref = (torch.optim.AdamW(x, capturable=True, **ADAM_OPT)
+                    for x in (ours, theirs))
+        n = sum(p.numel() for p in ours)
+        routes = optimizer_routes.kernel
+        for step in range(3):
+            g = torch.Generator("cuda").manual_seed(72 + step)
+            for p, q in zip(ours, theirs):
+                p.grad = torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+                q.grad = p.grad.clone()
+            _optimizer_step(opt)
+            ref.step()
+        torch.cuda.synchronize()
+        check(optimizer_routes.kernel - routes == 3,
+              f"adam_step: {optimizer_routes.kernel - routes} of 3 updates "
+              "took the kernel")
+        for i, (p, q) in enumerate(zip(ours, theirs)):
+            for a, b, what in ((p, q, "p"),
+                               *((opt.state[p][k], ref.state[q][k], k)
+                                 for k in ("exp_avg", "exp_avg_sq", "step"))):
+                check(torch.equal(a, b),
+                      f"adam_step {name} leaf {i} {what}: "
+                      f"{int((a != b).sum())} elements differ from torch's "
+                      "capturable AdamW step")
+        print(f"adam_step vs torch AdamW(capturable=True) at the {name} "
+              f"leaves ({len(ours)}, {n} parameters): 3 steps bit for bit")
+
+        h = AdamHyper(ADAM_OPT["lr"], *ADAM_OPT["betas"], ADAM_OPT["eps"],
+                      ADAM_OPT["weight_decay"], True)
+        lists = [[p.detach() for p in ours], [p.grad for p in ours],
+                 *([opt.state[p][k] for p in ours]
+                   for k in ("exp_avg", "exp_avg_sq", "step")),
+                 [h] * len(ours)]
+        # one more step from this state: the kernel against its plain
+        # version on the card, p, m, v and the step bit for bit
+        kernel_lists, plain_lists = (
+            [[t.clone() for t in ts] for ts in lists[:5]] + [lists[5]]
+            for _ in range(2))
+        adam_step(*kernel_lists)
+        adam_step_plain(*plain_lists)
+        torch.cuda.synchronize()
+        for j, what in ((0, "p"), (2, "exp_avg"), (3, "exp_avg_sq"),
+                        (4, "step")):
+            for i, (a, b) in enumerate(zip(kernel_lists[j], plain_lists[j])):
+                check(torch.equal(a, b),
+                      f"adam_step {name} leaf {i} {what}: "
+                      f"{int((a != b).sum())} elements differ from the "
+                      "plain version's on the card")
+        del kernel_lists, plain_lists
+        print(f"adam_step vs adam_step_plain on the card at the {name} "
+              "leaves: one step bit for bit")
+        work = (28 * n, ADAM_FLOPS * n)
+        times = _time_pair(
+            torch, f"adam_step ({name} leaves, {n} parameters)",
+            lambda: adam_step(*lists),
+            lambda: adam_step_plain(*lists), work, smi)
+        f1, f2 = (cuda_ms(torch, ref.step, iters=50, warmup=5)
+                  for _ in range(2))
+        fused_steps = [ref.state[q]["step"] for q in theirs]
+        fused = [[q.detach() for q in theirs], [q.grad for q in theirs],
+                 *([ref.state[q][k] for q in theirs]
+                   for k in ("exp_avg", "exp_avg_sq"))]
+
+        def library():
+            torch._fused_adamw_(
+                *fused, [], fused_steps, lr=ADAM_OPT["lr"],
+                beta1=ADAM_OPT["betas"][0], beta2=ADAM_OPT["betas"][1],
+                weight_decay=ADAM_OPT["weight_decay"], eps=ADAM_OPT["eps"],
+                amsgrad=False, maximize=False)
+
+        l1, l2 = (cuda_ms(torch, library, iters=50, warmup=5)
+                  for _ in range(2))
+        device = _device_ms(torch, lambda: adam_step(*lists), "adam_",
+                            calls=50)
+        print(f"time adam_step {name}: torch capturable foreach step "
+              f"{f1:.5f}/{f2:.5f} ms, torch._fused_adamw_ (library) "
+              f"{l1:.5f}/{l2:.5f} ms; kernel device {device} ms; {smi}")
+        out[name] = (*times, (l1 + l2) / 2)
+        del opt, ref, ours, theirs, lists, fused, params
+        torch.cuda.empty_cache()
+    # its launches on the main path are the chunk phase's (chunk_slice)
+    return {"err": 0.0, "times": out["omni"]}
+
+
 KERNELS = (
     ("shared_query_fwd", "shared_query_fwd.cu",
      "aecf_tpu/kernels/shared_query.py:508"),
@@ -7073,6 +7218,8 @@ KERNELS = (
     # replace no TPU kernel: the JAX package's models draw with jax.random
     ("draws_uniforms", "draws.cu", None),
     ("draws_fold", "draws.cu", None),
+    # replaces no TPU kernel: the JAX package leaves AdamW to optax
+    ("adam_step", "adam.cu", None),
 )
 
 
@@ -7140,6 +7287,7 @@ def main() -> None:
     families = model_slices(torch)
     nce = infonce_slice(torch, smi)
     drawn = draws_slice(torch, smi)
+    adamed = adam_slice(torch, smi)
     time_kernels(torch, smi, served["gpu_pred"])
     time_export(torch, smi, exported)
     times = time_training(torch, smi, trained)
@@ -7165,6 +7313,9 @@ def main() -> None:
     for name in drawn["times"]:  # held bit for bit
         errs[name] = 0.0
     times.update(drawn["times"])
+    errs["adam_step"] = adamed["err"]  # held bit for bit
+    times["adam_step"] = adamed["times"]
+    launches["adam_step"] = chunked["launches"]["adam_step"]
     for part in (exported, elastic, meshed, two_rank, loaded, measured,
                  defaulted, profiled, nce, drawn):
         for name, n in part["launches"].items():
